@@ -1,0 +1,47 @@
+"""Hand-written Hopper kernels of the acting path and their launch wrappers.
+
+  noisy_linear_fwd   CUDA C++  csrc/noisy_linear.cu       (models/noisy.py)
+  dueling_head       Triton    dueling_head.py            (ops/head.py)
+  append_framestack  CUDA C++  csrc/append_framestack.cu  (ops/preprocess.py)
+
+The CUDA sources are compiled with nvcc for sm_90a into shared libraries
+under ``rainbow_tpu_torch/_build/`` at first use (build.py) and called
+through ctypes; the Triton kernel compiles at its first launch. Each wrapper
+takes CUDA tensors only, checks them, launches, raises on a launch error and
+adds one to ``LAUNCHES[name]``. The plain PyTorch version of each kernel sits
+beside its caller and runs only on CPU tensors.
+"""
+from __future__ import annotations
+
+LAUNCHES = {"noisy_linear_fwd": 0, "dueling_head": 0, "append_framestack": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launches() -> dict:
+    return dict(LAUNCHES)
+
+
+def check_cuda(name: str, **tensors) -> None:
+    """Raise unless every given tensor is a contiguous CUDA tensor."""
+    for arg, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_dtype(name: str, arg: str, t, *dtypes) -> None:
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: {arg} must be {' or '.join(map(str, dtypes))}"
+                         f", got {t.dtype}")
+
+
+def check_shape(name: str, arg: str, t, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {arg} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

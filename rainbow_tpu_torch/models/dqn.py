@@ -1,0 +1,150 @@
+"""C51 dueling DQN with noisy heads (rainbow_tpu/models/dqn.py; reference
+model.py:49-85).
+
+Params are a flat dict keyed like the reference's state dict:
+``convs.{0,2,4}.weight`` (OIHW) and ``.bias``, then ``fc_h_v.weight_mu``,
+``fc_h_v.weight_sigma``, ``fc_h_v.bias_mu``, ``fc_h_v.bias_sigma`` and the
+same for ``fc_h_a``, ``fc_z_v``, ``fc_z_a``. The input stays NHWC float as in
+the JAX package; the torso hands cuDNN a permuted view, which for H=4 is a
+channels-last tensor with no copy, and flattens channel-major (dqn.py:77-80).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from rainbow_tpu_torch.device import resolve_device
+from rainbow_tpu_torch.models.noisy import (init_noisy_params, noisy_linear,
+                                            scale_noise)
+from rainbow_tpu_torch.ops.c51 import support_vector
+from rainbow_tpu_torch.ops.head import HeadOut, dueling_head
+
+# (out_channels, kernel, stride) per torso — reference model.py:55-63.
+ARCHS = {
+    "canonical": ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
+    "data-efficient": ((32, 5, 5), (64, 5, 5)),
+}
+
+NOISY_LAYERS = ("fc_h_v", "fc_h_a", "fc_z_v", "fc_z_a")
+_NOISY_KEYS = ("weight_mu", "weight_sigma", "bias_mu", "bias_sigma")
+
+
+def layer(params: dict, name: str) -> dict:
+    """One noisy layer's params out of the flat dict."""
+    return {k: params[f"{name}.{k}"] for k in _NOISY_KEYS}
+
+
+def _noisy_dims(cfg, action_space: int) -> dict:
+    flat, h = cfg.conv_output_size, cfg.hidden_size
+    return {"fc_h_v": (flat, h), "fc_h_a": (flat, h),
+            "fc_z_v": (h, cfg.atoms), "fc_z_a": (h, action_space * cfg.atoms)}
+
+
+def init_dqn_params(cfg, action_space: int, generator: torch.Generator,
+                    device="cuda") -> dict:
+    """All network params, float32, on ``device``. Convs take U(±1/√fan_in)
+    for weight and bias (torch's default Conv2d regime, which the reference
+    relies on). Drawn on the generator's device, so a CPU generator gives
+    the same params on any device."""
+    device = resolve_device(device)
+    g = generator
+    params = {}
+    cin = cfg.history_length
+    for i, (cout, k, _s) in enumerate(ARCHS[cfg.architecture]):
+        bound = 1.0 / (k * k * cin) ** 0.5
+        u = lambda *shape: (torch.rand(shape, generator=g, device=g.device)
+                            * (2 * bound) - bound)
+        params[f"convs.{2 * i}.weight"] = u(cout, cin, k, k)
+        params[f"convs.{2 * i}.bias"] = u(cout)
+        cin = cout
+    for name, (din, dout) in _noisy_dims(cfg, action_space).items():
+        lp = init_noisy_params(g, din, dout, cfg.noisy_std)
+        params.update({f"{name}.{k}": v for k, v in lp.items()})
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def _torso(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Conv stack over NHWC input (B, 84, 84, H) → (B, flat), channel-major.
+    cuDNN runs float32 convolutions in TF32 while
+    ``torch.backends.cudnn.allow_tf32`` is set (PyTorch's default); clear it
+    for full float32, as chip_smoke.py does."""
+    x = x.permute(0, 3, 1, 2)
+    for i, (_c, _k, stride) in enumerate(ARCHS[cfg.architecture]):
+        w = params[f"convs.{2 * i}.weight"].to(x.dtype)
+        b = params[f"convs.{2 * i}.bias"].to(x.dtype)
+        x = F.relu(F.conv2d(x, w, b, stride=stride))
+    return x.reshape(x.shape[0], -1)
+
+
+def draw_noise(cfg, action_space: int, generator: torch.Generator,
+               lead=(), device=None) -> dict:
+    """Pre-draw factored noise for every noisy layer, with an optional
+    leading shape (``(B,)`` for one draw per env row). Returns
+    {layer: (eps_in, eps_out)} float32, for ``apply_dqn(noise_eps=...)``."""
+    out = {}
+    for name, (din, dout) in _noisy_dims(cfg, action_space).items():
+        out[name] = (scale_noise(generator, tuple(lead) + (din,), device),
+                     scale_noise(generator, tuple(lead) + (dout,), device))
+    return out
+
+
+def _compute_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _streams(params: dict, cfg, action_space: int, x: torch.Tensor,
+             generator: Optional[torch.Generator], per_sample_noise: bool,
+             noise_eps: Optional[dict]):
+    """Value and advantage streams, (B, atoms) and (B, A·atoms), in the
+    compute dtype."""
+    x = x.to(_compute_dtype(cfg))
+    feat = _torso(params, cfg, x)
+    if noise_eps is None and generator is not None:
+        lead = (x.shape[0],) if per_sample_noise else ()
+        noise_eps = draw_noise(cfg, action_space, generator, lead, x.device)
+    ne = noise_eps or {}
+
+    def stream(h_name, z_name):
+        h = noisy_linear(layer(params, h_name), feat, ne.get(h_name),
+                         relu=True)
+        return noisy_linear(layer(params, z_name), h, ne.get(z_name))
+    return stream("fc_h_v", "fc_z_v"), stream("fc_h_a", "fc_z_a")
+
+
+def forward_head(params: dict, cfg, action_space: int, x: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 dist: Optional[str] = None, per_sample_noise: bool = False,
+                 noise_eps: Optional[dict] = None,
+                 support: Optional[torch.Tensor] = None) -> HeadOut:
+    """Network forward through the head epilogue: (dist, q, greedy action,
+    max q). ``dist`` selects the distribution output (None, "probs", "log");
+    ``support`` defaults to the config's atoms."""
+    v, a = _streams(params, cfg, action_space, x, generator,
+                    per_sample_noise, noise_eps)
+    if support is None:
+        support = support_vector(cfg.v_min, cfg.v_max, cfg.atoms, v.device)
+    return dueling_head(v, a, support, action_space, dist)
+
+
+def apply_dqn(params: dict, cfg, action_space: int, x: torch.Tensor,
+              generator: Optional[torch.Generator] = None, log: bool = False,
+              per_sample_noise: bool = False,
+              noise_eps: Optional[dict] = None) -> torch.Tensor:
+    """Forward pass: (B, 84, 84, H) NHWC float → (B, A, atoms) float32 atom
+    probabilities, or log-probabilities with ``log=True`` (reference
+    model.py:69-80). Noise comes from ``noise_eps`` (pre-drawn, see
+    ``draw_noise``) or is drawn from ``generator``; with neither the net
+    runs μ only (eval mode). bfloat16 compute keeps an fp32 softmax."""
+    return forward_head(params, cfg, action_space, x, generator,
+                        "log" if log else "probs", per_sample_noise,
+                        noise_eps).dist
+
+
+def q_values(params: dict, cfg, action_space: int, support: torch.Tensor,
+             x: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Expected Q per action, Σ_z z·p (reference agent.py:55), (B, A)."""
+    return forward_head(params, cfg, action_space, x, generator,
+                        support=support).q

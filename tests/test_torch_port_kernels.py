@@ -1,0 +1,91 @@
+"""The kernel wrappers' contract, checked on the CPU (the kernels themselves
+run only on the card, where chip_smoke.py holds each against its plain
+version): a wrapper takes CUDA tensors only and never falls back, the
+dispatchers take the plain versions for CPU tensors without launching, the
+launch counters, the build's naming, and chip_smoke.py's refusal to run
+without a card or without the package beside it."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from rainbow_tpu_torch import kernels
+from rainbow_tpu_torch.kernels import build
+from rainbow_tpu_torch.kernels.append_framestack import append_framestack
+from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
+from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
+from rainbow_tpu_torch.models.noisy import init_noisy_params, noisy_linear
+from rainbow_tpu_torch.ops.c51 import support_vector
+from rainbow_tpu_torch.ops.head import dueling_head
+from rainbow_tpu_torch.ops.preprocess import update_framestack
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _layer():
+    return init_noisy_params(torch.Generator().manual_seed(0), 8, 4, 0.5)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: noisy_linear_fwd(_layer(), torch.zeros(2, 8)),
+    lambda: dueling_head_fwd(torch.zeros(2, 51), torch.zeros(2, 102),
+                             support_vector(-10, 10, 51), 2),
+    lambda: append_framestack(torch.zeros(2, 84, 84, 4, dtype=torch.uint8),
+                              torch.zeros(2, 84, 84, dtype=torch.uint8),
+                              torch.zeros(0, 84, 84, dtype=torch.uint8),
+                              torch.zeros(0, dtype=torch.int32),
+                              torch.zeros(2, dtype=torch.uint8)),
+], ids=["noisy_linear_fwd", "dueling_head", "append_framestack"])
+def test_wrappers_refuse_cpu_tensors(call):
+    before = kernels.launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert kernels.launches() == before
+
+
+def test_dispatchers_run_plain_versions_on_cpu_without_launching():
+    kernels.reset_launches()
+    y = noisy_linear(_layer(), torch.ones(3, 8), relu=True)
+    out = dueling_head(torch.zeros(3, 51), torch.zeros(3, 102),
+                       support_vector(-10, 10, 51), 2, "probs")
+    st = torch.zeros(2, 84, 84, 4, dtype=torch.uint8)
+    new = update_framestack(st, st[..., 0] + 1, st[..., 0],
+                            torch.zeros(2, dtype=torch.uint8))
+    assert y.shape == (3, 4) and float(y.min()) >= 0.0
+    assert out.dist.shape == (3, 2, 51)
+    assert int(new[..., -1].min()) == 1
+    assert kernels.launches() == {"noisy_linear_fwd": 0, "dueling_head": 0,
+                                  "append_framestack": 0}
+
+
+def test_build_names_libraries_by_source_hash():
+    assert set(build.SOURCES) == {"noisy_linear", "append_framestack"}
+    for name in build.SOURCES:
+        path = build.lib_path(name)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert (ROOT / "rainbow_tpu_torch/kernels/csrc" / f"{name}.cu").exists()
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    res = _run_smoke(ROOT)
+    assert res.returncode != 0
+    assert res.stdout == ""  # no result line of any kind
+
+
+def test_chip_smoke_refuses_to_run_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
