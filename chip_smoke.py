@@ -12,14 +12,22 @@ exit code:
             together) into rainbow_tpu_torch/_build/, while make builds the
             native Atari engine.
 2. compare  every kernel against its plain PyTorch version on the card, at
-            the shapes the acting path gives it, with stated tolerances.
-3. actor    the canonical preset on the native engine (pong, 1024 envs, the
+            the shapes the actor and the learner give it, with stated
+            tolerances.
+3. update   one learner update (compute_update_pretarget + apply_grads) of
+            the canonical net on the card against the same update through
+            the plain versions on the CPU.
+4. actor    the canonical preset on the native engine (pong, 1024 envs, the
             full 976-column replay ring on the device, per-env noise):
             actor_step_packed iterations, env-steps/s, launch counts.
-4. evaluate build_validation_states + evaluate(): ε-greedy episodes and the
+5. evaluate build_validation_states + evaluate(): ε-greedy episodes and the
             validation-Q probe, launch counts.
-5. kernels  each kernel's time against its plain version, a library call
-            and its bound, at the actor's shapes; one JSON line.
+6. train    the fused training iteration at the same width: a warm-up of
+            actor iterations, then train_iter_packed with 256 updates per
+            iteration (batch 32, the canonical replay ratio), one of them
+            with the target sync: env-steps/s, updates/s, launch counts.
+7. kernels  each kernel's time against its plain version, a library call
+            and its bound, at the main path's shapes; one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -41,6 +49,10 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 GAME, ENVS, SEED = "pong", 1024, 0
 ACTOR_ITERS = 200
 EVAL_FRAMES = 4000  # max_episode_length of the evaluation episodes
+WARMUP_ITERS = 32   # train phase: actor iterations that fill the ring
+TRAIN_ITERS = 8     # then fused iterations with a learner round each
+SYNC_AT = 4         # the train iteration that syncs the target net
+PROFILE_UPDATES = 64  # --profile: the traced training iteration's round
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # float32 on the CUDA cores (the kernels here use no tensor cores).
@@ -64,7 +76,8 @@ def log(*a):
 def parse_args():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--profile", action="store_true",
-                   help="also trace 20 actor iterations with torch.profiler "
+                   help="also trace 20 actor iterations and a training "
+                   "iteration of 64 updates with torch.profiler "
                    "into chiprun_out/chip_smoke/")
     return p.parse_args()
 
@@ -104,19 +117,25 @@ def check_close(name, got, want, atol, rtol):
     return float(diff.max())
 
 
-def compare_noisy_linear(torch, A, report):
-    """KA against noisy_linear_plain: the three noise modes, fp32 and bf16,
-    at the acting path's layer shapes and batches. Returns the largest fp32
-    error."""
+def compare_noisy_linear(torch, A, learner, report):
+    """KA against noisy_linear_plain: fp32 and bf16, at the layer shapes and
+    batches of the acting path (the three noise modes) and of the learner
+    (``learner`` = (batch, round rows)). Returns the largest fp32 error."""
     from rainbow_tpu_torch.models.noisy import (init_noisy_params,
                                                 noisy_linear_plain,
                                                 scale_noise)
     from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    # (batch, in, out, relu): the actor (1024), the evaluation episodes (10)
-    # and the validation-Q chunks (250) through fc_h_* and fc_z_*.
-    shapes = [(b, i, o, r) for b in (1024, 10, 250)
+    # (batch, noise modes): the actor (1024), the evaluation episodes (10)
+    # and the validation-Q chunks (250) in every mode; the learner's update
+    # forwards (one draw shared over the batch) and its round's target
+    # forward over all the round's rows (per-row noise). Each through
+    # fc_h_* and both fc_z_*.
+    all_modes = ("mu", "shared", "row")
+    batches = [(1024, all_modes), (10, all_modes), (250, all_modes),
+               (learner[0], ("shared",)), (learner[1], ("row",))]
+    shapes = [(b, modes, i, o, r) for b, modes in batches
               for i, o, r in ((3136, 512, True), (512, 51, False),
                               (512, A * 51, False))]
     # fp32: both sides sum in fp32 in other orders over up to 3136 terms of
@@ -125,10 +144,10 @@ def compare_noisy_linear(torch, A, report):
     # differ by a few bf16 ulps (2^-8 relative) of O(1) values.
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
     worst32 = 0.0
-    for b, n_in, n_out, relu in shapes:
+    for b, modes, n_in, n_out, relu in shapes:
         params = init_noisy_params(g, n_in, n_out, 0.5)
         x = torch.rand((b, n_in), generator=g, device="cuda") * 2
-        for mode in ("mu", "shared", "row"):
+        for mode in modes:
             lead = (b,) if mode == "row" else ()
             eps = None if mode == "mu" else (
                 scale_noise(g, lead + (n_in,)), scale_noise(g, lead + (n_out,)))
@@ -148,9 +167,11 @@ def compare_noisy_linear(torch, A, report):
     return worst32
 
 
-def compare_dueling_head(torch, A, report):
-    """KB against dueling_head_plain: no distribution, probs and log-probs,
-    fp32 and bf16 streams, at the path's batches. Argmax must agree wherever
+def compare_dueling_head(torch, A, learner, report):
+    """KB against dueling_head_plain, fp32 and bf16 streams: no
+    distribution, probs and log-probs at the acting path's batches; at the
+    learner's (``learner`` = (batch, round rows)) the selection's action
+    only and the round's target probabilities. Argmax must agree wherever
     the top-2 gap of q exceeds q's tolerance. Returns the largest error."""
     from rainbow_tpu_torch.ops.c51 import support_vector
     from rainbow_tpu_torch.ops.head import dueling_head_plain
@@ -164,13 +185,16 @@ def compare_dueling_head(torch, A, report):
     # log-probs and q of order 10.
     tol = {"probs": 1e-6, "log": 1e-5, "q": 1e-5}
     worst = 0.0
-    for b in (1024, 10, 250):
+    all_dists = (None, "probs", "log")
+    batches = [(1024, all_dists), (10, all_dists), (250, all_dists),
+               (learner[0], (None,)), (learner[1], ("probs",))]
+    for b, dists in batches:
         for n_act in sorted({A, 18}):
             for dt in (torch.float32, torch.bfloat16):
                 v = (torch.randn((b, 51), generator=g, device="cuda") * 2).to(dt)
                 a = (torch.randn((b, n_act * 51), generator=g,
                                  device="cuda") * 2).to(dt)
-                for dist in (None, "probs", "log"):
+                for dist in dists:
                     got = dueling_head_fwd(v, a, z, n_act, dist)
                     want = dueling_head_plain(v, a, z, n_act, dist)
                     tag = f"dueling_head B={b} A={n_act} {dt} {dist}"
@@ -269,6 +293,237 @@ def compare_append_framestack(torch, np, report):
     return 0.0
 
 
+def compare_noisy_linear_bwd(torch, A, report):
+    """KA's backward against noisy_linear_bwd_plain at the learner's shapes
+    (B = 32, fc_h_* with its ReLU and both fc_z_*), in the three noise
+    modes, fp32 and bf16. Returns the largest fp32 error."""
+    from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+                                                        noisy_linear_fwd)
+    from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+                                                noisy_linear_bwd_plain,
+                                                scale_noise)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b = 32
+    # fp32: sums of up to 512 products of O(1) terms in other orders. bf16:
+    # both sides round each product's output to bf16 once, and the plain
+    # version rounds after every op, so a few bf16 ulps of O(1) values.
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
+    names = ("dx", "dw_mu", "dw_sigma", "db_mu", "db_sigma")
+    worst32 = 0.0
+    for n_in, n_out, relu in ((3136, 512, True), (512, A * 51, False),
+                              (512, 51, False)):
+        prm = init_noisy_params(g, n_in, n_out, 0.5)
+        w = (prm["weight_mu"], prm["weight_sigma"])
+        x = torch.rand((b, n_in), generator=g, device="cuda") * 2
+        gy = torch.randn((b, n_out), generator=g, device="cuda")
+        for mode in ("mu", "shared", "row"):
+            lead = (b,) if mode == "row" else ()
+            eps = None if mode == "mu" else (
+                scale_noise(g, lead + (n_in,)), scale_noise(g, lead + (n_out,)))
+            for dt in (torch.float32, torch.bfloat16):
+                xd, gd = x.to(dt), gy.to(dt)
+                y = noisy_linear_fwd(prm, xd, eps, True) if relu else None
+                got = noisy_linear_bwd(*w, xd, gd, eps, y)
+                want = noisy_linear_bwd_plain(*w, xd, gd, eps, y)
+                tag = f"noisy_linear_bwd B={b} {n_in}->{n_out} {mode} {dt}"
+                check(got[0].dtype == dt, tag + ": dx dtype")
+                err = max(check_close(f"{tag} {n}", a, c, *tol[dt])
+                          for n, a, c in zip(names, got, want))
+                report.append(("noisy_linear_bwd", b, n_in, n_out, mode,
+                               str(dt), err))
+                if dt == torch.float32:
+                    worst32 = max(worst32, err)
+    return worst32
+
+
+def compare_c51(torch, A, report):
+    """K4's two kernels against their plain versions at the learner's
+    shapes (B = 32, A actions, 51 atoms): the target with rows whose b lands
+    exactly on an atom and rows with nonterminal 0, and the loss with fp32
+    and bf16 streams. Returns the largest errors (target, loss)."""
+    from rainbow_tpu_torch.kernels import c51 as k4
+    from rainbow_tpu_torch.ops import c51 as oc51
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    b = 32
+    z = oc51.support_vector(-10.0, 10.0, 51, "cuda")
+    pns = torch.softmax(torch.randn((b, A, 51), generator=g, device="cuda")
+                        * 2, dim=2)
+    a_star = torch.randint(0, A, (b,), generator=g, device="cuda")
+    ret = torch.rand((b,), generator=g, device="cuda") * 24 - 12
+    nt = (torch.rand((b,), generator=g, device="cuda") > 0.3).float()
+    ret[:3] = torch.tensor([-10.0, 0.0, 10.0], device="cuda")
+    nt[:4] = 0.0
+    # b = (Tz − V_min)/Δz reaches 50, where a float32 ulp is 3.8e-6: the
+    # kernel divides by Δz, PyTorch's CUDA division by a scalar multiplies
+    # by its reciprocal, so b and each weight 1 − |b − j| may differ by that
+    # much; the probabilities below 1 are summed in another order.
+    got = k4.c51_target(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
+    want = oc51.c51_target_plain(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0,
+                                 10.0)
+    err_t = check_close("c51_target", got, want, 1e-5, 0)
+    # Integer b: the whole mass (Σp = 1 to float32 rounding) on one atom.
+    for m in (got, want):
+        for row, atom in ((0, 0), (1, 25), (2, 50)):
+            rest = torch.cat((m[row, :atom], m[row, atom + 1:]))
+            check(abs(float(m[row, atom]) - 1.0) < 1e-5
+                  and not bool(rest.any()), "c51_target: integer-b rows")
+    report.append(("c51_target", b, A, err_t))
+    err_l = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        v = (torch.randn((b, 51), generator=g, device="cuda") * 2).to(dt)
+        a = (torch.randn((b, A * 51), generator=g, device="cuda") * 2).to(dt)
+        acts = torch.randint(0, A, (b,), generator=g, device="cuda")
+        m = oc51.c51_target_plain(pns, acts, ret, nt, 0.99 ** 3, z, -10.0,
+                                  10.0)
+        w = torch.rand((b,), generator=g, device="cuda")
+        got = k4.head_loss(v, a, acts, m, w)
+        want = oc51.head_loss_plain(v, a, acts, m, w)
+        # Losses of order 4 from the same logits: float32 exp/log in another
+        # order. Gradients of order w/B: 1e-6, plus one bf16 ulp where the
+        # streams are bf16 and a rounding falls the other way.
+        rtol = 0.0 if dt == torch.float32 else 2 ** -7
+        errs = [check_close(f"head_loss {dt} {n}", x.float(), y.float(),
+                            atol, r)
+                for n, x, y, atol, r in zip(("losses", "loss", "dv", "da"),
+                                            got, want, (1e-5, 1e-5, 1e-6,
+                                                        1e-6),
+                                            (0, 0, rtol, rtol))]
+        check(got[2].dtype == dt and got[3].dtype == dt, "head_loss dtypes")
+        report.append(("head_loss", b, A, str(dt), max(errs)))
+        err_l = max(err_l, *errs)
+    return err_t, err_l
+
+
+def compare_adam(torch, shapes, report):
+    """K9 against apply_grads_plain over the canonical net's tensors, 3
+    steps from zero moments, with the global norm below and above the clip
+    and with float32 and bfloat16 mu; a second kernel run must give the same
+    bits. Returns the largest param error."""
+    from rainbow_tpu_torch.agent import apply_grads_plain
+    from rainbow_tpu_torch.kernels.adam import clip_adam
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    worst = 0.0
+    for mdt in (torch.float32, torch.bfloat16):
+        for clip, scale in (("below", 1e-4), ("above", 1e-2)):
+            runs = {}
+            for run in ("kernel", "plain", "again"):
+                gp = torch.Generator(device="cuda").manual_seed(14)
+                runs[run] = (
+                    [torch.randn(s, generator=gp, device="cuda") * 0.05
+                     for s in shapes],
+                    [torch.zeros(s, dtype=mdt, device="cuda") for s in shapes],
+                    [torch.zeros(s, device="cuda") for s in shapes],
+                    torch.zeros((), dtype=torch.int32, device="cuda"))
+            for _ in range(3):
+                grads = [torch.randn(s, generator=g, device="cuda") * scale
+                         for s in shapes]
+                norm = float(torch.sqrt(sum((x * x).sum() for x in grads)))
+                check((norm < 10) == (clip == "below"),
+                      f"clip_adam: norm {norm} not {clip} the clip")
+                for run, fn in (("kernel", clip_adam),
+                                ("plain", apply_grads_plain),
+                                ("again", clip_adam)):
+                    params, mu, nu, count = runs[run]
+                    fn(params, grads, mu, nu, count, 6.25e-5, 0.9, 0.999,
+                       1.5e-4, 10.0)
+            tag = f"clip_adam {clip} mu {mdt}"
+            kp, kmu, knu, kc = runs["kernel"]
+            pp_, pmu, pnu, pc = runs["plain"]
+            check(int(kc) == int(pc) == 3, tag + ": count")
+            # The same float32 ops but for the global norm's sum order: a
+            # few ulps in the clip scale. Params of order 0.05 move by lr
+            # per step: 1e-7. nu to 1e-5 relative. mu crosses zero: 1e-6
+            # of its tensor's largest value, or one bf16 ulp of it. A bf16
+            # mu that rounds one ulp apart moves that step's update by up
+            # to 2^-7 of lr, and carries into the later steps: 3·lr·2^-7.
+            p_tol = 1e-7 if mdt == torch.float32 else 3 * 6.25e-5 * 2 ** -7
+            err = max(check_close(tag + " param", x, y, p_tol, 0)
+                      for x, y in zip(kp, pp_))
+            for x, y in zip(knu, pnu):
+                check_close(tag + " nu", x, y, 0, 1e-5)
+            share = 1e-6 if mdt == torch.float32 else 2 ** -8
+            for x, y in zip(kmu, pmu):
+                check(x.dtype == mdt, tag + ": mu dtype")
+                check_close(tag + " mu", x.float(), y.float(),
+                            float(y.float().abs().max()) * share, 0)
+            for a, b in zip(runs["kernel"][:3], runs["again"][:3]):
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      tag + ": two runs differ")
+            report.append(("clip_adam", clip, str(mdt), err))
+            worst = max(worst, err)
+    return worst
+
+
+def check_learner_update_against_plain(torch, np, cfg, A):
+    """One learner update of the canonical net (compute_update_pretarget +
+    apply_grads) through the kernels on the card and through the plain
+    versions on the CPU, from the same params, batch, pns_target and shared
+    noise. Returns the largest differences (losses, grads relative to each
+    tensor's scale, new params)."""
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
+
+    b = cfg.batch_size
+    rng = np.random.default_rng(15)
+    params = init_dqn_params(cfg, A, torch.Generator().manual_seed(16), "cpu")
+    u8 = lambda: rng.integers(0, 256, (b, 84, 84, cfg.history_length))
+    batch = {"states": torch.from_numpy(u8().astype(np.float32) / 255),
+             "next_states": torch.from_numpy(u8().astype(np.float32) / 255),
+             "actions": torch.from_numpy(rng.integers(0, A, b)
+                                         .astype(np.int32)),
+             "returns": torch.from_numpy(rng.uniform(-2, 2, b)
+                                         .astype(np.float32)),
+             "nonterminals": torch.from_numpy((rng.random(b) > 0.2)
+                                              .astype(np.float32)),
+             "weights": torch.from_numpy(rng.uniform(0.2, 1, b)
+                                         .astype(np.float32))}
+    pns = torch.from_numpy(rng.dirichlet(np.ones(cfg.atoms), (b, A))
+                           .astype(np.float32))
+    noise = draw_noise(cfg, A, torch.Generator().manual_seed(17))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).clone() for k, v in params.items()}
+        agent = ag.AgentState(params=p,
+                              target_params={k: v.clone() for k, v in p.items()},
+                              opt_state=ag.init_adam(p, cfg),
+                              generator=torch.Generator(device=dev))
+        grads, losses = ag.compute_update_pretarget(
+            agent, cfg, A, {k: v.to(dev) for k, v in batch.items()},
+            pns.to(dev), {k: (x.to(dev), y.to(dev))
+                          for k, (x, y) in noise.items()})
+        ag.apply_grads(agent, cfg, grads)
+        out[dev] = (losses.cpu(), {k: v.cpu() for k, v in grads.items()},
+                    {k: v.cpu() for k, v in agent.params.items()})
+    # Losses of order 4 from 3136-term float32 sums in other orders.
+    err_l = check_close("update losses", out["cuda"][0], out["cpu"][0],
+                        1e-4, 1e-4)
+    # Gradients: cuDNN and the CPU sum conv products over B·H·W positions
+    # in other orders; each tensor to 1e-4 of its largest value plus 1e-3
+    # relative.
+    err_g = 0.0
+    for k, want in out["cpu"][1].items():
+        scale = float(want.abs().max())
+        check_close(f"update grad {k}", out["cuda"][1][k], want,
+                    1e-4 * scale, 1e-3)
+        err_g = max(err_g, float((out["cuda"][1][k] - want).abs().max())
+                    / max(scale, 1e-30))
+    # Adam's first step moves a param by lr·g/(|g| + eps): a grad that
+    # differs by Δg moves it by at most lr·Δg/eps, and by far less where
+    # |g| ≫ eps; sound runs read about 4e-9 (PERF.md), so lr/100 has room.
+    # Every tensor must have moved by more than that.
+    p_tol = cfg.learning_rate / 100
+    err_p = max(check_close(f"update param {k}", out["cuda"][2][k], want,
+                            p_tol, 0)
+                for k, want in out["cpu"][2].items())
+    for k, want in out["cpu"][2].items():
+        check(float((want - params[k]).abs().max()) > p_tol,
+              f"update param {k}: the update did not move it")
+    return err_l, err_g, err_p
+
+
 # --------------------------------------------------------------- actor -----
 
 def run_actor(torch, cfg, params, A, gen):
@@ -313,8 +568,9 @@ def run_actor(torch, cfg, params, A, gen):
     counts = launches()
 
     it = ACTOR_ITERS
-    check(counts == {"noisy_linear_fwd": 4 * (it + 1),
-                     "dueling_head": it + 1, "append_framestack": it},
+    check(counts == dict(dict.fromkeys(counts, 0),
+                         noisy_linear_fwd=4 * (it + 1), dueling_head=it + 1,
+                         append_framestack=it),
           f"actor launch counts {counts}, expected 4/1/1 per iteration "
           "plus the first act")
     stored = int(rp.stored_count(rep))
@@ -380,12 +636,37 @@ def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
     return max_err(out["cuda"][3], q)
 
 
-def profile_actor(torch, cfg, params, A, gen, iters=20):
-    """torch.profiler over ``iters`` actor iterations on a fresh engine and
-    a small ring: device time by kernel, and the device's busy share of the
-    wall time, into chiprun_out/chip_smoke/."""
+def profiled(torch, name, fn, units, unit):
+    """Run ``fn`` under torch.profiler: device time by kernel into
+    chiprun_out/chip_smoke/<name>_profile.txt (and a chrome trace), and the
+    device's busy time per ``unit`` (``units`` of them in ``fn``) and its
+    share of the wall time, on a log line."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    table = avg.table(sort_by="self_cuda_time_total", row_limit=40)
+    with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
+        f.write(table)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"{name}_trace.json"))
+    busy_us = sum(e.self_device_time_total for e in avg
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"[profile {name}] " + json.dumps({
+        unit + "s": units, f"wall_ms_per_{unit}": 1e3 * wall / units,
+        f"device_busy_ms_per_{unit}": busy_us / 1e3 / units,
+        "device_busy_share": busy_us / 1e6 / wall}))
+    log(table)
+
+
+def profile_actor(torch, cfg, params, A, gen, iters=20):
+    """torch.profiler over ``iters`` actor iterations on a fresh engine and
+    a small ring (see ``profiled``)."""
     from rainbow_tpu_torch import agent as ag
     from rainbow_tpu_torch.ops.preprocess import (init_framestack,
                                                   to_network_input)
@@ -404,34 +685,128 @@ def profile_actor(torch, cfg, params, A, gen, iters=20):
                                  *stage_step(out, "cuda"))
     for _ in range(5):
         actions = step(actions)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        a = actions
         for _ in range(iters):
-            actions = step(actions)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            a = step(a)
+    profiled(torch, "actor", run, iters, "iter")
     env.close()
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=40)
-    with open(os.path.join(OUT_DIR, "actor_profile.txt"), "w") as f:
-        f.write(table)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "actor_trace.json"))
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    log("[profile] " + json.dumps({
-        "iters": iters, "wall_ms_per_iter": 1e3 * wall / iters,
-        "device_busy_ms_per_iter": busy_us / 1e3 / iters,
-        "device_busy_share": busy_us / 1e6 / wall}))
-    log(table)
+
+
+# --------------------------------------------------------------- train -----
+
+def run_train(torch, np, cfg, A, profile=False):
+    """The fused training iteration on the native engine at full width:
+    WARMUP_ITERS warm-up iterations (num_learns = 0) fill the ring, then
+    TRAIN_ITERS iterations each run a learner round of ENVS / replay_frequency
+    updates before the append and the act, one with the target sync. The
+    launch counters are zeroed just before the learning iterations and read
+    just after. With ``profile``, one more iteration with a round of
+    PROFILE_UPDATES updates runs under torch.profiler. Returns (stats,
+    launch counts)."""
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.ops.preprocess import (init_framestack,
+                                                  to_network_input)
+    from rainbow_tpu_torch.replay import prioritized as rp
+    from rainbow_tpu_torch.train import (make_env_factory, stage_step,
+                                         train_iter_packed)
+
+    num_learns = ENVS // cfg.replay_frequency
+    env = make_env_factory(cfg)(num_envs=ENVS, training=True)
+    agent = ag.init_agent(cfg, A, SEED + 3, "cuda")
+    stack = init_framestack(ENVS, cfg.history_length, env.reset_all(),
+                            "cuda")
+    rep = rp.init_replay(ENVS, cfg.capacity_per_env, cfg.frame_size, "cuda")
+    actions = ag.act(agent.params, cfg, A, to_network_input(stack),
+                     agent.generator)
+    actions_np = actions.cpu().numpy()
+
+    def iteration(n, beta, sync):
+        """One iteration; returns (engine, upload, call, fetch) seconds."""
+        nonlocal actions, actions_np
+        t0 = time.perf_counter()
+        out = env.step(actions_np)
+        t1 = time.perf_counter()
+        staged = stage_step(out, "cuda")
+        t2 = time.perf_counter()
+        actions, loss = train_iter_packed(cfg, A, n, agent, stack, rep,
+                                          actions, *staged, beta, sync)
+        t3 = time.perf_counter()
+        actions_np = actions.cpu().numpy()  # the one sync of the iteration
+        return (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3), loss
+
+    warm = [iteration(0, 0.0, False)[0] for _ in range(WARMUP_ITERS)]
+    torch.cuda.synchronize()
+    prio0 = rep.priorities[:, :WARMUP_ITERS].clone()
+    max_p0 = float(rep.max_priority)
+    reset_launches()
+    t_start = time.perf_counter()
+    times, losses, synced = [], [], None
+    for it in range(TRAIN_ITERS):
+        t, loss = iteration(num_learns, cfg.priority_weight, it == SYNC_AT)
+        times.append(t)
+        losses.append(loss)
+        if it == SYNC_AT:  # outside the timed iterations
+            ts = time.perf_counter()
+            synced = all(torch.equal(agent.target_params[k], v)
+                         for k, v in agent.params.items())
+            t_start += time.perf_counter() - ts
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = launches()
+    adam_count = int(agent.opt_state.count)
+    if profile:
+        profiled(torch, "train", lambda: iteration(
+            PROFILE_UPDATES, cfg.priority_weight, False), PROFILE_UPDATES,
+            "update")
+    env.close()
+
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    check(synced, "train: target params differ from online right after sync")
+    changed = int((rep.priorities[:, :WARMUP_ITERS] != prio0).sum())
+    check(changed > 0, "train: the rounds wrote back no priority")
+    max_p = float(rep.max_priority)
+    check(max_p > max_p0, f"train: max_priority stayed at {max_p0}")
+    check(adam_count == TRAIN_ITERS * num_learns, "train: Adam count")
+    u, it = TRAIN_ITERS * num_learns, TRAIN_ITERS
+    want = {"noisy_linear_fwd": 8 * u + 8 * it, "noisy_linear_bwd": 4 * u,
+            "dueling_head": u + 2 * it, "c51_target": u, "head_loss": u,
+            "append_framestack": it, "clip_adam": u}
+    check(counts == want, f"train launch counts {counts}, expected {want}")
+    med = lambda rows, i: 1e3 * statistics.median(r[i] for r in rows)
+    dev_ms = lambda rows: 1e3 * statistics.median(r[2] + r[3] for r in rows)
+    stats = {
+        "envs": ENVS, "warmup_iters": WARMUP_ITERS, "train_iters": it,
+        "updates_per_iter": num_learns, "batch_size": cfg.batch_size,
+        "ring_gb": rep.frames.numel() / 1e9, "wall_s": wall,
+        "train_env_steps_per_s": it * ENVS / wall,
+        "learner_updates_per_s": u / wall,
+        "median_train_iter_ms": 1e3 * statistics.median(sum(r) for r in
+                                                        times),
+        "median_actor_iter_ms": 1e3 * statistics.median(sum(r) for r in
+                                                        warm[4:]),
+        # The learner round's share: the device part (the call and the
+        # action fetch that waits for it) of a training iteration less that
+        # of a warm-up iteration.
+        "round_ms": dev_ms(times) - dev_ms(warm[4:]),
+        "engine_ms": med(times, 0), "upload_ms": med(times, 1),
+        "call_ms": med(times, 2), "fetch_ms": med(times, 3),
+        "losses": losses, "priorities_rewritten": changed,
+        "max_priority": [max_p0, max_p], "launches": counts}
+    return stats, counts
 
 
 # ------------------------------------------------------------- kernels -----
 
-def kernel_rows(torch, np, A, errs, actor_counts, eval_counts, stack, staged):
-    """Time each kernel, its plain version and a library call at the actor's
-    shapes (B = envs), and work out each bound from the same shapes."""
+def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes):
+    """Time each kernel, its plain version and a library call at the main
+    path's shapes (B = envs for the actor's kernels, B = 32 for the
+    learner's, the canonical net's ``shapes`` for Adam), and work out each
+    bound from the same shapes. ``counts`` maps a phase to its launch
+    counts; ``launches`` is the train phase's."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
     from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
@@ -511,15 +886,129 @@ def kernel_rows(torch, np, A, errs, actor_counts, eval_counts, stack, staged):
         bytes=(2 * b * p * 4 + b * p + k * p + 4 * k + b + b * p
                + b * (8 + 4 + 1) + b * (4 + 4 + 4 + 1 + 4) + 2 * b * 4)))
 
+    rows += learner_kernel_rows(torch, A, shapes)
     for r in rows:
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / FP32_FLOP_PER_S)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / FP32_FLOP_PER_S else "operations")
         r["kernel_ms"] = r["ms"]
-        r["launches"] = actor_counts[r["name"]]
-        r["eval_launches"] = eval_counts[r["name"]]
+        r["launches"] = counts["train"][r["name"]]
+        r["actor_launches"] = counts["actor"][r["name"]]
+        r["eval_launches"] = counts["evaluate"][r["name"]]
         r["max_abs_err"] = errs[r["name"]]
+    return rows
+
+
+def learner_kernel_rows(torch, A, shapes):
+    """Rows of the learner's kernels: KA's backward at fc_h_* (B = 32, shared
+    noise, fp32, ReLU), both C51 kernels at B = 32, and clip + Adam over the
+    canonical net with a float32 mu."""
+    from rainbow_tpu_torch.agent import apply_grads_plain
+    from rainbow_tpu_torch.kernels import c51 as k4
+    from rainbow_tpu_torch.kernels.adam import clip_adam
+    from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+                                                        noisy_linear_fwd)
+    from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+                                                noisy_linear_bwd_plain,
+                                                scale_noise)
+    from rainbow_tpu_torch.ops import c51 as oc51
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    b = 32
+    rows = []
+
+    n_in, n_out = 3136, 512
+    prm = init_noisy_params(g, n_in, n_out, 0.1)
+    w = (prm["weight_mu"], prm["weight_sigma"])
+    x = torch.rand((b, n_in), generator=g, device="cuda")
+    gy = torch.randn((b, n_out), generator=g, device="cuda")
+    eps = (scale_noise(g, (n_in,)), scale_noise(g, (n_out,)))
+    y = noisy_linear_fwd(prm, x, eps, True)
+    ge, xe = gy * eps[1], x * eps[0]
+    rows.append(dict(
+        name="noisy_linear_bwd", route="cuda",
+        source="rainbow_tpu_torch/kernels/csrc/noisy_linear.cu",
+        replaces="rainbow_tpu/models/noisy.py:57",
+        shape=f"B={b} {n_in}->{n_out} shared eps fp32 relu",
+        ms=time_ms(torch, lambda: noisy_linear_bwd(*w, x, gy, eps, y)),
+        plain_ms=time_ms(torch, lambda: noisy_linear_bwd_plain(*w, x, gy, eps,
+                                                               y)),
+        library_ms=time_ms(torch, lambda: (
+            torch.mm(gy, w[0]), torch.mm(ge, w[1]), torch.mm(gy.t(), x),
+            torch.mm(ge.t(), xe))),
+        flops=8 * b * n_in * n_out + 3 * b * n_out + 3 * b * n_in,
+        bytes=4 * (2 * b * n_in + 2 * b * n_out + 4 * n_in * n_out + n_in
+                   + 3 * n_out)))
+
+    z = oc51.support_vector(-10.0, 10.0, 51, "cuda")
+    pns = torch.softmax(torch.randn((b, A, 51), generator=g, device="cuda"),
+                        dim=2)
+    a_star = torch.randint(0, A, (b,), generator=g, device="cuda")
+    ret = torch.rand((b,), generator=g, device="cuda") * 4 - 2
+    nt = torch.ones((b,), device="cuda")
+    args = (pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
+    rows.append(dict(
+        name="c51_target", route="triton",
+        source="rainbow_tpu_torch/kernels/c51.py",
+        replaces="rainbow_tpu/ops/c51.py:28",
+        shape=f"B={b} A={A} atoms=51",
+        ms=time_ms(torch, lambda: k4.c51_target(*args)),
+        plain_ms=time_ms(torch, lambda: oc51.c51_target_plain(*args)),
+        library_ms=None,
+        # What the projection needs, not the kernel's dense 51 × 51 form:
+        # per source atom Tz (2 ops), clip (2), b (2), floor, the fraction,
+        # the two weights (3) and the two scatter-adds (2).
+        flops=13 * b * 51,
+        bytes=4 * (b * 51 + 2 * b + 51 + b * 51) + 8 * b))
+
+    v = torch.randn((b, 51), generator=g, device="cuda")
+    a = torch.randn((b, A * 51), generator=g, device="cuda")
+    acts = torch.randint(0, A, (b,), generator=g, device="cuda")
+    m = oc51.c51_target_plain(*args)
+    wts = torch.rand((b,), generator=g, device="cuda")
+    rows.append(dict(
+        name="head_loss", route="triton",
+        source="rainbow_tpu_torch/kernels/c51.py",
+        replaces="rainbow_tpu/ops/c51.py:57",
+        shape=f"B={b} A={A} atoms=51 fp32",
+        ms=time_ms(torch, lambda: k4.head_loss(v, a, acts, m, wts)),
+        plain_ms=time_ms(torch, lambda: oc51.head_loss_plain(v, a, acts, m,
+                                                             wts)),
+        library_ms=None,
+        flops=b * A * 51 * 4 + b * 51 * 12,
+        bytes=4 * (2 * b * 51 + 2 * b * A * 51 + b * 51 + 2 * b + 1)
+        + 8 * b))
+
+    n = sum(torch.Size(s).numel() for s in shapes)
+    gp = torch.Generator(device="cuda").manual_seed(19)
+    p = [torch.randn(s, generator=gp, device="cuda") * 0.05 for s in shapes]
+    grads = [torch.randn(s, generator=gp, device="cuda") * 1e-3
+             for s in shapes]
+    mu = [torch.zeros(s, device="cuda") for s in shapes]
+    nu = [torch.zeros(s, device="cuda") for s in shapes]
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    hyper = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)
+    leaves = [torch.nn.Parameter(t.clone()) for t in p]
+    for t, gr in zip(leaves, grads):
+        t.grad = gr.clone()
+    opt = torch.optim.Adam(leaves, lr=6.25e-5, eps=1.5e-4, fused=True)
+
+    def library_adam():
+        torch.nn.utils.clip_grad_norm_(leaves, 10.0, foreach=True)
+        opt.step()
+    rows.append(dict(
+        name="clip_adam", route="cuda",
+        source="rainbow_tpu_torch/kernels/csrc/adam.cu",
+        replaces="rainbow_tpu/agent.py:212",
+        shape=f"{n} params in {len(shapes)} tensors, fp32 mu",
+        ms=time_ms(torch, lambda: clip_adam(p, grads, mu, nu, count, *hyper)),
+        plain_ms=time_ms(torch, lambda: apply_grads_plain(p, grads, mu, nu,
+                                                          count, *hyper)),
+        library_ms=time_ms(torch, library_adam),
+        # Read p, g, mu and nu once, write p, mu and nu once: the norm's
+        # second read of g (27.5 MB) can come from the 50 MB L2.
+        flops=20 * n, bytes=4 * n * 7))
     return rows
 
 
@@ -575,7 +1064,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"[build] nvcc {nvcc_s:.1f} s (both sources in parallel), engine "
+    log(f"[build] nvcc {nvcc_s:.1f} s (all sources in parallel), engine "
         f"ready after {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -596,18 +1085,36 @@ def main() -> int:
     probe.close()
     t0 = time.perf_counter()
     report = []
-    errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, report)}
+    # The learner's batch and its round's rows (the target forward's batch).
+    learner = (cfg.batch_size,
+               ENVS // cfg.replay_frequency * cfg.batch_size)
+    errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, learner,
+                                                     report)}
     t_triton = time.perf_counter()
-    errs["dueling_head"] = compare_dueling_head(torch, A, report)
+    errs["dueling_head"] = compare_dueling_head(torch, A, learner, report)
     errs["append_framestack"] = compare_append_framestack(torch, np, report)
+    errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, report)
+    errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, report)
+    shapes = [tuple(v.shape) for v in init_dqn_params(
+        cfg, A, torch.Generator().manual_seed(0), "cpu").values()]
+    errs["clip_adam"] = compare_adam(torch, shapes, report)
     torch.cuda.synchronize()
     with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
         json.dump(report, f, indent=0)
     log(f"[compare] {len(report)} cases agree in "
-        f"{time.perf_counter() - t0:.1f} s (dueling_head's Triton compile "
-        f"included from {t_triton - t0:.1f} s); max |err| {errs}")
+        f"{time.perf_counter() - t0:.1f} s (the Triton compiles included "
+        f"from {t_triton - t0:.1f} s); max |err| {errs}")
 
-    # 3. actor ---------------------------------------------------------------
+    # 3. one learner update against the plain path ---------------------------
+    t0 = time.perf_counter()
+    err_l, err_g, err_p = check_learner_update_against_plain(torch, np, cfg,
+                                                             A)
+    log(f"[update] one update of the canonical net (B = {cfg.batch_size}) "
+        f"matches the plain path on the CPU in {time.perf_counter() - t0:.1f}"
+        f" s: max |loss diff| {err_l:.3g}, max grad diff {err_g:.3g} of the "
+        f"tensor's largest, max |param diff| {err_p:.3g}")
+
+    # 4. actor ---------------------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_dqn_params(cfg, A, torch.Generator().manual_seed(SEED),
                              "cuda")
@@ -622,7 +1129,7 @@ def main() -> int:
     del rep
     torch.cuda.empty_cache()
 
-    # 4. evaluate ------------------------------------------------------------
+    # 5. evaluate ------------------------------------------------------------
     ecfg = cfg.replace(max_episode_length=EVAL_FRAMES,
                        evaluation_episodes=10, evaluation_size=500)
     factory = make_env_factory(ecfg)
@@ -645,7 +1152,9 @@ def main() -> int:
     check(len(rewards) == 10 and len(qs) == 500, "evaluate output sizes")
     check(np.isfinite(mean_r) and np.isfinite(mean_q) and
           np.isfinite(qs).all(), "evaluate: non-finite result")
-    check(all(v > 0 for v in eval_counts.values()),
+    check(all(eval_counts[k] > 0 for k in ("noisy_linear_fwd",
+                                           "dueling_head",
+                                           "append_framestack")),
           f"evaluate: a kernel never launched {eval_counts}")
     log("[evaluate] " + json.dumps({
         "episodes": 10, "max_episode_length": EVAL_FRAMES,
@@ -655,10 +1164,19 @@ def main() -> int:
         "launches": eval_counts}))
     if args.profile:
         profile_actor(torch, cfg, params, A, gen)
+    del params, val_states
+    torch.cuda.empty_cache()
 
-    # 5. kernels line --------------------------------------------------------
-    rows = kernel_rows(torch, np, A, errs, stats["launches"], eval_counts,
-                       stack, staged)
+    # 6. train ---------------------------------------------------------------
+    train_stats, train_counts = run_train(torch, np, cfg, A, args.profile)
+    log("[train] " + json.dumps(train_stats))
+    torch.cuda.empty_cache()
+
+    # 7. kernels line --------------------------------------------------------
+    rows = kernel_rows(torch, np, A, errs, {"actor": stats["launches"],
+                                            "evaluate": eval_counts,
+                                            "train": train_counts},
+                       stack, staged, shapes)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

@@ -1,19 +1,77 @@
-"""Rainbow agent, acting half: greedy batched act, ε-greedy eval act and the
-validation-Q probe (rainbow_tpu/agent.py:91-123).
+"""Rainbow agent (rainbow_tpu/agent.py): greedy batched act, ε-greedy eval
+act, the validation-Q probe, and the learner's update: the double-Q C51
+target, the IS-weighted cross-entropy and its gradient, global-norm clip +
+Adam, and the hard target sync.
 
 Noise is explicit: ``generator`` (a torch.Generator on the states' device)
 draws fresh noise, ``noise_eps`` (models.dqn.draw_noise) supplies it
-pre-drawn, and with neither the net runs μ only (eval mode). The learner
-(optimizer, loss, updates) comes with the learner slice.
+pre-drawn, and with neither the net runs μ only (eval mode). The agent's
+own stream is ``AgentState.generator``; it takes the place of the JAX
+package's ``noise_key`` and ``rng``.
+
+Unlike the JAX package, updates are in place: ``apply_grads`` writes the
+params and the Adam moments (JAX returns new arrays instead).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from rainbow_tpu_torch.config import RainbowConfig
-from rainbow_tpu_torch.models.dqn import forward_head
+from rainbow_tpu_torch.device import resolve_device
+from rainbow_tpu_torch.kernels import adam as k9
+from rainbow_tpu_torch.models.dqn import (draw_noise, forward_head,
+                                          init_dqn_params, loss_streams)
+from rainbow_tpu_torch.ops.c51 import c51_target, head_loss, support_vector
+
+ADAM_B1, ADAM_B2 = 0.9, 0.999  # optax.adam's defaults (agent.py:57)
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax ScaleByAdamState: the moments per param name and the count."""
+    mu: dict              # float32, or bfloat16 with adam_mu_dtype bfloat16
+    nu: dict              # float32
+    count: torch.Tensor   # int32 0-d, on the params' device
+
+
+@dataclasses.dataclass
+class AgentState:
+    params: dict
+    target_params: dict
+    opt_state: AdamState
+    generator: torch.Generator  # every draw of the agent: noise, sampling
+    step: int = 0               # learner updates applied
+
+
+def _mu_dtype(cfg: RainbowConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else torch.float32
+
+
+def init_adam(params: dict, cfg: RainbowConfig) -> AdamState:
+    dev = next(iter(params.values())).device
+    return AdamState(
+        mu={k: torch.zeros_like(v, dtype=_mu_dtype(cfg))
+            for k, v in params.items()},
+        nu={k: torch.zeros_like(v) for k, v in params.items()},
+        count=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def init_agent(cfg: RainbowConfig, action_space: int, seed: int = 0,
+               device="cuda") -> AgentState:
+    """Random params from ``seed`` (drawn on the CPU, so any device gets the
+    same ones), a target copy, a fresh Adam state and the agent's
+    generator on ``device``."""
+    dev = resolve_device(device)
+    params = init_dqn_params(cfg, action_space,
+                             torch.Generator().manual_seed(seed), dev)
+    return AgentState(
+        params=params,
+        target_params={k: v.clone() for k, v in params.items()},
+        opt_state=init_adam(params, cfg),
+        generator=torch.Generator(device=dev).manual_seed(seed + 1))
 
 
 def act(params: dict, cfg: RainbowConfig, action_space: int,
@@ -44,3 +102,99 @@ def evaluate_q(params: dict, cfg: RainbowConfig, action_space: int,
                states: torch.Tensor) -> torch.Tensor:
     """Max expected Q per state (reference agent.py:110-112), batched, μ only."""
     return forward_head(params, cfg, action_space, states).max_q
+
+
+def _loss_fn(params: dict, cfg: RainbowConfig, action_space: int,
+             batch: dict, noise_eps: Optional[dict]):
+    """(mean(w·loss), per-sample losses) (reference agent.py:126-134); the
+    scalar is differentiable in ``params``."""
+    v, a = loss_streams(params, cfg, action_space, batch["states"], noise_eps)
+    losses, loss = head_loss(v, a, batch["actions"], batch["target_m"],
+                             batch["weights"])
+    return loss, losses
+
+
+def compute_update_pretarget(agent: AgentState, cfg: RainbowConfig,
+                             action_space: int, batch: dict,
+                             pns_target: torch.Tensor,
+                             noise_eps: Optional[dict] = None):
+    """Gradient of one batch's loss, given this batch's slice ``pns_target``
+    (B, A, atoms) of the round-wide target-net forward (JAX
+    agent.py:177-209). Returns (grads {name: float32 tensor}, per-sample
+    losses (B,) outside autograd).
+
+    ``batch`` holds float ``states`` and ``next_states`` (B, 84, 84, H),
+    ``actions``, ``returns``, ``nonterminals`` and ``weights`` (B,). The
+    double-Q selection forward and the gradient forward share one online
+    noise draw: ``noise_eps`` (models.dqn.draw_noise, shared over the
+    batch), or a draw from the agent's generator."""
+    if noise_eps is None:
+        noise_eps = draw_noise(cfg, action_space, agent.generator,
+                               device=pns_target.device)
+    support = support_vector(cfg.v_min, cfg.v_max, cfg.atoms,
+                             pns_target.device)
+    with torch.no_grad():
+        a_star = forward_head(agent.params, cfg, action_space,
+                              batch["next_states"], noise_eps=noise_eps,
+                              support=support).action
+        target_m = c51_target(pns_target, a_star, batch["returns"],
+                              batch["nonterminals"],
+                              cfg.discount ** cfg.multi_step, support,
+                              cfg.v_min, cfg.v_max)
+    leaves = {k: v.detach().requires_grad_() for k, v in agent.params.items()}
+    loss, losses = _loss_fn(leaves, cfg, action_space,
+                            dict(batch, target_m=target_m), noise_eps)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return dict(zip(leaves, grads)), losses
+
+
+def apply_grads_plain(params, grads, mu, nu, count: torch.Tensor, lr: float,
+                      b1: float, b2: float, eps: float,
+                      max_norm: float) -> None:
+    """Plain version of the clip + Adam kernel: optax 0.2.6's
+    clip_by_global_norm then scale_by_adam then scale(-lr), in its order of
+    float32 ops, in place on the lists ``params``, ``mu``, ``nu`` and on
+    ``count``. With a bfloat16 mu, optax's b1·mu is a bfloat16 product with
+    b1 itself rounded to bfloat16, and mu_hat comes from the float32 mu
+    before it is stored in bfloat16."""
+    f32 = torch.float32
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    count.copy_(torch.where(count < 2 ** 31 - 1, count + 1, count))
+    step = count.to(f32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=f32), step)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=f32), step)
+    b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        g = torch.where(keep, g, (g / norm) * max_norm)
+        decayed = (m * b1_bf16).to(f32) if m.dtype == torch.bfloat16 \
+            else b1 * m
+        m_new = (1 - b1) * g + decayed
+        v_new = (1 - b2) * (g * g) + b2 * v
+        u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        p.copy_(p + (-lr) * u)
+        m.copy_(m_new)
+        v.copy_(v_new)
+
+
+def apply_grads(agent: AgentState, cfg: RainbowConfig, grads: dict) -> None:
+    """Clip + Adam (reference agent.py:97-98; JAX agent.py:212-221) in
+    place: one call of the clip + Adam kernel over all params on CUDA,
+    its plain version on the CPU."""
+    opt = agent.opt_state
+    keys = list(agent.params)
+    args = ([agent.params[k] for k in keys],
+            [grads[k].contiguous() for k in keys],
+            [opt.mu[k] for k in keys], [opt.nu[k] for k in keys], opt.count,
+            cfg.learning_rate, ADAM_B1, ADAM_B2, cfg.adam_eps, cfg.norm_clip)
+    if opt.count.is_cuda:
+        k9.clip_adam(*args)
+    else:
+        apply_grads_plain(*args)
+    agent.step += 1
+
+
+def update_target(agent: AgentState) -> None:
+    """Hard target sync (reference agent.py:102-103), in place."""
+    for k, v in agent.params.items():
+        agent.target_params[k].copy_(v)

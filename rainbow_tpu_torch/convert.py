@@ -6,22 +6,27 @@ flat dict keyed like the reference's state dict (tests/test_torch_import.py:
 18-39): ``convs.{0,2,4}.weight`` OIHW (nn.Sequential indices skip the
 ReLUs), ``fc_h_v.weight_mu`` and so on; noisy weights are (out, in) in both.
 Both directions work on numpy arrays or anything ``np.asarray`` takes, so no
-JAX import is needed here.
+JAX import is needed here. ``opt_state_from_jax`` carries optax's Adam state
+across the same way.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from rainbow_tpu_torch.agent import AdamState
+from rainbow_tpu_torch.device import resolve_device
 from rainbow_tpu_torch.models.dqn import NOISY_LAYERS
 
 _NOISY = (("w_mu", "weight_mu"), ("w_sigma", "weight_sigma"),
           ("b_mu", "bias_mu"), ("b_sigma", "bias_sigma"))
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
-    """JAX-package params (nested dict of arrays) → the port's flat dict of
-    float32 tensors on ``device``."""
+def _flat_from_jax(tree: dict, device, dtype=torch.float32) -> dict:
+    """A params-shaped JAX tree → the port's flat dict of ``dtype`` tensors
+    on ``device``; values pass through float32, which holds bfloat16 ones
+    exactly."""
+    dev = resolve_device(device)
     out = {}
     for i, conv in enumerate(tree["convs"]):
         w = np.transpose(np.asarray(conv["w"]), (3, 2, 0, 1))  # HWIO → OIHW
@@ -30,8 +35,30 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
     for name in NOISY_LAYERS:
         for jk, tk in _NOISY:
             out[f"{name}.{tk}"] = np.asarray(tree[name][jk])
-    return {k: torch.from_numpy(np.array(v, np.float32, order="C")).to(device)
-            for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            .to(device=dev, dtype=dtype) for k, v in out.items()}
+
+
+def params_from_jax(tree: dict, device="cuda") -> dict:
+    """JAX-package params (nested dict of arrays) → the port's flat dict of
+    float32 tensors on ``device``."""
+    return _flat_from_jax(tree, device)
+
+
+def opt_state_from_jax(opt_state, device="cuda") -> AdamState:
+    """The JAX package's optimizer state, optax.chain(clip_by_global_norm,
+    adam) (rainbow_tpu/agent.py:43-58), → the port's AdamState on
+    ``device``: count, and mu (float32 or bfloat16, as stored) and nu in
+    the params' layout."""
+    adam = next(s for s in opt_state[1] if hasattr(s, "mu"))
+    mu_dtype = (torch.bfloat16 if "bfloat16" in str(
+        np.asarray(adam.mu["fc_h_v"]["w_mu"]).dtype) else torch.float32)
+    dev = resolve_device(device)
+    return AdamState(
+        mu=_flat_from_jax(adam.mu, dev, mu_dtype),
+        nu=_flat_from_jax(adam.nu, dev),
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
+                           device=dev))
 
 
 def params_to_jax(params: dict) -> dict:

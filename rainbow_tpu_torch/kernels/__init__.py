@@ -1,8 +1,13 @@
-"""Hand-written Hopper kernels of the acting path and their launch wrappers.
+"""Hand-written Hopper kernels of the actor and the learner, and their launch
+wrappers.
 
   noisy_linear_fwd   CUDA C++  csrc/noisy_linear.cu       (models/noisy.py)
+  noisy_linear_bwd   CUDA C++  csrc/noisy_linear.cu       (models/noisy.py)
   dueling_head       Triton    dueling_head.py            (ops/head.py)
+  c51_target         Triton    c51.py                     (ops/c51.py)
+  head_loss          Triton    c51.py                     (ops/c51.py)
   append_framestack  CUDA C++  csrc/append_framestack.cu  (ops/preprocess.py)
+  clip_adam          CUDA C++  csrc/adam.cu               (agent.py)
 
 The CUDA sources are compiled with nvcc for sm_90a into shared libraries
 under ``rainbow_tpu_torch/_build/`` at first use (build.py) and called
@@ -13,7 +18,9 @@ beside its caller and runs only on CPU tensors.
 """
 from __future__ import annotations
 
-LAUNCHES = {"noisy_linear_fwd": 0, "dueling_head": 0, "append_framestack": 0}
+LAUNCHES = {"noisy_linear_fwd": 0, "noisy_linear_bwd": 0, "dueling_head": 0,
+            "c51_target": 0, "head_loss": 0, "append_framestack": 0,
+            "clip_adam": 0}
 
 
 def reset_launches() -> None:

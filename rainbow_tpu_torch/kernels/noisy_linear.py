@@ -1,6 +1,8 @@
-"""Launch wrapper of the noisy-linear forward kernel (csrc/noisy_linear.cu).
+"""Launch wrappers of the noisy-linear forward and backward kernels
+(csrc/noisy_linear.cu).
 
-Its plain version is models/noisy.py::noisy_linear_plain.
+Their plain versions are models/noisy.py::noisy_linear_plain and
+noisy_linear_bwd_plain.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from rainbow_tpu_torch.kernels import (LAUNCHES, build, check_cuda,
                                        check_dtype, check_shape)
 
 NAME = "noisy_linear_fwd"
+BWD = "noisy_linear_bwd"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -23,7 +26,30 @@ def _lib():
     fn = lib.noisy_linear_fwd
     fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]
     fn.restype = _I
-    return fn
+    bwd = lib.noisy_linear_bwd
+    bwd.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _P]
+    bwd.restype = _I
+    return lib
+
+
+def _eps_mode(name, eps, b, n_in, n_out):
+    """(mode, eps_in, eps_out): 0 = none, 1 = shared, 2 = per row."""
+    if eps is None:
+        return 0, None, None
+    e_in, e_out = eps
+    check_cuda(name, eps_in=e_in, eps_out=e_out)
+    check_dtype(name, "eps_in", e_in, torch.float32)
+    check_dtype(name, "eps_out", e_out, torch.float32)
+    mode = 2 if e_in.dim() == 2 else 1
+    lead = (b,) if mode == 2 else ()
+    check_shape(name, "eps_in", e_in, lead + (n_in,))
+    check_shape(name, "eps_out", e_out, lead + (n_out,))
+    return mode, e_in, e_out
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def noisy_linear_fwd(params: dict, x: torch.Tensor,
@@ -45,23 +71,58 @@ def noisy_linear_fwd(params: dict, x: torch.Tensor,
                           ("bias_sigma", b_sig, (n_out,))):
         check_dtype(NAME, arg, t, torch.float32)
         check_shape(NAME, arg, t, shape)
-    eps_mode, e_in, e_out = 0, None, None
-    if eps is not None:
-        e_in, e_out = eps
-        check_cuda(NAME, eps_in=e_in, eps_out=e_out)
-        check_dtype(NAME, "eps_in", e_in, torch.float32)
-        check_dtype(NAME, "eps_out", e_out, torch.float32)
-        eps_mode = 2 if e_in.dim() == 2 else 1
-        lead = (b,) if eps_mode == 2 else ()
-        check_shape(NAME, "eps_in", e_in, lead + (n_in,))
-        check_shape(NAME, "eps_out", e_out, lead + (n_out,))
+    eps_mode, e_in, e_out = _eps_mode(NAME, eps, b, n_in, n_out)
     y = torch.empty((b, n_out), dtype=x.dtype, device=x.device)
-    ptr = lambda t: t.data_ptr() if t is not None else None
-    err = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16), w_mu.data_ptr(),
-                 w_sig.data_ptr(), b_mu.data_ptr(), b_sig.data_ptr(),
-                 ptr(e_in), ptr(e_out), eps_mode, y.data_ptr(), b, n_in,
-                 n_out, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+    err = _lib().noisy_linear_fwd(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w_mu.data_ptr(),
+        w_sig.data_ptr(), b_mu.data_ptr(), b_sig.data_ptr(), _ptr(e_in),
+        _ptr(e_out), eps_mode, y.data_ptr(), b, n_in, n_out, int(relu),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
     LAUNCHES[NAME] += 1
     return y
+
+
+def noisy_linear_bwd(w_mu: torch.Tensor, w_sig: torch.Tensor,
+                     x: torch.Tensor, g: torch.Tensor,
+                     eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     y: Optional[torch.Tensor] = None):
+    """(dx, dμ_w, dσ_w, dμ_b, dσ_b) of a noisy linear layer, given its input
+    x (B, in), the gradient g (B, out) into its output, and, for a layer
+    with a ReLU, its output y (the mask is y > 0). dx has x's dtype, the
+    parameter grads are float32. Without eps the σ grads are zeros. See
+    models/noisy.py::noisy_linear_bwd_plain."""
+    check_cuda(BWD, x=x, g=g, weight_mu=w_mu, weight_sigma=w_sig)
+    check_dtype(BWD, "x", x, torch.float32, torch.bfloat16)
+    check_dtype(BWD, "g", g, x.dtype)
+    if x.dim() != 2:
+        raise ValueError(f"{BWD}: x must be (B, in), got {tuple(x.shape)}")
+    b, n_in = x.shape
+    n_out = w_mu.shape[0]
+    for arg, t in (("weight_mu", w_mu), ("weight_sigma", w_sig)):
+        check_dtype(BWD, arg, t, torch.float32)
+        check_shape(BWD, arg, t, (n_out, n_in))
+    check_shape(BWD, "g", g, (b, n_out))
+    if y is not None:
+        check_cuda(BWD, y=y)
+        check_dtype(BWD, "y", y, x.dtype)
+        check_shape(BWD, "y", y, (b, n_out))
+    eps_mode, e_in, e_out = _eps_mode(BWD, eps, b, n_in, n_out)
+    dev = x.device
+    dx = torch.empty_like(x)
+    dw_mu = torch.empty((n_out, n_in), dtype=torch.float32, device=dev)
+    db_mu = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    new = torch.empty if eps_mode else torch.zeros
+    dw_sig = new((n_out, n_in), dtype=torch.float32, device=dev)
+    db_sig = new((n_out,), dtype=torch.float32, device=dev)
+    err = _lib().noisy_linear_bwd(
+        x.data_ptr(), g.data_ptr(), _ptr(y), int(x.dtype == torch.bfloat16),
+        w_mu.data_ptr(), w_sig.data_ptr(), _ptr(e_in), _ptr(e_out), eps_mode,
+        dx.data_ptr(), dw_mu.data_ptr(), dw_sig.data_ptr(), db_mu.data_ptr(),
+        db_sig.data_ptr(), b, n_in, n_out, int(y is not None),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{BWD}: launch failed with CUDA error {err}")
+    LAUNCHES[BWD] += 1
+    return dx, dw_mu, dw_sig, db_mu, db_sig

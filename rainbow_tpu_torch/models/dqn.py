@@ -113,6 +113,16 @@ def _streams(params: dict, cfg, action_space: int, x: torch.Tensor,
     return stream("fc_h_v", "fc_z_v"), stream("fc_h_a", "fc_z_a")
 
 
+def loss_streams(params: dict, cfg, action_space: int, x: torch.Tensor,
+                 noise_eps: Optional[dict] = None):
+    """The value and advantage streams, (B, atoms) and (B, A·atoms) in the
+    compute dtype, as the learner's loss takes them (the forward of
+    rainbow_tpu/agent.py:128-129 up to the dueling combine), with pre-drawn
+    noise or μ only. Differentiable in ``params`` through the cuDNN torso
+    and the noisy-linear kernels' backward."""
+    return _streams(params, cfg, action_space, x, None, False, noise_eps)
+
+
 def forward_head(params: dict, cfg, action_space: int, x: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  dist: Optional[str] = None, per_sample_noise: bool = False,

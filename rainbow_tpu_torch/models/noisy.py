@@ -11,6 +11,11 @@ weight is never formed:
 
 ε is absent (μ only, the eval path), shared ``(in,)/(out,)``, or per row
 ``(B, in)/(B, out)`` (an independent draw per env of a batched actor).
+
+The layer is differentiable in x and its four params: a
+``torch.autograd.Function`` whose forward and backward are one launch each
+of the noisy-linear kernels on CUDA tensors, and their plain versions on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -69,6 +74,51 @@ def noisy_linear_plain(params: dict, x: torch.Tensor,
     return torch.relu(y) if relu else y
 
 
+def noisy_linear_bwd_plain(w_mu: torch.Tensor, w_sig: torch.Tensor,
+                           x: torch.Tensor, g: torch.Tensor,
+                           eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           y: Optional[torch.Tensor] = None):
+    """Plain version of the noisy-linear backward kernel: the gradients
+    jax.grad derives from the JAX package's op sequence, in x's dtype, with
+    the parameter grads as float32: (dx, dμ_w, dσ_w, dμ_b, dσ_b). ``y``, the
+    layer's output, is given for a layer with a ReLU (the mask is y > 0)."""
+    dt = x.dtype
+    if y is not None:
+        g = torch.where(y > 0, g, torch.zeros_like(g))
+    dx = g @ w_mu.to(dt)
+    dw_mu = (g.T @ x).float()
+    db_mu = g.sum(dim=0).float()
+    if eps is None:
+        return (dx, dw_mu, torch.zeros_like(w_sig), db_mu,
+                torch.zeros_like(db_mu))
+    eps_in, eps_out = (e.to(dt) for e in eps)
+    ge = g * eps_out
+    dx = dx + (ge @ w_sig.to(dt)) * eps_in
+    return (dx, dw_mu, (ge.T @ (x * eps_in)).float(), db_mu,
+            ge.sum(dim=0).float())
+
+
+class _NoisyLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_mu, w_sig, b_mu, b_sig, eps_in, eps_out, relu):
+        params = {"weight_mu": w_mu, "weight_sigma": w_sig, "bias_mu": b_mu,
+                  "bias_sigma": b_sig}
+        eps = None if eps_in is None else (eps_in, eps_out)
+        fwd = ka.noisy_linear_fwd if x.is_cuda else noisy_linear_plain
+        y = fwd(params, x, eps, relu)
+        ctx.save_for_backward(x, w_mu, w_sig, eps_in, eps_out,
+                              y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_mu, w_sig, eps_in, eps_out, y = ctx.saved_tensors
+        eps = None if eps_in is None else (eps_in, eps_out)
+        bwd = ka.noisy_linear_bwd if g.is_cuda else noisy_linear_bwd_plain
+        grads = bwd(w_mu, w_sig, x, g.contiguous(), eps, y)
+        return (*grads, None, None, None)
+
+
 def noisy_linear(params: dict, x: torch.Tensor,
                  eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  per_sample: bool = False, relu: bool = False,
@@ -79,13 +129,15 @@ def noisy_linear(params: dict, x: torch.Tensor,
     else, with a ``generator``, noise is drawn here (per row when
     ``per_sample``); with neither, the layer is μ only. ``relu`` applies a
     ReLU to the output. On CUDA tensors this is one launch of the
-    noisy-linear kernel, on CPU tensors its plain version.
+    noisy-linear kernel, on CPU tensors its plain version; so is its
+    backward.
     """
     if eps is None and generator is not None:
         lead = (x.shape[0],) if per_sample else ()
         w = params["weight_mu"]
         eps = (scale_noise(generator, lead + (w.shape[1],), x.device),
                scale_noise(generator, lead + (w.shape[0],), x.device))
-    if x.is_cuda:
-        return ka.noisy_linear_fwd(params, x, eps, relu)
-    return noisy_linear_plain(params, x, eps, relu)
+    eps_in, eps_out = eps if eps is not None else (None, None)
+    return _NoisyLinear.apply(x, params["weight_mu"], params["weight_sigma"],
+                              params["bias_mu"], params["bias_sigma"], eps_in,
+                              eps_out, relu)

@@ -1,4 +1,5 @@
-"""On-device prioritized n-step replay: the ring state and its append
+"""On-device prioritized n-step replay: the ring state, its append, the
+batched prioritized sampler and the priority write-back
 (rainbow_tpu/replay/prioritized.py).
 
 Each env owns a contiguous ring of ``capacity_per_env`` columns that all envs
@@ -9,12 +10,16 @@ stacks are rebuilt from ``timestep == 0`` markers when they are read.
 Unlike the JAX package, the state is mutable: ``append`` writes the column
 in place (JAX donates the buffers instead). ``index``, ``full`` and
 ``max_priority`` are 0-d tensors on the ring's device, so appending never
-waits for the host. The samplers and ``update_priorities`` belong to the
-learner.
+waits for the host; nor does sampling or the priority write-back.
+
+The sampler (``sample_many``) is plain PyTorch on any device: one
+stratified descent over the masked priorities, one windowed uint8 gather
+with episode blanking, n-step returns and IS weights normalised per batch.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -119,3 +124,161 @@ def all_states(state: ReplayState, history: int) -> torch.Tensor:
     fr = frames_w.reshape(e * c, history, f, f)
     fr = torch.where(blank[:, :, None, None], torch.zeros_like(fr), fr)
     return fr.permute(0, 2, 3, 1).to(torch.float32) / 255.0
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def _stratified_find(leaves: torch.Tensor, batch_size: int,
+                     generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None):
+    """Stratified prefix-sum descent over a stateless sum-tree (JAX
+    prioritized.py:102-131; reference memory.py:64-82): builds the tree's
+    levels from ``leaves`` padded to a power of two and descends all
+    ``batch_size`` draws together, one level per step. Draw j lands in
+    segment j: value (j + u_j)·total/B, with ``u`` (B,) uniform in [0, 1),
+    drawn from ``generator`` unless given. Returns (leaf indices int64,
+    their values, the total)."""
+    n = leaves.shape[0]
+    padded = torch.zeros((_next_pow2(n),), dtype=leaves.dtype,
+                         device=leaves.device)
+    padded[:n] = leaves
+    levels = [padded]
+    while levels[-1].shape[0] > 1:
+        levels.append(levels[-1].view(-1, 2).sum(dim=1))
+    total = levels[-1][0]
+    if u is None:
+        u = torch.rand((batch_size,), generator=generator,
+                       device=leaves.device)
+    values = (torch.arange(batch_size, dtype=torch.float32,
+                           device=leaves.device) + u) * (total / batch_size)
+    idx = torch.zeros((batch_size,), dtype=torch.int64, device=leaves.device)
+    # Go right iff the value exceeds the left child's sum, less that sum
+    # (reference memory.py:72-76).
+    for level in levels[-2::-1]:
+        left = level[2 * idx]
+        go_right = values > left
+        idx = 2 * idx + go_right
+        values = values - torch.where(go_right, left, torch.zeros_like(left))
+    idx = idx.clamp(max=n - 1)  # total-overshoot clamp (memory.py:70-71)
+    return idx, padded[idx], total
+
+
+def _valid_time_mask(capacity: int, index: torch.Tensor, history: int,
+                     n_step: int) -> torch.Tensor:
+    """(C,) bool: positions whose (−history+1 .. +n) window does not cross
+    the write head (reference memory.py:131 as a mask)."""
+    pos = torch.arange(capacity, dtype=torch.int32, device=index.device)
+    ahead = (index - pos) % capacity
+    behind = (pos - index) % capacity
+    return (ahead > n_step) & (behind >= history)
+
+
+def _blank_masks(firsts: torch.Tensor, history: int,
+                 n_step: int) -> torch.Tensor:
+    """Episode-boundary blanking over a (B, history+n) window of
+    ``timestep == 0`` markers (reference memory.py:114-120)."""
+    w = history + n_step
+    blank = [torch.zeros_like(firsts[:, 0]) for _ in range(w)]
+    for t in range(history - 2, -1, -1):      # frames before an episode start
+        blank[t] = blank[t + 1] | firsts[:, t + 1]
+    for t in range(history, history + n_step):  # frames after a terminal
+        blank[t] = blank[t - 1] | firsts[:, t]
+    return torch.stack(blank, dim=1)
+
+
+def _masked_flat_priorities(state: ReplayState, history: int,
+                            n_step: int) -> torch.Tensor:
+    e, c = state.priorities.shape
+    valid = _valid_time_mask(c, state.index, history, n_step)
+    return torch.where(valid[None, :], state.priorities,
+                       torch.zeros_like(state.priorities)).reshape(-1)
+
+
+def _gather_unnormalised(state: ReplayState, idx: torch.Tensor,
+                         p: torch.Tensor, total: torch.Tensor, beta,
+                         history: int, n_step: int, discount: float) -> dict:
+    """The windowed gather and batch assembly for flat indices ``idx``
+    (JAX prioritized.py:157-209), stacks kept uint8 (the ``states_uint8``
+    form). IS weights are not yet normalised."""
+    e_count, c = state.priorities.shape
+    e, i = idx // c, idx % c
+    offs = torch.arange(-history + 1, n_step + 1, device=idx.device)
+    wi = (i[:, None] + offs[None, :]) % c
+    eb = e[:, None]
+    frames_w = state.frames[eb, wi]            # (B, h+n, F*F) uint8
+    blank = _blank_masks(state.timesteps[eb, wi] == 0, history, n_step)
+    frames_w = frames_w.masked_fill(blank[:, :, None], 0)
+    rew_w = state.rewards[eb, wi].masked_fill(blank, 0.0)
+    nt_w = state.nonterminal[eb, wi] & ~blank
+    f = int(round(frames_w.shape[-1] ** 0.5))
+
+    def to_state(fr):  # (B, T, F*F) → (B, F, F, T) uint8, a permuted view
+        return fr.reshape(fr.shape[0], fr.shape[1], f, f).permute(0, 2, 3, 1)
+    gammas = discount ** torch.arange(n_step, dtype=torch.float32,
+                                      device=idx.device)
+    # IS weights (N·p)^−β, N = stored transitions (reference
+    # memory.py:149-154). Zero-mass hits and an all-invalid buffer give
+    # weight 0, never NaN.
+    stored = torch.where(state.full, c, state.index) * e_count
+    probs = p / total.clamp(min=1e-12)
+    weights = (stored.to(torch.float32) * probs) ** (-beta)
+    weights = torch.where((p > 0) & (total > 0), weights,
+                          torch.zeros_like(weights))
+    return {
+        "idxs": idx,
+        "states": to_state(frames_w[:, :history]),
+        "actions": state.actions[eb[:, 0], wi[:, history - 1]],
+        "returns": rew_w[:, history - 1:history - 1 + n_step] @ gammas,
+        "next_states": to_state(frames_w[:, n_step:n_step + history]),
+        "nonterminals": nt_w[:, history + n_step - 1].to(torch.float32),
+        "weights": weights,
+    }
+
+
+def sample_many(state: ReplayState, beta, *, num_batches: int,
+                batch_size: int, history: int, n_step: int, discount: float,
+                generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None) -> dict:
+    """A learner round's batches in one stratified pass against the current
+    priorities (JAX prioritized.py:247-277, ``states_uint8=True``). Fields
+    have leading shape (num_batches, batch_size): ``idxs`` (flat leaf
+    indices for update_priorities), ``states`` and ``next_states`` uint8
+    (…, 84, 84, history), ``actions``, ``returns``, ``nonterminals``,
+    ``weights``, and ``weights_max`` (num_batches,).
+
+    Segment j of the stratification goes to batch j % num_batches, and IS
+    weights are normalised per batch by that batch's max, floored at
+    1e-12. ``u`` (num_batches·batch_size,) replaces the uniform draw from
+    ``generator``."""
+    nb, bs = num_batches, batch_size
+    flat = _masked_flat_priorities(state, history, n_step)
+    idx, p, total = _stratified_find(flat, nb * bs, generator, u)
+    # Gather straight into (batch, row) order: draw j is row j // nb of
+    # batch j % nb.
+    order = torch.arange(nb * bs, device=idx.device).view(bs, nb).T.reshape(-1)
+    out = _gather_unnormalised(state, idx[order], p[order], total, beta,
+                               history, n_step, discount)
+    out = {k: v.reshape((nb, bs) + v.shape[1:]) for k, v in out.items()}
+    wmax = out["weights"].amax(dim=1, keepdim=True).clamp(min=1e-12)
+    out["weights"] = out["weights"] / wmax
+    out["weights_max"] = wmax[:, 0]
+    return out
+
+
+def states_to_float(stacks: torch.Tensor) -> torch.Tensor:
+    """uint8 (…, F, F, H) stacks → float32 in [0, 1] (reference env.py:29)."""
+    return stacks.to(torch.float32) / 255.0
+
+
+def update_priorities(state: ReplayState, idxs: torch.Tensor,
+                      losses: torch.Tensor,
+                      priority_exponent: float) -> ReplayState:
+    """Write back ``loss^ω`` at the flat indices ``idxs`` and raise the
+    monotone max (reference memory.py:157-159), in place on the device.
+    Where an index repeats, one of its writes wins."""
+    p = losses ** priority_exponent
+    state.priorities.view(-1)[idxs] = p
+    torch.maximum(state.max_priority, p.max(), out=state.max_priority)
+    return state

@@ -48,7 +48,7 @@ def _configs(**kw):
 
 def _params(cfg, seed=0):
     jp = jdqn.init_dqn_params(jax.random.key(seed), cfg, A)
-    return jp, params_from_jax(jax.tree.map(np.asarray, jp))
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _assert_same_replay(j, t):

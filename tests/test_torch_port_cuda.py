@@ -8,7 +8,11 @@ card every test here skips. On the card, from the repository root
 Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
 bf16 differs by a few bf16 ulps of O(1) values; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
-integer work is bit-exact.
+integer work is bit-exact. Adam's kernel does the plain version's float32
+ops in the same order except the global norm's sum, so params agree to
+1e-7 after three steps (3·lr·2^-7 with a bf16 mu, where a rounding that
+falls the other way moves an update by 2^-7 of lr), and two runs give the
+same bits. After a learner round, params agree to lr/100.
 """
 import dataclasses
 
@@ -17,18 +21,25 @@ import pytest
 import torch
 
 import rainbow_tpu_torch
+from rainbow_tpu_torch import agent as ag
 from rainbow_tpu_torch.envs.fake import FakeAtariEnv
-from rainbow_tpu_torch.kernels import launches, reset_launches
+from rainbow_tpu_torch.kernels import LAUNCHES, launches, reset_launches
+from rainbow_tpu_torch.kernels import c51 as k4
+from rainbow_tpu_torch.kernels.adam import clip_adam
 from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
-from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
+from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+                                                    noisy_linear_fwd)
 from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
 from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+                                            noisy_linear_bwd_plain,
                                             noisy_linear_plain, scale_noise)
+from rainbow_tpu_torch.ops import c51 as oc51
 from rainbow_tpu_torch.ops import preprocess as pp
 from rainbow_tpu_torch.ops.c51 import support_vector
 from rainbow_tpu_torch.ops.head import dueling_head_plain
 from rainbow_tpu_torch.replay import prioritized as rp
+from rainbow_tpu_torch import train as ttrain
 from rainbow_tpu_torch.train import actor_step_packed, pack_resets, stage_step
 
 pytestmark = pytest.mark.cuda
@@ -142,10 +153,178 @@ def test_actor_steps_on_card_match_cpu(cuda):
         runs[dev] = (stack.cpu(), rep, history, launches())
     assert torch.equal(runs["cuda"][0], runs["cpu"][0])
     assert _same(runs["cuda"][1], runs["cpu"][1])
-    assert runs["cuda"][3] == {"noisy_linear_fwd": 20, "dueling_head": 5,
-                               "append_framestack": 5}
-    assert runs["cpu"][3] == {"noisy_linear_fwd": 0, "dueling_head": 0,
-                              "append_framestack": 0}
+    assert runs["cuda"][3] == dict(dict.fromkeys(LAUNCHES, 0),
+                                   noisy_linear_fwd=20, dueling_head=5,
+                                   append_framestack=5)
+    assert runs["cpu"][3] == dict.fromkeys(LAUNCHES, 0)
     agree = sum(torch.equal(x, y) for x, y in zip(runs["cuda"][2],
                                                    runs["cpu"][2]))
     assert agree >= 4  # a near-tie may flip one step's argmax
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["mu", "shared", "row"])
+def test_noisy_linear_bwd_kernel_matches_plain(cuda, mode, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, n_in, n_out = 37, 301, 70  # ragged against every tile edge
+    prm = init_noisy_params(g, n_in, n_out, 0.5)
+    x = (torch.rand((b, n_in), generator=g, device=cuda) * 2).to(dt)
+    gy = torch.randn((b, n_out), generator=g, device=cuda).to(dt)
+    lead = (b,) if mode == "row" else ()
+    eps = None if mode == "mu" else (scale_noise(g, lead + (n_in,)),
+                                     scale_noise(g, lead + (n_out,)))
+    tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
+    w = (prm["weight_mu"], prm["weight_sigma"])
+    for relu in (False, True):
+        y = noisy_linear_fwd(prm, x, eps, relu) if relu else None
+        got = noisy_linear_bwd(*w, x, gy, eps, y)
+        want = noisy_linear_bwd_plain(*w, x, gy, eps, y)
+        assert got[0].dtype == dt
+        for a, c in zip(got, want):
+            torch.testing.assert_close(a.float(), c.float(), atol=tol[0],
+                                       rtol=tol[1])
+
+
+def test_c51_target_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, n_act = 37, 6
+    z = support_vector(-10.0, 10.0, 51, cuda)
+    pns = torch.softmax(torch.randn((b, n_act, 51), generator=g,
+                                    device=cuda) * 2, dim=2)
+    a_star = torch.randint(0, n_act, (b,), generator=g, device=cuda)
+    ret = torch.rand((b,), generator=g, device=cuda) * 24 - 12
+    nt = (torch.rand((b,), generator=g, device=cuda) > 0.3).float()
+    # Integer b: terminal rows whose return sits exactly on an atom.
+    ret[:3] = torch.tensor([-10.0, 0.0, 10.0], device=cuda)
+    nt[:3] = 0.0
+    got = k4.c51_target(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
+    want = oc51.c51_target_plain(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0,
+                                 10.0)
+    # b reaches 50, where a float32 ulp is 3.8e-6, and the kernel divides
+    # by Δz where PyTorch multiplies by its reciprocal.
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.sum(1), torch.ones(b, device=cuda),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_c51_loss_kernel_matches_plain(cuda, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, n_act = 37, 6  # two row blocks
+    v = (torch.randn((b, 51), generator=g, device=cuda) * 2).to(dt)
+    a = (torch.randn((b, n_act * 51), generator=g, device=cuda) * 2).to(dt)
+    actions = torch.randint(0, n_act, (b,), generator=g, device=cuda)
+    m = torch.softmax(torch.randn((b, 51), generator=g, device=cuda), dim=1)
+    w = torch.rand((b,), generator=g, device=cuda)
+    got = k4.head_loss(v, a, actions, m, w)
+    want = oc51.head_loss_plain(v, a, actions, m, w)
+    for x, y, atol in zip(got, want, (1e-5, 1e-5, 1e-6, 1e-6)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        torch.testing.assert_close(x.float(), y.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clip", ["below", "above"])
+def test_clip_adam_kernel_matches_plain(cuda, clip, mu_dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    shapes = [(70, 301), (70,), (5000,), (3, 4, 5), (1,), (9000,)]
+    scale = 1e-3 if clip == "below" else 1.0
+    mdt = getattr(torch, mu_dtype)
+    states = {}
+    for run in ("kernel", "plain", "again"):
+        p = [torch.randn(s, generator=torch.Generator(device=cuda)
+                         .manual_seed(i), device=cuda) for i, s in
+             enumerate(shapes)]
+        states[run] = (p, [torch.zeros(s, dtype=mdt, device=cuda)
+                           for s in shapes],
+                       [torch.zeros(s, device=cuda) for s in shapes],
+                       torch.zeros((), dtype=torch.int32, device=cuda))
+    for _ in range(3):
+        grads = [torch.randn(s, generator=g, device=cuda) * scale
+                 for s in shapes]
+        norm = float(torch.sqrt(sum((x * x).sum() for x in grads)))
+        assert (norm < 10) == (clip == "below")
+        for run, fn in (("kernel", clip_adam), ("plain", ag.apply_grads_plain),
+                        ("again", clip_adam)):
+            p, mu, nu, count = states[run]
+            fn(p, grads, mu, nu, count, 6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)
+    kp, kmu, knu, kc = states["kernel"]
+    pp_, pmu, pnu, pc = states["plain"]
+    assert int(kc) == int(pc) == 3
+    p_tol = 1e-7 if mdt == torch.float32 else 3 * 6.25e-5 * 2 ** -7
+    for x, y in zip(kp, pp_):
+        torch.testing.assert_close(x, y, atol=p_tol, rtol=0)
+    for x, y in zip(knu, pnu):
+        torch.testing.assert_close(x, y, atol=0, rtol=1e-5)
+    for x, y in zip(kmu, pmu):
+        assert x.dtype == mdt
+        torch.testing.assert_close(
+            x.float(), y.float(), rtol=0,
+            atol=float(y.float().abs().max()) * (1e-6 if mdt == torch.float32
+                                                 else 2 ** -8))
+    # Deterministic: a second run gives the same bits.
+    for a, b in zip(states["kernel"][:3], states["again"][:3]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_learner_round_on_card_matches_cpu(cuda):
+    """One learner round through the kernels and through the plain versions
+    on the CPU, with the same replay, params and draws; the kernels launch
+    the counts the round needs."""
+    cfg = rainbow_tpu_torch.canonical(num_envs=4, memory_capacity=128,
+                                      hidden_size=32, batch_size=4)
+    n_act, nl = 3, 2
+    rng = np.random.default_rng(7)
+    base = rp.init_replay(4, 32, 84, "cpu")
+    base.frames.copy_(torch.from_numpy(rng.integers(0, 256, base.frames.shape,
+                                                    np.uint8)))
+    base.timesteps.copy_(torch.from_numpy(rng.integers(0, 5, (4, 32),
+                                                       np.int32)))
+    base.rewards.copy_(torch.from_numpy(rng.normal(size=(4, 32))
+                                        .astype(np.float32)))
+    base.nonterminal.fill_(True)
+    base.priorities.copy_(torch.from_numpy(rng.gamma(2.0, 1.0, (4, 32))
+                                           .astype(np.float32)))
+    base.index.fill_(9)
+    base.full.fill_(True)
+    gen = torch.Generator().manual_seed(8)
+    draws = {"u": torch.rand(nl * 4, generator=gen),
+             "target": draw_noise(cfg, n_act, gen, (nl * 4,)),
+             "online": draw_noise(cfg, n_act, gen, (nl,))}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        agent = ag.init_agent(cfg, n_act, 0, "cpu")
+        agent = ag.AgentState(
+            params={k: v.to(dev) for k, v in agent.params.items()},
+            target_params={k: v.to(dev) for k, v in
+                           agent.target_params.items()},
+            opt_state=ag.init_adam({k: v.to(dev) for k, v in
+                                    agent.params.items()}, cfg),
+            generator=torch.Generator(device=dev))
+        rep = rp.ReplayState(**{f.name: getattr(base, f.name).to(dev).clone()
+                                for f in dataclasses.fields(base)})
+        d = {"u": draws["u"].to(dev),
+             **{k: {n: (x.to(dev), y.to(dev)) for n, (x, y) in
+                    draws[k].items()} for k in ("target", "online")}}
+        reset_launches()
+        loss = ttrain.learner_round(agent, rep, cfg, n_act, nl, 0.5, d)
+        out[dev] = (float(loss), agent, rep, launches())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    # Params to lr/100: a gradient that differs by summation order moves an
+    # Adam step by at most lr·Δg/eps, and by far less where |g| ≫ eps.
+    # Every tensor moved by more than that.
+    tol = 6.25e-5 / 100
+    params0 = ag.init_agent(cfg, n_act, 0, "cpu").params
+    for k, v in out["cpu"][1].params.items():
+        torch.testing.assert_close(out["cuda"][1].params[k].cpu(), v,
+                                   atol=tol, rtol=0)
+        assert float((v - params0[k]).abs().max()) > tol, k
+    torch.testing.assert_close(out["cuda"][2].priorities.cpu(),
+                               out["cpu"][2].priorities, atol=1e-4, rtol=1e-4)
+    assert out["cuda"][3] == dict(
+        dict.fromkeys(LAUNCHES, 0), noisy_linear_fwd=4 + 8 * nl,
+        dueling_head=1 + nl, noisy_linear_bwd=4 * nl, c51_target=nl,
+        head_loss=nl, clip_adam=nl)
+    assert out["cpu"][3] == dict.fromkeys(LAUNCHES, 0)

@@ -14,12 +14,16 @@ import pytest
 import torch
 
 from rainbow_tpu_torch import kernels
+from rainbow_tpu_torch import agent as ag
 from rainbow_tpu_torch.kernels import build
+from rainbow_tpu_torch.kernels import c51 as k4
+from rainbow_tpu_torch.kernels.adam import clip_adam
 from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
-from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
+from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+                                                    noisy_linear_fwd)
 from rainbow_tpu_torch.models.noisy import init_noisy_params, noisy_linear
-from rainbow_tpu_torch.ops.c51 import support_vector
+from rainbow_tpu_torch.ops.c51 import c51_target, head_loss, support_vector
 from rainbow_tpu_torch.ops.head import dueling_head
 from rainbow_tpu_torch.ops.preprocess import update_framestack
 
@@ -33,13 +37,25 @@ def _layer():
 @pytest.mark.parametrize("call", [
     lambda: noisy_linear_fwd(_layer(), torch.zeros(2, 8)),
     lambda: dueling_head_fwd(torch.zeros(2, 51), torch.zeros(2, 102),
-                             support_vector(-10, 10, 51), 2),
+                             support_vector(-10, 10, 51, "cpu"), 2),
     lambda: append_framestack(torch.zeros(2, 84, 84, 4, dtype=torch.uint8),
                               torch.zeros(2, 84, 84, dtype=torch.uint8),
                               torch.zeros(0, 84, 84, dtype=torch.uint8),
                               torch.zeros(0, dtype=torch.int32),
                               torch.zeros(2, dtype=torch.uint8)),
-], ids=["noisy_linear_fwd", "dueling_head", "append_framestack"])
+    lambda: noisy_linear_bwd(_layer()["weight_mu"], _layer()["weight_sigma"],
+                             torch.zeros(2, 8), torch.zeros(2, 4)),
+    lambda: k4.c51_target(torch.zeros(2, 3, 51), torch.zeros(2).long(),
+                          torch.zeros(2), torch.zeros(2),
+                          0.97, support_vector(-10, 10, 51, "cpu"), -10, 10),
+    lambda: k4.head_loss(torch.zeros(2, 51), torch.zeros(2, 153),
+                         torch.zeros(2).long(), torch.zeros(2, 51),
+                         torch.ones(2)),
+    lambda: clip_adam([torch.zeros(3)], [torch.zeros(3)], [torch.zeros(3)],
+                      [torch.zeros(3)], torch.zeros((), dtype=torch.int32),
+                      1e-3, 0.9, 0.999, 1e-8, 10.0),
+], ids=["noisy_linear_fwd", "dueling_head", "append_framestack",
+        "noisy_linear_bwd", "c51_target", "c51_loss", "clip_adam"])
 def test_wrappers_refuse_cpu_tensors(call):
     before = kernels.launches()
     with pytest.raises(ValueError, match="CUDA"):
@@ -49,21 +65,35 @@ def test_wrappers_refuse_cpu_tensors(call):
 
 def test_dispatchers_run_plain_versions_on_cpu_without_launching():
     kernels.reset_launches()
-    y = noisy_linear(_layer(), torch.ones(3, 8), relu=True)
-    out = dueling_head(torch.zeros(3, 51), torch.zeros(3, 102),
-                       support_vector(-10, 10, 51), 2, "probs")
+    x = torch.ones(3, 8, requires_grad=True)
+    y = noisy_linear(_layer(), x, relu=True)
+    y.sum().backward()
+    z = support_vector(-10, 10, 51, "cpu")
+    out = dueling_head(torch.zeros(3, 51), torch.zeros(3, 102), z, 2, "probs")
+    m = c51_target(out.dist, out.action, torch.zeros(3), torch.ones(3), 0.97,
+                   z, -10.0, 10.0)
+    v = torch.zeros(3, 51, requires_grad=True)
+    losses, loss = head_loss(v, torch.zeros(3, 102), out.action, m,
+                             torch.ones(3))
+    loss.backward()
+    p = [torch.ones(3)]
+    ag.apply_grads_plain(p, [torch.ones(3)], [torch.zeros(3)],
+                         [torch.zeros(3)], torch.zeros((), dtype=torch.int32),
+                         1e-3, 0.9, 0.999, 1e-8, 10.0)
     st = torch.zeros(2, 84, 84, 4, dtype=torch.uint8)
     new = update_framestack(st, st[..., 0] + 1, st[..., 0],
                             torch.zeros(2, dtype=torch.uint8))
-    assert y.shape == (3, 4) and float(y.min()) >= 0.0
+    assert y.shape == (3, 4) and float(y.detach().min()) >= 0.0
+    assert x.grad.shape == (3, 8) and v.grad.shape == (3, 51)
     assert out.dist.shape == (3, 2, 51)
+    assert m.shape == (3, 51) and losses.shape == (3,)
+    assert float(p[0][0]) < 1.0
     assert int(new[..., -1].min()) == 1
-    assert kernels.launches() == {"noisy_linear_fwd": 0, "dueling_head": 0,
-                                  "append_framestack": 0}
+    assert kernels.launches() == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
 def test_build_names_libraries_by_source_hash():
-    assert set(build.SOURCES) == {"noisy_linear", "append_framestack"}
+    assert set(build.SOURCES) == {"noisy_linear", "append_framestack", "adam"}
     for name in build.SOURCES:
         path = build.lib_path(name)
         assert path.parent == build.BUILD_DIR

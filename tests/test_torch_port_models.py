@@ -18,12 +18,14 @@ import pytest
 import torch
 
 import rainbow_tpu
+import rainbow_tpu.agent  # noqa: F401  (make_optimizer)
 from rainbow_tpu.models import dqn as jdqn
 from rainbow_tpu.models import noisy as jnoisy
 from rainbow_tpu.ops.c51 import support_vector as jsupport
 
 import rainbow_tpu_torch
-from rainbow_tpu_torch.convert import params_from_jax, params_to_jax
+from rainbow_tpu_torch.convert import (opt_state_from_jax, params_from_jax,
+                                       params_to_jax)
 from rainbow_tpu_torch.models import dqn as tdqn
 from rainbow_tpu_torch.models import noisy as tnoisy
 from rainbow_tpu_torch.ops.c51 import support_vector as tsupport
@@ -114,7 +116,7 @@ def test_init_and_scale_noise_shapes_and_ranges():
 
 def _net(cfg, seed=0):
     jp = jdqn.init_dqn_params(jax.random.key(seed), cfg, A)
-    return jp, params_from_jax(jax.tree.map(np.asarray, jp))
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _states(rng, b, h=4):
@@ -176,7 +178,7 @@ def test_q_values_and_head_match_jax():
     x = _states(np.random.default_rng(5), 6)
     js = jsupport(cfg.v_min, cfg.v_max, cfg.atoms)
     want = np.asarray(jdqn.q_values(jp, cfg, A, js, jnp.asarray(x)))
-    ts = tsupport(cfg.v_min, cfg.v_max, cfg.atoms)
+    ts = tsupport(cfg.v_min, cfg.v_max, cfg.atoms, "cpu")
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
     got = tdqn.q_values(tp, cfg, A, ts, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, **F32)
@@ -188,7 +190,7 @@ def test_q_values_and_head_match_jax():
 
 
 def test_dueling_head_first_max_wins_and_modes():
-    z = tsupport(-10.0, 10.0, 51)
+    z = tsupport(-10.0, 10.0, 51, "cpu")
     v = torch.zeros(2, 51)
     a = torch.zeros(2, 3 * 51)  # every action ties: jnp.argmax picks 0
     out = dueling_head(v, a, z, 3, "log")
@@ -203,7 +205,7 @@ def test_params_round_trip_and_layout():
     cfg = rainbow_tpu.canonical(hidden_size=16)
     jp = jax.tree.map(np.asarray, jdqn.init_dqn_params(jax.random.key(4), cfg,
                                                        A))
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, device="cpu")
     assert tp["convs.0.weight"].shape == (32, 4, 8, 8)  # OIHW
     assert tp["convs.4.weight"].shape == (64, 64, 3, 3)
     assert tp["fc_h_v.weight_mu"].shape == (16, 3136)
@@ -220,13 +222,34 @@ def test_init_dqn_params_keys_and_device():
     cfg = rainbow_tpu_torch.data_efficient(hidden_size=8)
     tp = tdqn.init_dqn_params(cfg, A, torch.Generator().manual_seed(0), "cpu")
     jp = params_from_jax(jax.tree.map(
-        np.asarray, jdqn.init_dqn_params(jax.random.key(0), cfg, A)))
+        np.asarray, jdqn.init_dqn_params(jax.random.key(0), cfg, A)),
+        device="cpu")
     assert {k: v.shape for k, v in tp.items()} == \
         {k: v.shape for k, v in jp.items()}
     assert all(v.dtype == torch.float32 for v in tp.values())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tdqn.init_dqn_params(cfg, A, torch.Generator(), "cuda")
+
+
+def test_params_and_support_default_to_the_card():
+    """params_from_jax, opt_state_from_jax and support_vector put their
+    tensors on the card unless asked for the CPU, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    cfg = rainbow_tpu.data_efficient(hidden_size=8)
+    jp = jax.tree.map(np.asarray,
+                      jdqn.init_dqn_params(jax.random.key(0), cfg, A))
+    opt = jax.tree.map(np.asarray, rainbow_tpu.agent.make_optimizer(cfg)
+                       .init(jp))
+    for call in (lambda: params_from_jax(jp),
+                 lambda: opt_state_from_jax(opt),
+                 lambda: tsupport(-10.0, 10.0, 51)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert params_from_jax(jp, device="cpu")["fc_z_v.bias_mu"].device.type \
+        == "cpu"
+    assert opt_state_from_jax(opt, device="cpu").count.device.type == "cpu"
 
 
 def test_port_imports_nothing_of_jax():
