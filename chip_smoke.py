@@ -13,7 +13,9 @@ exit code:
             native Atari engine.
 2. compare  every kernel against its plain PyTorch version on the card, at
             the shapes the actor and the learner give it, with stated
-            tolerances.
+            tolerances; the replay's sampler, gather and write-back on a
+            random ring of the canonical width (7.05 GB), where they are
+            also timed.
 3. update   one learner update (compute_update_pretarget + apply_grads) of
             the canonical net on the card against the same update through
             the plain versions on the CPU.
@@ -26,7 +28,13 @@ exit code:
             actor iterations, then train_iter_packed with 256 updates per
             iteration (batch 32, the canonical replay ratio), one of them
             with the target sync: env-steps/s, updates/s, launch counts.
-7. kernels  each kernel's time against its plain version, a library call
+7. trainer  the main path: the Trainer through cli.main at the same width
+            (31 warm-up iterations, 9 of 256 updates, an evaluation and a
+            checkpoint, the best model, metrics and plots); a replay-bearing
+            save on a 64-column ring restored exactly into a new Trainer;
+            --evaluate of the best model. Launch counts (K5-K7 once per
+            round), env-steps/s, updates/s, eval, save and restore times.
+8. kernels  each kernel's time against its plain version, a library call
             and its bound, at the main path's shapes; one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -50,8 +58,8 @@ GAME, ENVS, SEED = "pong", 1024, 0
 ACTOR_ITERS = 200
 EVAL_FRAMES = 4000  # max_episode_length of the evaluation episodes
 WARMUP_ITERS = 32   # train phase: actor iterations that fill the ring
-TRAIN_ITERS = 8     # then fused iterations with a learner round each
-SYNC_AT = 4         # the train iteration that syncs the target net
+TRAIN_ITERS = 4     # then fused iterations with a learner round each
+SYNC_AT = 2         # the train iteration that syncs the target net
 PROFILE_UPDATES = 64  # --profile: the traced training iteration's round
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
@@ -99,6 +107,22 @@ def time_ms(torch, fn, reps=30, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps=10):
+    """Mean device time of the kernels one call of ``fn`` launches, in ms,
+    from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 # ------------------------------------------------------------- compare -----
@@ -457,6 +481,209 @@ def compare_adam(torch, shapes, report):
     return worst
 
 
+def _replay_on_card(torch, e, c, seed, history=4):
+    """A random canonical-width ring made on the card: frames, actions,
+    rewards, nonterminals, episode starts (timestep 0) about one step in six,
+    gamma-like priorities with some zeros."""
+    from rainbow_tpu_torch.replay.prioritized import init_replay
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rep = init_replay(e, c, 84, "cuda")
+    rep.frames.random_(0, 256, generator=g)
+    rep.actions.random_(0, 6, generator=g)
+    rep.rewards.normal_(generator=g)
+    rep.timesteps.random_(0, 6, generator=g)
+    rep.nonterminal.copy_(torch.rand((e, c), generator=g, device="cuda") > 0.1)
+    pr = -torch.log(torch.rand((e, c), generator=g, device="cuda")
+                    * torch.rand((e, c), generator=g, device="cuda"))
+    pr[torch.rand((e, c), generator=g, device="cuda") < 0.1] = 0.0
+    rep.priorities.copy_(pr)
+    rep.max_priority.fill_(float(pr.max()))
+    return rep, g
+
+
+def _check_write_back(torch, rep0, kern, plain, draw_idx, idxs, p):
+    """K7 against its plain version: untouched and once-written leaves
+    exact, each repeated leaf holds the value of the last draw of its run
+    (in draw order), the max exact. Returns the number of repeated leaves."""
+    n = rep0.priorities.numel()
+    flat = idxs.reshape(-1)
+    counts = torch.bincount(flat, minlength=n)
+    got, want = kern.priorities.view(-1), plain.priorities.view(-1)
+    check(torch.equal(got[counts == 0], rep0.priorities.view(-1)[counts == 0]),
+          "write_priorities: an untouched leaf changed")
+    check(torch.equal(got[counts == 1], want[counts == 1]),
+          "write_priorities: a once-drawn leaf differs from the plain version")
+    nb, bs = idxs.shape
+    j = torch.arange(nb * bs, device=flat.device)
+    p_draw = p[j % nb, j // nb]
+    last = torch.ones_like(draw_idx, dtype=torch.bool)
+    last[:-1] = draw_idx[1:] != draw_idx[:-1]
+    check(torch.equal(got[draw_idx[last]], p_draw[last]),
+          "write_priorities: a repeated leaf is not its run's last value")
+    hits = torch.zeros(n, device=flat.device).index_add_(
+        0, flat, (got[flat] == p.reshape(-1)).float())
+    check(bool((hits[counts > 1] > 0).all()),
+          "write_priorities: a repeated leaf holds none of its candidates")
+    check(torch.equal(kern.max_priority, plain.max_priority),
+          "write_priorities: max_priority differs")
+    return int((counts > 1).sum())
+
+
+def compare_replay(torch, np, cfg, report):
+    """K5, K6 and K7 against their plain versions on a random ring of the
+    canonical width (1024 envs x 976 columns, 7.05 GB of frames on the
+    card): the canonical round (256 batches of 32), the throughput preset's
+    (32 of 256), the data-efficient window of 24 frames (n-step 20), an
+    empty ring and a ring just after a wrap, with three leaves that hold
+    half of the mass in the round's case so that draws repeat. K5 must be
+    bit-exact; K6's window, actions and nonterminals bit-exact, its returns
+    and weights within 1e-6 relative (1e-6 absolute near 0); K7 as
+    _check_write_back. Returns (errors by kernel, timing rows)."""
+    import dataclasses
+
+    from rainbow_tpu_torch.kernels import replay as k_replay
+    from rainbow_tpu_torch.replay import prioritized as rp
+
+    e, c = ENVS, cfg.capacity_per_env
+    rep, g = _replay_on_card(torch, e, c, 20)
+    base_prio = rep.priorities.clone()
+    hot = torch.randperm(e * c, generator=g, device="cuda")[:3]
+    nb0 = ENVS // cfg.replay_frequency
+    cases = (  # name, index, full, n_step, num_batches, batch_size, hot, empty
+        ("round", 500, True, 3, nb0, cfg.batch_size, True, False),
+        ("throughput", 500, True, 3, 32, 256, False, False),
+        ("window_24", 321, True, 20, nb0, cfg.batch_size, False, False),
+        ("empty", 321, False, 3, nb0, cfg.batch_size, False, True),
+        ("after_wrap", 0, True, 3, nb0, cfg.batch_size, False, False),
+    )
+    err6 = 0.0
+    for name, index, full, n, nb, bs, with_hot, empty in cases:
+        rep.priorities.copy_(base_prio)
+        if with_hot:
+            rep.priorities.view(-1)[hot] = float(base_prio.sum()) / 3
+        if empty:
+            rep.priorities.zero_()
+        rep.index.fill_(index)
+        rep.full.fill_(full)
+        u = torch.rand(nb * bs, generator=g, device="cuda")
+        idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
+        want = rp.stratified_sample_plain(rep, u, 4, n)
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip((idx, p, total), want)),
+              f"stratified_sample {name}: differs from the plain version")
+        got = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n,
+                                     0.99)
+        want = rp.gather_window_plain(rep, idx, p, total, 0.6, nb, bs, 4, n,
+                                      0.99)
+        for k in ("idxs", "states", "next_states", "actions",
+                  "nonterminals"):
+            check(got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                                want[k]),
+                  f"gather_window {name}: {k} differs")
+        errs = [check_close(f"gather_window {name} {k}", got[k], want[k],
+                            1e-6, 1e-6)
+                for k in ("returns", "weights", "weights_max")]
+        if empty:
+            check(not bool(got["weights"].any()), "gather_window: empty "
+                  "ring must give zero weights")
+        err6 = max(err6, *errs)
+        losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
+        kern, plain = (dataclasses.replace(
+            rep, priorities=rep.priorities.clone(),
+            max_priority=rep.max_priority.clone()) for _ in range(2))
+        k_replay.write_priorities(kern, got["idxs"], losses, 0.5)
+        rp.update_priorities_plain(plain, got["idxs"], losses, 0.5)
+        repeated = _check_write_back(torch, rep, kern, plain, idx,
+                                     got["idxs"], losses ** 0.5)
+        check(repeated > 0 or not (with_hot or empty),
+              f"write_priorities {name}: no repeated leaf to check")
+        del kern, plain
+        report.append(("replay", name, nb, bs, 4 + n, repeated, max(errs)))
+    # Timing at the canonical round on the random ring as it was made (no
+    # hot leaves).
+    rep.priorities.copy_(base_prio)
+    rep.index.fill_(500)
+    rep.full.fill_(True)
+    rows = replay_kernel_rows(torch, rep, g, nb0, cfg.batch_size, 3)
+    del rep
+    torch.cuda.empty_cache()
+    return {"stratified_sample": 0.0, "gather_window": err6,
+            "write_priorities": 0.0}, rows
+
+
+def replay_kernel_rows(torch, rep, g, nb, bs, n):
+    """Rows of K5, K6 and K7 at the canonical round's shapes on the ring of
+    compare_replay, with their device time from torch.profiler beside the
+    event time. K6's bound counts the frames this round's draws need: each
+    distinct frame that is not blanked read once, every window frame
+    written. No single PyTorch call computes any of the three, so
+    library_ms is null."""
+    import dataclasses
+
+    from rainbow_tpu_torch.kernels import replay as k_replay
+    from rainbow_tpu_torch.replay import prioritized as rp
+
+    e, c = rep.priorities.shape
+    leaves, b, w, fp = e * c, nb * bs, 4 + n, rep.frames.shape[2]
+    tree_levels = (1 << (leaves - 1).bit_length()) - 1
+    u = torch.rand(b, generator=g, device="cuda")
+    idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
+    cols = (idx[:, None] % c + torch.arange(-3, n + 1, device="cuda")) % c
+    rows_of = (idx // c)[:, None] * c
+    blank = rp._blank_masks(rep.timesteps.view(-1)[rows_of + cols] == 0, 4,
+                            n)
+    frames_read = int(torch.unique((rows_of + cols)[~blank]).numel())
+    idxs = idx.view(bs, nb).T.contiguous()
+    losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
+    copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
+                               max_priority=rep.max_priority.clone())
+    k5 = lambda: k_replay.stratified_sample(rep, u, 4, n)
+    k6 = lambda: k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n,
+                                        0.99)
+    k7 = lambda: k_replay.write_priorities(copy, idxs, losses, 0.5)
+    return [
+        dict(name="stratified_sample", route="cuda",
+             source="rainbow_tpu_torch/kernels/csrc/replay.cu",
+             replaces="rainbow_tpu/replay/prioritized.py:102",
+             shape=f"{e}x{c} leaves, B={b}",
+             ms=time_ms(torch, k5), device_ms=device_ms(torch, k5),
+             plain_ms=time_ms(torch, lambda: rp.stratified_sample_plain(
+                 rep, u, 4, n)),
+             library_ms=None,
+             # Read the priorities, the head and u; write idx, p, total.
+             # The tree's adds, and per draw a compare and a subtract per
+             # level.
+             flops=tree_levels + 2 * b * (tree_levels.bit_length()),
+             bytes=4 * leaves + 4 + 4 * b + 12 * b + 4),
+        dict(name="gather_window", route="cuda",
+             source="rainbow_tpu_torch/kernels/csrc/replay.cu",
+             replaces="rainbow_tpu/replay/prioritized.py:157",
+             shape=f"nb={nb} bs={bs} window={w} x {fp} B",
+             ms=time_ms(torch, k6), device_ms=device_ms(torch, k6),
+             plain_ms=time_ms(torch, lambda: rp.gather_window_plain(
+                 rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)),
+             library_ms=None,
+             # Read each distinct unblanked frame once; per draw its window's
+             # timesteps, its n rewards, a nonterminal, an action, idx and
+             # p; write the window and five scalars; per batch one max.
+             flops=b * (2 * n + 8), frames_read=frames_read,
+             bytes=(frames_read * fp + b * w * fp
+                    + b * (4 * w + 4 * n + 1 + 4 + 8 + 4)
+                    + b * (8 + 4 + 4 + 4 + 4) + 4 * nb + 4 + 4 + 1)),
+        dict(name="write_priorities", route="cuda",
+             source="rainbow_tpu_torch/kernels/csrc/replay.cu",
+             replaces="rainbow_tpu/replay/prioritized.py:285",
+             shape=f"B={b} into {e}x{c}",
+             ms=time_ms(torch, k7), device_ms=device_ms(torch, k7),
+             plain_ms=time_ms(torch, lambda: rp.update_priorities_plain(
+                 copy, idxs, losses, 0.5)),
+             library_ms=None,
+             flops=2 * b,
+             bytes=12 * b + 4 * b + 8),
+    ]
+
+
 def check_learner_update_against_plain(torch, np, cfg, A):
     """One learner update of the canonical net (compute_update_pretarget +
     apply_grads) through the kernels on the card and through the plain
@@ -774,7 +1001,8 @@ def run_train(torch, np, cfg, A, profile=False):
     u, it = TRAIN_ITERS * num_learns, TRAIN_ITERS
     want = {"noisy_linear_fwd": 8 * u + 8 * it, "noisy_linear_bwd": 4 * u,
             "dueling_head": u + 2 * it, "c51_target": u, "head_loss": u,
-            "append_framestack": it, "clip_adam": u}
+            "append_framestack": it, "clip_adam": u, "stratified_sample": it,
+            "gather_window": it, "write_priorities": it}
     check(counts == want, f"train launch counts {counts}, expected {want}")
     med = lambda rows, i: 1e3 * statistics.median(r[i] for r in rows)
     dev_ms = lambda rows: 1e3 * statistics.median(r[2] + r[3] for r in rows)
@@ -799,14 +1027,220 @@ def run_train(torch, np, cfg, A, profile=False):
     return stats, counts
 
 
+# ------------------------------------------------------------- trainer -----
+
+TRAINER_ARGS = ["--num-envs", "1024", "--learn-start", "32768", "--T-max",
+                "40960", "--evaluation-interval", "36864",
+                "--checkpoint-interval", "36864", "--max-episode-length",
+                "4000", "--id", "chip_trainer", "--seed", "0"]
+# The replay-bearing save and restore: a 64-column ring (462 MB of frames),
+# 8 iterations, rounds from T = 4096, the evaluation and the save at the end.
+MEMORY_ARGS = ["--num-envs", "1024", "--memory-capacity", "65536",
+               "--memory", "memory", "--learn-start", "4096", "--T-max",
+               "8192", "--evaluation-interval", "8192",
+               "--max-episode-length", "4000", "--id", "chip_trainer_memory",
+               "--seed", "1"]
+
+
+class _Watch:
+    """Wraps train.train_iter_packed, Trainer.evaluate_now and
+    Trainer.save_checkpoint to time them, and the replay's plain versions to
+    fail if the card's path calls them."""
+
+    def __init__(self, torch):
+        from rainbow_tpu_torch import train as tm
+        from rainbow_tpu_torch.replay import prioritized as rp
+
+        self.iters, self.evals, self.saves = [], [], []
+        self._undo = []
+
+        def timed_iter(real):
+            def wrapper(*args):
+                t0 = time.perf_counter()
+                out = real(*args)
+                torch.cuda.synchronize()
+                self.iters.append((args[2], t0, time.perf_counter()))
+                return out
+            return wrapper
+
+        def timed(real, into):
+            def wrapper(*args, **kw):
+                t0 = time.perf_counter()
+                out = real(*args, **kw)
+                into.append(time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        def refuse(name, real):
+            def wrapper(state, *args, **kw):
+                check(not state.priorities.is_cuda,
+                      f"{name} ran on the card's path")
+                return real(state, *args, **kw)
+            return wrapper
+
+        self._patch(tm, "train_iter_packed", timed_iter)
+        self._patch(tm.Trainer, "evaluate_now",
+                    lambda r: timed(r, self.evals))
+        self._patch(tm.Trainer, "save_checkpoint",
+                    lambda r: timed(r, self.saves))
+        for name in ("stratified_sample_plain", "gather_window_plain",
+                     "update_priorities_plain"):
+            self._patch(rp, name, lambda r, name=name: refuse(name, r))
+
+    def _patch(self, owner, name, make):
+        real = getattr(owner, name)
+        self._undo.append((owner, name, real))
+        setattr(owner, name, make(real))
+
+    def close(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+
+def _same_state(torch, a, b):
+    """The Trainers' agents, generators, replays, T and metrics are equal."""
+    import dataclasses
+    pa, pb = a.agent, b.agent
+    same = all(torch.equal(x[k], y[k])
+               for x, y in ((pa.params, pb.params),
+                            (pa.target_params, pb.target_params),
+                            (pa.opt_state.mu, pb.opt_state.mu),
+                            (pa.opt_state.nu, pb.opt_state.nu)) for k in x)
+    same &= torch.equal(pa.opt_state.count, pb.opt_state.count)
+    same &= pa.step == pb.step and a.T == b.T and a.metrics == b.metrics
+    same &= all(torch.equal(getattr(a.rep, f.name), getattr(b.rep, f.name))
+                for f in dataclasses.fields(a.rep))
+    same &= all(torch.equal(x.get_state(), y.get_state())
+                for x, y in ((pa.generator, pb.generator),
+                             (a.eval_generator, b.eval_generator)))
+    return bool(same)
+
+
+def run_trainer(torch, np):
+    """The Trainer through the command line, at canonical width on the
+    native engine: TRAINER_ARGS (31 warm-up iterations, then 9 of 256
+    updates from T = 32768, the evaluation and a checkpoint at T = 36864),
+    then MEMORY_ARGS (a replay-bearing save, restored into a new Trainer and
+    held exactly against the state that was saved), then --evaluate of the
+    best model. Launch counts are zeroed just before the first run and read
+    just after it. Returns (stats, launch counts)."""
+    import shutil
+
+    from rainbow_tpu_torch import cli
+    from rainbow_tpu_torch import checkpoint as ckpt
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.train import Trainer
+
+    for run in ("chip_trainer", "chip_trainer_memory", "chip_trainer_eval"):
+        shutil.rmtree(os.path.join(ROOT, "results", run), ignore_errors=True)
+    watch = _Watch(torch)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        tr = cli.main(TRAINER_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        iters, evals, saves = (list(watch.iters), list(watch.evals),
+                               list(watch.saves))
+        res = tr.results_dir
+        rounds = sum(1 for n, _, _ in iters if n)
+        c = tr.cfg
+        check(tr.T == c.total_steps and len(iters) == c.total_steps
+              // c.num_envs and rounds == (c.total_steps - c.learn_start)
+              // c.num_envs + 1,
+              f"trainer: T {tr.T}, {len(iters)} iterations, {rounds} rounds")
+        check(tr.metrics["steps"] == [c.evaluation_interval]
+              and len(evals) == 1
+              and len(saves) == 1, f"trainer: evaluations "
+              f"{tr.metrics['steps']}, saves {len(saves)}")
+        for name in ("metrics.json", "model.npz", "checkpoint.npz",
+                     "Reward.html", "Q.html"):
+            check(os.path.exists(os.path.join(res, name)),
+                  f"trainer: {name} not written")
+        check(all(np.isfinite(tr.metrics["Qs"][0])), "trainer: non-finite Q")
+        check(np.isfinite(float(tr._last_loss)), "trainer: non-finite loss")
+        check(all(counts[k] == rounds for k in ("stratified_sample",
+                                                "gather_window",
+                                                "write_priorities")),
+              f"trainer: K5-K7 not once per round: {counts}")
+        check(all(v > 0 for v in counts.values()),
+              f"trainer: a kernel never launched {counts}")
+        # Training wall: from the end of the last warm-up iteration to the
+        # end of the last round, less the evaluation and the save in it.
+        first = next(i for i, (n, _, _) in enumerate(iters) if n)
+        span = iters[-1][2] - iters[first - 1][2] - sum(evals) - sum(saves)
+        timer = dict(tr.timer.totals)
+        T, envs = tr.T, c.num_envs
+        model = os.path.join(res, "model.npz")
+        updates = rounds * tr.learns_per_iter
+        del tr
+        torch.cuda.empty_cache()
+
+        # The replay-bearing save and an exact restore.
+        watch.saves.clear()
+        tm = cli.main(MEMORY_ARGS)
+        mem_path = os.path.join(tm.results_dir, "memory_checkpoint.npz")
+        check(len(watch.saves) == 1 and os.path.exists(mem_path),
+              "trainer: the replay-bearing save did not happen once")
+        check(int(tm.rep.index) == 8 and bool(tm.rep.priorities.any()),
+              "trainer: the small ring was not filled")
+        save_s = watch.saves[0]
+        tb = Trainer(tm.cfg)
+        t1 = time.perf_counter()
+        tb.restore_checkpoint(mem_path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(_same_state(torch, tm, tb),
+              "trainer: the restored state differs from the saved one")
+        mem_mb = os.path.getsize(mem_path) / 2 ** 20
+        ring_mb = tm.rep.frames.numel() / 2 ** 20
+        tb.env.close()
+        del tm, tb
+        torch.cuda.empty_cache()
+
+        # --evaluate of the best model.
+        te = cli.main(TRAINER_ARGS[:-4] + ["--id", "chip_trainer_eval",
+                                           "--seed", "0", "--evaluate",
+                                           "--model", model])
+        saved = ckpt.load_params(model)
+        check(all(torch.equal(te.agent.params[k], v)
+                  for k, v in saved.items()),
+              "trainer: --model did not load the best model")
+        te.env.close()
+        eval_only_s = watch.evals[-1]
+        del te, saved
+        torch.cuda.empty_cache()
+    finally:
+        watch.close()
+    stats = {
+        "envs": envs, "T": T, "iterations": len(iters), "rounds": rounds,
+        "updates_per_round": updates // rounds, "run_wall_s": wall,
+        "train_span_s": span,
+        "train_env_steps_per_s": rounds * envs / span,
+        "learner_updates_per_s": updates / span,
+        "median_round_call_ms": 1e3 * statistics.median(
+            b - a for n, a, b in iters if n),
+        "median_warmup_call_ms": 1e3 * statistics.median(
+            b - a for n, a, b in iters[4:first]),
+        "timer_s": timer, "eval_s": evals[0], "checkpoint_save_s": saves[0],
+        "replay_save_s": save_s, "replay_restore_s": restore_s,
+        "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
+        "evaluate_only_s": eval_only_s, "launches": counts}
+    return stats, counts
+
+
 # ------------------------------------------------------------- kernels -----
 
-def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes):
+def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes,
+                replay_rows):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam), and work out each
-    bound from the same shapes. ``counts`` maps a phase to its launch
-    counts; ``launches`` is the train phase's."""
+    bound from the same shapes; K5-K7's rows (``replay_rows``) come timed
+    from compare_replay. ``counts`` maps a phase to its launch counts;
+    ``launches`` is the trainer phase's (the main path, through cli.main),
+    and the other phases' counts are kept beside it."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
     from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
@@ -887,13 +1321,15 @@ def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes):
                + b * (8 + 4 + 1) + b * (4 + 4 + 4 + 1 + 4) + 2 * b * 4)))
 
     rows += learner_kernel_rows(torch, A, shapes)
+    rows += replay_rows
     for r in rows:
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / FP32_FLOP_PER_S)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / FP32_FLOP_PER_S else "operations")
         r["kernel_ms"] = r["ms"]
-        r["launches"] = counts["train"][r["name"]]
+        r["launches"] = counts["trainer"][r["name"]]
+        r["train_launches"] = counts["train"][r["name"]]
         r["actor_launches"] = counts["actor"][r["name"]]
         r["eval_launches"] = counts["evaluate"][r["name"]]
         r["max_abs_err"] = errs[r["name"]]
@@ -1030,6 +1466,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    os.chdir(ROOT)  # the Trainer writes results/<id>/ relative to here
     from rainbow_tpu_torch import canonical
     from rainbow_tpu_torch import evaluate as ev
     from rainbow_tpu_torch.envs import engine
@@ -1098,6 +1535,8 @@ def main() -> int:
     shapes = [tuple(v.shape) for v in init_dqn_params(
         cfg, A, torch.Generator().manual_seed(0), "cpu").values()]
     errs["clip_adam"] = compare_adam(torch, shapes, report)
+    replay_errs, replay_rows = compare_replay(torch, np, cfg, report)
+    errs.update(replay_errs)
     torch.cuda.synchronize()
     with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
         json.dump(report, f, indent=0)
@@ -1172,11 +1611,16 @@ def main() -> int:
     log("[train] " + json.dumps(train_stats))
     torch.cuda.empty_cache()
 
-    # 7. kernels line --------------------------------------------------------
+    # 7. trainer -------------------------------------------------------------
+    trainer_stats, trainer_counts = run_trainer(torch, np)
+    log("[trainer] " + json.dumps(trainer_stats))
+
+    # 8. kernels line --------------------------------------------------------
     rows = kernel_rows(torch, np, A, errs, {"actor": stats["launches"],
                                             "evaluate": eval_counts,
-                                            "train": train_counts},
-                       stack, staged, shapes)
+                                            "train": train_counts,
+                                            "trainer": trainer_counts},
+                       stack, staged, shapes, replay_rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

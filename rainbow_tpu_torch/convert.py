@@ -7,9 +7,12 @@ flat dict keyed like the reference's state dict (tests/test_torch_import.py:
 ReLUs), ``fc_h_v.weight_mu`` and so on; noisy weights are (out, in) in both.
 Both directions work on numpy arrays or anything ``np.asarray`` takes, so no
 JAX import is needed here. ``opt_state_from_jax`` carries optax's Adam state
-across the same way.
+across the same way, and ``replay_from_jax`` a replay ring, whose layout is
+the same in both packages.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -17,6 +20,7 @@ import torch
 from rainbow_tpu_torch.agent import AdamState
 from rainbow_tpu_torch.device import resolve_device
 from rainbow_tpu_torch.models.dqn import NOISY_LAYERS
+from rainbow_tpu_torch.replay.prioritized import ReplayState
 
 _NOISY = (("w_mu", "weight_mu"), ("w_sigma", "weight_sigma"),
           ("b_mu", "bias_mu"), ("b_sigma", "bias_sigma"))
@@ -59,6 +63,16 @@ def opt_state_from_jax(opt_state, device="cuda") -> AdamState:
         nu=_flat_from_jax(adam.nu, dev),
         count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
                            device=dev))
+
+
+def replay_from_jax(rep, device="cuda") -> ReplayState:
+    """The JAX package's ReplayState (fields as arrays, or anything
+    ``np.array`` takes) → the port's ReplayState on ``device``, each field
+    with its dtype and shape unchanged."""
+    dev = resolve_device(device)
+    return ReplayState(**{
+        f.name: torch.from_numpy(np.array(getattr(rep, f.name))).to(dev)
+        for f in dataclasses.fields(ReplayState)})
 
 
 def params_to_jax(params: dict) -> dict:

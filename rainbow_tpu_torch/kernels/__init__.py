@@ -8,6 +8,9 @@ wrappers.
   head_loss          Triton    c51.py                     (ops/c51.py)
   append_framestack  CUDA C++  csrc/append_framestack.cu  (ops/preprocess.py)
   clip_adam          CUDA C++  csrc/adam.cu               (agent.py)
+  stratified_sample  CUDA C++  csrc/replay.cu             (replay/prioritized.py)
+  gather_window      CUDA C++  csrc/replay.cu             (replay/prioritized.py)
+  write_priorities   CUDA C++  csrc/replay.cu             (replay/prioritized.py)
 
 The CUDA sources are compiled with nvcc for sm_90a into shared libraries
 under ``rainbow_tpu_torch/_build/`` at first use (build.py) and called
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 LAUNCHES = {"noisy_linear_fwd": 0, "noisy_linear_bwd": 0, "dueling_head": 0,
             "c51_target": 0, "head_loss": 0, "append_framestack": 0,
-            "clip_adam": 0}
+            "clip_adam": 0, "stratified_sample": 0, "gather_window": 0,
+            "write_priorities": 0}
 
 
 def reset_launches() -> None:

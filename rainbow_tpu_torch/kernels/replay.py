@@ -1,0 +1,189 @@
+"""Launch wrappers of the replay's sampler and write-back kernels
+(csrc/replay.cu): K5 ``stratified_sample``, K6 ``gather_window`` and K7
+``write_priorities``.
+
+Their plain versions are replay/prioritized.py's stratified_sample_plain,
+gather_window_plain and update_priorities_plain.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from rainbow_tpu_torch.kernels import (LAUNCHES, build, check_cuda,
+                                       check_dtype, check_shape)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_LEAVES = 1 << 22  # csrc/replay.cu: 2048 chunks of 2048 leaves
+MAX_WINDOW = 64       # csrc/replay.cu: the blanking mask is one uint64
+
+
+@functools.cache
+def _lib():
+    lib = build.load("replay")
+    lib.stratified_sample.argtypes = [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
+                                      _P, _P, _P, _P]
+    lib.gather_window.argtypes = ([_P] * 7 + [_I, _I, _I] + [_P] * 3
+                                  + [_I, _I, _F, _F, _I, _I] + [_P] * 9)
+    lib.write_priorities.argtypes = [_P, _P, _I, _I, _F, _P, _P, _P]
+    for fn in (lib.stratified_sample, lib.gather_window,
+               lib.write_priorities):
+        fn.restype = _I
+    return lib
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_ring(name: str, state) -> tuple:
+    e, c = state.priorities.shape
+    for arg, t, dtype, shape in (
+            ("priorities", state.priorities, torch.float32, (e, c)),
+            ("index", state.index, torch.int32, ())):
+        check_cuda(name, **{arg: t})
+        check_dtype(name, arg, t, dtype)
+        check_shape(name, arg, t, shape)
+    return e, c
+
+
+def stratified_sample(state, u: torch.Tensor, history: int, n_step: int):
+    """K5: one stratified draw per entry of ``u`` (B,) float32 in [0, 1)
+    over the ring's priorities masked around the write head. Returns (leaf
+    indices (B,) int64, their priorities (B,) float32, the total 0-d
+    float32), the bits of prioritized.py::stratified_sample_plain. Three
+    launches on the current stream, with an (2L,) float32 scratch tree."""
+    name = "stratified_sample"
+    e, c = _check_ring(name, state)
+    check_cuda(name, u=u)
+    check_dtype(name, "u", u, torch.float32)
+    if u.dim() != 1 or u.numel() < 1:
+        raise ValueError(f"{name}: u must be a nonempty (B,) tensor")
+    n = e * c
+    if n > MAX_LEAVES:
+        raise ValueError(f"{name}: {n} leaves exceed the kernel's "
+                         f"{MAX_LEAVES}")
+    b = u.shape[0]
+    leaves = 1 << (n - 1).bit_length()
+    dev = u.device
+    tree = torch.empty(2 * leaves, dtype=torch.float32, device=dev)
+    idx = torch.empty(b, dtype=torch.int64, device=dev)
+    p = torch.empty(b, dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.float32, device=dev)
+    _raise_on(name, _lib().stratified_sample(
+        state.priorities.data_ptr(), state.index.data_ptr(), e, c, history,
+        n_step, u.data_ptr(), b, leaves, tree.data_ptr(), idx.data_ptr(),
+        p.data_ptr(), total.data_ptr(), _stream(u)))
+    LAUNCHES[name] += 1
+    return idx, p, total
+
+
+def gather_window(state, idx: torch.Tensor, p: torch.Tensor,
+                  total: torch.Tensor, beta: float, num_batches: int,
+                  batch_size: int, history: int, n_step: int,
+                  discount: float) -> dict:
+    """K6: the round's batches from K5's draws (``idx``, ``p`` in draw
+    order, ``total``): draw j goes to batch j % num_batches, row
+    j // num_batches. Returns the dict of prioritized.py::gather_window_plain
+    (``idxs``, uint8 ``states`` and ``next_states`` as permuted views of one
+    (nb, bs, history + n_step, F·F) window, ``actions``, ``returns``,
+    ``nonterminals``, ``weights`` normalised per batch, ``weights_max``).
+    Two launches on the current stream."""
+    name = "gather_window"
+    e, c = _check_ring(name, state)
+    nb, bs = num_batches, batch_size
+    b, w = nb * bs, history + n_step
+    if w > MAX_WINDOW:
+        raise ValueError(f"{name}: a window of {w} frames exceeds "
+                         f"{MAX_WINDOW}")
+    fp = state.frames.shape[2]
+    for arg, t, dtype, shape in (
+            ("frames", state.frames, torch.uint8, (e, c, fp)),
+            ("actions", state.actions, torch.int32, (e, c)),
+            ("rewards", state.rewards, torch.float32, (e, c)),
+            ("timesteps", state.timesteps, torch.int32, (e, c)),
+            ("nonterminal", state.nonterminal, torch.bool, (e, c)),
+            ("full", state.full, torch.bool, ()),
+            ("idx", idx, torch.int64, (b,)),
+            ("p", p, torch.float32, (b,)),
+            ("total", total, torch.float32, ())):
+        check_cuda(name, **{arg: t})
+        check_dtype(name, arg, t, dtype)
+        check_shape(name, arg, t, shape)
+    dev = idx.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out_idx = torch.empty((nb, bs), dtype=torch.int64, device=dev)
+    actions = torch.empty((nb, bs), dtype=torch.int32, device=dev)
+    returns = torch.empty((nb, bs), **f32)
+    nonterminals = torch.empty((nb, bs), **f32)
+    weights = torch.empty((nb, bs), **f32)
+    wmax = torch.empty((nb,), **f32)
+    blank = torch.empty((b,), dtype=torch.int64, device=dev)  # uint64 bits
+    window = torch.empty((nb, bs, w, fp), dtype=torch.uint8, device=dev)
+    _raise_on(name, _lib().gather_window(
+        state.frames.data_ptr(), state.actions.data_ptr(),
+        state.rewards.data_ptr(), state.timesteps.data_ptr(),
+        state.nonterminal.data_ptr(), state.index.data_ptr(),
+        state.full.data_ptr(), e, c, fp, idx.data_ptr(), p.data_ptr(),
+        total.data_ptr(), history, n_step, float(discount), float(beta), nb,
+        bs, out_idx.data_ptr(), actions.data_ptr(), returns.data_ptr(),
+        nonterminals.data_ptr(), weights.data_ptr(), wmax.data_ptr(),
+        blank.data_ptr(), window.data_ptr(), _stream(idx)))
+    LAUNCHES[name] += 1
+    return window_fields(window, history, n_step, {
+        "idxs": out_idx, "actions": actions, "returns": returns,
+        "nonterminals": nonterminals, "weights": weights,
+        "weights_max": wmax})
+
+
+def window_fields(window: torch.Tensor, history: int, n_step: int,
+                  fields: dict) -> dict:
+    """``fields`` with ``states`` (frames 0..history-1) and ``next_states``
+    (frames n_step..n_step+history-1) added as (nb, bs, F, F, history)
+    permuted views of the (nb, bs, history + n_step, F·F) ``window``."""
+    nb, bs, w, fp = window.shape
+    f = int(round(fp ** 0.5))
+    fr = window.view(nb, bs, w, f, f)
+    return dict(fields,
+                states=fr[:, :, :history].permute(0, 1, 3, 4, 2),
+                next_states=fr[:, :, n_step:n_step + history]
+                .permute(0, 1, 3, 4, 2))
+
+
+def write_priorities(state, idxs: torch.Tensor, losses: torch.Tensor,
+                     priority_exponent: float) -> None:
+    """K7: ``priorities[idxs] = losses ** priority_exponent`` and
+    ``max_priority = max(max_priority, max of those)``, in place, in one
+    launch. ``idxs`` and ``losses`` are (nb, bs) in batch order, as
+    gather_window returns them (element [k, r] is draw r·nb + k), or (B,)
+    in draw order. Where consecutive draws hit one leaf, the last of them
+    is written; a leaf repeated by draws that are not consecutive gets one
+    of its values."""
+    name = "write_priorities"
+    e, c = state.priorities.shape
+    if idxs.dim() == 1:
+        idxs, losses = idxs.view(1, -1), losses.view(1, -1)
+    if idxs.dim() != 2 or idxs.numel() < 1:
+        raise ValueError(f"{name}: idxs must be a nonempty (nb, bs) or (B,) "
+                         "tensor")
+    nb, bs = idxs.shape
+    for arg, t, dtype, shape in (
+            ("priorities", state.priorities, torch.float32, (e, c)),
+            ("max_priority", state.max_priority, torch.float32, ()),
+            ("idxs", idxs, torch.int64, (nb, bs)),
+            ("losses", losses, torch.float32, (nb, bs))):
+        check_cuda(name, **{arg: t})
+        check_dtype(name, arg, t, dtype)
+        check_shape(name, arg, t, shape)
+    _raise_on(name, _lib().write_priorities(
+        idxs.data_ptr(), losses.data_ptr(), nb, bs, float(priority_exponent),
+        state.priorities.data_ptr(), state.max_priority.data_ptr(),
+        _stream(idxs)))
+    LAUNCHES[name] += 1

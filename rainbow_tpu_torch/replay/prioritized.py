@@ -12,9 +12,12 @@ in place (JAX donates the buffers instead). ``index``, ``full`` and
 ``max_priority`` are 0-d tensors on the ring's device, so appending never
 waits for the host; nor does sampling or the priority write-back.
 
-The sampler (``sample_many``) is plain PyTorch on any device: one
-stratified descent over the masked priorities, one windowed uint8 gather
-with episode blanking, n-step returns and IS weights normalised per batch.
+The sampler (``sample_many``): one stratified descent over the masked
+priorities (K5), then one windowed uint8 gather with episode blanking,
+n-step returns and IS weights normalised per batch (K6); the write-back
+(``update_priorities``) is K7. Each runs as its hand-written kernel
+(kernels/replay.py) on a CUDA ring and as its ``*_plain`` version on a CPU
+ring.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import Optional
 import torch
 
 from rainbow_tpu_torch.device import resolve_device
+from rainbow_tpu_torch.kernels import replay as k_replay
+from rainbow_tpu_torch.kernels.replay import window_fields
 
 
 @dataclasses.dataclass
@@ -131,15 +136,13 @@ def _next_pow2(n: int) -> int:
 
 
 def _stratified_find(leaves: torch.Tensor, batch_size: int,
-                     generator: Optional[torch.Generator] = None,
-                     u: Optional[torch.Tensor] = None):
+                     u: torch.Tensor):
     """Stratified prefix-sum descent over a stateless sum-tree (JAX
     prioritized.py:102-131; reference memory.py:64-82): builds the tree's
     levels from ``leaves`` padded to a power of two and descends all
     ``batch_size`` draws together, one level per step. Draw j lands in
-    segment j: value (j + u_j)·total/B, with ``u`` (B,) uniform in [0, 1),
-    drawn from ``generator`` unless given. Returns (leaf indices int64,
-    their values, the total)."""
+    segment j: value (j + u_j)·total/B, with ``u`` (B,) uniform in [0, 1).
+    Returns (leaf indices int64, their values, the total)."""
     n = leaves.shape[0]
     padded = torch.zeros((_next_pow2(n),), dtype=leaves.dtype,
                          device=leaves.device)
@@ -148,11 +151,12 @@ def _stratified_find(leaves: torch.Tensor, batch_size: int,
     while levels[-1].shape[0] > 1:
         levels.append(levels[-1].view(-1, 2).sum(dim=1))
     total = levels[-1][0]
-    if u is None:
-        u = torch.rand((batch_size,), generator=generator,
-                       device=leaves.device)
+    # total / B as a true division on every device (CUDA multiplies by the
+    # reciprocal of a host scalar divisor instead).
+    seg = total / torch.full((), float(batch_size), dtype=total.dtype,
+                             device=total.device)
     values = (torch.arange(batch_size, dtype=torch.float32,
-                           device=leaves.device) + u) * (total / batch_size)
+                           device=leaves.device) + u) * seg
     idx = torch.zeros((batch_size,), dtype=torch.int64, device=leaves.device)
     # Go right iff the value exceeds the left child's sum, less that sum
     # (reference memory.py:72-76).
@@ -196,12 +200,22 @@ def _masked_flat_priorities(state: ReplayState, history: int,
                        torch.zeros_like(state.priorities)).reshape(-1)
 
 
+def stratified_sample_plain(state: ReplayState, u: torch.Tensor,
+                            history: int, n_step: int):
+    """Plain version of the stratified-sample kernel (K5): the priorities
+    masked around the write head, then one stratified draw per entry of
+    ``u``. Returns (leaf indices (B,) int64, their priorities, the total)."""
+    flat = _masked_flat_priorities(state, history, n_step)
+    return _stratified_find(flat, u.shape[0], u=u)
+
+
 def _gather_unnormalised(state: ReplayState, idx: torch.Tensor,
                          p: torch.Tensor, total: torch.Tensor, beta,
                          history: int, n_step: int, discount: float) -> dict:
     """The windowed gather and batch assembly for flat indices ``idx``
-    (JAX prioritized.py:157-209), stacks kept uint8 (the ``states_uint8``
-    form). IS weights are not yet normalised."""
+    (JAX prioritized.py:157-209): the blanked uint8 ``window`` (B,
+    history+n, F·F) in place of the stacks. IS weights are not yet
+    normalised."""
     e_count, c = state.priorities.shape
     e, i = idx // c, idx % c
     offs = torch.arange(-history + 1, n_step + 1, device=idx.device)
@@ -212,10 +226,6 @@ def _gather_unnormalised(state: ReplayState, idx: torch.Tensor,
     frames_w = frames_w.masked_fill(blank[:, :, None], 0)
     rew_w = state.rewards[eb, wi].masked_fill(blank, 0.0)
     nt_w = state.nonterminal[eb, wi] & ~blank
-    f = int(round(frames_w.shape[-1] ** 0.5))
-
-    def to_state(fr):  # (B, T, F*F) → (B, F, F, T) uint8, a permuted view
-        return fr.reshape(fr.shape[0], fr.shape[1], f, f).permute(0, 2, 3, 1)
     gammas = discount ** torch.arange(n_step, dtype=torch.float32,
                                       device=idx.device)
     # IS weights (N·p)^−β, N = stored transitions (reference
@@ -228,13 +238,32 @@ def _gather_unnormalised(state: ReplayState, idx: torch.Tensor,
                           torch.zeros_like(weights))
     return {
         "idxs": idx,
-        "states": to_state(frames_w[:, :history]),
+        "window": frames_w,
         "actions": state.actions[eb[:, 0], wi[:, history - 1]],
         "returns": rew_w[:, history - 1:history - 1 + n_step] @ gammas,
-        "next_states": to_state(frames_w[:, n_step:n_step + history]),
         "nonterminals": nt_w[:, history + n_step - 1].to(torch.float32),
         "weights": weights,
     }
+
+
+def gather_window_plain(state: ReplayState, idx: torch.Tensor,
+                        p: torch.Tensor, total: torch.Tensor, beta: float,
+                        num_batches: int, batch_size: int, history: int,
+                        n_step: int, discount: float) -> dict:
+    """Plain version of the windowed-gather kernel (K6): the round's
+    batches from the draws ``idx``, ``p`` (in draw order) and ``total``.
+    Draw j goes to row j // nb of batch j % nb; IS weights are normalised
+    per batch by that batch's max, floored at 1e-12."""
+    nb, bs = num_batches, batch_size
+    # Gather straight into (batch, row) order.
+    order = torch.arange(nb * bs, device=idx.device).view(bs, nb).T.reshape(-1)
+    out = _gather_unnormalised(state, idx[order], p[order], total, beta,
+                               history, n_step, discount)
+    out = {k: v.reshape((nb, bs) + v.shape[1:]) for k, v in out.items()}
+    wmax = out["weights"].amax(dim=1, keepdim=True).clamp(min=1e-12)
+    out["weights"] = out["weights"] / wmax
+    out["weights_max"] = wmax[:, 0]
+    return window_fields(out.pop("window"), history, n_step, out)
 
 
 def sample_many(state: ReplayState, beta, *, num_batches: int,
@@ -251,20 +280,21 @@ def sample_many(state: ReplayState, beta, *, num_batches: int,
     Segment j of the stratification goes to batch j % num_batches, and IS
     weights are normalised per batch by that batch's max, floored at
     1e-12. ``u`` (num_batches·batch_size,) replaces the uniform draw from
-    ``generator``."""
+    ``generator``. On a CUDA ring: one call of the stratified-sample kernel
+    and one of the windowed-gather kernel; on a CPU ring their plain
+    versions."""
     nb, bs = num_batches, batch_size
-    flat = _masked_flat_priorities(state, history, n_step)
-    idx, p, total = _stratified_find(flat, nb * bs, generator, u)
-    # Gather straight into (batch, row) order: draw j is row j // nb of
-    # batch j % nb.
-    order = torch.arange(nb * bs, device=idx.device).view(bs, nb).T.reshape(-1)
-    out = _gather_unnormalised(state, idx[order], p[order], total, beta,
-                               history, n_step, discount)
-    out = {k: v.reshape((nb, bs) + v.shape[1:]) for k, v in out.items()}
-    wmax = out["weights"].amax(dim=1, keepdim=True).clamp(min=1e-12)
-    out["weights"] = out["weights"] / wmax
-    out["weights_max"] = wmax[:, 0]
-    return out
+    dev = state.priorities.device
+    if u is None:
+        u = torch.rand((nb * bs,), generator=generator, device=dev)
+    beta = float(beta)
+    if state.priorities.is_cuda:
+        idx, p, total = k_replay.stratified_sample(state, u, history, n_step)
+        return k_replay.gather_window(state, idx, p, total, beta, nb, bs,
+                                      history, n_step, discount)
+    idx, p, total = stratified_sample_plain(state, u, history, n_step)
+    return gather_window_plain(state, idx, p, total, beta, nb, bs, history,
+                               n_step, discount)
 
 
 def states_to_float(stacks: torch.Tensor) -> torch.Tensor:
@@ -277,8 +307,21 @@ def update_priorities(state: ReplayState, idxs: torch.Tensor,
                       priority_exponent: float) -> ReplayState:
     """Write back ``loss^ω`` at the flat indices ``idxs`` and raise the
     monotone max (reference memory.py:157-159), in place on the device.
-    Where an index repeats, one of its writes wins."""
-    p = losses ** priority_exponent
-    state.priorities.view(-1)[idxs] = p
+    ``idxs`` and ``losses`` are (nb, bs) as sample_many returns them, or
+    (B,) in draw order. On a CUDA ring one launch of the write-back kernel,
+    which writes the last of consecutive draws of one leaf; on a CPU ring
+    the plain version, where one of a repeated index's writes wins."""
+    if state.priorities.is_cuda:
+        k_replay.write_priorities(state, idxs, losses, priority_exponent)
+        return state
+    return update_priorities_plain(state, idxs, losses, priority_exponent)
+
+
+def update_priorities_plain(state: ReplayState, idxs: torch.Tensor,
+                            losses: torch.Tensor,
+                            priority_exponent: float) -> ReplayState:
+    """Plain version of the write-back kernel (K7)."""
+    p = losses.reshape(-1) ** priority_exponent
+    state.priorities.view(-1)[idxs.reshape(-1)] = p
     torch.maximum(state.max_priority, p.max(), out=state.max_priority)
     return state

@@ -8,7 +8,10 @@ card every test here skips. On the card, from the repository root
 Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
 bf16 differs by a few bf16 ulps of O(1) values; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
-integer work is bit-exact. Adam's kernel does the plain version's float32
+integer work is bit-exact. The replay's sampler (K5) is bit-exact; its
+gather (K6) copies frames, actions and nonterminals exactly and its returns
+and IS weights agree to 1e-6 relative; its write-back (K7) writes the last
+of consecutive draws of a leaf, exactly. Adam's kernel does the plain version's float32
 ops in the same order except the global norm's sum, so params agree to
 1e-7 after three steps (3·lr·2^-7 with a bf16 mu, where a rounding that
 falls the other way moves an update by 2^-7 of lr), and two runs give the
@@ -28,6 +31,7 @@ from rainbow_tpu_torch.kernels import c51 as k4
 from rainbow_tpu_torch.kernels.adam import clip_adam
 from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
+from rainbow_tpu_torch.kernels import replay as k_replay
 from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                     noisy_linear_fwd)
 from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
@@ -326,5 +330,106 @@ def test_learner_round_on_card_matches_cpu(cuda):
     assert out["cuda"][3] == dict(
         dict.fromkeys(LAUNCHES, 0), noisy_linear_fwd=4 + 8 * nl,
         dueling_head=1 + nl, noisy_linear_bwd=4 * nl, c51_target=nl,
-        head_loss=nl, clip_adam=nl)
+        head_loss=nl, clip_adam=nl, stratified_sample=1, gather_window=1,
+        write_priorities=1)
     assert out["cpu"][3] == dict.fromkeys(LAUNCHES, 0)
+
+
+def _card_ring(dev, e, c, index, full, n_hot=0, empty=False, seed=9):
+    """A random ring on ``dev``: episode starts about every 6 steps, some
+    zero priorities, and ``n_hot`` leaves with most of the mass, so that
+    stratified draws repeat them."""
+    rng = np.random.default_rng(seed)
+    starts = rng.random((e, c)) < 0.17
+    ts = np.zeros((e, c), np.int32)
+    for j in range(1, c):
+        ts[:, j] = np.where(starts[:, j - 1], 0, ts[:, j - 1] + 1)
+    pr = rng.gamma(2.0, 1.0, (e, c)).astype(np.float32)
+    pr[rng.random((e, c)) < 0.1] = 0.0
+    pr.reshape(-1)[rng.choice(e * c, n_hot, replace=False)] = 1e3 * e * c
+    if empty:
+        pr[:] = 0.0
+    rep = rp.init_replay(e, c, 84, "cpu")
+    rep.frames.copy_(torch.from_numpy(rng.integers(0, 256, rep.frames.shape,
+                                                   np.uint8)))
+    rep.actions.copy_(torch.from_numpy(rng.integers(0, 6, (e, c),
+                                                    np.int32)))
+    rep.rewards.copy_(torch.from_numpy(rng.normal(size=(e, c))
+                                       .astype(np.float32)))
+    rep.timesteps.copy_(torch.from_numpy(ts))
+    rep.nonterminal.copy_(torch.from_numpy(rng.random((e, c)) > 0.1))
+    rep.priorities.copy_(torch.from_numpy(pr))
+    rep.index.fill_(index)
+    rep.full.fill_(full)
+    rep.max_priority.fill_(float(max(pr.max(), 1.0)))
+    return rp.ReplayState(**{f.name: getattr(rep, f.name).to(dev)
+                             for f in dataclasses.fields(rep)})
+
+
+def check_write_back(rep0, kern, plain, draw_idx, idxs, p):
+    """K7 against its plain version: untouched and once-written leaves
+    exact, every repeated leaf holds the value of the last draw of its run
+    (draw order), and the max is exact."""
+    n = rep0.priorities.numel()
+    flat = idxs.reshape(-1)
+    counts = torch.bincount(flat, minlength=n)
+    got, want = kern.priorities.view(-1), plain.priorities.view(-1)
+    assert torch.equal(got[counts == 0], rep0.priorities.view(-1)[counts == 0])
+    assert torch.equal(got[counts == 1], want[counts == 1])
+    nb, bs = idxs.shape
+    j = torch.arange(nb * bs, device=flat.device)
+    p_draw = p[j % nb, j // nb]
+    last = torch.ones_like(draw_idx, dtype=torch.bool)
+    last[:-1] = draw_idx[1:] != draw_idx[:-1]
+    assert torch.equal(got[draw_idx[last]], p_draw[last])
+    assert torch.equal(kern.max_priority, plain.max_priority)
+    return int((counts > 1).sum())
+
+
+REPLAY_CASES = {
+    # (E, C, index, full, n_step, num_batches, batch_size, hot leaves, empty)
+    "round": (64, 976, 500, True, 3, 16, 32, 3, False),
+    "throughput": (64, 976, 500, True, 3, 4, 256, 0, False),
+    "window_24": (16, 128, 70, True, 20, 8, 32, 0, False),
+    "after_wrap": (32, 61, 0, True, 3, 8, 16, 2, False),
+    "head_at_last": (32, 61, 60, True, 3, 8, 16, 0, False),
+    "partial": (32, 61, 40, False, 3, 8, 16, 0, False),
+    "empty": (8, 61, 30, False, 3, 2, 16, 0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_replay_kernels_match_plain(cuda, case):
+    e, c, index, full, n, nb, bs, hot, empty = REPLAY_CASES[case]
+    rep = _card_ring(cuda, e, c, index, full, hot, empty)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    u = torch.rand(nb * bs, generator=g, device=cuda)
+    reset_launches()
+    idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
+    want = rp.stratified_sample_plain(rep, u, 4, n)
+    for a, b in zip((idx, p, total), want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    got = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)
+    want = rp.gather_window_plain(rep, idx, p, total, 0.6, nb, bs, 4, n,
+                                  0.99)
+    assert got.keys() == want.keys()
+    for k in ("idxs", "states", "next_states", "actions", "nonterminals"):
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+    for k in ("returns", "weights", "weights_max"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=1e-6)
+    if empty:
+        assert torch.equal(got["weights"], torch.zeros_like(got["weights"]))
+    losses = torch.rand((nb, bs), generator=g, device=cuda) * 5
+    kern, plain = (rp.ReplayState(**{
+        f.name: getattr(rep, f.name).clone()
+        for f in dataclasses.fields(rep)}) for _ in range(2))
+    k_replay.write_priorities(kern, got["idxs"], losses, 0.5)
+    rp.update_priorities_plain(plain, got["idxs"], losses, 0.5)
+    repeated = check_write_back(rep, kern, plain, idx, got["idxs"],
+                                losses ** 0.5)
+    # Adjacent draws share a leaf that straddles a segment boundary; hot
+    # leaves and an empty ring repeat leaves for certain.
+    assert repeated > 0 or not (hot or empty)
+    assert launches() == dict(dict.fromkeys(LAUNCHES, 0),
+                              stratified_sample=1, gather_window=1,
+                              write_priorities=1)
