@@ -15,10 +15,13 @@ exit code:
             the shapes the actor and the learner give it, with stated
             tolerances; the replay's sampler, gather and write-back on a
             random ring of the canonical width (7.05 GB), where they are
-            also timed.
-3. update   one learner update (compute_update_pretarget + apply_grads) of
-            the canonical net on the card against the same update through
-            the plain versions on the CPU.
+            also timed; the noise draws (K2) at the act's, the round's and
+            the sequential update's shapes, with the moments of the round's
+            71 M target draws; the delta kernel (K10) on real 1024-env pong
+            deltas, against the dense engine's observations too.
+3. update   one learner update (compute_update_pretarget + apply_grads) and
+            one sequential learn_step of the canonical net on the card
+            against the same through the plain versions on the CPU.
 4. actor    the canonical preset on the native engine (pong, 1024 envs, the
             full 976-column replay ring on the device, per-env noise):
             actor_step_packed iterations, env-steps/s, launch counts.
@@ -34,6 +37,10 @@ exit code:
             save on a 64-column ring restored exactly into a new Trainer;
             --evaluate of the best model. Launch counts (K5-K7 once per
             round), env-steps/s, updates/s, eval, save and restore times.
+            Then the side paths, each with its own launch counts: the
+            sequential PER round (4 rounds of 256 updates, K5-K7 and K2
+            once per update), and delta uploads (K10) with the pipelined
+            actor (depth 2) and an asynchronous evaluation (9 rounds).
 8. kernels  each kernel's time against its plain version, a library call
             and its bound, at the main path's shapes; one JSON line.
 
@@ -92,13 +99,16 @@ def parse_args():
 
 # --------------------------------------------------------------- timing ----
 
-def time_ms(torch, fn, reps=30, warmup=3):
-    """Median over ``reps`` of one call's CUDA-event time, in ms."""
+def time_ms(torch, fn, reps=30, warmup=3, before=None):
+    """Median over ``reps`` of one call's CUDA-event time, in ms; ``before``
+    runs ahead of each call, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -109,19 +119,23 @@ def time_ms(torch, fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=10):
+def device_ms(torch, fn, reps=10, before=None, only=""):
     """Mean device time of the kernels one call of ``fn`` launches, in ms,
-    from torch.profiler over ``reps`` calls."""
+    from torch.profiler over ``reps`` calls; ``before`` runs ahead of each
+    call, and only kernels whose name holds ``only`` are counted."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and only in e.key)
     return us / 1e3 / reps
 
 
@@ -145,12 +159,14 @@ def compare_noisy_linear(torch, A, learner, report):
     """KA against noisy_linear_plain: fp32 and bf16, at the layer shapes and
     batches of the acting path (the three noise modes) and of the learner
     (``learner`` = (batch, round rows)). Returns the largest fp32 error."""
-    from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+    from rainbow_tpu_torch.models.noisy import (NoiseStream,
+                                                init_noisy_params,
                                                 noisy_linear_plain,
                                                 scale_noise)
     from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
 
     g = torch.Generator(device="cuda").manual_seed(1)
+    ns = NoiseStream(1)
     # (batch, noise modes): the actor (1024), the evaluation episodes (10)
     # and the validation-Q chunks (250) in every mode; the learner's update
     # forwards (one draw shared over the batch) and its round's target
@@ -174,7 +190,8 @@ def compare_noisy_linear(torch, A, learner, report):
         for mode in modes:
             lead = (b,) if mode == "row" else ()
             eps = None if mode == "mu" else (
-                scale_noise(g, lead + (n_in,)), scale_noise(g, lead + (n_out,)))
+                scale_noise(ns, lead + (n_in,), "cuda"),
+                scale_noise(ns, lead + (n_out,), "cuda"))
             for dt in (torch.float32, torch.bfloat16):
                 xd = x.to(dt)
                 got = noisy_linear_fwd(params, xd, eps, relu)
@@ -323,11 +340,13 @@ def compare_noisy_linear_bwd(torch, A, report):
     modes, fp32 and bf16. Returns the largest fp32 error."""
     from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                         noisy_linear_fwd)
-    from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+    from rainbow_tpu_torch.models.noisy import (NoiseStream,
+                                                init_noisy_params,
                                                 noisy_linear_bwd_plain,
                                                 scale_noise)
 
     g = torch.Generator(device="cuda").manual_seed(11)
+    ns = NoiseStream(11)
     b = 32
     # fp32: sums of up to 512 products of O(1) terms in other orders. bf16:
     # both sides round each product's output to bf16 once, and the plain
@@ -344,7 +363,8 @@ def compare_noisy_linear_bwd(torch, A, report):
         for mode in ("mu", "shared", "row"):
             lead = (b,) if mode == "row" else ()
             eps = None if mode == "mu" else (
-                scale_noise(g, lead + (n_in,)), scale_noise(g, lead + (n_out,)))
+                scale_noise(ns, lead + (n_in,), "cuda"),
+                scale_noise(ns, lead + (n_out,), "cuda"))
             for dt in (torch.float32, torch.bfloat16):
                 xd, gd = x.to(dt), gy.to(dt)
                 y = noisy_linear_fwd(prm, xd, eps, True) if relu else None
@@ -684,6 +704,115 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n):
     ]
 
 
+def noise_shapes(cfg, A, leads):
+    """The tensors of one K2 launch that draws models.dqn.draw_noise's
+    eight for each leading shape in ``leads``."""
+    from rainbow_tpu_torch.models.dqn import _noisy_dims
+
+    return [tuple(lead) + (d,) for lead in leads
+            for dims in _noisy_dims(cfg, A).values() for d in dims]
+
+
+def compare_noise(torch, cfg, A, report):
+    """K2 against philox_noise_plain on the card at the main path's draws:
+    the act's (1024 rows), the batched round's (8192 target rows and 256
+    online draws in one launch) and the sequential update's (online and
+    target, shared), each at its own offset of a seed beyond 32 bits. Both
+    compute Box-Muller and the transform in float64 and round once to
+    float32, so they agree to 1e-5 with the same signs (the two sides'
+    float64 log and sincos may differ in their last bits). The round's 71 M
+    target elements must have |mean| < 1e-3 and |E[eps^2] - sqrt(2/pi)| <
+    1e-3 (their sampling errors are about 1.1e-4 and 7e-5). Returns (the
+    largest error, the moments)."""
+    import math
+
+    from rainbow_tpu_torch.kernels.noise import scaled_noise
+    from rainbow_tpu_torch.models.noisy import noise_words, philox_noise_plain
+
+    nb = ENVS // cfg.replay_frequency
+    cases = (("act", [(ENVS,)]), ("round", [(nb * cfg.batch_size,), (nb,)]),
+             ("sequential", [(), ()]))
+    seed, offset, worst, moments = 2 ** 40 + SEED, 0, 0.0, None
+    for name, leads in cases:
+        shapes = noise_shapes(cfg, A, leads)
+        got = scaled_noise(seed, offset, shapes, "cuda")
+        want = philox_noise_plain(seed, offset, shapes, "cuda")
+        err = 0.0
+        for a, b in zip(got, want):
+            check(a.dtype == torch.float32 and a.shape == b.shape,
+                  f"scaled_noise {name}: {a.dtype} {tuple(a.shape)}")
+            err = max(err, check_close(f"scaled_noise {name}", a, b, 1e-5, 0))
+            check(torch.equal(torch.sign(a), torch.sign(b)),
+                  f"scaled_noise {name}: a sign differs from the plain version")
+        if name == "round":
+            flat = torch.cat([x.reshape(-1) for x in got[:8]]).double()
+            moments = (float(flat.mean()), float((flat * flat).mean()),
+                       flat.numel())
+            check(abs(moments[0]) < 1e-3
+                  and abs(moments[1] - math.sqrt(2 / math.pi)) < 1e-3,
+                  f"scaled_noise: moments {moments}")
+            del flat
+        report.append(("scaled_noise", name, sum(x.numel() for x in got),
+                       err))
+        worst = max(worst, err)
+        offset += noise_words(shapes)
+        del got, want
+    torch.cuda.empty_cache()
+    return worst, moments
+
+
+def compare_delta(torch, np, cfg, report, steps=6):
+    """K10 on real 1024-env pong deltas: two engines with one seed step the
+    same random actions, one densely and one with step_delta; each delta
+    goes through K10 against the card's frame stack (advanced by KC with
+    every step's observations and resets, as the engine's mirror of it is)
+    and must equal its plain version and the dense engine's observations,
+    bit for bit, unpadded and padded to its bucket. Returns the last delta
+    (stack, counts, pos, val) for the kernels line and the forms the steps
+    took."""
+    from rainbow_tpu_torch.envs.engine import BatchedEnv
+    from rainbow_tpu_torch.kernels.append_framestack import append_framestack
+    from rainbow_tpu_torch.kernels.delta import apply_delta
+    from rainbow_tpu_torch.ops.preprocess import init_framestack
+    from rainbow_tpu_torch.train import (_apply_delta_plain, pack_delta,
+                                         pack_resets)
+
+    dense, delta = (BatchedEnv(GAME, ENVS, SEED + 5) for _ in range(2))
+    first = dense.reset_all()
+    check(np.array_equal(first, delta.reset_all()), "delta: engines differ")
+    stack = init_framestack(ENVS, cfg.history_length, first, "cuda")
+    rng = np.random.default_rng(6)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    forms, last = {"delta": 0, "dense": 0}, None
+    for step in range(steps):
+        acts = rng.integers(0, dense.action_space, ENVS)
+        obs, resets, _, _, kinds = dense.step(acts)
+        counts, dpos, dval, _, _, _, kinds_d = delta.step_delta(acts)
+        check(np.array_equal(kinds, kinds_d), "delta: reset kinds differ")
+        want = cuda(obs)
+        if counts is None:  # the engine's dense fallback
+            forms["dense"] += 1
+            check(np.array_equal(dpos, obs), "delta: dense fallback differs")
+        else:
+            forms["delta"] += 1
+            for pos, val in ((dpos, dval), pack_delta(dpos, dval)):
+                args = (cuda(counts), cuda(pos), cuda(val))
+                got = apply_delta(stack, *args)
+                check(torch.equal(got, _apply_delta_plain(stack, *args)),
+                      f"apply_delta step {step}: differs from the plain "
+                      "version")
+                check(torch.equal(got, want), f"apply_delta step {step}: "
+                      "differs from the dense observations")
+            last = (stack.clone(), cuda(counts), cuda(dpos), cuda(dval))
+            report.append(("apply_delta", step, int(dpos.shape[0]), 0.0))
+        packed, ridx = pack_resets(resets, kinds)
+        append_framestack(stack, want, cuda(packed), cuda(ridx), cuda(kinds))
+    dense.close()
+    delta.close()
+    check(forms["delta"] > 0, f"delta: no step took the delta form {forms}")
+    return last, forms
+
+
 def check_learner_update_against_plain(torch, np, cfg, A):
     """One learner update of the canonical net (compute_update_pretarget +
     apply_grads) through the kernels on the card and through the plain
@@ -692,6 +821,7 @@ def check_learner_update_against_plain(torch, np, cfg, A):
     tensor's scale, new params)."""
     from rainbow_tpu_torch import agent as ag
     from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
+    from rainbow_tpu_torch.models.noisy import NoiseStream
 
     b = cfg.batch_size
     rng = np.random.default_rng(15)
@@ -709,7 +839,7 @@ def check_learner_update_against_plain(torch, np, cfg, A):
                                          .astype(np.float32))}
     pns = torch.from_numpy(rng.dirichlet(np.ones(cfg.atoms), (b, A))
                            .astype(np.float32))
-    noise = draw_noise(cfg, A, torch.Generator().manual_seed(17))
+    noise = draw_noise(cfg, A, NoiseStream(17), device="cpu")
     out = {}
     for dev in ("cuda", "cpu"):
         p = {k: v.to(dev).clone() for k, v in params.items()}
@@ -751,9 +881,74 @@ def check_learner_update_against_plain(torch, np, cfg, A):
     return err_l, err_g, err_p
 
 
+def check_sequential_update_against_plain(torch, np, cfg, A):
+    """One sequential learn_step of the canonical net (K5 and K6 sample a
+    batch of 32, compute_update draws its online and target noise in one
+    K2 launch, K9 applies it, K7 writes the priorities back) on the card
+    against the same step through the plain versions on the CPU: the same
+    params, ring, uniforms and noise stream, drawn by K2 on the card and by
+    philox_noise_plain on the CPU. Returns the largest differences (loss,
+    params, priorities)."""
+    import dataclasses
+
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.models.noisy import NoiseStream
+    from rainbow_tpu_torch.replay import prioritized as rp
+
+    scfg = cfg.replace(sequential_per=True)
+    e, c = 8, 64
+    rng = np.random.default_rng(21)
+    ring = rp.init_replay(e, c, 84, "cpu")
+    ring.frames.copy_(torch.from_numpy(rng.integers(0, 256, ring.frames.shape,
+                                                    np.uint8)))
+    ring.actions.copy_(torch.from_numpy(rng.integers(0, A, (e, c),
+                                                     np.int32)))
+    ring.rewards.copy_(torch.from_numpy(rng.normal(size=(e, c))
+                                        .astype(np.float32)))
+    ring.timesteps.copy_(torch.from_numpy(rng.integers(0, 6, (e, c),
+                                                       np.int32)))
+    ring.nonterminal.copy_(torch.from_numpy(rng.random((e, c)) > 0.1))
+    ring.priorities.copy_(torch.from_numpy(rng.gamma(2.0, 1.0, (e, c))
+                                           .astype(np.float32)))
+    ring.index.fill_(30)
+    ring.full.fill_(True)
+    u = torch.from_numpy(rng.random(scfg.batch_size).astype(np.float32))
+    base = ag.init_agent(scfg, A, 22, "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        to = lambda d: {k: v.to(dev).clone() for k, v in d.items()}
+        agent = ag.AgentState(
+            params=to(base.params), target_params=to(base.target_params),
+            opt_state=ag.init_adam(to(base.params), scfg),
+            generator=torch.Generator(device=dev), noise=NoiseStream(23))
+        rep = rp.ReplayState(**{f.name: getattr(ring, f.name).to(dev).clone()
+                                for f in dataclasses.fields(ring)})
+        loss = ag.learn_step(agent, rep, scfg, A, 0.4, {"u": u.to(dev)})
+        out[dev] = (float(loss), {k: v.cpu() for k, v in agent.params.items()},
+                    rep.priorities.cpu(), agent.noise)
+    # As check_learner_update_against_plain: losses of order 4 from float32
+    # sums in other orders; params to lr/100 after one Adam step, and every
+    # tensor must have moved by more; priorities are loss^omega.
+    err_l = abs(out["cuda"][0] - out["cpu"][0])
+    check(err_l <= 1e-4 * max(1.0, abs(out["cpu"][0])),
+          f"sequential update: loss {out['cuda'][0]} vs {out['cpu'][0]}")
+    p_tol = scfg.learning_rate / 100
+    err_p = max(check_close(f"sequential update param {k}", out["cuda"][1][k],
+                            want, p_tol, 0)
+                for k, want in out["cpu"][1].items())
+    for k, want in out["cpu"][1].items():
+        check(float((want - base.params[k]).abs().max()) > p_tol,
+              f"sequential update param {k}: the update did not move it")
+    err_pr = check_close("sequential update priorities", out["cuda"][2],
+                         out["cpu"][2], 1e-4, 1e-4)
+    check(out["cuda"][3] == out["cpu"][3],
+          "sequential update: the noise streams moved differently")
+    return err_l, err_p, err_pr
+
+
 # --------------------------------------------------------------- actor -----
 
-def run_actor(torch, cfg, params, A, gen):
+def run_actor(torch, cfg, params, A, noise):
     """The acting path on the native engine: returns (stats, stack, rep,
     env, staged inputs of the last step, actions)."""
     from rainbow_tpu_torch import agent as ag
@@ -775,7 +970,7 @@ def run_actor(torch, cfg, params, A, gen):
 
     reset_launches()
     t0 = time.perf_counter()
-    actions = ag.act(params, cfg, A, to_network_input(stack), gen)
+    actions = ag.act(params, cfg, A, to_network_input(stack), noise)
     actions_np = actions.cpu().numpy()
     engine_s = stage_s = 0.0
     iter_s = []
@@ -786,8 +981,8 @@ def run_actor(torch, cfg, params, A, gen):
         staged = stage_step(out, "cuda")
         stage_s += time.perf_counter() - tj
         engine_s += tj - ti
-        actions = actor_step_packed(params, gen, cfg, A, stack, rep, actions,
-                                    *staged)
+        actions = actor_step_packed(params, noise, cfg, A, stack, rep,
+                                    actions, *staged)
         actions_np = actions.cpu().numpy()  # the one sync of the step
         iter_s.append(time.perf_counter() - ti)
     torch.cuda.synchronize()
@@ -797,8 +992,8 @@ def run_actor(torch, cfg, params, A, gen):
     it = ACTOR_ITERS
     check(counts == dict(dict.fromkeys(counts, 0),
                          noisy_linear_fwd=4 * (it + 1), dueling_head=it + 1,
-                         append_framestack=it),
-          f"actor launch counts {counts}, expected 4/1/1 per iteration "
+                         scaled_noise=it + 1, append_framestack=it),
+          f"actor launch counts {counts}, expected 4/1/1/1 per iteration "
           "plus the first act")
     stored = int(rp.stored_count(rep))
     check(stored == it * ENVS, f"stored_count {stored} != {it}·{ENVS}")
@@ -829,6 +1024,7 @@ def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
     the same injected per-env noise: stack and replay bit-exact, actions
     equal wherever the top-2 gap of q is clear."""
     from rainbow_tpu_torch.models.dqn import draw_noise, forward_head
+    from rainbow_tpu_torch.models.noisy import NoiseStream
     from rainbow_tpu_torch.ops.preprocess import to_network_input
     from rainbow_tpu_torch.replay import prioritized as rp
     from rainbow_tpu_torch.train import actor_step_packed, pack_resets
@@ -840,7 +1036,7 @@ def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
     sub_packed, sub_idx = pack_resets(resets[:n], kinds[:n].numpy())
     inputs = (actions[:n].cpu(), obs[:n], torch.from_numpy(sub_packed),
               torch.from_numpy(sub_idx), rewards[:n], dones[:n], kinds[:n])
-    noise = draw_noise(cfg, A, torch.Generator().manual_seed(5), (n,))
+    noise = draw_noise(cfg, A, NoiseStream(5), (n,), "cpu")
     out = {}
     for dev in ("cuda", "cpu"):
         st = stack[:n].to(dev).clone()
@@ -891,7 +1087,7 @@ def profiled(torch, name, fn, units, unit):
     log(table)
 
 
-def profile_actor(torch, cfg, params, A, gen, iters=20):
+def profile_actor(torch, cfg, params, A, noise, iters=20):
     """torch.profiler over ``iters`` actor iterations on a fresh engine and
     a small ring (see ``profiled``)."""
     from rainbow_tpu_torch import agent as ag
@@ -904,11 +1100,11 @@ def profile_actor(torch, cfg, params, A, gen, iters=20):
     env = make_env_factory(cfg)(num_envs=ENVS, training=True)
     stack = init_framestack(ENVS, 4, env.reset_all(), "cuda")
     rep = rp.init_replay(ENVS, 64, 84, "cuda")
-    actions = ag.act(params, cfg, A, to_network_input(stack), gen)
+    actions = ag.act(params, cfg, A, to_network_input(stack), noise)
 
     def step(actions):
         out = env.step(actions.cpu().numpy())
-        return actor_step_packed(params, gen, cfg, A, stack, rep, actions,
+        return actor_step_packed(params, noise, cfg, A, stack, rep, actions,
                                  *stage_step(out, "cuda"))
     for _ in range(5):
         actions = step(actions)
@@ -947,7 +1143,7 @@ def run_train(torch, np, cfg, A, profile=False):
                             "cuda")
     rep = rp.init_replay(ENVS, cfg.capacity_per_env, cfg.frame_size, "cuda")
     actions = ag.act(agent.params, cfg, A, to_network_input(stack),
-                     agent.generator)
+                     agent.noise)
     actions_np = actions.cpu().numpy()
 
     def iteration(n, beta, sync):
@@ -999,10 +1195,13 @@ def run_train(torch, np, cfg, A, profile=False):
     check(max_p > max_p0, f"train: max_priority stayed at {max_p0}")
     check(adam_count == TRAIN_ITERS * num_learns, "train: Adam count")
     u, it = TRAIN_ITERS * num_learns, TRAIN_ITERS
+    # K2: the round's target and online noise in one launch, the act's in
+    # another.
     want = {"noisy_linear_fwd": 8 * u + 8 * it, "noisy_linear_bwd": 4 * u,
             "dueling_head": u + 2 * it, "c51_target": u, "head_loss": u,
             "append_framestack": it, "clip_adam": u, "stratified_sample": it,
-            "gather_window": it, "write_priorities": it}
+            "gather_window": it, "write_priorities": it,
+            "scaled_noise": 2 * it, "apply_delta": 0}
     check(counts == want, f"train launch counts {counts}, expected {want}")
     med = lambda rows, i: 1e3 * statistics.median(r[i] for r in rows)
     dev_ms = lambda rows: 1e3 * statistics.median(r[2] + r[3] for r in rows)
@@ -1044,21 +1243,40 @@ MEMORY_ARGS = ["--num-envs", "1024", "--memory-capacity", "65536",
 
 class _Watch:
     """Wraps train.train_iter_packed, Trainer.evaluate_now and
-    Trainer.save_checkpoint to time them, and the replay's plain versions to
-    fail if the card's path calls them."""
+    Trainer.save_checkpoint to time them (each iteration synchronised with
+    ``sync``), Trainer._eval_async_drain to mark the end of each run's
+    training loop (``loop_ends``: its first call with ``wait``, after the
+    main stream has finished), and the replay's, the noise's and the
+    delta's plain versions to fail if the card's path calls them. With
+    ``warmup_profile`` a torch.profiler of the card's kernels runs from
+    construction until the first learning iteration (``warmup_prof``)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, sync=True, warmup_profile=False):
+        from torch.profiler import ProfilerActivity, profile
+
         from rainbow_tpu_torch import train as tm
+        from rainbow_tpu_torch.models import noisy
         from rainbow_tpu_torch.replay import prioritized as rp
 
         self.iters, self.evals, self.saves = [], [], []
+        self.loop_ends = []
         self._undo = []
+        self.warmup_prof = None
+        self._profiling = warmup_profile
+        if warmup_profile:
+            self.warmup_prof = profile(activities=[ProfilerActivity.CUDA])
+            self.warmup_prof.__enter__()
 
         def timed_iter(real):
             def wrapper(*args):
+                if args[2] and self._profiling:
+                    torch.cuda.synchronize()
+                    self.warmup_prof.__exit__(None, None, None)
+                    self._profiling = False
                 t0 = time.perf_counter()
                 out = real(*args)
-                torch.cuda.synchronize()
+                if sync:
+                    torch.cuda.synchronize()
                 self.iters.append((args[2], t0, time.perf_counter()))
                 return out
             return wrapper
@@ -1071,21 +1289,60 @@ class _Watch:
                 return out
             return wrapper
 
-        def refuse(name, real):
-            def wrapper(state, *args, **kw):
-                check(not state.priorities.is_cuda,
+        def refuse(name, real, on_card):
+            def wrapper(*args, **kw):
+                check(not on_card(*args, **kw),
                       f"{name} ran on the card's path")
-                return real(state, *args, **kw)
+                return real(*args, **kw)
             return wrapper
 
+        def drain(real):
+            def wrapper(trainer, wait=False):
+                if wait and len(self.loop_ends) < self._loops:
+                    torch.cuda.current_stream().synchronize()
+                    self.loop_ends.append(time.perf_counter())
+                return real(trainer, wait)
+            return wrapper
+
+        self._loops = 0
         self._patch(tm, "train_iter_packed", timed_iter)
+        self._patch(tm.Trainer, "_eval_async_drain", drain)
+        self._patch(tm.Trainer, "run", lambda r: self._counted(r))
         self._patch(tm.Trainer, "evaluate_now",
                     lambda r: timed(r, self.evals))
         self._patch(tm.Trainer, "save_checkpoint",
                     lambda r: timed(r, self.saves))
         for name in ("stratified_sample_plain", "gather_window_plain",
                      "update_priorities_plain"):
-            self._patch(rp, name, lambda r, name=name: refuse(name, r))
+            self._patch(rp, name, lambda r, name=name: refuse(
+                name, r, lambda state, *a, **k: state.priorities.is_cuda))
+        self._patch(noisy, "philox_noise_plain", lambda r: refuse(
+            "philox_noise_plain", r,
+            lambda seed, offset, shapes, device="cpu":
+            torch.device(device).type == "cuda"))
+        self._patch(tm, "_apply_delta_plain", lambda r: refuse(
+            "_apply_delta_plain", r, lambda stack, *a: stack.is_cuda))
+
+    def _counted(self, real):
+        def wrapper(trainer):
+            self._loops += 1
+            return real(trainer)
+        return wrapper
+
+    def train_span(self, iters):
+        """The training span of a run whose iterations are ``iters``: from
+        the start of its first learning iteration to the end of its loop."""
+        first = next(i for i, (n, _, _) in enumerate(iters) if n)
+        return self.loop_ends[-1] - iters[first][1]
+
+    def warmup_kernel_ms(self, torch, only):
+        """Mean device time of one launch of the kernels whose name holds
+        ``only`` over the profiled warm-up, and their launch count."""
+        evs = [e for e in self.warmup_prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and only in e.key]
+        n = sum(e.count for e in evs)
+        return sum(e.self_device_time_total for e in evs) / 1e3 / n, n
 
     def _patch(self, owner, name, make):
         real = getattr(owner, name)
@@ -1093,6 +1350,9 @@ class _Watch:
         setattr(owner, name, make(real))
 
     def close(self):
+        if self._profiling:
+            self.warmup_prof.__exit__(None, None, None)
+            self._profiling = False
         for owner, name, real in reversed(self._undo):
             setattr(owner, name, real)
 
@@ -1113,6 +1373,7 @@ def _same_state(torch, a, b):
     same &= all(torch.equal(x.get_state(), y.get_state())
                 for x, y in ((pa.generator, pb.generator),
                              (a.eval_generator, b.eval_generator)))
+    same &= pa.noise == pb.noise
     return bool(same)
 
 
@@ -1143,6 +1404,7 @@ def run_trainer(torch, np):
         counts = launches()
         iters, evals, saves = (list(watch.iters), list(watch.evals),
                                list(watch.saves))
+        gross = watch.train_span(iters)
         res = tr.results_dir
         rounds = sum(1 for n, _, _ in iters if n)
         c = tr.cfg
@@ -1164,12 +1426,16 @@ def run_trainer(torch, np):
                                                 "gather_window",
                                                 "write_priorities")),
               f"trainer: K5-K7 not once per round: {counts}")
-        check(all(v > 0 for v in counts.values()),
-              f"trainer: a kernel never launched {counts}")
-        # Training wall: from the end of the last warm-up iteration to the
-        # end of the last round, less the evaluation and the save in it.
+        check(all(v > 0 for k, v in counts.items() if k != "apply_delta")
+              and counts["apply_delta"] == 0,
+              f"trainer: a kernel never launched, or K10 without delta "
+              f"uploads {counts}")
+        # Training span: from the start of the first learning iteration to
+        # the end of the loop (as for the side paths), less the save in it
+        # and, for train_span_s, less the evaluation too.
         first = next(i for i, (n, _, _) in enumerate(iters) if n)
-        span = iters[-1][2] - iters[first - 1][2] - sum(evals) - sum(saves)
+        span_with_eval = gross - sum(saves)
+        span = span_with_eval - sum(evals)
         timer = dict(tr.timer.totals)
         T, envs = tr.T, c.num_envs
         model = os.path.join(res, "model.npz")
@@ -1219,6 +1485,8 @@ def run_trainer(torch, np):
         "train_span_s": span,
         "train_env_steps_per_s": rounds * envs / span,
         "learner_updates_per_s": updates / span,
+        "train_span_with_eval_s": span_with_eval,
+        "train_with_eval_env_steps_per_s": rounds * envs / span_with_eval,
         "median_round_call_ms": 1e3 * statistics.median(
             b - a for n, a, b in iters if n),
         "median_warmup_call_ms": 1e3 * statistics.median(
@@ -1230,21 +1498,121 @@ def run_trainer(torch, np):
     return stats, counts
 
 
+# The side paths through the command line, at the same width: the
+# sequential PER round (32 warm-up iterations, then 4 rounds of 256
+# sequential updates, no evaluation); the pipelined actor (depth 2) alone
+# and with delta uploads and an asynchronous evaluation at T = 36864 (each
+# 31 warm-up iterations, then 9 rounds, as TRAINER_ARGS).
+SEQUENTIAL_ARGS = ["--num-envs", "1024", "--sequential-per", "--learn-start",
+                   "32768", "--T-max", "35840", "--evaluation-interval",
+                   "1000000", "--max-episode-length", "4000", "--id",
+                   "chip_trainer_sequential", "--seed", "2"]
+PIPELINE_ARGS = ["--num-envs", "1024", "--pipeline-actor", "--pipeline-depth",
+                 "2", "--learn-start", "32768", "--T-max", "40960",
+                 "--evaluation-interval", "1000000", "--max-episode-length",
+                 "4000", "--id", "chip_trainer_pipeline", "--seed", "4"]
+SIDE_ARGS = ["--num-envs", "1024", "--delta-uploads", "--pipeline-actor",
+             "--pipeline-depth", "2", "--async-eval", "--learn-start",
+             "32768", "--T-max", "40960", "--evaluation-interval", "36864",
+             "--max-episode-length", "4000", "--id", "chip_trainer_side",
+             "--seed", "3"]
+
+
+def run_side_trainer(torch, np, args, sync):
+    """One side-path Trainer through cli.main: launch counts zeroed just
+    before it and read just after; the training span from the start of the
+    first learning iteration to the end of the loop (the main stream
+    synchronised there, an asynchronous evaluation left running), as for
+    the main Trainer. With ``sync`` every iteration is synchronised and
+    timed (not for the pipelined actor, whose overlap that would undo).
+    With delta uploads the warm-up is profiled for K10's device time on
+    the Trainer's path (``k10_trainer_device_ms``). Returns (stats, launch
+    counts)."""
+    import shutil
+
+    from rainbow_tpu_torch import cli
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+
+    run_id = args[args.index("--id") + 1]
+    shutil.rmtree(os.path.join(ROOT, "results", run_id), ignore_errors=True)
+    delta = "--delta-uploads" in args
+    reset_launches()
+    watch = _Watch(torch, sync=sync, warmup_profile=delta)
+    try:
+        t0 = time.perf_counter()
+        tr = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        watch.close()
+    iters, c = watch.iters, tr.cfg
+    rounds = sum(1 for n, _, _ in iters if n)
+    check(tr.T == c.total_steps and len(iters) == c.total_steps // c.num_envs
+          and rounds == (c.total_steps - c.learn_start) // c.num_envs + 1,
+          f"{run_id}: T {tr.T}, {len(iters)} iterations, {rounds} rounds")
+    check(np.isfinite(float(tr._last_loss)), f"{run_id}: non-finite loss")
+    updates = rounds * tr.learns_per_iter
+    span = watch.train_span(iters)
+    stats = {"envs": c.num_envs, "T": tr.T, "iterations": len(iters),
+             "rounds": rounds, "updates_per_round": tr.learns_per_iter,
+             "run_wall_s": wall, "train_span_s": span,
+             "train_env_steps_per_s": rounds * c.num_envs / span,
+             "learner_updates_per_s": updates / span,
+             "upload_forms": dict(tr.upload_forms),
+             "eval_steps": list(tr.metrics["steps"]),
+             "noise_offset": tr.agent.noise.offset,
+             "timer_s": dict(tr.timer.totals), "launches": counts}
+    if sync:
+        stats["median_round_call_ms"] = 1e3 * statistics.median(
+            b - a for n, a, b in iters if n)
+    if delta:
+        ms, k10_n = watch.warmup_kernel_ms(torch, "delta")
+        check(k10_n > 0, f"{run_id}: no K10 kernel in the profiled warm-up")
+        stats["k10_trainer_device_ms"] = ms
+        stats["k10_trainer_profiled_launches"] = k10_n
+    if c.async_eval:
+        check(tr.metrics["steps"] == [c.evaluation_interval]
+              and all(np.isfinite(tr.metrics["Qs"][0])),
+              f"{run_id}: evaluations {tr.metrics['steps']}")
+    if c.sequential_per:  # K5-K7 and a K2 draw once per update
+        check(all(counts[k] == updates for k in (
+            "stratified_sample", "gather_window", "write_priorities"))
+              and counts["scaled_noise"] >= updates
+              and counts["apply_delta"] == 0,
+              f"{run_id}: launch counts {counts}")
+    if c.delta_uploads:
+        check(counts["apply_delta"] == tr.upload_forms["delta"] > 0
+              and sum(tr.upload_forms.values()) == len(iters),
+              f"{run_id}: K10 launches {counts['apply_delta']}, upload forms "
+              f"{tr.upload_forms}")
+    check(all(v > 0 for k, v in counts.items()
+              if k != "apply_delta" or c.delta_uploads),
+          f"{run_id}: a kernel never launched {counts}")
+    tr.env.close()
+    del tr
+    torch.cuda.empty_cache()
+    return stats, counts
+
+
 # ------------------------------------------------------------- kernels -----
 
-def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes,
-                replay_rows):
+def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
+                replay_rows, delta_last, k10_trainer_ms):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
-    learner's, the canonical net's ``shapes`` for Adam), and work out each
-    bound from the same shapes; K5-K7's rows (``replay_rows``) come timed
-    from compare_replay. ``counts`` maps a phase to its launch counts;
+    learner's, the canonical net's ``shapes`` for Adam, the round's noise
+    draw for K2, a real delta for K10), and work out each bound from the
+    same shapes; K5-K7's rows (``replay_rows``) come timed from
+    compare_replay. ``counts`` maps a phase to its launch counts;
     ``launches`` is the trainer phase's (the main path, through cli.main),
-    and the other phases' counts are kept beside it."""
+    for K10 the side-path trainer's (delta uploads), and the other phases'
+    counts are kept beside it."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
     from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
-    from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+    from rainbow_tpu_torch.models.noisy import (NoiseStream,
+                                                init_noisy_params,
                                                 noisy_linear_plain,
                                                 scale_noise)
     from rainbow_tpu_torch.ops import preprocess as pp
@@ -1261,7 +1629,9 @@ def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes,
     n_in, n_out = 3136, 512
     prm = init_noisy_params(g, n_in, n_out, 0.1)
     x = torch.rand((b, n_in), generator=g, device="cuda")
-    eps = (scale_noise(g, (b, n_in)), scale_noise(g, (b, n_out)))
+    ns = NoiseStream(4)
+    eps = (scale_noise(ns, (b, n_in), "cuda"),
+           scale_noise(ns, (b, n_out), "cuda"))
     xe = x * eps[0]
     flops = 4 * b * n_in * n_out + b * n_in + 6 * b * n_out
     nbytes = 4 * (2 * b * n_in + 2 * n_in * n_out + 2 * n_out + 2 * b * n_out)
@@ -1322,18 +1692,86 @@ def kernel_rows(torch, np, A, errs, counts, stack, staged, shapes,
 
     rows += learner_kernel_rows(torch, A, shapes)
     rows += replay_rows
+    rows += noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms)
     for r in rows:
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / FP32_FLOP_PER_S)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / FP32_FLOP_PER_S else "operations")
         r["kernel_ms"] = r["ms"]
-        r["launches"] = counts["trainer"][r["name"]]
+        r["launches"] = counts["side" if r["name"] == "apply_delta"
+                               else "trainer"][r["name"]]
+        r["trainer_launches"] = counts["trainer"][r["name"]]
+        r["sequential_launches"] = counts["sequential"][r["name"]]
+        r["side_launches"] = counts["side"][r["name"]]
         r["train_launches"] = counts["train"][r["name"]]
         r["actor_launches"] = counts["actor"][r["name"]]
         r["eval_launches"] = counts["evaluate"][r["name"]]
         r["max_abs_err"] = errs[r["name"]]
     return rows
+
+
+def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms):
+    """Rows of K2 at the batched round's launch (8192 target rows and 256
+    online draws: 73.3 M float32) and of K10 at the last real 1024-env pong
+    delta of compare_delta, with their device time from torch.profiler:
+    K2's of the timed call, K10's from the side Trainer's profiled warm-up
+    (``k10_trainer_ms``), beside that of the timed call.
+    K2's library call is torch.randn of the same count: the normal draw
+    without the transform. No PyTorch call computes K10's strided plane
+    copy with its segmented scatter, so its library_ms is null."""
+    from rainbow_tpu_torch.kernels.delta import apply_delta
+    from rainbow_tpu_torch.kernels.noise import scaled_noise
+    from rainbow_tpu_torch.models.noisy import philox_noise_plain
+    from rainbow_tpu_torch.train import _apply_delta_plain
+
+    nb = ENVS // cfg.replay_frequency
+    shapes = noise_shapes(cfg, A, [(nb * cfg.batch_size,), (nb,)])
+    n = sum(torch.Size(s).numel() for s in shapes)
+    k2 = lambda: scaled_noise(7, 0, shapes, "cuda")
+    stack, counts, pos, val = delta_last
+    k10 = lambda: apply_delta(stack, counts, pos, val)
+    e, plane = stack.shape[0], stack.shape[1] * stack.shape[2]
+    # On the Trainer's path the act of the iteration before runs between
+    # the stack's last write (its append) and K10, and its float conversion
+    # of the stack writes 115 MB, more than the 50 MB L2, so K10 plausibly
+    # finds the 29 MB stack in device memory; writing 64 MB ahead of each
+    # timed call puts it there.
+    spill = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    cold = dict(before=spill.zero_)
+    return [
+        dict(name="scaled_noise", route="cuda",
+             source="rainbow_tpu_torch/kernels/csrc/noise.cu",
+             replaces="rainbow_tpu/models/noisy.py:49",
+             shape=f"{len(shapes)} tensors, {n} float32 (round: "
+                   f"{nb * cfg.batch_size} target rows + {nb} online draws)",
+             ms=time_ms(torch, k2), device_ms=device_ms(torch, k2),
+             plain_ms=time_ms(torch, lambda: philox_noise_plain(
+                 7, 0, shapes, "cuda"), reps=5),
+             library_ms=time_ms(torch, lambda: torch.randn(n,
+                                                           device="cuda")),
+             # Writes only. Philox: 10 rounds of 2 mulhi, 2 mullo and 4
+             # xors plus 9 key bumps per 4 elements (~25 a element);
+             # Box-Muller and the transform ~12 a element, counted at the
+             # float32 peak (int32 and float64 run slower on the H100).
+             flops=37 * n, bytes=4 * n),
+        dict(name="apply_delta", route="cuda",
+             source="rainbow_tpu_torch/kernels/csrc/delta.cu",
+             replaces="rainbow_tpu/train.py:176",
+             shape=f"N={e} H={stack.shape[3]} {pos.shape[0]} entries",
+             ms=time_ms(torch, k10, **cold),
+             device_ms=k10_trainer_ms,
+             device_ms_timed_call=device_ms(torch, k10, only="delta", **cold),
+             plain_ms=time_ms(torch, lambda: _apply_delta_plain(
+                 stack, counts, pos, val), **cold),
+             library_ms=None,
+             library_note="no single PyTorch call copies the newest plane "
+                          "and scatters the segments",
+             # Read the newest plane, the counts and the entries; write
+             # the plane; a compare per entry.
+             flops=int(pos.shape[0]),
+             bytes=2 * e * plane + 4 * e + 3 * int(pos.shape[0])),
+    ]
 
 
 def learner_kernel_rows(torch, A, shapes):
@@ -1345,7 +1783,8 @@ def learner_kernel_rows(torch, A, shapes):
     from rainbow_tpu_torch.kernels.adam import clip_adam
     from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                         noisy_linear_fwd)
-    from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+    from rainbow_tpu_torch.models.noisy import (NoiseStream,
+                                                init_noisy_params,
                                                 noisy_linear_bwd_plain,
                                                 scale_noise)
     from rainbow_tpu_torch.ops import c51 as oc51
@@ -1359,7 +1798,8 @@ def learner_kernel_rows(torch, A, shapes):
     w = (prm["weight_mu"], prm["weight_sigma"])
     x = torch.rand((b, n_in), generator=g, device="cuda")
     gy = torch.randn((b, n_out), generator=g, device="cuda")
-    eps = (scale_noise(g, (n_in,)), scale_noise(g, (n_out,)))
+    ns = NoiseStream(18)
+    eps = (scale_noise(ns, (n_in,), "cuda"), scale_noise(ns, (n_out,), "cuda"))
     y = noisy_linear_fwd(prm, x, eps, True)
     ge, xe = gy * eps[1], x * eps[0]
     rows.append(dict(
@@ -1472,6 +1912,7 @@ def main() -> int:
     from rainbow_tpu_torch.envs import engine
     from rainbow_tpu_torch.kernels import build, launches, reset_launches
     from rainbow_tpu_torch.models.dqn import init_dqn_params
+    from rainbow_tpu_torch.models.noisy import NoiseStream
     from rainbow_tpu_torch.train import make_env_factory
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1537,12 +1978,17 @@ def main() -> int:
     errs["clip_adam"] = compare_adam(torch, shapes, report)
     replay_errs, replay_rows = compare_replay(torch, np, cfg, report)
     errs.update(replay_errs)
+    errs["scaled_noise"], moments = compare_noise(torch, cfg, A, report)
+    delta_last, delta_forms = compare_delta(torch, np, cfg, report)
+    errs["apply_delta"] = 0.0
     torch.cuda.synchronize()
     with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
         json.dump(report, f, indent=0)
     log(f"[compare] {len(report)} cases agree in "
         f"{time.perf_counter() - t0:.1f} s (the Triton compiles included "
-        f"from {t_triton - t0:.1f} s); max |err| {errs}")
+        f"from {t_triton - t0:.1f} s); max |err| {errs}; K2 moments over "
+        f"{moments[2]} draws: mean {moments[0]:.3g}, E[eps^2] "
+        f"{moments[1]:.6f}; K10 on real pong steps: {delta_forms}")
 
     # 3. one learner update against the plain path ---------------------------
     t0 = time.perf_counter()
@@ -1552,13 +1998,20 @@ def main() -> int:
         f"matches the plain path on the CPU in {time.perf_counter() - t0:.1f}"
         f" s: max |loss diff| {err_l:.3g}, max grad diff {err_g:.3g} of the "
         f"tensor's largest, max |param diff| {err_p:.3g}")
+    t0 = time.perf_counter()
+    err_l, err_p, err_pr = check_sequential_update_against_plain(torch, np,
+                                                                 cfg, A)
+    log(f"[update] one sequential learn_step of the canonical net (K5, K6, "
+        f"K2, K7 on the card) matches the plain path on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s: |loss diff| {err_l:.3g}, max "
+        f"|param diff| {err_p:.3g}, max |priority diff| {err_pr:.3g}")
 
     # 4. actor ---------------------------------------------------------------
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = NoiseStream(SEED)
     params = init_dqn_params(cfg, A, torch.Generator().manual_seed(SEED),
                              "cuda")
     stats, stack, rep, env, staged, actions = run_actor(torch, cfg, params,
-                                                        A, gen)
+                                                        A, noise)
     env.close()
     log("[actor] " + json.dumps(stats))
     q_err = check_actor_step_against_plain(torch, np, cfg, params, A, stack,
@@ -1602,7 +2055,7 @@ def main() -> int:
         "eval_steps": eval_steps, "eval_steps_per_s": eval_steps / eval_s,
         "launches": eval_counts}))
     if args.profile:
-        profile_actor(torch, cfg, params, A, gen)
+        profile_actor(torch, cfg, params, A, noise)
     del params, val_states
     torch.cuda.empty_cache()
 
@@ -1614,13 +2067,32 @@ def main() -> int:
     # 7. trainer -------------------------------------------------------------
     trainer_stats, trainer_counts = run_trainer(torch, np)
     log("[trainer] " + json.dumps(trainer_stats))
+    seq_stats, seq_counts = run_side_trainer(torch, np, SEQUENTIAL_ARGS,
+                                             sync=True)
+    log("[trainer sequential] " + json.dumps(seq_stats))
+    pipe_stats, _ = run_side_trainer(torch, np, PIPELINE_ARGS, sync=False)
+    log("[trainer pipeline] " + json.dumps(pipe_stats))
+    side_stats, side_counts = run_side_trainer(torch, np, SIDE_ARGS,
+                                               sync=False)
+    log("[trainer side] " + json.dumps(side_stats))
+    # Like for like: the pipelined actor alone against the main Trainer's
+    # span less its evaluation and save; the side run, whose asynchronous
+    # evaluation runs inside its span, against the main span with the
+    # evaluation in it.
+    rate = lambda st, key: st[key + "env_steps_per_s"]
+    log("[trainer compare] " + json.dumps({
+        "pipeline_vs_main": rate(pipe_stats, "train_")
+        / rate(trainer_stats, "train_"),
+        "side_vs_main_with_eval": rate(side_stats, "train_")
+        / rate(trainer_stats, "train_with_eval_")}))
 
     # 8. kernels line --------------------------------------------------------
-    rows = kernel_rows(torch, np, A, errs, {"actor": stats["launches"],
-                                            "evaluate": eval_counts,
-                                            "train": train_counts,
-                                            "trainer": trainer_counts},
-                       stack, staged, shapes, replay_rows)
+    rows = kernel_rows(torch, np, cfg, A, errs, {
+        "actor": stats["launches"], "evaluate": eval_counts,
+        "train": train_counts, "trainer": trainer_counts,
+        "sequential": seq_counts, "side": side_counts},
+        stack, staged, shapes, replay_rows, delta_last,
+        side_stats["k10_trainer_device_ms"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

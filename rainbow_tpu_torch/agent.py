@@ -1,13 +1,14 @@
 """Rainbow agent (rainbow_tpu/agent.py): greedy batched act, ε-greedy eval
 act, the validation-Q probe, and the learner's update: the double-Q C51
 target, the IS-weighted cross-entropy and its gradient, global-norm clip +
-Adam, and the hard target sync.
+Adam, the sequential learn step and the hard target sync.
 
-Noise is explicit: ``generator`` (a torch.Generator on the states' device)
-draws fresh noise, ``noise_eps`` (models.dqn.draw_noise) supplies it
-pre-drawn, and with neither the net runs μ only (eval mode). The agent's
-own stream is ``AgentState.generator``; it takes the place of the JAX
-package's ``noise_key`` and ``rng``.
+Noise is explicit: ``noise`` (a models.noisy.NoiseStream) draws fresh
+noise, ``noise_eps`` (models.dqn.draw_noise) supplies it pre-drawn, and
+with neither the net runs μ only (eval mode). The agent's noise stream,
+``AgentState.noise``, takes the place of the JAX package's ``noise_key``;
+its ``generator`` (a torch.Generator) that of ``rng``: the replay's
+stratified uniforms.
 
 Unlike the JAX package, updates are in place: ``apply_grads`` writes the
 params and the Adam moments (JAX returns new arrays instead).
@@ -22,9 +23,12 @@ import torch
 from rainbow_tpu_torch.config import RainbowConfig
 from rainbow_tpu_torch.device import resolve_device
 from rainbow_tpu_torch.kernels import adam as k9
-from rainbow_tpu_torch.models.dqn import (draw_noise, forward_head,
-                                          init_dqn_params, loss_streams)
+from rainbow_tpu_torch.models.dqn import (draw_noise, draw_noise_sets,
+                                          forward_head, init_dqn_params,
+                                          loss_streams)
+from rainbow_tpu_torch.models.noisy import NoiseStream
 from rainbow_tpu_torch.ops.c51 import c51_target, head_loss, support_vector
+from rainbow_tpu_torch.replay import prioritized as rp
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999  # optax.adam's defaults (agent.py:57)
 
@@ -42,8 +46,10 @@ class AgentState:
     params: dict
     target_params: dict
     opt_state: AdamState
-    generator: torch.Generator  # every draw of the agent: noise, sampling
+    generator: torch.Generator  # the replay's stratified uniforms
     step: int = 0               # learner updates applied
+    noise: NoiseStream = dataclasses.field(  # every noisy-layer draw
+        default_factory=lambda: NoiseStream(0))
 
 
 def _mu_dtype(cfg: RainbowConfig) -> torch.dtype:
@@ -62,8 +68,8 @@ def init_adam(params: dict, cfg: RainbowConfig) -> AdamState:
 def init_agent(cfg: RainbowConfig, action_space: int, seed: int = 0,
                device="cuda") -> AgentState:
     """Random params from ``seed`` (drawn on the CPU, so any device gets the
-    same ones), a target copy, a fresh Adam state and the agent's
-    generator on ``device``."""
+    same ones), a target copy, a fresh Adam state, the agent's generator on
+    ``device`` and its noise stream."""
     dev = resolve_device(device)
     params = init_dqn_params(cfg, action_space,
                              torch.Generator().manual_seed(seed), dev)
@@ -71,16 +77,26 @@ def init_agent(cfg: RainbowConfig, action_space: int, seed: int = 0,
         params=params,
         target_params={k: v.clone() for k, v in params.items()},
         opt_state=init_adam(params, cfg),
-        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+        generator=torch.Generator(device=dev).manual_seed(seed + 1),
+        noise=NoiseStream(seed + 3))
+
+
+def reset_noise(agent: AgentState, cfg: RainbowConfig, action_space: int,
+                lead=()) -> dict:
+    """A new set of noisy weights (reference agent.py:49-50; JAX
+    agent.py:85-88 folds the noise key): the next draw of the agent's noise
+    stream, which it advances, with leading shape ``lead``."""
+    dev = next(iter(agent.params.values())).device
+    return draw_noise(cfg, action_space, agent.noise, lead, dev)
 
 
 def act(params: dict, cfg: RainbowConfig, action_space: int,
-        states: torch.Tensor, generator: Optional[torch.Generator] = None,
+        states: torch.Tensor, noise: Optional[NoiseStream] = None,
         noise_eps: Optional[dict] = None) -> torch.Tensor:
     """Greedy batched action selection, argmax_a Σ_z z·p (reference
     agent.py:53-55), as (B,) int64. With cfg.per_env_noise each env row gets
     its own noise draw."""
-    return forward_head(params, cfg, action_space, states, generator,
+    return forward_head(params, cfg, action_space, states, noise,
                         per_sample_noise=cfg.per_env_noise,
                         noise_eps=noise_eps).action
 
@@ -127,10 +143,9 @@ def compute_update_pretarget(agent: AgentState, cfg: RainbowConfig,
     ``actions``, ``returns``, ``nonterminals`` and ``weights`` (B,). The
     double-Q selection forward and the gradient forward share one online
     noise draw: ``noise_eps`` (models.dqn.draw_noise, shared over the
-    batch), or a draw from the agent's generator."""
+    batch), or a draw from the agent's noise stream."""
     if noise_eps is None:
-        noise_eps = draw_noise(cfg, action_space, agent.generator,
-                               device=pns_target.device)
+        noise_eps = reset_noise(agent, cfg, action_space)
     support = support_vector(cfg.v_min, cfg.v_max, cfg.atoms,
                              pns_target.device)
     with torch.no_grad():
@@ -146,6 +161,33 @@ def compute_update_pretarget(agent: AgentState, cfg: RainbowConfig,
                             dict(batch, target_m=target_m), noise_eps)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return dict(zip(leaves, grads)), losses
+
+
+def compute_update(agent: AgentState, cfg: RainbowConfig, action_space: int,
+                   batch: dict, draws: Optional[dict] = None):
+    """Target construction and gradient for one batch, the sequential
+    learner's update (JAX agent.py:137-174): the double-Q selection forward
+    and the gradient forward with the online params share one online noise
+    draw; the target forward uses a fresh target draw, shared over the
+    batch. Both draws come from the agent's noise stream in one launch of
+    the noise kernel, or from ``draws`` (``"online"``, ``"target"``:
+    models.dqn.draw_noise dicts). ``batch`` as compute_update_pretarget's.
+    Returns (grads, per-sample losses)."""
+    draws = draws or {}
+    online, target = draws.get("online"), draws.get("target")
+    dev = batch["next_states"].device
+    if online is None and target is None:
+        online, target = draw_noise_sets(cfg, action_space, agent.noise,
+                                         [(), ()], dev)
+    elif online is None or target is None:
+        raise ValueError("compute_update: draws holds both 'online' and "
+                         "'target' noise, or neither")
+    with torch.no_grad():
+        pns_target = forward_head(agent.target_params, cfg, action_space,
+                                  batch["next_states"], dist="probs",
+                                  noise_eps=target).dist
+    return compute_update_pretarget(agent, cfg, action_space, batch,
+                                    pns_target, online)
 
 
 def apply_grads_plain(params, grads, mu, nu, count: torch.Tensor, lr: float,
@@ -192,6 +234,26 @@ def apply_grads(agent: AgentState, cfg: RainbowConfig, grads: dict) -> None:
     else:
         apply_grads_plain(*args)
     agent.step += 1
+
+
+def learn_step(agent: AgentState, rep: rp.ReplayState, cfg: RainbowConfig,
+               action_space: int, beta, draws: Optional[dict] = None
+               ) -> torch.Tensor:
+    """One sequential learner step (JAX agent.py:226-245): a prioritized
+    batch against the current priorities (``draws["u"]`` or the agent's
+    generator), the update (compute_update, with ``draws``' noise if
+    given), clip + Adam, and the write-back of the per-sample losses as
+    priorities. Updates ``agent`` and ``rep`` in place; returns the mean
+    loss as a 0-d device tensor."""
+    draws = draws or {}
+    batch = rp.sample(rep, beta, batch_size=cfg.batch_size,
+                      history=cfg.history_length, n_step=cfg.multi_step,
+                      discount=cfg.discount, generator=agent.generator,
+                      u=draws.get("u"))
+    grads, losses = compute_update(agent, cfg, action_space, batch, draws)
+    apply_grads(agent, cfg, grads)
+    rp.update_priorities(rep, batch["idxs"], losses, cfg.priority_exponent)
+    return losses.mean()
 
 
 def update_target(agent: AgentState) -> None:

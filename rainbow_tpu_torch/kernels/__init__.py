@@ -11,29 +11,43 @@ wrappers.
   stratified_sample  CUDA C++  csrc/replay.cu             (replay/prioritized.py)
   gather_window      CUDA C++  csrc/replay.cu             (replay/prioritized.py)
   write_priorities   CUDA C++  csrc/replay.cu             (replay/prioritized.py)
+  scaled_noise       CUDA C++  csrc/noise.cu              (models/noisy.py)
+  apply_delta        CUDA C++  csrc/delta.cu              (train.py)
 
 The CUDA sources are compiled with nvcc for sm_90a into shared libraries
 under ``rainbow_tpu_torch/_build/`` at first use (build.py) and called
 through ctypes; the Triton kernel compiles at its first launch. Each wrapper
 takes CUDA tensors only, checks them, launches, raises on a launch error and
-adds one to ``LAUNCHES[name]``. The plain PyTorch version of each kernel sits
+adds one to ``LAUNCHES[name]`` (``count_launch``, under a lock: an
+asynchronous evaluation launches from a second thread). The plain PyTorch version of each kernel sits
 beside its caller and runs only on CPU tensors.
 """
 from __future__ import annotations
 
+import threading
+
 LAUNCHES = {"noisy_linear_fwd": 0, "noisy_linear_bwd": 0, "dueling_head": 0,
             "c51_target": 0, "head_loss": 0, "append_framestack": 0,
             "clip_adam": 0, "stratified_sample": 0, "gather_window": 0,
-            "write_priorities": 0}
+            "write_priorities": 0, "scaled_noise": 0, "apply_delta": 0}
+_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to a kernel's launch count."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launches() -> dict:
-    return dict(LAUNCHES)
+    with _LOCK:
+        return dict(LAUNCHES)
 
 
 def check_cuda(name: str, **tensors) -> None:

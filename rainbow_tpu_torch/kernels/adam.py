@@ -10,8 +10,8 @@ from typing import Sequence
 
 import torch
 
-from rainbow_tpu_torch.kernels import (LAUNCHES, build, check_cuda,
-                                       check_dtype, check_shape)
+from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
+                                       check_shape, count_launch)
 
 NAME = "clip_adam"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -81,4 +81,4 @@ def clip_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
              eps, max_norm, torch.cuda.current_stream(count.device).cuda_stream)
     if err:
         raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME)

@@ -10,8 +10,8 @@ import functools
 
 import torch
 
-from rainbow_tpu_torch.kernels import (LAUNCHES, build, check_cuda,
-                                       check_dtype, check_shape)
+from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
+                                       check_shape, count_launch)
 
 NAME = "append_framestack"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -82,4 +82,4 @@ def append_framestack(stack, obs, reset_packed, reset_idx, kinds, rep=None,
                  torch.cuda.current_stream(stack.device).cuda_stream)
     if err:
         raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME)

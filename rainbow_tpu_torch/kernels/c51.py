@@ -35,8 +35,8 @@ import functools
 
 import torch
 
-from rainbow_tpu_torch.kernels import (LAUNCHES, check_cuda, check_dtype,
-                                       check_shape)
+from rainbow_tpu_torch.kernels import (check_cuda, check_dtype, check_shape,
+                                       count_launch)
 
 TARGET = "c51_target"
 LOSS = "head_loss"
@@ -152,7 +152,7 @@ def c51_target(pns_target: torch.Tensor, a_star: torch.Tensor,
                         n_act, atoms, float(discount_n), float(v_min),
                         float(v_max), (v_max - v_min) / (atoms - 1),
                         BLOCK_Z=next_pow2(atoms), num_warps=4)
-    LAUNCHES[TARGET] += 1
+    count_launch(TARGET)
     return m
 
 
@@ -183,5 +183,5 @@ def head_loss(v: torch.Tensor, a: torch.Tensor, actions: torch.Tensor,
                       n_act, 1.0 / n_act, 1.0 / b, atoms,
                       BLOCK_R=min(_BLOCK_ROWS, next_pow2(b)),
                       BLOCK_Z=next_pow2(atoms), num_warps=4)
-    LAUNCHES[LOSS] += 1
+    count_launch(LOSS)
     return losses, loss, dv, da

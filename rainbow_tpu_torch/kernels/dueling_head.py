@@ -28,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from rainbow_tpu_torch.kernels import (LAUNCHES, check_cuda, check_dtype,
-                                       check_shape)
+from rainbow_tpu_torch.kernels import (check_cuda, check_dtype, check_shape,
+                                       count_launch)
 
 NAME = "dueling_head"
 
@@ -113,5 +113,5 @@ def dueling_head_fwd(v: torch.Tensor, a: torch.Tensor, support: torch.Tensor,
                  action_space, 1.0 / action_space, atoms, BLOCK_A=next_pow2(action_space),
                  BLOCK_Z=next_pow2(atoms), WRITE_DIST=dist is not None,
                  LOG=dist == "log", num_warps=2)
-    LAUNCHES[NAME] += 1
+    count_launch(NAME)
     return out, q, act, max_q

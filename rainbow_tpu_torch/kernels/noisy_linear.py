@@ -12,8 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from rainbow_tpu_torch.kernels import (LAUNCHES, build, check_cuda,
-                                       check_dtype, check_shape)
+from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
+                                       check_shape, count_launch)
 
 NAME = "noisy_linear_fwd"
 BWD = "noisy_linear_bwd"
@@ -80,7 +80,7 @@ def noisy_linear_fwd(params: dict, x: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME)
     return y
 
 
@@ -124,5 +124,5 @@ def noisy_linear_bwd(w_mu: torch.Tensor, w_sig: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{BWD}: launch failed with CUDA error {err}")
-    LAUNCHES[BWD] += 1
+    count_launch(BWD)
     return dx, dw_mu, dw_sig, db_mu, db_sig

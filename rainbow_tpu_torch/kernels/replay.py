@@ -12,8 +12,8 @@ import functools
 
 import torch
 
-from rainbow_tpu_torch.kernels import (LAUNCHES, build, check_cuda,
-                                       check_dtype, check_shape)
+from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
+                                       check_shape, count_launch)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_LEAVES = 1 << 22  # csrc/replay.cu: 2048 chunks of 2048 leaves
@@ -81,7 +81,7 @@ def stratified_sample(state, u: torch.Tensor, history: int, n_step: int):
         state.priorities.data_ptr(), state.index.data_ptr(), e, c, history,
         n_step, u.data_ptr(), b, leaves, tree.data_ptr(), idx.data_ptr(),
         p.data_ptr(), total.data_ptr(), _stream(u)))
-    LAUNCHES[name] += 1
+    count_launch(name)
     return idx, p, total
 
 
@@ -136,7 +136,7 @@ def gather_window(state, idx: torch.Tensor, p: torch.Tensor,
         bs, out_idx.data_ptr(), actions.data_ptr(), returns.data_ptr(),
         nonterminals.data_ptr(), weights.data_ptr(), wmax.data_ptr(),
         blank.data_ptr(), window.data_ptr(), _stream(idx)))
-    LAUNCHES[name] += 1
+    count_launch(name)
     return window_fields(window, history, n_step, {
         "idxs": out_idx, "actions": actions, "returns": returns,
         "nonterminals": nonterminals, "weights": weights,
@@ -186,4 +186,4 @@ def write_priorities(state, idxs: torch.Tensor, losses: torch.Tensor,
         idxs.data_ptr(), losses.data_ptr(), nb, bs, float(priority_exponent),
         state.priorities.data_ptr(), state.max_priority.data_ptr(),
         _stream(idxs)))
-    LAUNCHES[name] += 1
+    count_launch(name)

@@ -10,14 +10,14 @@ channels-last tensor with no copy, and flattens channel-major (dqn.py:77-80).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from rainbow_tpu_torch.device import resolve_device
-from rainbow_tpu_torch.models.noisy import (init_noisy_params, noisy_linear,
-                                            scale_noise)
+from rainbow_tpu_torch.models.noisy import (NoiseStream, draw_scaled_noise,
+                                            init_noisy_params, noisy_linear)
 from rainbow_tpu_torch.ops.c51 import support_vector
 from rainbow_tpu_torch.ops.head import HeadOut, dueling_head
 
@@ -78,16 +78,26 @@ def _torso(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
-def draw_noise(cfg, action_space: int, generator: torch.Generator,
-               lead=(), device=None) -> dict:
-    """Pre-draw factored noise for every noisy layer, with an optional
-    leading shape (``(B,)`` for one draw per env row). Returns
-    {layer: (eps_in, eps_out)} float32, for ``apply_dqn(noise_eps=...)``."""
-    out = {}
-    for name, (din, dout) in _noisy_dims(cfg, action_space).items():
-        out[name] = (scale_noise(generator, tuple(lead) + (din,), device),
-                     scale_noise(generator, tuple(lead) + (dout,), device))
-    return out
+def draw_noise(cfg, action_space: int, noise: NoiseStream, lead=(),
+               device="cuda") -> dict:
+    """Pre-draw factored noise for every noisy layer from the stream
+    ``noise``, with an optional leading shape (``(B,)`` for one draw per env
+    row). Returns {layer: (eps_in, eps_out)} float32, for
+    ``apply_dqn(noise_eps=...)``: one launch of the noise kernel on a CUDA
+    ``device``, its plain version on the CPU."""
+    return draw_noise_sets(cfg, action_space, noise, [lead], device)[0]
+
+
+def draw_noise_sets(cfg, action_space: int, noise: NoiseStream,
+                    leads: Sequence[tuple], device="cuda") -> List[dict]:
+    """draw_noise for each leading shape in ``leads``, in that order from
+    the stream, all in one draw (one launch on a CUDA ``device``)."""
+    dims = _noisy_dims(cfg, action_space)
+    shapes = [tuple(lead) + (d,) for lead in leads
+              for din, dout in dims.values() for d in (din, dout)]
+    flat = iter(draw_scaled_noise(noise, shapes, device))
+    return [{name: (next(flat), next(flat)) for name in dims}
+            for _ in leads]
 
 
 def _compute_dtype(cfg) -> torch.dtype:
@@ -95,15 +105,15 @@ def _compute_dtype(cfg) -> torch.dtype:
 
 
 def _streams(params: dict, cfg, action_space: int, x: torch.Tensor,
-             generator: Optional[torch.Generator], per_sample_noise: bool,
+             noise: Optional[NoiseStream], per_sample_noise: bool,
              noise_eps: Optional[dict]):
     """Value and advantage streams, (B, atoms) and (B, A·atoms), in the
     compute dtype."""
     x = x.to(_compute_dtype(cfg))
     feat = _torso(params, cfg, x)
-    if noise_eps is None and generator is not None:
+    if noise_eps is None and noise is not None:
         lead = (x.shape[0],) if per_sample_noise else ()
-        noise_eps = draw_noise(cfg, action_space, generator, lead, x.device)
+        noise_eps = draw_noise(cfg, action_space, noise, lead, x.device)
     ne = noise_eps or {}
 
     def stream(h_name, z_name):
@@ -124,37 +134,37 @@ def loss_streams(params: dict, cfg, action_space: int, x: torch.Tensor,
 
 
 def forward_head(params: dict, cfg, action_space: int, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[NoiseStream] = None,
                  dist: Optional[str] = None, per_sample_noise: bool = False,
                  noise_eps: Optional[dict] = None,
                  support: Optional[torch.Tensor] = None) -> HeadOut:
     """Network forward through the head epilogue: (dist, q, greedy action,
     max q). ``dist`` selects the distribution output (None, "probs", "log");
     ``support`` defaults to the config's atoms."""
-    v, a = _streams(params, cfg, action_space, x, generator,
-                    per_sample_noise, noise_eps)
+    v, a = _streams(params, cfg, action_space, x, noise, per_sample_noise,
+                    noise_eps)
     if support is None:
         support = support_vector(cfg.v_min, cfg.v_max, cfg.atoms, v.device)
     return dueling_head(v, a, support, action_space, dist)
 
 
 def apply_dqn(params: dict, cfg, action_space: int, x: torch.Tensor,
-              generator: Optional[torch.Generator] = None, log: bool = False,
+              noise: Optional[NoiseStream] = None, log: bool = False,
               per_sample_noise: bool = False,
               noise_eps: Optional[dict] = None) -> torch.Tensor:
     """Forward pass: (B, 84, 84, H) NHWC float → (B, A, atoms) float32 atom
     probabilities, or log-probabilities with ``log=True`` (reference
     model.py:69-80). Noise comes from ``noise_eps`` (pre-drawn, see
-    ``draw_noise``) or is drawn from ``generator``; with neither the net
+    ``draw_noise``) or is drawn from the stream ``noise``; with neither the net
     runs μ only (eval mode). bfloat16 compute keeps an fp32 softmax."""
-    return forward_head(params, cfg, action_space, x, generator,
+    return forward_head(params, cfg, action_space, x, noise,
                         "log" if log else "probs", per_sample_noise,
                         noise_eps).dist
 
 
 def q_values(params: dict, cfg, action_space: int, support: torch.Tensor,
              x: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             noise: Optional[NoiseStream] = None) -> torch.Tensor:
     """Expected Q per action, Σ_z z·p (reference agent.py:55), (B, A)."""
-    return forward_head(params, cfg, action_space, x, generator,
+    return forward_head(params, cfg, action_space, x, noise,
                         support=support).q

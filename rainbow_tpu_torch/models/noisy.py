@@ -16,14 +16,23 @@ The layer is differentiable in x and its four params: a
 ``torch.autograd.Function`` whose forward and backward are one launch each
 of the noisy-linear kernels on CUDA tensors, and their plain versions on CPU
 tensors.
+
+Noise comes from a ``NoiseStream`` (seed, offset): a counter-based
+Philox4x32-10 stream, so a draw is a pure function of (seed, offset, shapes)
+and the CPU and the card draw the same values. On a CUDA device one draw is
+one launch of the noise kernel (K2, csrc/noise.cu, which writes down the
+word-to-element map); on the CPU its plain version ``philox_noise_plain``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from rainbow_tpu_torch.device import resolve_device
+from rainbow_tpu_torch.kernels import noise as k2
 from rainbow_tpu_torch.kernels import noisy_linear as ka
 
 
@@ -49,15 +58,96 @@ def init_noisy_params(generator: torch.Generator, in_features: int,
     return {k: v.to(device) for k, v in p.items()} if device else p
 
 
-def scale_noise(generator: torch.Generator, shape, device=None,
-                dtype=torch.float32) -> torch.Tensor:
-    """f(x) = sign(x)·sqrt(|x|) over a standard normal draw
-    (reference model.py:32-34)."""
+@dataclasses.dataclass
+class NoiseStream:
+    """A noise stream: Philox4x32-10 keyed by ``seed`` (64 bits), at the
+    32-bit word position ``offset`` (a multiple of 4). Every draw takes the
+    words it uses from ``offset`` and advances it past them."""
+    seed: int
+    offset: int = 0
+
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 round multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85  # and key bumps
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit halves of m·x for x in [0, 2^32), in int64 without
+    overflow: x is split into 16-bit halves, every partial product < 2^49."""
+    lo = m * (x & 0xFFFF)
+    t = m * (x >> 16) + (lo >> 16)
+    return t >> 16, ((t & 0xFFFF) << 16) | (lo & 0xFFFF)
+
+
+def philox4x32_10(ctr: torch.Tensor, key: Sequence[int]) -> torch.Tensor:
+    """Random123's Philox4x32-10 (Salmon et al., SC'11) of counters ``ctr``
+    (…, 4) int64, each word in [0, 2^32), under ``key`` (two 32-bit ints);
+    returns (…, 4) int64 words."""
+    c0, c1, c2, c3 = ctr.unbind(-1)
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack((c0, c1, c2, c3), dim=-1)
+
+
+def noise_words(shapes: Sequence[tuple]) -> int:
+    """The stream words a draw of ``shapes`` uses: four per Philox counter,
+    ceil(numel / 4) counters per tensor."""
+    return 4 * sum(-(-math.prod(s) // 4) for s in shapes)
+
+
+def philox_noise_plain(seed: int, offset: int, shapes: Sequence[tuple],
+                       device="cpu") -> List[torch.Tensor]:
+    """Plain version of the noise kernel (K2): for each shape, float32
+    sign(n)·√|n| of standard normals n from the stream at (``seed``,
+    ``offset``), in csrc/noise.cu's word-to-element map: Philox on int64
+    tensors, Box–Muller and the transform in float64, one rounding to
+    float32. Runs on any device; the kernel replaces it on the card."""
+    key = (seed & _MASK32, (seed >> 32) & _MASK32)
+    base = offset // 4
+    outs = []
+    for shape in shapes:
+        n = math.prod(shape)
+        m = -(-n // 4)
+        c = torch.arange(base, base + m, dtype=torch.int64, device=device)
+        zero = torch.zeros_like(c)
+        w = philox4x32_10(torch.stack((c & _MASK32, c >> 32, zero, zero),
+                                      dim=-1), key).double()
+        r = torch.sqrt(-2.0 * torch.log((w[:, 0::2] + 1.0) * 2.0 ** -32))
+        t = 6.283185307179586 * (w[:, 1::2] * 2.0 ** -32)
+        z = torch.stack((r * torch.cos(t), r * torch.sin(t)), dim=-1)
+        eps = torch.sign(z) * torch.sqrt(torch.abs(z))
+        outs.append(eps.reshape(-1)[:n].float().reshape(shape))
+        base += m
+    return outs
+
+
+def draw_scaled_noise(stream: NoiseStream, shapes: Sequence[tuple],
+                      device="cuda") -> List[torch.Tensor]:
+    """One draw of f(n) = sign(n)·√|n| over standard normals (reference
+    model.py:32-34), a float32 tensor per shape on ``device``, from
+    ``stream``, which it advances. On a CUDA device one launch of the noise
+    kernel, on the CPU (``device="cpu"``) its plain version."""
+    dev = resolve_device(device)
+    shapes = [tuple(s) for s in shapes]
+    offset = stream.offset
+    stream.offset += noise_words(shapes)
+    if dev.type == "cuda":
+        return k2.scaled_noise(stream.seed, offset, shapes, dev)
+    return philox_noise_plain(stream.seed, offset, shapes, dev)
+
+
+def scale_noise(stream: NoiseStream, shape, device="cuda") -> torch.Tensor:
+    """One tensor of f(n) = sign(n)·√|n| noise from ``stream`` (see
+    draw_scaled_noise)."""
     if isinstance(shape, int):
         shape = (shape,)
-    x = torch.randn(shape, generator=generator,
-                    device=device or generator.device, dtype=dtype)
-    return torch.sign(x) * torch.sqrt(torch.abs(x))
+    return draw_scaled_noise(stream, [shape], device)[0]
 
 
 def noisy_linear_plain(params: dict, x: torch.Tensor,
@@ -122,21 +212,22 @@ class _NoisyLinear(torch.autograd.Function):
 def noisy_linear(params: dict, x: torch.Tensor,
                  eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  per_sample: bool = False, relu: bool = False,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 noise: Optional[NoiseStream] = None) -> torch.Tensor:
     """Apply a noisy linear layer to x (B, in), float32 or bfloat16.
 
     ``eps=(eps_in, eps_out)`` is pre-drawn scaled noise, shared or per row;
-    else, with a ``generator``, noise is drawn here (per row when
+    else, with a ``noise`` stream, noise is drawn here (per row when
     ``per_sample``); with neither, the layer is μ only. ``relu`` applies a
     ReLU to the output. On CUDA tensors this is one launch of the
     noisy-linear kernel, on CPU tensors its plain version; so is its
     backward.
     """
-    if eps is None and generator is not None:
+    if eps is None and noise is not None:
         lead = (x.shape[0],) if per_sample else ()
         w = params["weight_mu"]
-        eps = (scale_noise(generator, lead + (w.shape[1],), x.device),
-               scale_noise(generator, lead + (w.shape[0],), x.device))
+        eps = tuple(draw_scaled_noise(noise, (lead + (w.shape[1],),
+                                              lead + (w.shape[0],)),
+                                      x.device))
     eps_in, eps_out = eps if eps is not None else (None, None)
     return _NoisyLinear.apply(x, params["weight_mu"], params["weight_sigma"],
                               params["bias_mu"], params["bias_sigma"], eps_in,

@@ -12,12 +12,12 @@ in place (JAX donates the buffers instead). ``index``, ``full`` and
 ``max_priority`` are 0-d tensors on the ring's device, so appending never
 waits for the host; nor does sampling or the priority write-back.
 
-The sampler (``sample_many``): one stratified descent over the masked
-priorities (K5), then one windowed uint8 gather with episode blanking,
-n-step returns and IS weights normalised per batch (K6); the write-back
-(``update_priorities``) is K7. Each runs as its hand-written kernel
-(kernels/replay.py) on a CUDA ring and as its ``*_plain`` version on a CPU
-ring.
+The sampler (``sample_many``, and ``sample`` for one batch): one
+stratified descent over the masked priorities (K5), then one windowed uint8
+gather with episode blanking, n-step returns and IS weights normalised per
+batch (K6); the write-back (``update_priorities``) is K7. Each runs as its
+hand-written kernel (kernels/replay.py) on a CUDA ring and as its
+``*_plain`` version on a CPU ring.
 """
 from __future__ import annotations
 
@@ -295,6 +295,28 @@ def sample_many(state: ReplayState, beta, *, num_batches: int,
     idx, p, total = stratified_sample_plain(state, u, history, n_step)
     return gather_window_plain(state, idx, p, total, beta, nb, bs, history,
                                n_step, discount)
+
+
+def sample(state: ReplayState, beta, *, batch_size: int, history: int,
+           n_step: int, discount: float,
+           generator: Optional[torch.Generator] = None,
+           u: Optional[torch.Tensor] = None) -> dict:
+    """One prioritized batch (JAX prioritized.py:220-241; reference
+    memory.py:124-155): ``batch_size`` stratified draws against the current
+    priorities and their windowed gather, sample_many with one batch.
+    Returns ``idxs`` (B,), ``states`` and ``next_states`` float32 (B, 84, 84,
+    history) in [0, 1], ``actions``, ``returns``, ``nonterminals``,
+    ``weights`` normalised by the batch max (floored at 1e-12), and that
+    max as ``weights_max``. ``u`` (B,) replaces the uniform draw from
+    ``generator``. On a CUDA ring one call each of the stratified-sample and
+    the windowed-gather kernels."""
+    out = sample_many(state, beta, num_batches=1, batch_size=batch_size,
+                      history=history, n_step=n_step, discount=discount,
+                      generator=generator, u=u)
+    out = {k: v[0] for k, v in out.items()}
+    for k in ("states", "next_states"):
+        out[k] = states_to_float(out[k])
+    return out
 
 
 def states_to_float(stacks: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The batched actor's per-iteration step, the batched-PER learner round,
-the fused training iteration and the Trainer (rainbow_tpu/train.py:45-138,
-230-296, 351-418, 451-1165).
+"""The batched actor's per-iteration step, the learner rounds (batched and
+sequential PER), the fused training iteration with dense or delta
+observations, and the Trainer (rainbow_tpu/train.py:45-316, 351-448,
+451-1165).
 
 One actor iteration appends the transition that just ended to the replay,
 advances the frame stack (one launch of the append + frame-stack kernel on
@@ -10,22 +11,27 @@ this iteration's append, then the masked target sync, then the actor
 iteration. The stack, the replay and the agent are updated in place (the
 JAX package donates them instead); only the caller's fetch of the actions
 waits for the device. The Trainer schedules those iterations: the learn
-cadence, β, the target sync, evaluation and checkpoints.
+cadence, β, the target sync, evaluation and checkpoints, and its side
+paths: the pipelined actor, asynchronous evaluation and delta uploads.
 
-Random draws come from the agent's generator. A caller that must match
-draws made elsewhere (the tests, which replay the JAX package's) passes
-them in ``draws``: ``"u"`` the round's stratified uniforms, ``"target"``
-the target forward's per-row noise, ``"online"`` the per-update online
-noise (models.dqn.draw_noise with lead (num_learns,)), ``"act"`` the act
-forward's noise. The Trainer passes ``"act"`` itself, to hold the act noise
-between redraws as the JAX package's Trainer does.
+Noise comes from the agent's noise stream, the replay's uniforms from its
+generator. A caller that must match draws made elsewhere (the tests, which
+replay the JAX package's) passes them in ``draws``: ``"u"`` the round's
+stratified uniforms, ``"target"`` the target forward's noise, ``"online"``
+the per-update online noise (models.dqn.draw_noise with lead (num_learns,)
+for both in the sequential round, per row for the batched round's target),
+``"act"`` the act forward's noise. The Trainer passes ``"act"`` itself, to
+hold the act noise between redraws as the JAX package's Trainer does.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
+import queue
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
@@ -35,7 +41,10 @@ from rainbow_tpu_torch import agent as ag
 from rainbow_tpu_torch import checkpoint as ckpt
 from rainbow_tpu_torch.config import RainbowConfig
 from rainbow_tpu_torch.device import resolve_device
-from rainbow_tpu_torch.models.dqn import draw_noise, forward_head
+from rainbow_tpu_torch.envs.engine import delta_bucket
+from rainbow_tpu_torch.kernels import delta as k10
+from rainbow_tpu_torch.models.dqn import draw_noise_sets, forward_head
+from rainbow_tpu_torch.models.noisy import NoiseStream
 from rainbow_tpu_torch.ops.preprocess import (append_framestack,
                                               init_framestack,
                                               to_network_input)
@@ -72,7 +81,7 @@ def _update_core(cfg: RainbowConfig, stack: torch.Tensor,
                       prev_actions, rewards, dones, cfg.reward_clip)
 
 
-def actor_step(params: dict, generator: Optional[torch.Generator],
+def actor_step(params: dict, noise: Optional[NoiseStream],
                cfg: RainbowConfig, action_space: int, stack: torch.Tensor,
                rep: rp.ReplayState, prev_actions, obs, reset_frames, rewards,
                dones, kinds, noise_eps: Optional[dict] = None) -> torch.Tensor:
@@ -81,7 +90,7 @@ def actor_step(params: dict, generator: Optional[torch.Generator],
     place and returns the actions (N,) int64 on the device."""
     n = obs.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=obs.device)
-    return actor_step_packed(params, generator, cfg, action_space, stack, rep,
+    return actor_step_packed(params, noise, cfg, action_space, stack, rep,
                              prev_actions, obs, reset_frames, idx, rewards,
                              dones, kinds, noise_eps)
 
@@ -106,18 +115,29 @@ def pack_resets(resets: np.ndarray, kinds: np.ndarray):
     return packed, out_idx
 
 
-def actor_step_packed(params: dict, generator: Optional[torch.Generator],
+def actor_step_packed(params: dict, noise: Optional[NoiseStream],
                       cfg: RainbowConfig, action_space: int,
                       stack: torch.Tensor, rep: rp.ReplayState, prev_actions,
                       obs, reset_packed, reset_idx, rewards, dones, kinds,
                       noise_eps: Optional[dict] = None) -> torch.Tensor:
     """actor_step with packed reset frames (see pack_resets): one launch of
     the append + frame-stack kernel, then one forward. Noise as in
-    agent.act: drawn from ``generator``, or pre-drawn ``noise_eps``."""
+    agent.act: drawn from the stream ``noise``, or pre-drawn ``noise_eps``."""
     _update_core(cfg, stack, rep, prev_actions, obs, reset_packed, reset_idx,
                  rewards, dones, kinds)
-    return ag.act(params, cfg, action_space, to_network_input(stack),
-                  generator, noise_eps)
+    return ag.act(params, cfg, action_space, to_network_input(stack), noise,
+                  noise_eps)
+
+
+def _host_step(obs_form, resets, rewards, dones, kinds) -> list:
+    """One engine step packed on the host, in the order an iteration takes
+    it after ``prev_actions``: ``obs_form`` (the observations, or a delta's
+    counts, positions and values), the packed reset frames and their
+    indices, rewards float32, dones bool, reset kinds."""
+    packed, ridx = pack_resets(resets, kinds)
+    return [np.ascontiguousarray(a) for a in (
+        *obs_form, packed, ridx, np.asarray(rewards, np.float32),
+        np.asarray(dones, np.bool_), kinds)]
 
 
 def stage_step(outputs, device) -> tuple:
@@ -125,51 +145,115 @@ def stage_step(outputs, device) -> tuple:
     device tensors ``actor_step_packed`` takes after ``prev_actions``:
     (obs, reset_packed, reset_idx, rewards, dones, kinds)."""
     obs, resets, rewards, dones, kinds = outputs
-    packed, ridx = pack_resets(resets, kinds)
-    t = lambda a, dtype=None: torch.from_numpy(
-        np.ascontiguousarray(a, dtype)).to(device)
-    return (t(obs), t(packed), t(ridx), t(rewards, np.float32),
-            t(dones, np.bool_), t(kinds))
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _host_step((obs,), resets, rewards, dones, kinds))
+
+
+def _apply_delta_plain(stack: torch.Tensor, counts: torch.Tensor,
+                       pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Plain version of the delta kernel (K10): the step's observations
+    (N, F, F) uint8 rebuilt from the stack's newest plane and the sparse
+    delta (JAX train.py:176-195). Env e owns entries [start_e, start_e +
+    counts[e]) of ``pos`` (uint16 positions within its F·F plane) and
+    ``val`` (uint8), start_e the sum of the counts before it; entries past
+    sum(counts) (padding) and positions beyond the plane are dropped."""
+    n, f = stack.shape[0], stack.shape[1]
+    obs = stack[..., -1].reshape(-1).clone()
+    env = torch.repeat_interleave(
+        torch.arange(n, device=stack.device),
+        counts.to(torch.int64))[:pos.shape[0]]
+    p = pos[:env.shape[0]].to(torch.int64)
+    keep = p < f * f
+    obs[(env * (f * f) + p)[keep]] = val[:env.shape[0]][keep]
+    return obs.view(n, f, f)
+
+
+def apply_delta(stack: torch.Tensor, counts: torch.Tensor, pos: torch.Tensor,
+                val: torch.Tensor) -> torch.Tensor:
+    """The observations of a delta upload (see _apply_delta_plain): one
+    launch of the delta kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if stack.is_cuda:
+        return k10.apply_delta(stack, counts, pos, val)
+    return _apply_delta_plain(stack, counts, pos, val)
+
+
+def pack_delta(dpos: np.ndarray, dval: np.ndarray):
+    """Pad a sparse frame delta (engine.step_delta's uint16 positions and
+    uint8 values) to the smallest bucket of envs.engine.DELTA_BUCKETS that
+    holds it, as the JAX package does to bound its compiled shapes (JAX
+    train.py:159-173); the pad entries lie past the counts' sum and are
+    dropped on the device. The Trainer uploads deltas unpadded (PyTorch
+    compiles nothing per shape); padded input is what the delta kernel must
+    also accept."""
+    k = dpos.shape[0]
+    kp = delta_bucket(k)
+    if kp is None:
+        raise ValueError(f"pack_delta: {k} entries exceed the bucket table; "
+                         "use the dense path")
+    out_pos = np.zeros((kp,), np.uint16)
+    out_pos[:k] = dpos
+    out_val = np.zeros((kp,), np.uint8)
+    out_val[:k] = dval
+    return out_pos, out_val
+
+
+def actor_step_delta(params: dict, noise: Optional[NoiseStream],
+                     cfg: RainbowConfig, action_space: int,
+                     stack: torch.Tensor, rep: rp.ReplayState, prev_actions,
+                     delta_counts, delta_pos, delta_val, reset_packed,
+                     reset_idx, rewards, dones, kinds,
+                     noise_eps: Optional[dict] = None) -> torch.Tensor:
+    """actor_step_packed with the observations as a sparse delta against the
+    stack's newest plane (engine.step_delta; JAX train.py:200-215)."""
+    obs = apply_delta(stack, delta_counts, delta_pos, delta_val)
+    return actor_step_packed(params, noise, cfg, action_space, stack, rep,
+                             prev_actions, obs, reset_packed, reset_idx,
+                             rewards, dones, kinds, noise_eps)
 
 
 def learner_round(agent: ag.AgentState, rep: rp.ReplayState,
                   cfg: RainbowConfig, action_space: int, num_learns: int,
                   beta, draws: Optional[dict] = None) -> torch.Tensor:
+    """``num_learns`` learner updates against ``rep`` (JAX train.py:451-463):
+    the sequential PER round with cfg.sequential_per, else the batched one.
+    Updates ``agent`` and ``rep.priorities``/``max_priority`` in place;
+    returns the mean loss as a 0-d device tensor."""
+    impl = _learner_round_impl if cfg.sequential_per \
+        else _learner_round_batched_impl
+    return impl(agent, rep, cfg, action_space, num_learns, beta, draws)
+
+
+def _learner_round_batched_impl(agent: ag.AgentState, rep: rp.ReplayState,
+                                cfg: RainbowConfig, action_space: int,
+                                num_learns: int, beta,
+                                draws: Optional[dict] = None) -> torch.Tensor:
     """The batched-PER learner round (JAX train.py:351-418): one stratified
     draw of all ``num_learns`` batches against the round-start priorities,
     one windowed gather, one target-net forward over all of the round's
     rows with per-row noise, then per update the double-Q target, the
     gradient and clip + Adam with the online noise of that update (one draw
-    shared over its batch), and one priority write-back at the end. Updates
-    ``agent`` and ``rep.priorities``/``max_priority`` in place; returns the
-    mean loss as a 0-d device tensor. The sequential PER round
-    (cfg.sequential_per, JAX train.py:266, 457) is not ported and raises."""
-    if cfg.sequential_per:
-        raise NotImplementedError(
-            "learner_round: cfg.sequential_per (the sequential PER round) is "
-            "not ported; only the batched round is")
+    shared over its batch), and one priority write-back at the end. The
+    target and online noise are one draw of the noise stream."""
     draws = draws or {}
-    g = agent.generator
     nb, bs = num_learns, cfg.batch_size
     big = rp.sample_many(rep, beta, num_batches=nb, batch_size=bs,
                          history=cfg.history_length, n_step=cfg.multi_step,
-                         discount=cfg.discount, generator=g,
+                         discount=cfg.discount, generator=agent.generator,
                          u=draws.get("u"))
     dev = big["weights"].device
     ns_flat = rp.states_to_float(
         big["next_states"].reshape((nb * bs,) + big["next_states"].shape[2:]))
-    target_eps = draws.get("target")
-    if target_eps is None:
-        target_eps = draw_noise(cfg, action_space, g, (nb * bs,), dev)
+    target_eps, online = draws.get("target"), draws.get("online")
+    if target_eps is None or online is None:
+        target_eps, online = draw_noise_sets(cfg, action_space, agent.noise,
+                                             [(nb * bs,), (nb,)], dev)
     with torch.no_grad():
         pns_target = forward_head(agent.target_params, cfg, action_space,
                                   ns_flat, dist="probs",
                                   noise_eps=target_eps).dist
     del ns_flat
     pns_target = pns_target.view(nb, bs, action_space, cfg.atoms)
-    online = draws.get("online")
-    if online is None:
-        online = draw_noise(cfg, action_space, g, (nb,), dev)
     losses = []
     for u in range(nb):
         batch = {k: big[k][u] for k in ("actions", "returns", "nonterminals",
@@ -187,6 +271,27 @@ def learner_round(agent: ag.AgentState, rep: rp.ReplayState,
     return losses.mean()
 
 
+def _learner_round_impl(agent: ag.AgentState, rep: rp.ReplayState,
+                        cfg: RainbowConfig, action_space: int,
+                        num_learns: int, beta,
+                        draws: Optional[dict] = None) -> torch.Tensor:
+    """The sequential PER round (JAX train.py:421-448; reference
+    agent.py:61-100 per update): ``num_learns`` learn steps, each with fresh
+    online noise, sampling against the priorities the previous update
+    wrote, then its update, clip + Adam and its write-back. Injected draws
+    carry a leading (num_learns,) axis: ``"u"`` (num_learns, B), ``"online"``
+    and ``"target"`` draw_noise dicts."""
+    draws = draws or {}
+    losses = []
+    for i in range(num_learns):
+        d = {"u": draws["u"][i]} if "u" in draws else {}
+        for k in ("online", "target"):
+            if k in draws:
+                d[k] = {n: (a[i], b[i]) for n, (a, b) in draws[k].items()}
+        losses.append(ag.learn_step(agent, rep, cfg, action_space, beta, d))
+    return torch.stack(losses).mean()
+
+
 def train_iter_packed(cfg: RainbowConfig, action_space: int,
                       num_learns: int, agent: ag.AgentState,
                       stack: torch.Tensor, rep: rp.ReplayState, prev_actions,
@@ -196,8 +301,8 @@ def train_iter_packed(cfg: RainbowConfig, action_space: int,
     ``num_learns`` > 0 a learner round against the pre-append replay and,
     if ``sync_target``, the hard target sync; then the transition append +
     frame-stack advance and the next actions, with fresh per-env noise.
-    ``num_learns`` = 0 is the warm-up form; a round with
-    cfg.sequential_per raises (see learner_round). The act draws fresh
+    ``num_learns`` = 0 is the warm-up form; cfg.sequential_per picks the
+    round (see learner_round). The act draws fresh
     noise on every call, warm-up included: the JAX package's Trainer
     redraws before each warm-up iteration at the canonical cadence
     (train.py:1042-1051), where JAX's function alone would reuse its noise
@@ -214,35 +319,51 @@ def train_iter_packed(cfg: RainbowConfig, action_space: int,
     _update_core(cfg, stack, rep, prev_actions, obs, reset_packed, reset_idx,
                  rewards, dones, kinds)
     actions = ag.act(agent.params, cfg, action_space,
-                     to_network_input(stack), agent.generator,
-                     draws.get("act"))
+                     to_network_input(stack), agent.noise, draws.get("act"))
     return actions, loss
 
 
-_UNPORTED = (  # (config flag, the ROADMAP item that ports it)
-    ("sequential_per", "Queue 1 item 11, the sequential PER round"),
-    ("pipeline_actor", "Queue 1 item 11, the pipelined actor"),
-    ("async_eval", "Queue 1 item 11, async evaluation"),
-    ("delta_uploads", "Queue 1 item 11, delta uploads with kernel K10"),
-    ("data_parallel", "Queue 1 item 12, data-parallel training"),
-)
+def train_iter_delta(cfg: RainbowConfig, action_space: int, num_learns: int,
+                     agent: ag.AgentState, stack: torch.Tensor,
+                     rep: rp.ReplayState, prev_actions, delta_counts,
+                     delta_pos, delta_val, reset_packed, reset_idx, rewards,
+                     dones, kinds, beta, sync_target: bool,
+                     draws: Optional[dict] = None):
+    """train_iter_packed with the observations as a sparse delta against the
+    stack's newest plane (JAX train.py:302-316): the delta kernel rebuilds
+    them, then the iteration runs as train_iter_packed."""
+    obs = apply_delta(stack, delta_counts, delta_pos, delta_val)
+    return train_iter_packed(cfg, action_space, num_learns, agent, stack, rep,
+                             prev_actions, obs, reset_packed, reset_idx,
+                             rewards, dones, kinds, beta, sync_target, draws)
 
 
 class Trainer:
     """The training loop of one process on one device (JAX train.py:466-1165
-    without its side paths): the learn cadence, β annealing, the target
+    without data parallelism): the learn cadence, β annealing, the target
     sync, evaluation with the best-model save, metrics and plots, and
-    atomic checkpoints, around one ``train_iter_packed`` per iteration.
-    Host-side scheduling only; every iteration's device work is queued by
-    ``train_iter_packed`` and the one wait is the fetch of the actions."""
+    atomic checkpoints, around one training iteration per step
+    (``train_iter_packed``, or ``train_iter_delta`` for a delta upload).
+    Host-side scheduling only; every iteration's device work is queued, and
+    the waits are the fetch of the actions and, pipelined, the settle
+    window.
+
+    Side paths, as in the JAX Trainer: cfg.sequential_per picks the
+    learner round; cfg.delta_uploads sends the engine's sparse frame deltas
+    (envs.engine.step_delta, with its dense fallback) where the env has
+    them; cfg.pipeline_actor steps the engine and stages step t+1 on a
+    worker thread while iteration t launches, with actions executed
+    cfg.pipeline_depth steps after the state they came from and at most
+    cfg.settle_window iterations unsettled; cfg.async_eval runs evaluations
+    on threads and a CUDA stream of their own, against a snapshot of the
+    params at the scheduled T."""
 
     def __init__(self, cfg: RainbowConfig,
                  make_env: Optional[Callable] = None, device="cuda"):
-        for flag, item in _UNPORTED:
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"Trainer: cfg.{flag} is not ported yet ({item} in "
-                    "ROADMAP.md)")
+        if cfg.data_parallel:
+            raise NotImplementedError(
+                "Trainer: cfg.data_parallel is not ported yet (Queue 1 item "
+                "12, data-parallel training, in ROADMAP.md)")
         if (torch.distributed.is_available()
                 and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
@@ -296,6 +417,14 @@ class Trainer:
         self.beta_rate = ((1.0 - cfg.priority_weight)
                           / max(cfg.total_steps - cfg.learn_start, 1))
         self._last_loss = None
+        self._use_delta = cfg.delta_uploads and hasattr(self.env,
+                                                        "step_delta")
+        # Iterations by upload form: a delta, or dense (no delta uploads, or
+        # the engine's dense fallback for a near-dense step).
+        self.upload_forms = {"delta": 0, "dense": 0}
+        self._settle_q = collections.deque()
+        self._eval_pool = None
+        self._eval_skipped_since = None
 
     # ---- persistence ----------------------------------------------------
     def _full_state(self, include_replay: bool) -> dict:
@@ -303,7 +432,9 @@ class Trainer:
         st = {"agent": {"params": a.params, "target_params": a.target_params,
                         "opt_state": {"mu": opt.mu, "nu": opt.nu,
                                       "count": opt.count},
-                        "generator": a.generator, "step": a.step},
+                        "generator": a.generator, "step": a.step,
+                        "noise": {"seed": a.noise.seed,
+                                  "offset": a.noise.offset}},
               "eval_generator": self.eval_generator, "T": self.T,
               "metrics_json": np.frombuffer(json.dumps(self.metrics).encode(),
                                             np.uint8)}
@@ -321,8 +452,8 @@ class Trainer:
 
     def restore_checkpoint(self, path: str):
         """Restore a checkpoint written by save_checkpoint, in place: params,
-        target, Adam state, the generators, T, metrics and, if it holds
-        one, the replay."""
+        target, Adam state, the generators and the noise stream, T, metrics
+        and, if it holds one, the replay."""
         st = ckpt.load_state(path)
         a, sa = self.agent, st["agent"]
         for dst, src in ((a.params, sa["params"]),
@@ -334,6 +465,8 @@ class Trainer:
         a.opt_state.count.copy_(sa["opt_state"]["count"])
         a.step = int(sa["step"])
         a.generator.set_state(sa["generator"].get_state())
+        a.noise = NoiseStream(int(sa["noise"]["seed"]),
+                              int(sa["noise"]["offset"]))
         self.eval_generator.set_state(st["eval_generator"].get_state())
         if "replay" in st:
             for k, v in st["replay"].items():
@@ -383,28 +516,207 @@ class Trainer:
         plot_line(self.metrics["steps"], self.metrics["Qs"], "Q",
                   self.results_dir)
 
+    # ---- asynchronous evaluation ----------------------------------------
+    def _eval_async_start(self, val_states, force=False):
+        """Schedule an evaluation of the params as they are at this T on the
+        eval workers (JAX train.py:741-802): the snapshot is a copy made on
+        the training stream, so it holds this iteration's updates and none
+        of the next; the job runs on a CUDA stream of its own, after an
+        event that orders it behind the copy. When cfg.max_pending_evals
+        snapshots already wait for a worker, the evaluation is skipped and
+        recorded in metrics['skipped_evals'], unless ``force``."""
+        from rainbow_tpu_torch import evaluate as ev
+        cfg = self.cfg
+        workers = max(int(cfg.eval_workers), 1)
+        if self._eval_pool is None:
+            self._eval_pool = ThreadPoolExecutor(workers)
+            self._eval_results = queue.Queue()
+            self._eval_futs = []
+            self._eval_seq_next = 0     # next seq to submit
+            self._eval_seq_apply = 0    # next seq to apply
+            self._eval_done = {}        # seq -> result tuple, or None
+            self._eval_stream = (torch.cuda.Stream(self.device)
+                                 if self.device.type == "cuda" else None)
+        self._eval_futs = [f for f in self._eval_futs if not f.done()]
+        pending = len(self._eval_futs)
+        waiting = max(0, pending - workers)
+        if not force and pending > 0 and \
+                waiting >= max(cfg.max_pending_evals, 0):
+            self._eval_skipped_since = self.T
+            self.metrics.setdefault("skipped_evals", []).append(self.T)
+            log(f"T = {self.T} | evaluation skipped ({pending} already in "
+                "flight; interval shorter than eval wall time)")
+            return
+        self._eval_skipped_since = None
+        T, seq, stream = self.T, self._eval_seq_next, self._eval_stream
+        self._eval_seq_next += 1
+        params = {k: v.clone() for k, v in self.agent.params.items()}
+        # The job's ε-greedy stream, its own (JAX splits a key per job),
+        # made from the eval generator's seed and T without a device sync.
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.eval_generator.initial_seed() + T * 0x9E3779B97F4A7C15)
+            % 2 ** 63)
+        copied = None
+        if stream is not None:
+            copied = torch.cuda.Event()
+            copied.record()
+
+        def job():
+            try:
+                with torch.cuda.stream(stream):  # no-op without a stream
+                    if stream is not None:
+                        stream.wait_event(copied)
+                        for v in params.values():
+                            v.record_stream(stream)
+                    result = ev.evaluate(cfg, params, self.action_space,
+                                         self._eval_env_factory(),
+                                         val_states, gen)
+                self._eval_results.put((seq, (T, params, *result)))
+            except Exception as e:  # surface, don't stop training
+                log(f"async eval at T={T} failed: {e!r}")
+                self._eval_results.put((seq, None))  # keep the order moving
+
+        self._eval_futs.append(self._eval_pool.submit(job))
+
+    def _eval_async_drain(self, wait=False):
+        """Apply finished evaluations strictly in submission order (JAX
+        train.py:804-827); with ``wait``, wait for all of them first. A
+        failed one leaves a None placeholder and is passed over."""
+        if self._eval_pool is None:
+            return
+        if wait:
+            for f in self._eval_futs:
+                f.result()
+            self._eval_futs.clear()
+        while not self._eval_results.empty():
+            seq, res = self._eval_results.get()
+            self._eval_done[seq] = res
+        while self._eval_seq_apply in self._eval_done:
+            res = self._eval_done.pop(self._eval_seq_apply)
+            self._eval_seq_apply += 1
+            if res is None:
+                continue
+            T, params, avg_r, avg_q, rewards, qs = res
+            self._apply_eval_result(T, params, avg_r, avg_q, rewards, qs)
+            log(f"T = {T} / {self.cfg.total_steps} | Avg. reward: {avg_r} | "
+                f"Avg. Q: {avg_q:.4f} | {self.timer.summary()}")
+
+    # ---- staging --------------------------------------------------------
+    def _stage(self, acts_np, stream=None):
+        """Step the engine with ``acts_np``, pack the step on the host and
+        upload it (JAX train.py:914-951): returns (is_delta, tail, event),
+        ``tail`` the device tensors train_iter_delta (a delta) or
+        train_iter_packed (dense: no delta uploads, or the engine's dense
+        fallback) take after prev_actions. With a CUDA ``stream`` (the
+        pipelined worker's), the upload goes through pinned memory on that
+        stream without blocking, and ``event`` marks its end; else it is a
+        plain copy on the current stream and ``event`` is None."""
+        if self._use_delta:
+            counts, dpos, dval, *rest = self.env.step_delta(acts_np)
+            obs_form = (dpos,) if counts is None else (counts, dpos, dval)
+        else:
+            obs, *rest = self.env.step(acts_np)
+            obs_form = (obs,)
+        host = _host_step(obs_form, *rest)
+        if stream is None:
+            return len(obs_form) == 3, tuple(
+                torch.from_numpy(a).to(self.device) for a in host), None
+        with torch.cuda.stream(stream):
+            # The engine's buffers are rewritten two steps on: the copies
+            # into pinned memory finish here, on this thread.
+            tail = tuple(torch.from_numpy(a).pin_memory().to(
+                self.device, non_blocking=True) for a in host)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return len(obs_form) == 3, tail, done
+
+    def _launch(self, staged, stack, prev_actions, num_learns, beta,
+                sync_target, act_noise):
+        """Launch one training iteration on the staged step; returns the
+        actions (N,) int64 on the device."""
+        is_delta, tail, done = staged
+        if done is not None:  # the upload ran on the worker's stream
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in tail:
+                t.record_stream(cur)
+        self.upload_forms["delta" if is_delta else "dense"] += 1
+        fn = train_iter_delta if is_delta else train_iter_packed
+        actions, loss = fn(self.cfg, self.action_space, num_learns,
+                           self.agent, stack, self.rep, prev_actions, *tail,
+                           np.float32(beta), bool(sync_target),
+                           {"act": act_noise})
+        if num_learns:  # a device scalar, fetched by the heartbeat
+            self._last_loss = loss
+        return actions
+
+    def _fetch(self, pool, actions):
+        """A future of ``actions`` as a numpy array. On the card the copy
+        goes to pinned memory without blocking and the pool's thread waits
+        for its event only, not for the learner launched after it."""
+        if not actions.is_cuda:
+            return pool.submit(actions.numpy)
+        host = torch.empty(actions.shape, dtype=actions.dtype,
+                           pin_memory=True)
+        host.copy_(actions, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return pool.submit(lambda: (done.synchronize(), host.numpy())[1])
+
+    def _settle(self):
+        """Bound the iterations in flight to cfg.settle_window: mark this
+        one's end and wait for the one that many back (JAX
+        train.py:1084-1100)."""
+        mark = None
+        if self.device.type == "cuda":
+            mark = torch.cuda.Event()
+            mark.record()
+        self._settle_q.append(mark)
+        if len(self._settle_q) > max(self.cfg.settle_window, 0):
+            oldest = self._settle_q.popleft()
+            if oldest is not None:
+                oldest.synchronize()
+
     # ---- main loop ------------------------------------------------------
     def _draw_act_noise(self) -> dict:
         """A fresh act-noise draw: one per env row with cfg.per_env_noise,
         else one shared by all rows."""
         lead = (self.cfg.num_envs,) if self.cfg.per_env_noise else ()
-        return draw_noise(self.cfg, self.action_space, self.agent.generator,
-                          lead, self.device)
+        return ag.reset_noise(self.agent, self.cfg, self.action_space, lead)
 
     def run(self):
         """Train until T reaches cfg.total_steps (JAX train.py:829-1165, the
-        non-pipelined single-device branch); returns the metrics."""
+        single-device branches); returns the metrics."""
         cfg = self.cfg
         log("Building validation memory")
         val_states = self.build_validation_states()
         stack = init_framestack(cfg.num_envs, cfg.history_length,
                                 self.env.reset_all(), self.device)
         # The act noise is held between redraws, as JAX's act reuses
-        # agent.noise_key until reset_noise (train.py:262, 1042-1051).
+        # agent.noise_key until reset_noise (train.py:262, 1042-1051). This
+        # first act, on this thread, also compiles the head kernel's variant
+        # that an asynchronous evaluation launches.
         act_noise = self._draw_act_noise()
         actions = ag.act(self.agent.params, cfg, self.action_space,
                          to_network_input(stack), None, act_noise)
-        acts_np = actions.cpu().numpy()
+        pipelined = cfg.pipeline_actor
+        if pipelined:
+            # A depth-D action queue, seeded with D copies of the first
+            # actions (a start-up transient; the lag settles to D steps),
+            # and their fetches; the worker steps the engine with them.
+            pool, fetch_pool = ThreadPoolExecutor(1), ThreadPoolExecutor(3)
+            stage_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+            action_queue = collections.deque(
+                [actions] * max(cfg.pipeline_depth, 1))
+            pending_a = action_queue.popleft()
+            action_queue.append(pending_a)
+            fetch_q = collections.deque(self._fetch(fetch_pool, a)
+                                        for a in action_queue)
+            fut = pool.submit(self._stage, pending_a.cpu().numpy(),
+                              stage_stream)
+        else:
+            acts_np = actions.cpu().numpy()
         it = 0
         # Schedule marks relative to the current T (exact after a resume).
         nxt = lambda interval: ((self.T // interval) + 1) * interval \
@@ -448,33 +760,53 @@ class Trainer:
                 # replay_frequency env-steps (reference main.py:150-151).
                 act_noise = self._draw_act_noise()
 
-            self.timer.start("env")
-            staged = stage_step(self.env.step(acts_np), self.device)
-            self.timer.stop("env")
-            self.timer.start("actor")
-            actions, loss = train_iter_packed(
-                cfg, self.action_space, num_learns, self.agent, stack,
-                self.rep, actions, *staged, np.float32(beta),
-                bool(sync_target), {"act": act_noise})
-            if num_learns:  # a device scalar, fetched by the heartbeat
-                self._last_loss = loss
-            acts_np = actions.cpu().numpy()
-            self.timer.stop("actor")
+            if pipelined:
+                self.timer.start("env")
+                staged = fut.result()  # step t, staged by the worker
+                self.timer.stop("env")
+                a_exec = pending_a  # the actions step t executed
+                pending_a = action_queue.popleft()
+                self.timer.start("fetch")
+                pa_np = fetch_q.popleft().result()  # fetched D iters ago
+                self.timer.stop("fetch")
+                fut = pool.submit(self._stage, pa_np, stage_stream)  # t+1
+                self.timer.start("actor")
+                a_new = self._launch(staged, stack, a_exec, num_learns, beta,
+                                     sync_target, act_noise)
+                action_queue.append(a_new)
+                fetch_q.append(self._fetch(fetch_pool, a_new))
+                self.timer.stop("actor")
+                self.timer.start("settle")
+                self._settle()
+                self.timer.stop("settle")
+            else:
+                self.timer.start("env")
+                staged = self._stage(acts_np)
+                self.timer.stop("env")
+                self.timer.start("actor")
+                actions = self._launch(staged, stack, actions, num_learns,
+                                       beta, sync_target, act_noise)
+                acts_np = actions.cpu().numpy()
+                self.timer.stop("actor")
             if learning:
                 if self.T >= next_target_sync:  # main.py:177-178
                     if not sync_target:  # else synced inside the iteration
                         ag.update_target(self.agent)
                     next_target_sync += cfg.target_update
                 if self.T >= next_eval:  # main.py:166-174
-                    avg_r, avg_q = self.evaluate_now(val_states)
-                    log(f"T = {self.T} / {cfg.total_steps} | Avg. reward: "
-                        f"{avg_r} | Avg. Q: {avg_q:.4f} | "
-                        f"{self.timer.summary()}")
+                    if cfg.async_eval:
+                        self._eval_async_start(val_states)
+                    else:
+                        avg_r, avg_q = self.evaluate_now(val_states)
+                        log(f"T = {self.T} / {cfg.total_steps} | Avg. "
+                            f"reward: {avg_r} | Avg. Q: {avg_q:.4f} | "
+                            f"{self.timer.summary()}")
                     next_eval += cfg.evaluation_interval
                     if (cfg.memory_path is not None
                             and not cfg.memory_save_interval):
                         self.save_checkpoint("memory_checkpoint.npz",
                                              include_replay=True)
+                self._eval_async_drain()
                 if self.T >= next_memsave:  # decoupled replay-save cadence
                     self.save_checkpoint("memory_checkpoint.npz",
                                          include_replay=True)
@@ -484,6 +816,20 @@ class Trainer:
                     next_ckpt += cfg.checkpoint_interval
         if prof is not None:
             self._stop_profile(prof)
+        if pipelined:
+            fut.result()  # the engine step in flight, before the close
+            for f in fetch_q:
+                f.result()
+            pool.shutdown()
+            fetch_pool.shutdown()
+        if self._eval_skipped_since is not None:
+            # Coalescing skipped an evaluation since the last one ran: a
+            # forced final one measures the end-of-training policy (the
+            # reference's last evaluation lands at T_max, main.py:166).
+            self._eval_async_start(val_states, force=True)
+        self._eval_async_drain(wait=True)
+        if self._eval_pool is not None:
+            self._eval_pool.shutdown()
         self.env.close()
         return self.metrics
 

@@ -75,6 +75,19 @@ def test_main_trains_then_evaluates_the_best_model(tmp_path, capsys,
     assert "Avg. reward:" in capsys.readouterr().out.splitlines()[-1]
 
 
+def test_main_takes_the_side_paths(tmp_path, monkeypatch):
+    """The four single-process side paths together through the command
+    line; the fake env has no step_delta, so the uploads stay dense."""
+    monkeypatch.chdir(tmp_path)
+    tr = tcli.main(TINY + ["--T-max", "192", "--evaluation-interval", "128",
+                           "--sequential-per", "--delta-uploads",
+                           "--pipeline-actor", "--pipeline-depth", "2",
+                           "--async-eval", "--id", "side"], device="cpu")
+    assert tr.T == 192 and tr.metrics["steps"] == [128]
+    assert tr.upload_forms == {"delta": 0, "dense": tr.T // tr.cfg.num_envs}
+    assert tr.agent.step > 0
+
+
 def test_main_refuses_more_than_one_process():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["--process-count", "2", "--env-backend", "fake"],

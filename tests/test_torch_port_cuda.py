@@ -8,7 +8,9 @@ card every test here skips. On the card, from the repository root
 Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
 bf16 differs by a few bf16 ulps of O(1) values; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
-integer work is bit-exact. The replay's sampler (K5) is bit-exact; its
+integer work is bit-exact. The noise kernel (K2) computes Box-Muller in
+float64 as its plain version does and agrees to 1e-5 with the same signs;
+the delta kernel (K10) is bit-exact. The replay's sampler (K5) is bit-exact; its
 gather (K6) copies frames, actions and nonterminals exactly and its returns
 and IS weights agree to 1e-6 relative; its write-back (K7) writes the last
 of consecutive draws of a leaf, exactly. Adam's kernel does the plain version's float32
@@ -35,9 +37,12 @@ from rainbow_tpu_torch.kernels import replay as k_replay
 from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                     noisy_linear_fwd)
 from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
-from rainbow_tpu_torch.models.noisy import (init_noisy_params,
+from rainbow_tpu_torch.kernels.delta import apply_delta
+from rainbow_tpu_torch.kernels.noise import scaled_noise
+from rainbow_tpu_torch.models.noisy import (NoiseStream, init_noisy_params,
                                             noisy_linear_bwd_plain,
-                                            noisy_linear_plain, scale_noise)
+                                            noisy_linear_plain,
+                                            philox_noise_plain, scale_noise)
 from rainbow_tpu_torch.ops import c51 as oc51
 from rainbow_tpu_torch.ops import preprocess as pp
 from rainbow_tpu_torch.ops.c51 import support_vector
@@ -67,8 +72,9 @@ def test_noisy_linear_kernel_matches_plain(cuda, mode, dtype):
     prm = init_noisy_params(g, n_in, n_out, 0.5)
     x = (torch.rand((b, n_in), generator=g, device=cuda) * 2).to(dt)
     lead = (b,) if mode == "row" else ()
-    eps = None if mode == "mu" else (scale_noise(g, lead + (n_in,)),
-                                     scale_noise(g, lead + (n_out,)))
+    ns = NoiseStream(0)
+    eps = None if mode == "mu" else (scale_noise(ns, lead + (n_in,), cuda),
+                                     scale_noise(ns, lead + (n_out,), cuda))
     tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
     for relu in (False, True):
         got = noisy_linear_fwd(prm, x, eps, relu)
@@ -147,8 +153,7 @@ def test_actor_steps_on_card_match_cpu(cuda):
         reset_launches()
         history = []
         for i in range(5):
-            noise = draw_noise(cfg, a_space, torch.Generator().manual_seed(i),
-                               (n,))
+            noise = draw_noise(cfg, a_space, NoiseStream(i), (n,), "cpu")
             noise = {k: (x.to(dev), y.to(dev)) for k, (x, y) in noise.items()}
             out = env.step(np.zeros(n, np.int64) + i % a_space)
             acts = actor_step_packed(p, None, cfg, a_space, stack, rep, acts,
@@ -176,8 +181,9 @@ def test_noisy_linear_bwd_kernel_matches_plain(cuda, mode, dtype):
     x = (torch.rand((b, n_in), generator=g, device=cuda) * 2).to(dt)
     gy = torch.randn((b, n_out), generator=g, device=cuda).to(dt)
     lead = (b,) if mode == "row" else ()
-    eps = None if mode == "mu" else (scale_noise(g, lead + (n_in,)),
-                                     scale_noise(g, lead + (n_out,)))
+    ns = NoiseStream(3)
+    eps = None if mode == "mu" else (scale_noise(ns, lead + (n_in,), cuda),
+                                     scale_noise(ns, lead + (n_out,), cuda))
     tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
     w = (prm["weight_mu"], prm["weight_sigma"])
     for relu in (False, True):
@@ -293,10 +299,10 @@ def test_learner_round_on_card_matches_cpu(cuda):
                                            .astype(np.float32)))
     base.index.fill_(9)
     base.full.fill_(True)
-    gen = torch.Generator().manual_seed(8)
+    gen, ns = torch.Generator().manual_seed(8), NoiseStream(8)
     draws = {"u": torch.rand(nl * 4, generator=gen),
-             "target": draw_noise(cfg, n_act, gen, (nl * 4,)),
-             "online": draw_noise(cfg, n_act, gen, (nl,))}
+             "target": draw_noise(cfg, n_act, ns, (nl * 4,), "cpu"),
+             "online": draw_noise(cfg, n_act, ns, (nl,), "cpu")}
     out = {}
     for dev in ("cuda", "cpu"):
         agent = ag.init_agent(cfg, n_act, 0, "cpu")
@@ -433,3 +439,87 @@ def test_replay_kernels_match_plain(cuda, case):
     assert launches() == dict(dict.fromkeys(LAUNCHES, 0),
                               stratified_sample=1, gather_window=1,
                               write_priorities=1)
+
+
+@pytest.mark.parametrize("lead", [(), (5,), (33,)])
+def test_noise_kernel_matches_plain(cuda, lead):
+    """K2 against philox_noise_plain on the card and on the CPU: eight
+    ragged tensors (none a multiple of 4 long) in one launch, at an offset
+    and a seed beyond 32 bits."""
+    shapes = [lead + (d,) for d in (301, 70, 301, 70, 70, 51, 70, 153)]
+    for seed, offset in ((0, 0), (2 ** 40 + 5, 4 * 12345)):
+        reset_launches()
+        got = scaled_noise(seed, offset, shapes, cuda)
+        assert launches()["scaled_noise"] == 1
+        for want in (philox_noise_plain(seed, offset, shapes, cuda),
+                     philox_noise_plain(seed, offset, shapes)):
+            for a, b in zip(got, want):
+                assert a.dtype == torch.float32 and a.shape == b.shape
+                torch.testing.assert_close(a.cpu(), b.cpu(), atol=1e-5,
+                                           rtol=0)
+                assert torch.equal(torch.sign(a).cpu(), torch.sign(b).cpu())
+
+
+@pytest.mark.parametrize("h,padded", [(4, False), (4, True), (3, True)])
+def test_delta_kernel_matches_plain(cuda, h, padded):
+    rng = np.random.default_rng(h)
+    n = 9
+    stack = torch.from_numpy(rng.integers(0, 256, (n, 84, 84, h), np.uint8))
+    counts = np.array([0 if e == 2 else rng.integers(1, 300)
+                       for e in range(n)], np.int32)
+    counts[5] = 84 * 84  # a whole plane
+    pos = np.concatenate([np.sort(rng.choice(84 * 84, c, replace=False))
+                          for c in counts]).astype(np.uint16)
+    val = rng.integers(0, 256, pos.shape[0]).astype(np.uint8)
+    if padded:
+        pos, val = ttrain.pack_delta(pos, val)
+    args = [torch.from_numpy(x) for x in (counts, pos, val)]
+    want = ttrain._apply_delta_plain(stack, *args)
+    reset_launches()
+    got = apply_delta(stack.to(cuda), *(a.to(cuda) for a in args))
+    assert launches()["apply_delta"] == 1
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+def test_sequential_learn_step_on_card_matches_cpu(cuda):
+    """Two sequential learner updates (learn_step: K5, K6, K2, KA, KB, K4,
+    K9, K7) on the card and on the CPU from the same state; the noise comes
+    from the agents' noise streams, drawn by K2 on the card and by its
+    plain version on the CPU."""
+    cfg = rainbow_tpu_torch.canonical(num_envs=4, memory_capacity=128,
+                                      hidden_size=32, batch_size=4,
+                                      sequential_per=True)
+    n_act = 6  # _card_ring's actions are below 6
+    base = _card_ring("cpu", 4, 32, 9, True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        agent = ag.init_agent(cfg, n_act, 0, "cpu")
+        agent = ag.AgentState(
+            params={k: v.to(dev) for k, v in agent.params.items()},
+            target_params={k: v.to(dev) for k, v in
+                           agent.target_params.items()},
+            opt_state=ag.init_adam({k: v.to(dev) for k, v in
+                                    agent.params.items()}, cfg),
+            generator=torch.Generator(device=dev), noise=NoiseStream(4))
+        rep = rp.ReplayState(**{f.name: getattr(base, f.name).to(dev).clone()
+                                for f in dataclasses.fields(base)})
+        u = torch.Generator().manual_seed(6)
+        reset_launches()
+        losses = [float(ag.learn_step(agent, rep, cfg, n_act, 0.5,
+                                      {"u": torch.rand(4, generator=u)
+                                       .to(dev)}))
+                  for _ in range(2)]
+        out[dev] = (losses, agent, rep, launches())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    tol = 6.25e-5 / 100
+    for k, v in out["cpu"][1].params.items():
+        torch.testing.assert_close(out["cuda"][1].params[k].cpu(), v,
+                                   atol=tol, rtol=0)
+    torch.testing.assert_close(out["cuda"][2].priorities.cpu(),
+                               out["cpu"][2].priorities, atol=1e-4, rtol=1e-4)
+    assert out["cuda"][1].noise == out["cpu"][1].noise
+    assert out["cuda"][3] == dict(
+        dict.fromkeys(LAUNCHES, 0), scaled_noise=2, noisy_linear_fwd=24,
+        dueling_head=4, noisy_linear_bwd=8, c51_target=2, head_loss=2,
+        clip_adam=2, stratified_sample=2, gather_window=2,
+        write_priorities=2)

@@ -94,7 +94,7 @@ def test_dispatchers_run_plain_versions_on_cpu_without_launching():
 
 def test_build_names_libraries_by_source_hash():
     assert set(build.SOURCES) == {"noisy_linear", "append_framestack", "adam",
-                                  "replay"}
+                                  "replay", "noise", "delta"}
     for name in build.SOURCES:
         path = build.lib_path(name)
         assert path.parent == build.BUILD_DIR

@@ -476,12 +476,24 @@ def test_learner_round_matches_jax():
     assert changed.sum() == nl * BS
 
 
-def test_sequential_per_round_raises_until_ported():
+def test_sequential_per_round_raises_until_ported(monkeypatch):
+    """The sequential PER round is ported: with cfg.sequential_per,
+    learner_round and train_iter_packed run it, as JAX's dispatch
+    (train.py:266, 457), and raise no more: one prioritized sample per
+    update, against the priorities the update before wrote."""
     cfg = rainbow_tpu_torch.canonical(**KW, sequential_per=True)
     _, t = _replay()
     ta = tag.init_agent(cfg, A, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="sequential_per"):
-        ttrain.learner_round(ta, t, cfg, A, 1, 0.5)
+    sampled = []
+    real_sample = trp.sample
+
+    def sample(state, *args, **kw):
+        sampled.append(state.priorities.clone())
+        return real_sample(state, *args, **kw)
+    monkeypatch.setattr(trp, "sample", sample)
+    loss = ttrain.learner_round(ta, t, cfg, A, 2, 0.5)
+    assert np.isfinite(loss.item()) and len(sampled) == 2
+    assert not torch.equal(sampled[0], sampled[1])  # the first wrote back
     step = [torch.zeros((E, 84, 84), dtype=torch.uint8),
             torch.zeros((0, 84, 84), dtype=torch.uint8),
             torch.zeros(0, dtype=torch.int32), torch.zeros(E),
@@ -489,10 +501,10 @@ def test_sequential_per_round_raises_until_ported():
             torch.zeros(E, dtype=torch.uint8)]
     stack = torch.zeros((E, 84, 84, 4), dtype=torch.uint8)
     prev = torch.zeros(E, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="sequential_per"):
-        ttrain.train_iter_packed(cfg, A, 1, ta, stack, t, prev, *step, 0.5,
-                                 False)
-    assert ta.step == 0 and int(ta.opt_state.count) == 0
+    ttrain.train_iter_packed(cfg, A, 1, ta, stack, t, prev, *step, 0.5,
+                             False)
+    assert len(sampled) == 3
+    assert ta.step == 3 and int(ta.opt_state.count) == 3
 
 
 def test_train_iter_packed_matches_jax():

@@ -106,12 +106,12 @@ def test_init_and_scale_noise_shapes_and_ranges():
     assert float(p["weight_mu"].abs().max()) <= 1 / 6
     assert torch.allclose(p["weight_sigma"], torch.tensor(0.5 / 6))
     assert torch.allclose(p["bias_sigma"], torch.tensor(0.5 / 10 ** 0.5))
-    n = tnoisy.scale_noise(g, (1000,))
+    n = tnoisy.scale_noise(tnoisy.NoiseStream(0), (1000,), "cpu")
     # f(x) = sign(x)·√|x| of a standard normal: E|f| = E|x|^½ ≈ 0.822.
     assert abs(float(n.abs().mean()) - 0.822) < 0.05
-    # A generator gives the same draws again from the same seed.
-    assert torch.equal(tnoisy.scale_noise(torch.Generator().manual_seed(5), 7),
-                       tnoisy.scale_noise(torch.Generator().manual_seed(5), 7))
+    # A noise stream gives the same draws again from the same seed.
+    assert torch.equal(tnoisy.scale_noise(tnoisy.NoiseStream(5), 7, "cpu"),
+                       tnoisy.scale_noise(tnoisy.NoiseStream(5), 7, "cpu"))
 
 
 def _net(cfg, seed=0):
