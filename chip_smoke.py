@@ -13,7 +13,8 @@ exit code:
             native Atari engine.
 2. compare  every kernel against its plain PyTorch version on the card, at
             the shapes the actor and the learner give it, with stated
-            tolerances; the replay's sampler, gather and write-back on a
+            tolerances (KA also at its split and tile edges, and twice,
+            for equal bits); the replay's sampler, gather and write-back on a
             random ring of the canonical width (7.05 GB), where they are
             also timed; the noise draws (K2) at the act's, the round's and
             the sequential update's shapes, with the moments of the round's
@@ -36,17 +37,22 @@ exit code:
             checkpoint, the best model, metrics and plots); a replay-bearing
             save on a 64-column ring restored exactly into a new Trainer;
             --evaluate of the best model. Launch counts (K5-K7 once per
-            round), env-steps/s, updates/s, eval, save and restore times.
+            round), KA's launches by shape, env-steps/s, updates/s, eval,
+            save and restore times.
             Then the side paths, each with its own launch counts: the
             sequential PER round (4 rounds of 256 updates, K5-K7 and K2
             once per update), and delta uploads (K10) with the pipelined
             actor (depth 2) and an asynchronous evaluation (9 rounds).
 8. kernels  each kernel's time against its plain version, a library call
-            and its bound, at the main path's shapes; one JSON line.
+            and its bound, at the main path's shapes (KA's forward at the
+            learner's, the target's and the actor's batch and its backward
+            at the learner's, cold and warm, the library call's device time
+            beside the kernel's); one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script exits nonzero and prints no
-result. Longer logs go to chiprun_out/chip_smoke/.
+result. Every log line is also kept in chiprun_out/chip_smoke/log.txt, with
+the longer logs.
 """
 from __future__ import annotations
 
@@ -85,7 +91,11 @@ def check(cond, msg):
 
 
 def log(*a):
+    """Print a line and keep it in OUT_DIR/log.txt, where the first lines
+    of a long run survive when only the end of its output is kept."""
     print(*a, flush=True)
+    with open(os.path.join(OUT_DIR, "log.txt"), "a") as f:
+        print(*a, file=f)
 
 
 def parse_args():
@@ -119,13 +129,11 @@ def time_ms(torch, fn, reps=30, warmup=3, before=None):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=10, before=None, only=""):
-    """Mean device time of the kernels one call of ``fn`` launches, in ms,
-    from torch.profiler over ``reps`` calls; ``before`` runs ahead of each
-    call, and only kernels whose name holds ``only`` are counted."""
+def _kernel_us(torch, fn, reps, before=None):
+    """{kernel name: device µs in all} over ``reps`` profiled calls of
+    ``fn``, each after ``before``."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -133,10 +141,66 @@ def device_ms(torch, fn, reps=10, before=None, only=""):
                 before()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and only in e.key)
+    out = {}  # key_averages() may hold more than one row of a name
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total
+    return out
+
+
+def device_ms(torch, fn, reps=10, before=None, only=""):
+    """Mean device time of the kernels one call of ``fn`` launches, in ms,
+    from torch.profiler over ``reps`` calls; ``before`` runs ahead of each
+    call and its own kernels (those that ``before`` alone launches) are not
+    counted, nor are kernels whose name does not hold ``only``."""
+    fn()
+    skip = set(_kernel_us(torch, before, 1)) if before is not None else set()
+    us = sum(t for k, t in _kernel_us(torch, fn, reps, before).items()
+             if only in k and k not in skip)
     return us / 1e3 / reps
+
+
+def graph_ms(torch, fn, before=None, n=20, reps=5):
+    """Device time of one call of ``fn``, in ms, free of the host's launch
+    cost and of the profiler: ``n`` calls (each after ``before``) captured
+    in a CUDA graph and replayed ``reps`` times between CUDA events, less
+    the same for ``before`` alone; the median replay over ``n``. Inside a
+    graph launches follow each other about a microsecond apart."""
+    def per_call(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up outside the capture
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                body()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        del graph
+        torch.cuda.empty_cache()
+        return statistics.median(times)
+
+    if before is None:
+        return per_call(fn)
+    return per_call(lambda: (before(), fn())) - per_call(before)
+
+
+def l2_flush(torch):
+    """A ``before`` for time_ms and device_ms that leaves nothing of the
+    timed call's inputs in the 50 MB L2: it writes 128 MB."""
+    spill = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    return spill.zero_
 
 
 # ------------------------------------------------------------- compare -----
@@ -158,12 +222,16 @@ def check_close(name, got, want, atol, rtol):
 def compare_noisy_linear(torch, A, learner, report):
     """KA against noisy_linear_plain: fp32 and bf16, at the layer shapes and
     batches of the acting path (the three noise modes) and of the learner
-    (``learner`` = (batch, round rows)). Returns the largest fp32 error."""
+    (``learner`` = (batch, round rows)), and at shapes that cross both
+    paths' split and tile edges (B = 1 and 33, IN = 3137, OUT = 513: the
+    scalar-load path). A second launch must give the same bits. Returns
+    the largest fp32 error."""
     from rainbow_tpu_torch.models.noisy import (NoiseStream,
                                                 init_noisy_params,
                                                 noisy_linear_plain,
                                                 scale_noise)
-    from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
+    from rainbow_tpu_torch.kernels.noisy_linear import (fwd_plan,
+                                                        noisy_linear_fwd)
 
     g = torch.Generator(device="cuda").manual_seed(1)
     ns = NoiseStream(1)
@@ -171,14 +239,17 @@ def compare_noisy_linear(torch, A, learner, report):
     # and the validation-Q chunks (250) in every mode; the learner's update
     # forwards (one draw shared over the batch) and its round's target
     # forward over all the round's rows (per-row noise). Each through
-    # fc_h_* and both fc_z_*.
+    # fc_h_* and both fc_z_*. Then the edge shapes.
     all_modes = ("mu", "shared", "row")
     batches = [(1024, all_modes), (10, all_modes), (250, all_modes),
                (learner[0], ("shared",)), (learner[1], ("row",))]
     shapes = [(b, modes, i, o, r) for b, modes in batches
               for i, o, r in ((3136, 512, True), (512, 51, False),
                               (512, A * 51, False))]
-    # fp32: both sides sum in fp32 in other orders over up to 3136 terms of
+    shapes += [(1, all_modes, 3136, 512, True),
+               (33, all_modes, 3137, 513, True),
+               (1024, ("row",), 3137, 513, True)]
+    # fp32: both sides sum in fp32 in other orders over up to 3137 terms of
     # O(1) outputs. bf16: the plain version rounds to bf16 after every op
     # (as the JAX package does), the kernel only once at the end, so they
     # differ by a few bf16 ulps (2^-8 relative) of O(1) values.
@@ -192,17 +263,20 @@ def compare_noisy_linear(torch, A, learner, report):
             eps = None if mode == "mu" else (
                 scale_noise(ns, lead + (n_in,), "cuda"),
                 scale_noise(ns, lead + (n_out,), "cuda"))
+            plan = fwd_plan(b, n_in, n_out, all_modes.index(mode))
             for dt in (torch.float32, torch.bfloat16):
                 xd = x.to(dt)
                 got = noisy_linear_fwd(params, xd, eps, relu)
                 want = noisy_linear_plain(params, xd, eps, relu)
+                tag = (f"noisy_linear_fwd B={b} {n_in}->{n_out} {mode} {dt} "
+                       f"{plan.path} x{plan.splits}")
                 check(got.dtype == dt and got.shape == (b, n_out),
-                      f"noisy_linear_fwd: output {got.dtype} {tuple(got.shape)}")
-                err = check_close(
-                    f"noisy_linear_fwd B={b} {n_in}->{n_out} {mode} {dt}",
-                    got, want, *tol[dt])
+                      f"{tag}: output {got.dtype} {tuple(got.shape)}")
+                err = check_close(tag, got, want, *tol[dt])
+                check(torch.equal(noisy_linear_fwd(params, xd, eps, relu),
+                                  got), f"{tag}: a second launch differs")
                 report.append(("noisy_linear_fwd", b, n_in, n_out, mode,
-                               str(dt), err))
+                               str(dt), plan.path, plan.splits, err))
                 if dt == torch.float32:
                     worst32 = max(worst32, err)
     return worst32
@@ -336,9 +410,12 @@ def compare_append_framestack(torch, np, report):
 
 def compare_noisy_linear_bwd(torch, A, report):
     """KA's backward against noisy_linear_bwd_plain at the learner's shapes
-    (B = 32, fc_h_* with its ReLU and both fc_z_*), in the three noise
-    modes, fp32 and bf16. Returns the largest fp32 error."""
-    from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+    (B = 32, fc_h_* with its ReLU and both fc_z_*) and at shapes that cross
+    the split and tile edges (B = 1 and 33, IN = 3137, OUT = 513), in the
+    three noise modes, fp32 and bf16. A second launch must give the same
+    bits. Returns the largest fp32 error."""
+    from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan,
+                                                        noisy_linear_bwd,
                                                         noisy_linear_fwd)
     from rainbow_tpu_torch.models.noisy import (NoiseStream,
                                                 init_noisy_params,
@@ -347,35 +424,42 @@ def compare_noisy_linear_bwd(torch, A, report):
 
     g = torch.Generator(device="cuda").manual_seed(11)
     ns = NoiseStream(11)
-    b = 32
-    # fp32: sums of up to 512 products of O(1) terms in other orders. bf16:
+    # fp32: sums of up to 513 products of O(1) terms in other orders. bf16:
     # both sides round each product's output to bf16 once, and the plain
     # version rounds after every op, so a few bf16 ulps of O(1) values.
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
     names = ("dx", "dw_mu", "dw_sigma", "db_mu", "db_sigma")
+    modes = ("mu", "shared", "row")
     worst32 = 0.0
-    for n_in, n_out, relu in ((3136, 512, True), (512, A * 51, False),
-                              (512, 51, False)):
+    for b, n_in, n_out, relu in ((32, 3136, 512, True), (32, 512, A * 51,
+                                                          False),
+                                 (32, 512, 51, False), (1, 3136, 512, True),
+                                 (33, 3137, 513, True)):
         prm = init_noisy_params(g, n_in, n_out, 0.5)
         w = (prm["weight_mu"], prm["weight_sigma"])
         x = torch.rand((b, n_in), generator=g, device="cuda") * 2
         gy = torch.randn((b, n_out), generator=g, device="cuda")
-        for mode in ("mu", "shared", "row"):
+        for mode in modes:
             lead = (b,) if mode == "row" else ()
             eps = None if mode == "mu" else (
                 scale_noise(ns, lead + (n_in,), "cuda"),
                 scale_noise(ns, lead + (n_out,), "cuda"))
+            plan = bwd_plan(b, n_in, n_out, modes.index(mode))
             for dt in (torch.float32, torch.bfloat16):
                 xd, gd = x.to(dt), gy.to(dt)
                 y = noisy_linear_fwd(prm, xd, eps, True) if relu else None
                 got = noisy_linear_bwd(*w, xd, gd, eps, y)
                 want = noisy_linear_bwd_plain(*w, xd, gd, eps, y)
-                tag = f"noisy_linear_bwd B={b} {n_in}->{n_out} {mode} {dt}"
+                tag = (f"noisy_linear_bwd B={b} {n_in}->{n_out} {mode} {dt} "
+                       f"x{plan.splits}")
                 check(got[0].dtype == dt, tag + ": dx dtype")
                 err = max(check_close(f"{tag} {n}", a, c, *tol[dt])
                           for n, a, c in zip(names, got, want))
+                again = noisy_linear_bwd(*w, xd, gd, eps, y)
+                check(all(torch.equal(a, c) for a, c in zip(again, got)),
+                      f"{tag}: a second launch differs")
                 report.append(("noisy_linear_bwd", b, n_in, n_out, mode,
-                               str(dt), err))
+                               str(dt), plan.splits, err))
                 if dt == torch.float32:
                     worst32 = max(worst32, err)
     return worst32
@@ -1061,9 +1145,10 @@ def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
 
 def profiled(torch, name, fn, units, unit):
     """Run ``fn`` under torch.profiler: device time by kernel into
-    chiprun_out/chip_smoke/<name>_profile.txt (and a chrome trace), and the
-    device's busy time per ``unit`` (``units`` of them in ``fn``) and its
-    share of the wall time, on a log line."""
+    chiprun_out/chip_smoke/<name>_profile.txt (and a chrome trace), headed
+    by a log line with the device's busy time per ``unit`` (``units`` of
+    them in ``fn``), its share of the wall time, and KA's (the noisy-linear
+    kernels') device time per unit and share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1075,15 +1160,21 @@ def profiled(torch, name, fn, units, unit):
         wall = time.perf_counter() - t0
     avg = prof.key_averages()
     table = avg.table(sort_by="self_cuda_time_total", row_limit=40)
-    with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
-        f.write(table)
     prof.export_chrome_trace(os.path.join(OUT_DIR, f"{name}_trace.json"))
-    busy_us = sum(e.self_device_time_total for e in avg
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    log(f"[profile {name}] " + json.dumps({
+    kernels = [e for e in avg
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    ka_us = sum(e.self_device_time_total for e in kernels
+                if "noisy_linear" in e.key)
+    line = f"[profile {name}] " + json.dumps({
         unit + "s": units, f"wall_ms_per_{unit}": 1e3 * wall / units,
         f"device_busy_ms_per_{unit}": busy_us / 1e3 / units,
-        "device_busy_share": busy_us / 1e6 / wall}))
+        "device_busy_share": busy_us / 1e6 / wall,
+        f"ka_device_ms_per_{unit}": ka_us / 1e3 / units,
+        "ka_share_of_device": ka_us / busy_us if busy_us else 0.0})
+    with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
+        f.write(line + "\n" + table)
+    log(line)
     log(table)
 
 
@@ -1246,7 +1337,8 @@ class _Watch:
     Trainer.save_checkpoint to time them (each iteration synchronised with
     ``sync``), Trainer._eval_async_drain to mark the end of each run's
     training loop (``loop_ends``: its first call with ``wait``, after the
-    main stream has finished), and the replay's, the noise's and the
+    main stream has finished), KA's two wrappers to count their launches
+    by shape (``ka_shapes``), and the replay's, the noise's and the
     delta's plain versions to fail if the card's path calls them. With
     ``warmup_profile`` a torch.profiler of the card's kernels runs from
     construction until the first learning iteration (``warmup_prof``)."""
@@ -1259,6 +1351,7 @@ class _Watch:
         from rainbow_tpu_torch.replay import prioritized as rp
 
         self.iters, self.evals, self.saves = [], [], []
+        self.ka_shapes = {}
         self.loop_ends = []
         self._undo = []
         self.warmup_prof = None
@@ -1296,6 +1389,19 @@ class _Watch:
                 return real(*args, **kw)
             return wrapper
 
+        def tally(real, name, x_at, eps_at):
+            def wrapper(*args):
+                out = real(*args)
+                x, eps = args[x_at], args[eps_at]
+                mode = ("mu" if eps is None else
+                        "row" if eps[0].dim() == 2 else "shared")
+                w_mu = args[0]["weight_mu"] if name == "fwd" else args[0]
+                key = (f"noisy_linear_{name} B={x.shape[0]} {x.shape[1]}->"
+                       f"{w_mu.shape[0]} {mode}")
+                self.ka_shapes[key] = self.ka_shapes.get(key, 0) + 1
+                return out
+            return wrapper
+
         def drain(real):
             def wrapper(trainer, wait=False):
                 if wait and len(self.loop_ends) < self._loops:
@@ -1305,6 +1411,12 @@ class _Watch:
             return wrapper
 
         self._loops = 0
+        # models/noisy.py calls KA as ka.noisy_linear_fwd(params, x, eps,
+        # relu) and ka.noisy_linear_bwd(w_mu, w_sig, x, g, eps, y).
+        self._patch(noisy.ka, "noisy_linear_fwd",
+                    lambda r: tally(r, "fwd", 1, 2))
+        self._patch(noisy.ka, "noisy_linear_bwd",
+                    lambda r: tally(r, "bwd", 2, 4))
         self._patch(tm, "train_iter_packed", timed_iter)
         self._patch(tm.Trainer, "_eval_async_drain", drain)
         self._patch(tm.Trainer, "run", lambda r: self._counted(r))
@@ -1404,6 +1516,7 @@ def run_trainer(torch, np):
         counts = launches()
         iters, evals, saves = (list(watch.iters), list(watch.evals),
                                list(watch.saves))
+        ka_shapes = dict(watch.ka_shapes)
         gross = watch.train_span(iters)
         res = tr.results_dir
         rounds = sum(1 for n, _, _ in iters if n)
@@ -1494,7 +1607,8 @@ def run_trainer(torch, np):
         "timer_s": timer, "eval_s": evals[0], "checkpoint_save_s": saves[0],
         "replay_save_s": save_s, "replay_restore_s": restore_s,
         "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
-        "evaluate_only_s": eval_only_s, "launches": counts}
+        "evaluate_only_s": eval_only_s, "launches": counts,
+        "ka_launches_by_shape": ka_shapes}
     return stats, counts
 
 
@@ -1598,7 +1712,7 @@ def run_side_trainer(torch, np, args, sync):
 # ------------------------------------------------------------- kernels -----
 
 def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
-                replay_rows, delta_last, k10_trainer_ms):
+                replay_rows, delta_last, k10_trainer_ms, ka_shapes):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
@@ -1610,11 +1724,6 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
     counts are kept beside it."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
-    from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
-    from rainbow_tpu_torch.models.noisy import (NoiseStream,
-                                                init_noisy_params,
-                                                noisy_linear_plain,
-                                                scale_noise)
     from rainbow_tpu_torch.ops import preprocess as pp
     from rainbow_tpu_torch.ops.c51 import support_vector
     from rainbow_tpu_torch.ops.head import dueling_head_plain
@@ -1622,30 +1731,7 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
 
     g = torch.Generator(device="cuda").manual_seed(4)
     b = stack.shape[0]
-    rows = []
-
-    # KA at fc_h_* (3136 -> 512) with per-row noise, the acting path's
-    # largest launch (two per iteration).
-    n_in, n_out = 3136, 512
-    prm = init_noisy_params(g, n_in, n_out, 0.1)
-    x = torch.rand((b, n_in), generator=g, device="cuda")
-    ns = NoiseStream(4)
-    eps = (scale_noise(ns, (b, n_in), "cuda"),
-           scale_noise(ns, (b, n_out), "cuda"))
-    xe = x * eps[0]
-    flops = 4 * b * n_in * n_out + b * n_in + 6 * b * n_out
-    nbytes = 4 * (2 * b * n_in + 2 * n_in * n_out + 2 * n_out + 2 * b * n_out)
-    rows.append(dict(
-        name="noisy_linear_fwd", route="cuda",
-        source="rainbow_tpu_torch/kernels/csrc/noisy_linear.cu",
-        replaces="rainbow_tpu/models/noisy.py:57",
-        shape=f"B={b} {n_in}->{n_out} per-row eps fp32 relu",
-        ms=time_ms(torch, lambda: noisy_linear_fwd(prm, x, eps, True)),
-        plain_ms=time_ms(torch, lambda: noisy_linear_plain(prm, x, eps, True)),
-        library_ms=time_ms(torch, lambda: (
-            torch.addmm(prm["bias_mu"], x, prm["weight_mu"].t()),
-            torch.addmm(prm["bias_sigma"], xe, prm["weight_sigma"].t()))),
-        flops=flops, bytes=nbytes))
+    rows = ka_rows(torch, ka_shapes)
 
     # KB at the actor's call: no distribution, q and the greedy action.
     z = support_vector(-10.0, 10.0, 51, "cuda")
@@ -1774,48 +1860,117 @@ def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms):
     ]
 
 
-def learner_kernel_rows(torch, A, shapes):
-    """Rows of the learner's kernels: KA's backward at fc_h_* (B = 32, shared
-    noise, fp32, ReLU), both C51 kernels at B = 32, and clip + Adam over the
-    canonical net with a float32 mu."""
-    from rainbow_tpu_torch.agent import apply_grads_plain
-    from rainbow_tpu_torch.kernels import c51 as k4
-    from rainbow_tpu_torch.kernels.adam import clip_adam
-    from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+def ka_rows(torch, ka_shapes):
+    """Rows of KA at fc_h_* (3136 -> 512, ReLU, fp32), the layer that moves
+    the most: its forward at the learner's B = 32 with shared noise, at the
+    round's 8192-row target forward and at the actor's B = 1024 with
+    per-row noise, and its backward at B = 32 with shared noise. Each is
+    timed cold (the L2 flushed ahead of every call: the weights, 25.7 MB,
+    would fit in it) and warm, by CUDA events and on the device, beside
+    its library yardstick (``addmm`` x 2 for the forward: the two products
+    with their biases, no eps_out; ``mm`` x 4 for the backward) timed the
+    same way: the two device times decide "slower than its library call".
+    The plain
+    version is timed cold. ``ka_shapes`` holds the main Trainer's launches
+    by shape (``launches_at_shape``). Device times come from CUDA graphs
+    (graph_ms); the profiler's reading is kept beside them, since late in a
+    long run it has read below what the events allow."""
+    import dataclasses
+
+    from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan, fwd_plan,
+                                                        noisy_linear_bwd,
                                                         noisy_linear_fwd)
     from rainbow_tpu_torch.models.noisy import (NoiseStream,
                                                 init_noisy_params,
                                                 noisy_linear_bwd_plain,
+                                                noisy_linear_plain,
                                                 scale_noise)
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    ns = NoiseStream(18)
+    n_in, n_out = 3136, 512
+    prm = init_noisy_params(g, n_in, n_out, 0.1)
+    w = (prm["weight_mu"], prm["weight_sigma"])
+    flush = l2_flush(torch)
+    source = "rainbow_tpu_torch/kernels/csrc/noisy_linear.cu"
+
+    def timed(kernel, plain, library):
+        cold = dict(before=flush)
+        return dict(
+            ms=time_ms(torch, kernel, **cold), ms_warm=time_ms(torch, kernel),
+            device_ms=graph_ms(torch, kernel, **cold),
+            device_ms_warm=graph_ms(torch, kernel),
+            profiler_device_ms=device_ms(torch, kernel, only="noisy_linear",
+                                         **cold),
+            plain_ms=time_ms(torch, plain, **cold),
+            library_ms=time_ms(torch, library, **cold),
+            library_ms_warm=time_ms(torch, library),
+            library_device_ms=graph_ms(torch, library, **cold),
+            library_device_ms_warm=graph_ms(torch, library),
+            library_profiler_device_ms=device_ms(torch, library, **cold))
+
+    rows = []
+    for b, row_eps, who in ((32, False, "learner"), (8192, True, "target"),
+                            (1024, True, "actor")):
+        x = torch.rand((b, n_in), generator=g, device="cuda")
+        lead = (b,) if row_eps else ()
+        eps = (scale_noise(ns, lead + (n_in,), "cuda"),
+               scale_noise(ns, lead + (n_out,), "cuda"))
+        xe = x * eps[0]
+        mode = "row" if row_eps else "shared"
+        plan = fwd_plan(b, n_in, n_out, 2 if row_eps else 1)
+        rows.append(dict(
+            name="noisy_linear_fwd", route="cuda", source=source,
+            replaces="rainbow_tpu/models/noisy.py:57",
+            shape=f"B={b} {n_in}->{n_out} {mode} eps fp32 relu ({who})",
+            plan=dataclasses.asdict(plan),
+            launches_at_shape=ka_shapes.get(
+                f"noisy_linear_fwd B={b} {n_in}->{n_out} {mode}", 0),
+            **timed(lambda: noisy_linear_fwd(prm, x, eps, True),
+                    lambda: noisy_linear_plain(prm, x, eps, True),
+                    lambda: (torch.addmm(prm["bias_mu"], x, w[0].t()),
+                             torch.addmm(prm["bias_sigma"], xe, w[1].t()))),
+            library_call="addmm x 2",
+            flops=4 * b * n_in * n_out + b * n_in + 6 * b * n_out,
+            bytes=4 * (b * n_in + (b if row_eps else 1) * (n_in + n_out)
+                       + 2 * n_in * n_out + 2 * n_out + b * n_out)))
+        del x, eps, xe
+
+    b = 32
+    x = torch.rand((b, n_in), generator=g, device="cuda")
+    gy = torch.randn((b, n_out), generator=g, device="cuda")
+    eps = (scale_noise(ns, (n_in,), "cuda"), scale_noise(ns, (n_out,), "cuda"))
+    y = noisy_linear_fwd(prm, x, eps, True)
+    ge, xe = gy * eps[1], x * eps[0]
+    rows.append(dict(
+        name="noisy_linear_bwd", route="cuda", source=source,
+        replaces="rainbow_tpu/models/noisy.py:57",
+        shape=f"B={b} {n_in}->{n_out} shared eps fp32 relu (learner)",
+        plan=dataclasses.asdict(bwd_plan(b, n_in, n_out, 1)),
+        launches_at_shape=ka_shapes.get(
+            f"noisy_linear_bwd B={b} {n_in}->{n_out} shared", 0),
+        **timed(lambda: noisy_linear_bwd(*w, x, gy, eps, y),
+                lambda: noisy_linear_bwd_plain(*w, x, gy, eps, y),
+                lambda: (torch.mm(gy, w[0]), torch.mm(ge, w[1]),
+                         torch.mm(gy.t(), x), torch.mm(ge.t(), xe))),
+        library_call="mm x 4",
+        flops=8 * b * n_in * n_out + 3 * b * n_out + 3 * b * n_in,
+        bytes=4 * (2 * b * n_in + 2 * b * n_out + 4 * n_in * n_out + n_in
+                   + 3 * n_out)))
+    return rows
+
+
+def learner_kernel_rows(torch, A, shapes):
+    """Rows of the learner's kernels: both C51 kernels at B = 32, and clip +
+    Adam over the canonical net with a float32 mu."""
+    from rainbow_tpu_torch.agent import apply_grads_plain
+    from rainbow_tpu_torch.kernels import c51 as k4
+    from rainbow_tpu_torch.kernels.adam import clip_adam
     from rainbow_tpu_torch.ops import c51 as oc51
 
     g = torch.Generator(device="cuda").manual_seed(18)
     b = 32
     rows = []
-
-    n_in, n_out = 3136, 512
-    prm = init_noisy_params(g, n_in, n_out, 0.1)
-    w = (prm["weight_mu"], prm["weight_sigma"])
-    x = torch.rand((b, n_in), generator=g, device="cuda")
-    gy = torch.randn((b, n_out), generator=g, device="cuda")
-    ns = NoiseStream(18)
-    eps = (scale_noise(ns, (n_in,), "cuda"), scale_noise(ns, (n_out,), "cuda"))
-    y = noisy_linear_fwd(prm, x, eps, True)
-    ge, xe = gy * eps[1], x * eps[0]
-    rows.append(dict(
-        name="noisy_linear_bwd", route="cuda",
-        source="rainbow_tpu_torch/kernels/csrc/noisy_linear.cu",
-        replaces="rainbow_tpu/models/noisy.py:57",
-        shape=f"B={b} {n_in}->{n_out} shared eps fp32 relu",
-        ms=time_ms(torch, lambda: noisy_linear_bwd(*w, x, gy, eps, y)),
-        plain_ms=time_ms(torch, lambda: noisy_linear_bwd_plain(*w, x, gy, eps,
-                                                               y)),
-        library_ms=time_ms(torch, lambda: (
-            torch.mm(gy, w[0]), torch.mm(ge, w[1]), torch.mm(gy.t(), x),
-            torch.mm(ge.t(), xe))),
-        flops=8 * b * n_in * n_out + 3 * b * n_out + 3 * b * n_in,
-        bytes=4 * (2 * b * n_in + 2 * b * n_out + 4 * n_in * n_out + n_in
-                   + 3 * n_out)))
 
     z = oc51.support_vector(-10.0, 10.0, 51, "cuda")
     pns = torch.softmax(torch.randn((b, A, 51), generator=g, device="cuda"),
@@ -1916,6 +2071,7 @@ def main() -> int:
     from rainbow_tpu_torch.train import make_env_factory
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "log.txt"), "w").close()
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
@@ -2092,7 +2248,8 @@ def main() -> int:
         "train": train_counts, "trainer": trainer_counts,
         "sequential": seq_counts, "side": side_counts},
         stack, staged, shapes, replay_rows, delta_last,
-        side_stats["k10_trainer_device_ms"])
+        side_stats["k10_trainer_device_ms"],
+        trainer_stats["ka_launches_by_shape"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

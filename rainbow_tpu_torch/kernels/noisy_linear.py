@@ -1,14 +1,29 @@
 """Launch wrappers of the noisy-linear forward and backward kernels
-(csrc/noisy_linear.cu).
+(csrc/noisy_linear.cu), and their launch plans.
 
 Their plain versions are models/noisy.py::noisy_linear_plain and
 noisy_linear_bwd_plain.
+
+A plan is pure arithmetic on the shapes, so the CPU tests check it. The
+forward takes the small-batch path (a 16- or 32-row by 64-output block
+tile) wherever those tiles alone fill less than one wave of the H100's 132
+SMs, and splits the inputs into enough chunks to fill at least one wave,
+each short enough (CHUNK_MAX) for a block to stage its x chunk; else the
+large-batch path (128 x 128 tiles), split into as many chunks as whole
+waves allow (light small-path blocks share an SM, a large-path block has
+one to itself). The backward splits dx's reduction over the outputs so
+that its dx blocks fill a wave. With more than one chunk the partial sums go
+to a scratch tensor that the wrapper allocates for each call on the current
+stream, and a second kernel adds them in chunk order: the result has the same
+bits on every launch.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -19,16 +34,77 @@ NAME = "noisy_linear_fwd"
 BWD = "noisy_linear_bwd"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+WAVE = 132       # SMs of an H100 SXM
+KT = 16          # the split's granularity along a reduction
+CHUNK_MAX = 256  # the most inputs a small-path block stages in shared memory
+# The forward's block tiles, by batch rows: (rows, outputs).
+FWD_TILES = {16: (16, 64), 32: (32, 64), 128: (128, 128)}
+DX_TILE = (32, 64)  # the backward's dx blocks: (rows, inputs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    path: str     # "small" or "large"
+    tile: int     # the block tile's batch rows
+    chunk: int    # reduction elements per split: a multiple of KT
+    splits: int
+    blocks: int   # blocks of the main kernel that the split covers
+    scratch: int  # float32 elements of the partial sums; 0 without a split
+
+    def chunks(self, n: int) -> List[Tuple[int, int]]:
+        """The [start, end) of each chunk of a reduction of length n, in
+        the order the partial sums are added."""
+        return [(s * self.chunk, min(n, (s + 1) * self.chunk))
+                for s in range(self.splits)]
+
+
+def _split(n: int, wanted: int, most: int = 1 << 30) -> Tuple[int, int]:
+    """(chunk, splits): about ``wanted`` chunks of n, each a multiple of
+    KT but the last, none empty, none longer than ``most``."""
+    chunk = min(most, KT * math.ceil(math.ceil(n / max(1, wanted)) / KT))
+    return chunk, math.ceil(n / chunk)
+
+
+def fwd_plan(b: int, n_in: int, n_out: int, eps_mode: int) -> Plan:
+    """The forward's launch plan for x (b, n_in) -> (b, n_out)."""
+    tile = 16 if b <= 16 else 32
+    rows, cols = FWD_TILES[tile]
+    tiles = math.ceil(b / rows) * math.ceil(n_out / cols)
+    if tiles < WAVE:
+        path, most = "small", CHUNK_MAX
+        wanted = math.ceil(WAVE / tiles)
+    else:
+        path, tile, most = "large", 128, n_in
+        rows, cols = FWD_TILES[tile]
+        tiles = math.ceil(b / rows) * math.ceil(n_out / cols)
+        wanted = max(1, WAVE // tiles)
+    chunk, splits = _split(n_in, wanted, most)
+    planes = 2 if eps_mode else 1
+    return Plan(path, tile, chunk, splits, tiles * splits,
+                planes * splits * b * n_out if splits > 1 else 0)
+
+
+def bwd_plan(b: int, n_in: int, n_out: int, eps_mode: int) -> Plan:
+    """The backward's launch plan: the split of dx's reduction over the
+    outputs (the weight grads reduce over the batch, unsplit)."""
+    rows, cols = DX_TILE
+    tiles = math.ceil(b / rows) * math.ceil(n_in / cols)
+    chunk, splits = _split(n_out, math.ceil(WAVE / tiles))
+    planes = 2 if eps_mode else 1
+    return Plan("small", rows, chunk, splits, tiles * splits,
+                planes * splits * b * n_in if splits > 1 else 0)
+
 
 @functools.cache
 def _lib():
     lib = build.load("noisy_linear")
     fn = lib.noisy_linear_fwd
-    fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P,
+                   _I, _I, _I, _P]
     fn.restype = _I
     bwd = lib.noisy_linear_bwd
     bwd.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _P]
+                    _I, _I, _I, _I, _P, _I, _I, _P]
     bwd.restype = _I
     return lib
 
@@ -52,6 +128,15 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _scratch(plan: Plan, device):
+    """The partial sums' scratch for one call, from the caching allocator
+    on the current stream (never shared between calls: an asynchronous
+    evaluation runs its forwards on a stream of its own)."""
+    if not plan.scratch:
+        return None
+    return torch.empty(plan.scratch, dtype=torch.float32, device=device)
+
+
 def noisy_linear_fwd(params: dict, x: torch.Tensor,
                      eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                      relu: bool = False) -> torch.Tensor:
@@ -72,12 +157,15 @@ def noisy_linear_fwd(params: dict, x: torch.Tensor,
         check_dtype(NAME, arg, t, torch.float32)
         check_shape(NAME, arg, t, shape)
     eps_mode, e_in, e_out = _eps_mode(NAME, eps, b, n_in, n_out)
+    plan = fwd_plan(b, n_in, n_out, eps_mode)
     y = torch.empty((b, n_out), dtype=x.dtype, device=x.device)
+    scratch = _scratch(plan, x.device)
     err = _lib().noisy_linear_fwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w_mu.data_ptr(),
         w_sig.data_ptr(), b_mu.data_ptr(), b_sig.data_ptr(), _ptr(e_in),
         _ptr(e_out), eps_mode, y.data_ptr(), b, n_in, n_out, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream, plan.tile,
+        plan.chunk, plan.splits, _ptr(scratch))
     if err:
         raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
     count_launch(NAME)
@@ -109,6 +197,7 @@ def noisy_linear_bwd(w_mu: torch.Tensor, w_sig: torch.Tensor,
         check_dtype(BWD, "y", y, x.dtype)
         check_shape(BWD, "y", y, (b, n_out))
     eps_mode, e_in, e_out = _eps_mode(BWD, eps, b, n_in, n_out)
+    plan = bwd_plan(b, n_in, n_out, eps_mode)
     dev = x.device
     dx = torch.empty_like(x)
     dw_mu = torch.empty((n_out, n_in), dtype=torch.float32, device=dev)
@@ -116,12 +205,14 @@ def noisy_linear_bwd(w_mu: torch.Tensor, w_sig: torch.Tensor,
     new = torch.empty if eps_mode else torch.zeros
     dw_sig = new((n_out, n_in), dtype=torch.float32, device=dev)
     db_sig = new((n_out,), dtype=torch.float32, device=dev)
+    scratch = _scratch(plan, dev)
     err = _lib().noisy_linear_bwd(
         x.data_ptr(), g.data_ptr(), _ptr(y), int(x.dtype == torch.bfloat16),
         w_mu.data_ptr(), w_sig.data_ptr(), _ptr(e_in), _ptr(e_out), eps_mode,
         dx.data_ptr(), dw_mu.data_ptr(), dw_sig.data_ptr(), db_mu.data_ptr(),
         db_sig.data_ptr(), b, n_in, n_out, int(y is not None),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, plan.chunk, plan.splits,
+        _ptr(scratch))
     if err:
         raise RuntimeError(f"{BWD}: launch failed with CUDA error {err}")
     count_launch(BWD)

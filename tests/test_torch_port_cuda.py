@@ -1,12 +1,14 @@
 """The port's kernels on the card against their plain versions, at small
-and ragged shapes. These need an NVIDIA GPU with nvcc and Triton; without a
+and ragged shapes (the noisy-linear kernels also at the main path's). These need an NVIDIA GPU with nvcc and Triton; without a
 card every test here skips. On the card, from the repository root
 (--noconftest: tests/conftest.py sets up JAX, which the port does not need):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
-bf16 differs by a few bf16 ulps of O(1) values; the head combines in the
+bf16 differs by a few bf16 ulps of O(1) values, and the noisy-linear
+kernels, which add their split partial sums in a fixed order, give the same
+bits on a second launch; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
 integer work is bit-exact. The noise kernel (K2) computes Box-Muller in
 float64 as its plain version does and agrees to 1e-5 with the same signs;
@@ -63,18 +65,32 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["mu", "shared", "row"])
-def test_noisy_linear_kernel_matches_plain(cuda, mode, dtype):
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    b, n_in, n_out = 37, 301, 70  # ragged against every tile edge
+# (B, in, out): ragged against every tile edge (scalar loads); the learner's
+# fc_h (small-batch path, split); one row; the edges of both splits with
+# scalar loads; the actor's fc_h (large-batch path, split).
+NOISY_SHAPES = [(37, 301, 70), (32, 3136, 512), (1, 512, 51),
+                (33, 3137, 513), (1024, 3136, 512)]
+
+
+def _noisy_case(cuda, seed, shape, mode, dt):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, n_in, n_out = shape
     prm = init_noisy_params(g, n_in, n_out, 0.5)
     x = (torch.rand((b, n_in), generator=g, device=cuda) * 2).to(dt)
+    gy = torch.randn((b, n_out), generator=g, device=cuda).to(dt)
     lead = (b,) if mode == "row" else ()
-    ns = NoiseStream(0)
+    ns = NoiseStream(seed)
     eps = None if mode == "mu" else (scale_noise(ns, lead + (n_in,), cuda),
                                      scale_noise(ns, lead + (n_out,), cuda))
+    return prm, x, gy, eps
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["mu", "shared", "row"])
+@pytest.mark.parametrize("shape", NOISY_SHAPES, ids=str)
+def test_noisy_linear_kernel_matches_plain(cuda, shape, mode, dtype):
+    dt = getattr(torch, dtype)
+    prm, x, _, eps = _noisy_case(cuda, 0, shape, mode, dt)
     tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
     for relu in (False, True):
         got = noisy_linear_fwd(prm, x, eps, relu)
@@ -82,6 +98,21 @@ def test_noisy_linear_kernel_matches_plain(cuda, mode, dtype):
         assert got.dtype == dt
         torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
                                    rtol=tol[1])
+
+
+@pytest.mark.parametrize("shape", [(32, 3136, 512), (33, 3137, 513),
+                                   (1024, 3136, 512)], ids=str)
+def test_noisy_linear_kernels_give_the_same_bits_twice(cuda, shape):
+    """The splits add their partial sums in a fixed order, without atomics:
+    two launches of either kernel give equal bits."""
+    for mode in ("shared", "row"):
+        prm, x, gy, eps = _noisy_case(cuda, 5, shape, mode, torch.float32)
+        w = (prm["weight_mu"], prm["weight_sigma"])
+        y = noisy_linear_fwd(prm, x, eps, True)
+        assert torch.equal(noisy_linear_fwd(prm, x, eps, True), y)
+        first = noisy_linear_bwd(*w, x, gy, eps, y)
+        for a, c in zip(noisy_linear_bwd(*w, x, gy, eps, y), first):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -173,17 +204,10 @@ def test_actor_steps_on_card_match_cpu(cuda):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["mu", "shared", "row"])
-def test_noisy_linear_bwd_kernel_matches_plain(cuda, mode, dtype):
+@pytest.mark.parametrize("shape", NOISY_SHAPES, ids=str)
+def test_noisy_linear_bwd_kernel_matches_plain(cuda, shape, mode, dtype):
     dt = getattr(torch, dtype)
-    g = torch.Generator(device=cuda).manual_seed(3)
-    b, n_in, n_out = 37, 301, 70  # ragged against every tile edge
-    prm = init_noisy_params(g, n_in, n_out, 0.5)
-    x = (torch.rand((b, n_in), generator=g, device=cuda) * 2).to(dt)
-    gy = torch.randn((b, n_out), generator=g, device=cuda).to(dt)
-    lead = (b,) if mode == "row" else ()
-    ns = NoiseStream(3)
-    eps = None if mode == "mu" else (scale_noise(ns, lead + (n_in,), cuda),
-                                     scale_noise(ns, lead + (n_out,), cuda))
+    prm, x, gy, eps = _noisy_case(cuda, 3, shape, mode, dt)
     tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
     w = (prm["weight_mu"], prm["weight_sigma"])
     for relu in (False, True):
