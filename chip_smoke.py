@@ -13,13 +13,15 @@ exit code:
             native Atari engine.
 2. compare  every kernel against its plain PyTorch version on the card, at
             the shapes the actor and the learner give it, with stated
-            tolerances (KA also at its split and tile edges, and twice,
-            for equal bits); the replay's sampler, gather and write-back on a
-            random ring of the canonical width (7.05 GB), where they are
-            also timed; the noise draws (K2) at the act's, the round's and
-            the sequential update's shapes, with the moments of the round's
-            71 M target draws; the delta kernel (K10) on real 1024-env pong
-            deltas, against the dense engine's observations too.
+            tolerances (KA also at its split and tile edges, KB and the C51
+            loss at B = 1, 31, 33, A = 3, 6, 18 and 21, 51, 128 atoms, each
+            twice, for equal bits); the replay's sampler, gather and
+            write-back on a random ring of the canonical width (7.05 GB),
+            where they are also timed; the noise draws (K2) at the act's,
+            the round's and the sequential update's shapes, with the
+            moments of the round's 71 M target draws; the delta kernel
+            (K10) on real 1024-env pong deltas, against the dense engine's
+            observations too.
 3. update   one learner update (compute_update_pretarget + apply_grads) and
             one sequential learn_step of the canonical net on the card
             against the same through the plain versions on the CPU.
@@ -47,12 +49,14 @@ exit code:
             and its bound, at the main path's shapes (KA's forward at the
             learner's, the target's and the actor's batch and its backward
             at the learner's, cold and warm, the library call's device time
-            beside the kernel's); one JSON line.
+            beside the kernel's; KB at B = 32, 1024 and 8192 with the
+            probabilities and the C51 loss at B = 32, cold and warm, from
+            CUDA graphs, beside one launch's floor, KB at B = 1); one JSON
+            line.
 
-The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
-rest of the repository beside it, the script exits nonzero and prints no
-result. Every log line is also kept in chiprun_out/chip_smoke/log.txt, with
-the longer logs.
+The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
+beside it, the script exits nonzero and prints no result. Every log line
+is also kept in chiprun_out/chip_smoke/log.txt, with the longer logs.
 """
 from __future__ import annotations
 
@@ -282,54 +286,90 @@ def compare_noisy_linear(torch, A, learner, report):
     return worst32
 
 
+# (B, A, atoms) beyond the main path's, for both kernels of csrc/head.cu:
+# one row, one row short of a learner batch and one past it; Atari's
+# smallest, the canonical and its full action set; 21 atoms (one lane
+# column), 51 and the most a lane holds (MAX_ATOMS = 128).
+HEAD_EDGES = [(b, n_act, atoms) for b in (1, 31, 33) for n_act in (3, 6, 18)
+              for atoms in (21, 51, 128)]
+
+
+def _tie_top(torch, a, n_act, atoms):
+    """Row 0 of ``a``: actions 1 and 2 lean to the high atoms alike, the
+    others to the low ones, so q's top is tied between 1 and 2."""
+    j = torch.arange(atoms, device=a.device, dtype=torch.float32) / atoms
+    lean = torch.stack([j if k in (1, 2) else -j for k in range(n_act)])
+    a[0] = (lean * 4).reshape(-1).to(a.dtype)
+
+
 def compare_dueling_head(torch, A, learner, report):
     """KB against dueling_head_plain, fp32 and bf16 streams: no
     distribution, probs and log-probs at the acting path's batches; at the
     learner's (``learner`` = (batch, round rows)) the selection's action
-    only and the round's target probabilities. Argmax must agree wherever
-    the top-2 gap of q exceeds q's tolerance. Returns the largest error."""
+    only and the round's target probabilities; then HEAD_EDGES in every
+    mode. Argmax must agree wherever the top-2 gap of q exceeds q's
+    tolerance, a second launch must give the same bits, and in a row whose
+    top q is tied (edge shapes) the first of the tied actions must win.
+    Returns the largest error, and the largest of the probabilities alone
+    at the round target's batch (KB takes exp from __expf there)."""
     from rainbow_tpu_torch.ops.c51 import support_vector
     from rainbow_tpu_torch.ops.head import dueling_head_plain
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    z = support_vector(-10.0, 10.0, 51, "cuda")
     # Both sides combine in the streams' dtype, rounding after each op as
     # PyTorch does, then take an fp32 softmax of the same logits: exp and
     # the sums differ in the last bits only. Probabilities are below 1,
     # log-probs and q of order 10.
     tol = {"probs": 1e-6, "log": 1e-5, "q": 1e-5}
-    worst = 0.0
+    worst = target_probs = 0.0
     all_dists = (None, "probs", "log")
     batches = [(1024, all_dists), (10, all_dists), (250, all_dists),
                (learner[0], (None,)), (learner[1], ("probs",))]
-    for b, dists in batches:
-        for n_act in sorted({A, 18}):
-            for dt in (torch.float32, torch.bfloat16):
-                v = (torch.randn((b, 51), generator=g, device="cuda") * 2).to(dt)
-                a = (torch.randn((b, n_act * 51), generator=g,
-                                 device="cuda") * 2).to(dt)
-                for dist in dists:
-                    got = dueling_head_fwd(v, a, z, n_act, dist)
-                    want = dueling_head_plain(v, a, z, n_act, dist)
-                    tag = f"dueling_head B={b} A={n_act} {dt} {dist}"
-                    errs = [check_close(tag + " q", got[1], want.q, tol["q"], 0),
-                            check_close(tag + " max_q", got[3], want.max_q,
-                                        tol["q"], 0)]
-                    if dist:
-                        errs.append(check_close(tag + " dist", got[0],
-                                                want.dist, tol[dist], 0))
-                    else:
-                        check(got[0] is None, tag + ": wrote a distribution")
-                    top2 = want.q.topk(2, dim=1).values
-                    clear = top2[:, 0] - top2[:, 1] > tol["q"]
-                    check(torch.equal(got[2][clear], want.action[clear]),
-                          tag + ": argmax differs where the top-2 gap is clear")
-                    check(got[2].dtype == torch.int64, tag + ": argmax dtype")
-                    report.append(("dueling_head", b, n_act, str(dt), dist,
-                                   max(errs)))
-                    worst = max(worst, *errs)
-    return worst
+    cases = [(b, n_act, 51, dists, False) for b, dists in batches
+             for n_act in sorted({A, 18})]
+    cases += [(b, n_act, atoms, all_dists, True)
+              for b, n_act, atoms in HEAD_EDGES]
+    for b, n_act, atoms, dists, tie in cases:
+        z = support_vector(-10.0, 10.0, atoms, "cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            v = (torch.randn((b, atoms), generator=g, device="cuda")
+                 * 2).to(dt)
+            a = (torch.randn((b, n_act * atoms), generator=g,
+                             device="cuda") * 2).to(dt)
+            if tie:
+                _tie_top(torch, a, n_act, atoms)
+            for dist in dists:
+                got = dueling_head_fwd(v, a, z, n_act, dist)
+                want = dueling_head_plain(v, a, z, n_act, dist)
+                tag = f"dueling_head B={b} A={n_act} atoms={atoms} {dt} {dist}"
+                errs = [check_close(tag + " q", got[1], want.q, tol["q"], 0),
+                        check_close(tag + " max_q", got[3], want.max_q,
+                                    tol["q"], 0)]
+                if dist:
+                    errs.append(check_close(tag + " dist", got[0],
+                                            want.dist, tol[dist], 0))
+                    if dist == "probs" and b == learner[1]:
+                        target_probs = max(target_probs, errs[-1])
+                else:
+                    check(got[0] is None, tag + ": wrote a distribution")
+                top2 = want.q.topk(2, dim=1).values
+                clear = top2[:, 0] - top2[:, 1] > tol["q"]
+                check(torch.equal(got[2][clear], want.action[clear]),
+                      tag + ": argmax differs where the top-2 gap is clear")
+                check(got[2].dtype == torch.int64, tag + ": argmax dtype")
+                if tie:
+                    check(bool(got[1][0, 1] == got[1][0, 2])
+                          and int(got[2][0]) == 1,
+                          tag + ": a tied top did not take the first action")
+                again = dueling_head_fwd(v, a, z, n_act, dist)
+                check(all((x is None and y is None) or torch.equal(x, y)
+                          for x, y in zip(again, got)),
+                      tag + ": a second launch differs")
+                report.append(("dueling_head", b, n_act, atoms, str(dt), dist,
+                               max(errs)))
+                worst = max(worst, *errs)
+    return worst, target_probs
 
 
 def _random_step(torch, np, rng, n, f, h, c, k_frac=0.1):
@@ -469,7 +509,8 @@ def compare_c51(torch, A, report):
     """K4's two kernels against their plain versions at the learner's
     shapes (B = 32, A actions, 51 atoms): the target with rows whose b lands
     exactly on an atom and rows with nonterminal 0, and the loss with fp32
-    and bf16 streams. Returns the largest errors (target, loss)."""
+    and bf16 streams, there and at HEAD_EDGES and B = 1024 (a second launch
+    must give the same bits). Returns the largest errors (target, loss)."""
     from rainbow_tpu_torch.kernels import c51 as k4
     from rainbow_tpu_torch.ops import c51 as oc51
 
@@ -499,28 +540,44 @@ def compare_c51(torch, A, report):
                   and not bool(rest.any()), "c51_target: integer-b rows")
     report.append(("c51_target", b, A, err_t))
     err_l = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        v = (torch.randn((b, 51), generator=g, device="cuda") * 2).to(dt)
-        a = (torch.randn((b, A * 51), generator=g, device="cuda") * 2).to(dt)
-        acts = torch.randint(0, A, (b,), generator=g, device="cuda")
-        m = oc51.c51_target_plain(pns, acts, ret, nt, 0.99 ** 3, z, -10.0,
-                                  10.0)
-        w = torch.rand((b,), generator=g, device="cuda")
-        got = k4.head_loss(v, a, acts, m, w)
-        want = oc51.head_loss_plain(v, a, acts, m, w)
-        # Losses of order 4 from the same logits: float32 exp/log in another
-        # order. Gradients of order w/B: 1e-6, plus one bf16 ulp where the
-        # streams are bf16 and a rounding falls the other way.
-        rtol = 0.0 if dt == torch.float32 else 2 ** -7
-        errs = [check_close(f"head_loss {dt} {n}", x.float(), y.float(),
-                            atol, r)
-                for n, x, y, atol, r in zip(("losses", "loss", "dv", "da"),
-                                            got, want, (1e-5, 1e-5, 1e-6,
-                                                        1e-6),
-                                            (0, 0, rtol, rtol))]
-        check(got[2].dtype == dt and got[3].dtype == dt, "head_loss dtypes")
-        report.append(("head_loss", b, A, str(dt), max(errs)))
-        err_l = max(err_l, *errs)
+    # The learner's shape with the projected target, then HEAD_EDGES and
+    # the act's width with a random target distribution.
+    cases = [(b, A, 51, True)] + [(n, k, atoms, False)
+                                  for n, k, atoms in HEAD_EDGES
+                                  + [(1024, 6, 51), (1024, 18, 128)]]
+    for n, n_act, atoms, projected in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            v = (torch.randn((n, atoms), generator=g, device="cuda")
+                 * 2).to(dt)
+            a = (torch.randn((n, n_act * atoms), generator=g, device="cuda")
+                 * 2).to(dt)
+            acts = torch.randint(0, n_act, (n,), generator=g, device="cuda")
+            if projected:
+                m = oc51.c51_target_plain(pns, acts, ret, nt, 0.99 ** 3, z,
+                                          -10.0, 10.0)
+            else:
+                m = torch.softmax(torch.randn((n, atoms), generator=g,
+                                              device="cuda"), dim=1)
+            w = torch.rand((n,), generator=g, device="cuda")
+            got = k4.head_loss(v, a, acts, m, w)
+            want = oc51.head_loss_plain(v, a, acts, m, w)
+            # Losses of order 4 from the same logits: float32 exp/log in
+            # another order. Gradients of order w/B: 1e-6, plus one bf16 ulp
+            # where the streams are bf16 and a rounding falls the other way.
+            rtol = 0.0 if dt == torch.float32 else 2 ** -7
+            tag = f"head_loss B={n} A={n_act} atoms={atoms} {dt}"
+            errs = [check_close(f"{tag} {name}", x.float(), y.float(), atol,
+                                r)
+                    for name, x, y, atol, r in zip(
+                        ("losses", "loss", "dv", "da"), got, want,
+                        (1e-5, 1e-5, 1e-6, 1e-6), (0, 0, rtol, rtol))]
+            check(got[2].dtype == dt and got[3].dtype == dt,
+                  tag + ": dtypes")
+            again = k4.head_loss(v, a, acts, m, w)
+            check(all(torch.equal(x, y) for x, y in zip(again, got)),
+                  tag + ": a second launch differs")
+            report.append(("head_loss", n, n_act, atoms, str(dt), max(errs)))
+            err_l = max(err_l, *errs)
     return err_t, err_l
 
 
@@ -1337,8 +1394,9 @@ class _Watch:
     Trainer.save_checkpoint to time them (each iteration synchronised with
     ``sync``), Trainer._eval_async_drain to mark the end of each run's
     training loop (``loop_ends``: its first call with ``wait``, after the
-    main stream has finished), KA's two wrappers to count their launches
-    by shape (``ka_shapes``), and the replay's, the noise's and the
+    main stream has finished), KA's two wrappers and KB's to count their
+    launches by shape (``ka_shapes``, ``kb_shapes``), and the replay's, the
+    noise's and the
     delta's plain versions to fail if the card's path calls them. With
     ``warmup_profile`` a torch.profiler of the card's kernels runs from
     construction until the first learning iteration (``warmup_prof``)."""
@@ -1348,10 +1406,11 @@ class _Watch:
 
         from rainbow_tpu_torch import train as tm
         from rainbow_tpu_torch.models import noisy
+        from rainbow_tpu_torch.ops import head
         from rainbow_tpu_torch.replay import prioritized as rp
 
         self.iters, self.evals, self.saves = [], [], []
-        self.ka_shapes = {}
+        self.ka_shapes, self.kb_shapes = {}, {}
         self.loop_ends = []
         self._undo = []
         self.warmup_prof = None
@@ -1402,6 +1461,13 @@ class _Watch:
                 return out
             return wrapper
 
+        def tally_kb(real):
+            def wrapper(v, a, support, action_space, dist=None):
+                key = f"dueling_head B={v.shape[0]} {dist}"
+                self.kb_shapes[key] = self.kb_shapes.get(key, 0) + 1
+                return real(v, a, support, action_space, dist)
+            return wrapper
+
         def drain(real):
             def wrapper(trainer, wait=False):
                 if wait and len(self.loop_ends) < self._loops:
@@ -1417,6 +1483,9 @@ class _Watch:
                     lambda r: tally(r, "fwd", 1, 2))
         self._patch(noisy.ka, "noisy_linear_bwd",
                     lambda r: tally(r, "bwd", 2, 4))
+        # ops/head.py calls KB as kb.dueling_head_fwd(v, a, support, A,
+        # dist).
+        self._patch(head.kb, "dueling_head_fwd", tally_kb)
         self._patch(tm, "train_iter_packed", timed_iter)
         self._patch(tm.Trainer, "_eval_async_drain", drain)
         self._patch(tm.Trainer, "run", lambda r: self._counted(r))
@@ -1517,6 +1586,7 @@ def run_trainer(torch, np):
         iters, evals, saves = (list(watch.iters), list(watch.evals),
                                list(watch.saves))
         ka_shapes = dict(watch.ka_shapes)
+        kb_shapes = dict(watch.kb_shapes)
         gross = watch.train_span(iters)
         res = tr.results_dir
         rounds = sum(1 for n, _, _ in iters if n)
@@ -1608,7 +1678,7 @@ def run_trainer(torch, np):
         "replay_save_s": save_s, "replay_restore_s": restore_s,
         "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
         "evaluate_only_s": eval_only_s, "launches": counts,
-        "ka_launches_by_shape": ka_shapes}
+        "ka_launches_by_shape": ka_shapes, "kb_launches_by_shape": kb_shapes}
     return stats, counts
 
 
@@ -1712,7 +1782,8 @@ def run_side_trainer(torch, np, args, sync):
 # ------------------------------------------------------------- kernels -----
 
 def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
-                replay_rows, delta_last, k10_trainer_ms, ka_shapes):
+                replay_rows, delta_last, k10_trainer_ms, ka_shapes, kb_shapes,
+                head_timed):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
@@ -1721,38 +1792,16 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
     compare_replay. ``counts`` maps a phase to its launch counts;
     ``launches`` is the trainer phase's (the main path, through cli.main),
     for K10 the side-path trainer's (delta uploads), and the other phases'
-    counts are kept beside it."""
+    counts are kept beside it. KB's and head_loss's rows come from
+    head_rows, timed in ``head_timed``."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
-    from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
     from rainbow_tpu_torch.ops import preprocess as pp
-    from rainbow_tpu_torch.ops.c51 import support_vector
-    from rainbow_tpu_torch.ops.head import dueling_head_plain
     from rainbow_tpu_torch.replay import prioritized as rp
 
-    g = torch.Generator(device="cuda").manual_seed(4)
     b = stack.shape[0]
     rows = ka_rows(torch, ka_shapes)
 
-    # KB at the actor's call: no distribution, q and the greedy action.
-    z = support_vector(-10.0, 10.0, 51, "cuda")
-    v = torch.randn((b, 51), generator=g, device="cuda")
-    a = torch.randn((b, A * 51), generator=g, device="cuda")
-    logits = (v.view(b, 1, 51) + a.view(b, A, 51)
-              - a.view(b, A, 51).mean(1, keepdim=True))
-
-    def library_head():
-        qa = (torch.softmax(logits, dim=2) * z).sum(dim=2)
-        return qa.argmax(dim=1)
-    rows.append(dict(
-        name="dueling_head", route="triton",
-        source="rainbow_tpu_torch/kernels/dueling_head.py",
-        replaces="rainbow_tpu/models/dqn.py:148",
-        shape=f"B={b} A={A} atoms=51 no dist",
-        ms=time_ms(torch, lambda: dueling_head_fwd(v, a, z, A, None)),
-        plain_ms=time_ms(torch, lambda: dueling_head_plain(v, a, z, A, None)),
-        library_ms=time_ms(torch, library_head),
-        flops=b * A * 51 * 10,
-        bytes=4 * (b * 51 + b * A * 51 + 51 + b * A + b) + 8 * b))
+    rows += head_rows(torch, cfg, A, head_timed, kb_shapes)
 
     # KC at the actor's step: the live stack's shape, this run's last reset
     # count, one replay column.
@@ -1860,6 +1909,118 @@ def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms):
     ]
 
 
+def head_shapes(cfg):
+    """The main path's launches of csrc/head.cu's kernels, as (name, B,
+    dist, caller): KB for the learner's double-Q a* (no distribution), for
+    the act and for the round's target (probabilities), and head_loss at
+    the learner's batch."""
+    b = cfg.batch_size
+    return (("dueling_head", b, None, "learner a*"),
+            ("dueling_head", cfg.num_envs, None, "act"),
+            ("dueling_head", cfg.num_envs // cfg.replay_frequency * b,
+             "probs", "round target"),
+            ("head_loss", b, None, "learner loss"))
+
+
+def _head_inputs(torch, b, A, atoms):
+    g = torch.Generator(device="cuda").manual_seed(21)
+    v = torch.randn((b, atoms), generator=g, device="cuda")
+    a = torch.randn((b, A * atoms), generator=g, device="cuda")
+    acts = torch.randint(0, A, (b,), generator=g, device="cuda")
+    m = torch.softmax(torch.randn((b, atoms), generator=g, device="cuda"),
+                      dim=1)
+    w = torch.rand((b,), generator=g, device="cuda")
+    return v, a, acts, m, w
+
+
+def head_times(torch, cfg, A):
+    """Times of KB and head_loss through the wrappers of the
+    rainbow_tpu_torch that is imported, at head_shapes(cfg) with A actions
+    and the configuration's support, fp32: device time per call from CUDA
+    graphs, cold (the L2 flushed before each call) and warm, and CUDA event
+    time per call, cold and warm. "floor": KB at B = 1 (one block) in a
+    graph, warm, the least time one launch of these kernels takes. Returns
+    {"<name> B=<b> <dist>": {...}, "floor": ms}."""
+    from rainbow_tpu_torch.kernels import c51 as k4
+    from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
+    from rainbow_tpu_torch.ops.c51 import support_vector
+
+    z = support_vector(cfg.v_min, cfg.v_max, cfg.atoms, "cuda")
+    flush = l2_flush(torch)
+    out = {}
+    for name, b, dist, _ in head_shapes(cfg):
+        v, a, acts, m, w = _head_inputs(torch, b, A, cfg.atoms)
+        if name == "dueling_head":
+            fn = lambda: dueling_head_fwd(v, a, z, A, dist)
+        else:
+            fn = lambda: k4.head_loss(v, a, acts, m, w)
+        # A cold call's device time is the difference of two replays that
+        # each hold 40 flushes of 128 MB: many replays steady it.
+        out[f"{name} B={b} {dist}"] = dict(
+            ms=time_ms(torch, fn, before=flush), ms_warm=time_ms(torch, fn),
+            device_ms=graph_ms(torch, fn, before=flush, n=40, reps=21),
+            device_ms_warm=graph_ms(torch, fn, n=40, reps=21))
+    v, a = _head_inputs(torch, 1, A, cfg.atoms)[:2]
+    out["floor"] = graph_ms(torch, lambda: dueling_head_fwd(v, a, z, A, None),
+                            n=40, reps=21)
+    return out
+
+
+def head_rows(torch, cfg, A, timed, kb_shapes):
+    """Rows of KB at its three main-path shapes and of head_loss at the
+    learner's batch, from ``timed`` (two head_times of this run), with the
+    plain version (cold) and KB's library yardstick: softmax, the Σ z·p
+    and the argmax (three calls on precombined logits; no one PyTorch call
+    computes the head). Each row states the one-block floor beside its
+    bound. ``kb_shapes``: the main Trainer's KB launches by shape."""
+    from rainbow_tpu_torch.ops import c51 as oc51
+    from rainbow_tpu_torch.ops.head import dueling_head_plain
+
+    n = cfg.atoms
+    z = oc51.support_vector(cfg.v_min, cfg.v_max, n, "cuda")
+    flush = l2_flush(torch)
+    rows = []
+    for name, b, dist, who in head_shapes(cfg):
+        key = f"{name} B={b} {dist}"
+        v, a, acts, m, w = _head_inputs(torch, b, A, n)
+        row = dict(name=name, route="cuda",
+                   source="rainbow_tpu_torch/kernels/csrc/head.cu",
+                   shape=f"B={b} A={A} atoms={n} {dist or 'no dist'} fp32 "
+                         f"({who})",
+                   **timed[0][key], again=timed[1][key],
+                   one_block_floor_device_ms=timed[0]["floor"])
+        if name == "dueling_head":
+            logits = (v.view(b, 1, n) + a.view(b, A, n)
+                      - a.view(b, A, n).mean(1, keepdim=True))
+            row.update(
+                replaces="rainbow_tpu/models/dqn.py:148",
+                launches_at_shape=kb_shapes.get(key, 0),
+                plain_ms=time_ms(torch, lambda: dueling_head_plain(
+                    v, a, z, A, dist), before=flush),
+                library_ms=time_ms(torch, lambda: (
+                    torch.softmax(logits, dim=2) * z).sum(dim=2).argmax(dim=1),
+                    before=flush),
+                library_call="softmax, Σ z·p, argmax on combined logits",
+                flops=b * A * n * 10,
+                # Read v, a and z, write q, the action and max q, and the
+                # (B, A, atoms) probabilities when asked for.
+                bytes=4 * (b * n + b * A * n + n + b * A + b) + 8 * b
+                + (4 * b * A * n if dist else 0))
+        else:
+            row.update(
+                replaces="rainbow_tpu/ops/c51.py:57",
+                plain_ms=time_ms(torch, lambda: oc51.head_loss_plain(
+                    v, a, acts, m, w), before=flush),
+                library_ms=None,
+                flops=b * A * n * 4 + b * n * 12,
+                # Read v, a, m, w and the actions, write dv, da, the losses
+                # and the loss.
+                bytes=4 * (2 * b * n + 2 * b * A * n + b * n + 2 * b + 1)
+                + 8 * b)
+        rows.append(row)
+    return rows
+
+
 def ka_rows(torch, ka_shapes):
     """Rows of KA at fc_h_* (3136 -> 512, ReLU, fp32), the layer that moves
     the most: its forward at the learner's B = 32 with shared noise, at the
@@ -1961,8 +2122,9 @@ def ka_rows(torch, ka_shapes):
 
 
 def learner_kernel_rows(torch, A, shapes):
-    """Rows of the learner's kernels: both C51 kernels at B = 32, and clip +
-    Adam over the canonical net with a float32 mu."""
+    """Rows of the learner's kernels: the C51 target at B = 32, and clip +
+    Adam over the canonical net with a float32 mu (head_loss's row comes
+    from head_rows)."""
     from rainbow_tpu_torch.agent import apply_grads_plain
     from rainbow_tpu_torch.kernels import c51 as k4
     from rainbow_tpu_torch.kernels.adam import clip_adam
@@ -1992,24 +2154,6 @@ def learner_kernel_rows(torch, A, shapes):
         # the two weights (3) and the two scatter-adds (2).
         flops=13 * b * 51,
         bytes=4 * (b * 51 + 2 * b + 51 + b * 51) + 8 * b))
-
-    v = torch.randn((b, 51), generator=g, device="cuda")
-    a = torch.randn((b, A * 51), generator=g, device="cuda")
-    acts = torch.randint(0, A, (b,), generator=g, device="cuda")
-    m = oc51.c51_target_plain(*args)
-    wts = torch.rand((b,), generator=g, device="cuda")
-    rows.append(dict(
-        name="head_loss", route="triton",
-        source="rainbow_tpu_torch/kernels/c51.py",
-        replaces="rainbow_tpu/ops/c51.py:57",
-        shape=f"B={b} A={A} atoms=51 fp32",
-        ms=time_ms(torch, lambda: k4.head_loss(v, a, acts, m, wts)),
-        plain_ms=time_ms(torch, lambda: oc51.head_loss_plain(v, a, acts, m,
-                                                             wts)),
-        library_ms=None,
-        flops=b * A * 51 * 4 + b * 51 * 12,
-        bytes=4 * (2 * b * 51 + 2 * b * A * 51 + b * 51 + 2 * b + 1)
-        + 8 * b))
 
     n = sum(torch.Size(s).numel() for s in shapes)
     gp = torch.Generator(device="cuda").manual_seed(19)
@@ -2124,10 +2268,11 @@ def main() -> int:
                ENVS // cfg.replay_frequency * cfg.batch_size)
     errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, learner,
                                                      report)}
-    t_triton = time.perf_counter()
-    errs["dueling_head"] = compare_dueling_head(torch, A, learner, report)
+    errs["dueling_head"], kb_probs = compare_dueling_head(torch, A, learner,
+                                                           report)
     errs["append_framestack"] = compare_append_framestack(torch, np, report)
     errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, report)
+    t_triton = time.perf_counter()
     errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, report)
     shapes = [tuple(v.shape) for v in init_dqn_params(
         cfg, A, torch.Generator().manual_seed(0), "cpu").values()]
@@ -2141,8 +2286,10 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
         json.dump(report, f, indent=0)
     log(f"[compare] {len(report)} cases agree in "
-        f"{time.perf_counter() - t0:.1f} s (the Triton compiles included "
-        f"from {t_triton - t0:.1f} s); max |err| {errs}; K2 moments over "
+        f"{time.perf_counter() - t0:.1f} s (the C51 target's Triton "
+        f"compile included from {t_triton - t0:.1f} s); max |err| {errs}; "
+        f"KB's probabilities at B = {learner[1]}: max |err| {kb_probs:.3g}; "
+        f"K2 moments over "
         f"{moments[2]} draws: mean {moments[0]:.3g}, E[eps^2] "
         f"{moments[1]:.6f}; K10 on real pong steps: {delta_forms}")
 
@@ -2243,13 +2390,17 @@ def main() -> int:
         / rate(trainer_stats, "train_with_eval_")}))
 
     # 8. kernels line --------------------------------------------------------
+    # KB's and head_loss's times, taken twice.
+    head_timed = [head_times(torch, cfg, A), head_times(torch, cfg, A)]
+    log("[head times] " + json.dumps(head_timed))
     rows = kernel_rows(torch, np, cfg, A, errs, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
         "sequential": seq_counts, "side": side_counts},
         stack, staged, shapes, replay_rows, delta_last,
         side_stats["k10_trainer_device_ms"],
-        trainer_stats["ka_launches_by_shape"])
+        trainer_stats["ka_launches_by_shape"],
+        trainer_stats["kb_launches_by_shape"], head_timed)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

@@ -16,7 +16,7 @@ import threading
 from pathlib import Path
 
 SOURCES = ("noisy_linear", "append_framestack", "adam", "replay", "noise",
-           "delta")
+           "delta", "head")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,5 +1,5 @@
-"""The learner's C51 target and loss as Triton kernels, and their launch
-wrappers.
+"""The learner's C51 target (a Triton kernel) and loss (csrc/head.cu), and
+their launch wrappers.
 
 Replaces what XLA fuses for the JAX package in the learner's update:
 
@@ -17,34 +17,42 @@ Their plain versions are ops/c51.py::c51_target_plain and head_loss_plain.
 
 Bound on the H100 at the learner's shapes (B = 32, A = 6, 51 atoms): under
 1 MB moved and a few MFLOP per call, so each call is bound by launch
-latency. Triton is the route because each row's work is a small reduction
-over an (A, 64) tile (atoms padded to 64) that fits in registers, with no
-matrix-unit work. The target runs one program per row with the row's
-51 x 51 triangular weights in registers; the loss runs one program that
-walks the batch in row blocks, so the batch mean is summed in a fixed order
-(the same bits every run) without a second launch, and writes the loss,
-the per-sample losses and both stream gradients in the same launch, so an
-update costs one launch here and backward only scales the gradient.
+latency.
 
-Triton's launcher raises on a launch error. Triton is imported only inside
-the launching functions, so this module imports where it is absent.
+``c51_target`` is Triton: each row's work is a small reduction over a
+51 x 51 triangular tile (atoms padded to 64) that fits in registers, with
+no matrix-unit work; one program per row. Triton is imported only inside
+its launching function, so this module imports where it is absent.
+
+``head_loss`` is CUDA C++ (csrc/head.cu), sharing the dueling combine and
+the softmax with the head epilogue: one launch of a thread-block cluster
+of up to 8 blocks of 4 rows, one warp per row (rows past 32 loop), lanes
+over the atoms (at most 128). It writes the loss, the per-sample losses
+and both stream gradients in that launch, so an update costs one launch
+here and backward only scales the gradient; the rows' w·loss are added in
+row order by one thread, so the scalar has the same bits every run,
+without atomics or a second launch.
+It is built at first use (build.py) and called through ctypes on the
+current stream; a nonzero CUDA error from the launch raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from rainbow_tpu_torch.kernels import (check_cuda, check_dtype, check_shape,
-                                       count_launch)
+from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
+                                       check_shape, count_launch)
+from rainbow_tpu_torch.kernels.dueling_head import check_atoms
 
 TARGET = "c51_target"
 LOSS = "head_loss"
-_BLOCK_ROWS = 32
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _kernels():
+def _target_kernel():
     # Bound as module globals: Triton resolves the names a kernel uses in
     # its module's globals, not in an enclosing function's scope.
     global triton, tl
@@ -75,59 +83,7 @@ def _kernels():
         m = tl.sum(p[:, None] * w, axis=0)
         tl.store(m_ptr + row * ATOMS + offs, m, mask=mask)
 
-    @triton.jit
-    def head_loss_kernel(v_ptr, a_ptr, act_ptr, m_ptr, w_ptr, losses_ptr,
-                        loss_ptr, dv_ptr, da_ptr, B, A, INV_A, INV_B, ATOMS,
-                        BLOCK_R: tl.constexpr, BLOCK_Z: tl.constexpr):
-        offs_z = tl.arange(0, BLOCK_Z)
-        mask_z = offs_z < ATOMS
-        dt = a_ptr.dtype.element_ty
-        total = tl.zeros((BLOCK_R,), dtype=tl.float32)
-        for r0 in range(0, B, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            mask_r = rows < B
-            mask = mask_r[:, None] & mask_z[None, :]
-            act = tl.load(act_ptr + rows, mask=mask_r, other=0).to(tl.int32)
-            # Σ_k a_k over the actions, for the dueling mean.
-            row_a = a_ptr + rows[:, None] * (A * ATOMS) + offs_z[None, :]
-            a_sum = tl.zeros((BLOCK_R, BLOCK_Z), dtype=tl.float32)
-            for k in range(0, A):
-                a_sum += tl.load(row_a + k * ATOMS, mask=mask,
-                                 other=0.0).to(tl.float32)
-            a_act = tl.load(row_a + act[:, None] * ATOMS, mask=mask,
-                            other=0.0).to(tl.float32)
-            v = tl.load(v_ptr + rows[:, None] * ATOMS + offs_z[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            # The combine in the streams' dtype, as the dueling-head kernel
-            # does it: each op in fp32, rounded to dt; the mean as the fp32
-            # sum times 1/A.
-            mean = (a_sum * INV_A).to(dt).to(tl.float32)
-            q = (v + a_act).to(dt).to(tl.float32)
-            q = (q - mean).to(dt).to(tl.float32)
-            q = tl.where(mask, q, float("-inf"))
-            mx = tl.where(mask_r, tl.max(q, axis=1), 0.0)
-            e = tl.exp(q - mx[:, None])
-            s = tl.where(mask_r, tl.sum(e, axis=1), 1.0)
-            log_p = q - mx[:, None] - tl.log(s)[:, None]
-            m = tl.load(m_ptr + rows[:, None] * ATOMS + offs_z[None, :],
-                        mask=mask, other=0.0)
-            w = tl.load(w_ptr + rows, mask=mask_r, other=0.0)
-            losses = -tl.sum(tl.where(mask, m * log_p, 0.0), axis=1)
-            tl.store(losses_ptr + rows, losses, mask=mask_r)
-            total += tl.where(mask_r, w * losses, 0.0)
-            # d mean(w·loss) / d q_{a,j} = (w/B)·(p_j·Σm − m_j).
-            p = e / s[:, None]
-            g = (w * INV_B)[:, None] * (p * tl.sum(m, axis=1)[:, None] - m)
-            tl.store(dv_ptr + rows[:, None] * ATOMS + offs_z[None, :],
-                     g.to(dt), mask=mask)
-            out_a = da_ptr + rows[:, None] * (A * ATOMS) + offs_z[None, :]
-            for k in range(0, A):
-                sel = tl.where(act == k, 1.0, 0.0)
-                tl.store(out_a + k * ATOMS,
-                         (g * (sel[:, None] - INV_A)).to(dt), mask=mask)
-        tl.store(loss_ptr, tl.sum(total, axis=0) * INV_B)
-
-    return c51_target_kernel, head_loss_kernel, triton.next_power_of_2
+    return c51_target_kernel, triton.next_power_of_2
 
 
 def c51_target(pns_target: torch.Tensor, a_star: torch.Tensor,
@@ -146,7 +102,7 @@ def c51_target(pns_target: torch.Tensor, a_star: torch.Tensor,
     check_shape(TARGET, "a_star", a_star, (b,))
     check_dtype(TARGET, "support", support, torch.float32)
     check_shape(TARGET, "support", support, (atoms,))
-    target_kernel, _, next_pow2 = _kernels()
+    target_kernel, next_pow2 = _target_kernel()
     m = torch.empty((b, atoms), dtype=torch.float32, device=returns.device)
     target_kernel[(b,)](pns_target, a_star, returns, nonterminals, support, m,
                         n_act, atoms, float(discount_n), float(v_min),
@@ -156,9 +112,20 @@ def c51_target(pns_target: torch.Tensor, a_star: torch.Tensor,
     return m
 
 
+@functools.cache
+def _loss_lib():
+    fn = build.load("head").head_loss
+    fn.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                   _P]
+    fn.restype = _I
+    return fn
+
+
 def head_loss(v: torch.Tensor, a: torch.Tensor, actions: torch.Tensor,
              m: torch.Tensor, weights: torch.Tensor):
-    """(losses (B,), loss (), dv, da); see ops/c51.py::head_loss_plain."""
+    """(losses (B,), loss (), dv, da); see ops/c51.py::head_loss_plain.
+    At most dueling_head.MAX_ATOMS atoms."""
+    check_atoms(LOSS, v.shape[-1])
     check_cuda(LOSS, v=v, a=a, actions=actions, m=m, weights=weights)
     check_dtype(LOSS, "v", v, torch.float32, torch.bfloat16)
     check_dtype(LOSS, "a", a, v.dtype)
@@ -173,15 +140,21 @@ def head_loss(v: torch.Tensor, a: torch.Tensor, actions: torch.Tensor,
     check_shape(LOSS, "m", m, (b, atoms))
     check_dtype(LOSS, "weights", weights, torch.float32)
     check_shape(LOSS, "weights", weights, (b,))
-    _, loss_kernel, next_pow2 = _kernels()
+    if b < 1 or n_act < 1:
+        raise ValueError(f"{LOSS}: empty batch or action space ({b}, "
+                         f"{n_act})")
     dev = v.device
     losses = torch.empty((b,), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     dv = torch.empty_like(v)
     da = torch.empty_like(a)
-    loss_kernel[(1,)](v, a, actions, m, weights, losses, loss, dv, da, b,
-                      n_act, 1.0 / n_act, 1.0 / b, atoms,
-                      BLOCK_R=min(_BLOCK_ROWS, next_pow2(b)),
-                      BLOCK_Z=next_pow2(atoms), num_warps=4)
+    err = _loss_lib()(v.data_ptr(), a.data_ptr(),
+                      int(v.dtype == torch.bfloat16), actions.data_ptr(),
+                      int(actions.dtype == torch.int64), m.data_ptr(),
+                      weights.data_ptr(), losses.data_ptr(), loss.data_ptr(),
+                      dv.data_ptr(), da.data_ptr(), b, n_act, atoms,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{LOSS}: launch failed with CUDA error {err}")
     count_launch(LOSS)
     return losses, loss, dv, da

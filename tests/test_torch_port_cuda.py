@@ -115,25 +115,57 @@ def test_noisy_linear_kernels_give_the_same_bits_twice(cuda, shape):
             assert torch.equal(a, c)
 
 
+# (B, A, atoms) of the head kernels (csrc/head.cu): one row, a ragged block,
+# a full learner batch and one row past it, the actor's batch; A from
+# Atari's smallest set to its full one; the canonical 51 atoms, a single
+# lane column (21) and the most a lane holds (MAX_ATOMS = 128).
+HEAD_SHAPES = [(b, n_act, atoms) for b in (1, 29, 31, 32, 33, 1024)
+               for n_act in (3, 6, 18) for atoms in (51, 21, 128)]
+
+
+def _head_streams(g, b, n_act, atoms, dt):
+    v = (torch.randn((b, atoms), generator=g, device=g.device) * 2).to(dt)
+    a = (torch.randn((b, n_act * atoms), generator=g, device=g.device)
+         * 2).to(dt)
+    return v, a
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dist", [None, "probs", "log"])
 def test_dueling_head_kernel_matches_plain(cuda, dist, dtype):
+    """KB against its plain version at HEAD_SHAPES and at the round's
+    8192-row target with probabilities; a second launch gives the same bits,
+    and in a row whose best q is tied the first of the tied actions wins."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(1)
-    z = support_vector(-10.0, 10.0, 51, cuda)
-    for n_act in (3, 18):
-        v = (torch.randn((29, 51), generator=g, device=cuda) * 2).to(dt)
-        a = (torch.randn((29, n_act * 51), generator=g, device=cuda)
-             * 2).to(dt)
+    shapes = HEAD_SHAPES + ([(8192, 6, 51)] if dist == "probs" else [])
+    for b, n_act, atoms in shapes:
+        z = support_vector(-10.0, 10.0, atoms, cuda)
+        v, a = _head_streams(g, b, n_act, atoms, dt)
+        # Row 0: actions 1 and 2 lean to the high atoms alike, the others
+        # to the low ones, so q ties at its top between 1 and 2.
+        j = torch.arange(atoms, device=cuda, dtype=torch.float32) / atoms
+        lean = torch.stack([j if k in (1, 2) else -j for k in range(n_act)])
+        a[0] = (lean * 4).reshape(-1).to(dt)
         got = dueling_head_fwd(v, a, z, n_act, dist)
         want = dueling_head_plain(v, a, z, n_act, dist)
-        torch.testing.assert_close(got[1], want.q, atol=1e-5, rtol=0)
-        torch.testing.assert_close(got[3], want.max_q, atol=1e-5, rtol=0)
+        tag = f"B={b} A={n_act} atoms={atoms}"
+        torch.testing.assert_close(got[1], want.q, atol=1e-5, rtol=0,
+                                   msg=tag)
+        torch.testing.assert_close(got[3], want.max_q, atol=1e-5, rtol=0,
+                                   msg=tag)
         if dist:
-            torch.testing.assert_close(got[0], want.dist, atol=1e-5, rtol=0)
+            torch.testing.assert_close(got[0], want.dist, atol=1e-5, rtol=0,
+                                       msg=tag)
+        else:
+            assert got[0] is None
         top2 = want.q.topk(2, dim=1).values
         clear = top2[:, 0] - top2[:, 1] > 1e-5
-        assert torch.equal(got[2][clear], want.action[clear])
+        assert torch.equal(got[2][clear], want.action[clear]), tag
+        assert got[1][0, 1] == got[1][0, 2] and int(got[2][0]) == 1, tag
+        again = dueling_head_fwd(v, a, z, n_act, dist)
+        for x, y in zip(again, got):
+            assert (x is None and y is None) or torch.equal(x, y), tag
 
 
 def _same(a, b):
@@ -244,19 +276,35 @@ def test_c51_target_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_c51_loss_kernel_matches_plain(cuda, dtype):
+    """The loss kernel against its plain version: B = 37, A = 6, 51 atoms
+    (two passes of the block's 32 warps), then HEAD_SHAPES; a second launch
+    gives the same bits. Losses of order 4 agree to 1e-5 and gradients of
+    order w/B to 1e-6. With bf16 streams, at HEAD_SHAPES' million-odd
+    gradient values a rounding to bf16 can fall the other way where the
+    float32 g differs in its last bit (Σm is summed in another order), so
+    there dv and da may also differ by one bf16 ulp (2^-7 relative), as in
+    chip_smoke.py."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(5)
-    b, n_act = 37, 6  # two row blocks
-    v = (torch.randn((b, 51), generator=g, device=cuda) * 2).to(dt)
-    a = (torch.randn((b, n_act * 51), generator=g, device=cuda) * 2).to(dt)
-    actions = torch.randint(0, n_act, (b,), generator=g, device=cuda)
-    m = torch.softmax(torch.randn((b, 51), generator=g, device=cuda), dim=1)
-    w = torch.rand((b,), generator=g, device=cuda)
-    got = k4.head_loss(v, a, actions, m, w)
-    want = oc51.head_loss_plain(v, a, actions, m, w)
-    for x, y, atol in zip(got, want, (1e-5, 1e-5, 1e-6, 1e-6)):
-        assert x.dtype == y.dtype and x.shape == y.shape
-        torch.testing.assert_close(x.float(), y.float(), atol=atol, rtol=0)
+    for i, (b, n_act, atoms) in enumerate([(37, 6, 51)] + HEAD_SHAPES):
+        v, a = _head_streams(g, b, n_act, atoms, dt)
+        actions = torch.randint(0, n_act, (b,), generator=g, device=cuda)
+        if i % 2:
+            actions = actions.int()
+        m = torch.softmax(torch.randn((b, atoms), generator=g, device=cuda),
+                          dim=1)
+        w = torch.rand((b,), generator=g, device=cuda)
+        got = k4.head_loss(v, a, actions, m, w)
+        want = oc51.head_loss_plain(v, a, actions, m, w)
+        rtol = 2 ** -7 if dt == torch.bfloat16 and i else 0.0
+        tag = f"B={b} A={n_act} atoms={atoms}"
+        for x, y, atol, r in zip(got, want, (1e-5, 1e-5, 1e-6, 1e-6),
+                                 (0, 0, rtol, rtol)):
+            assert x.dtype == y.dtype and x.shape == y.shape, tag
+            torch.testing.assert_close(x.float(), y.float(), atol=atol,
+                                       rtol=r, msg=tag)
+        for x, y in zip(k4.head_loss(v, a, actions, m, w), got):
+            assert torch.equal(x, y), tag
 
 
 @pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])

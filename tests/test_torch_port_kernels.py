@@ -5,9 +5,11 @@ dispatchers take the plain versions for CPU tensors without launching, the
 launch counters, the build's naming, and chip_smoke.py's refusal to run
 without a card or without the package beside it."""
 import os
+import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -19,6 +21,7 @@ from rainbow_tpu_torch.kernels import build
 from rainbow_tpu_torch.kernels import c51 as k4
 from rainbow_tpu_torch.kernels.adam import clip_adam
 from rainbow_tpu_torch.kernels.append_framestack import append_framestack
+from rainbow_tpu_torch.kernels import dueling_head as kb
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
 from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                     noisy_linear_fwd)
@@ -92,9 +95,64 @@ def test_dispatchers_run_plain_versions_on_cpu_without_launching():
     assert kernels.launches() == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
+def _head_call(name, atoms, n_act=2, dtype=torch.float32, dist=None):
+    v, a = torch.zeros(2, atoms, dtype=dtype), torch.zeros(2, n_act * atoms,
+                                                         dtype=dtype)
+    if name == "dueling_head":
+        return dueling_head_fwd(v, a, support_vector(-10, 10, atoms, "cpu"),
+                                n_act, dist)
+    return k4.head_loss(v, a, torch.zeros(2).long(), torch.zeros(2, atoms),
+                        torch.ones(2))
+
+
+@pytest.mark.parametrize("name", ["dueling_head", "head_loss"])
+def test_head_wrappers_refuse_cpu_tensors_and_too_many_atoms(name):
+    """Both kernels of csrc/head.cu take at most MAX_ATOMS atoms (each lane
+    of a row's warp holds at most 4): the wrappers raise above it before
+    anything else, on CPU tensors at any width, and launch nothing."""
+    before = kernels.launches()
+    for atoms in (21, 51, kb.MAX_ATOMS):
+        with pytest.raises(ValueError, match="CUDA"):
+            _head_call(name, atoms)
+    for atoms in (kb.MAX_ATOMS + 1, 0):
+        with pytest.raises(ValueError, match="atoms"):
+            _head_call(name, atoms)
+    assert kernels.launches() == before
+
+
+def test_dueling_head_wrapper_refuses_an_unknown_mode():
+    before = kernels.launches()
+    with pytest.raises(ValueError, match="dist"):
+        _head_call("dueling_head", 51, dist="logits")
+    assert kernels.launches() == before
+
+
+def test_head_source_exports_what_the_wrappers_bind(monkeypatch):
+    """build.SOURCES names csrc/head.cu, which exports each C function the
+    two wrappers bind, with as many parameters as the wrappers declare."""
+    assert "head" in build.SOURCES
+    src = (ROOT / "rainbow_tpu_torch/kernels/csrc/head.cu").read_text()
+    bound = {}
+
+    class Lib:
+        def __getattr__(self, fn):
+            bound[fn] = types.SimpleNamespace()
+            return bound[fn]
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    kb._lib.__wrapped__()
+    k4._loss_lib.__wrapped__()
+    assert set(bound) == {"dueling_head", "head_loss"}
+    for fn, ns in bound.items():
+        sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+        assert sig, fn
+        assert len(sig.group(1).split(",")) == len(ns.argtypes), fn
+        assert ns.restype is not None
+
+
 def test_build_names_libraries_by_source_hash():
     assert set(build.SOURCES) == {"noisy_linear", "append_framestack", "adam",
-                                  "replay", "noise", "delta"}
+                                  "replay", "noise", "delta", "head"}
     for name in build.SOURCES:
         path = build.lib_path(name)
         assert path.parent == build.BUILD_DIR
