@@ -19,7 +19,9 @@ exit code:
             write-back on a random ring of the canonical width (7.05 GB),
             where they are also timed; the noise draws (K2) at the act's,
             the round's and the sequential update's shapes, with the
-            moments of the round's 71 M target draws; the delta kernel
+            moments of the round's 71 M target draws, and K2's float32
+            Box-Muller alone on edge words and 10^6 random word pairs,
+            against the float64 plain version; the delta kernel
             (K10) on real 1024-env pong deltas, against the dense engine's
             observations too.
 3. update   one learner update (compute_update_pretarget + apply_grads) and
@@ -40,7 +42,7 @@ exit code:
             save on a 64-column ring restored exactly into a new Trainer;
             --evaluate of the best model. Launch counts (K5-K7 once per
             round), KA's launches by shape, env-steps/s, updates/s, eval,
-            save and restore times.
+            save and restore times, the peak of allocated device memory.
             Then the side paths, each with its own launch counts: the
             sequential PER round (4 rounds of 256 updates, K5-K7 and K2
             once per update), and delta uploads (K10) with the pipelined
@@ -50,9 +52,10 @@ exit code:
             learner's, the target's and the actor's batch and its backward
             at the learner's, cold and warm, the library call's device time
             beside the kernel's; KB at B = 32, 1024 and 8192 with the
-            probabilities and the C51 loss at B = 32, cold and warm, from
-            CUDA graphs, beside one launch's floor, KB at B = 1); one JSON
-            line.
+            probabilities, the C51 target and loss at B = 32, and K2 at
+            the round's draw beside torch.randn of the same count, cold
+            and warm, from CUDA graphs, beside one launch's floor, KB at
+            B = 1); one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -510,7 +513,8 @@ def compare_c51(torch, A, report):
     shapes (B = 32, A actions, 51 atoms): the target with rows whose b lands
     exactly on an atom and rows with nonterminal 0, and the loss with fp32
     and bf16 streams, there and at HEAD_EDGES and B = 1024 (a second launch
-    must give the same bits). Returns the largest errors (target, loss)."""
+    of either must give the same bits). Returns the largest errors (target,
+    loss)."""
     from rainbow_tpu_torch.kernels import c51 as k4
     from rainbow_tpu_torch.ops import c51 as oc51
 
@@ -532,6 +536,9 @@ def compare_c51(torch, A, report):
     want = oc51.c51_target_plain(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0,
                                  10.0)
     err_t = check_close("c51_target", got, want, 1e-5, 0)
+    check(torch.equal(k4.c51_target(pns, a_star.int(), ret, nt, 0.99 ** 3, z,
+                                    -10.0, 10.0), got),
+          "c51_target: a second launch (int32 a*) differs")
     # Integer b: the whole mass (Σp = 1 to float32 rounding) on one atom.
     for m in (got, want):
         for row, atom in ((0, 0), (1, 25), (2, 50)):
@@ -854,37 +861,75 @@ def noise_shapes(cfg, A, leads):
             for dims in _noisy_dims(cfg, A).values() for d in dims]
 
 
+# Word pairs (a, b) at the edges of the float32 Box-Muller's reductions:
+# u1 = 1 and its neighbours, the switch from logf to log1pf at 2^31, and
+# the quadrant boundaries of b, where the float64 plain version's cos or
+# sin of fl(q pi / 2) is a tiny value of definite sign.
+NOISE_EDGE_A = (0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1)
+NOISE_EDGE_B = (0, 1, 2 ** 30 - 1, 2 ** 30, 2 ** 30 + 1, 2 ** 31, 3 * 2 ** 30,
+                2 ** 32 - 1)
+
+
+def noise_edge_words(torch, device):
+    """Every pair of NOISE_EDGE_A × NOISE_EDGE_B, as (pairs · 2,) int64."""
+    a = torch.tensor(NOISE_EDGE_A, dtype=torch.int64, device=device)
+    b = torch.tensor(NOISE_EDGE_B, dtype=torch.int64, device=device)
+    return torch.stack(torch.meshgrid(a, b, indexing="ij"), -1).reshape(-1)
+
+
+def check_noise(name, got, want, torch):
+    """K2's tolerance: within 1e-5 of the float64 plain version, with the
+    same signs; returns max |diff|."""
+    err = check_close(f"scaled_noise {name}", got, want, 1e-5, 0)
+    check(torch.equal(torch.sign(got), torch.sign(want)),
+          f"scaled_noise {name}: a sign differs from the plain version")
+    return err
+
+
 def compare_noise(torch, cfg, A, report):
     """K2 against philox_noise_plain on the card at the main path's draws:
     the act's (1024 rows), the batched round's (8192 target rows and 256
     online draws in one launch) and the sequential update's (online and
-    target, shared), each at its own offset of a seed beyond 32 bits. Both
-    compute Box-Muller and the transform in float64 and round once to
-    float32, so they agree to 1e-5 with the same signs (the two sides'
-    float64 log and sincos may differ in their last bits). The round's 71 M
-    target elements must have |mean| < 1e-3 and |E[eps^2] - sqrt(2/pi)| <
-    1e-3 (their sampling errors are about 1.1e-4 and 7e-5). Returns (the
-    largest error, the moments)."""
+    target, shared), each at its own offset of a seed beyond 32 bits; and
+    the kernel's Box-Muller alone (kernels.noise.box_muller) against
+    scaled_box_muller_plain on the edge words and on 10^6 random pairs.
+    The kernel computes Box-Muller and the transform in float32 (its
+    reductions keep every value within a few ulps), the plain version in
+    float64 with one rounding: they agree to 1e-5 with the same signs.
+    The round's 71 M target elements must have |mean| < 1e-3 and |E[eps^2]
+    - sqrt(2/pi)| < 1e-3 (their sampling errors are about 1.1e-4 and
+    7e-5). Returns (the largest error, the moments)."""
     import math
 
-    from rainbow_tpu_torch.kernels.noise import scaled_noise
-    from rainbow_tpu_torch.models.noisy import noise_words, philox_noise_plain
+    from rainbow_tpu_torch.kernels.noise import box_muller, scaled_noise
+    from rainbow_tpu_torch.models.noisy import (noise_words,
+                                                philox_noise_plain,
+                                                scaled_box_muller_plain)
 
+    g = torch.Generator(device="cuda").manual_seed(17)
+    words = {"edge words": noise_edge_words(torch, "cuda"),
+             "random words": torch.randint(0, 2 ** 32, (2 * 10 ** 6,),
+                                           generator=g, device="cuda")}
+    worst = 0.0
+    for name, w in words.items():
+        err = check_noise(name, box_muller(w), scaled_box_muller_plain(w),
+                          torch)
+        report.append(("scaled_noise", name, w.numel(), err))
+        worst = max(worst, err)
     nb = ENVS // cfg.replay_frequency
     cases = (("act", [(ENVS,)]), ("round", [(nb * cfg.batch_size,), (nb,)]),
              ("sequential", [(), ()]))
-    seed, offset, worst, moments = 2 ** 40 + SEED, 0, 0.0, None
+    seed, offset, moments = 2 ** 40 + SEED, 0, None
     for name, leads in cases:
         shapes = noise_shapes(cfg, A, leads)
         got = scaled_noise(seed, offset, shapes, "cuda")
         want = philox_noise_plain(seed, offset, shapes, "cuda")
         err = 0.0
         for a, b in zip(got, want):
-            check(a.dtype == torch.float32 and a.shape == b.shape,
+            check(a.dtype == torch.float32 and a.shape == b.shape
+                  and a.is_contiguous(),
                   f"scaled_noise {name}: {a.dtype} {tuple(a.shape)}")
-            err = max(err, check_close(f"scaled_noise {name}", a, b, 1e-5, 0))
-            check(torch.equal(torch.sign(a), torch.sign(b)),
-                  f"scaled_noise {name}: a sign differs from the plain version")
+            err = max(err, check_noise(name, a, b, torch))
         if name == "round":
             flat = torch.cat([x.reshape(-1) for x in got[:8]]).double()
             moments = (float(flat.mean()), float((flat * flat).mean()),
@@ -1578,11 +1623,13 @@ def run_trainer(torch, np):
     watch = _Watch(torch)
     try:
         reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tr = cli.main(TRAINER_ARGS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches()
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         iters, evals, saves = (list(watch.iters), list(watch.evals),
                                list(watch.saves))
         ka_shapes = dict(watch.ka_shapes)
@@ -1677,7 +1724,8 @@ def run_trainer(torch, np):
         "timer_s": timer, "eval_s": evals[0], "checkpoint_save_s": saves[0],
         "replay_save_s": save_s, "replay_restore_s": restore_s,
         "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
-        "evaluate_only_s": eval_only_s, "launches": counts,
+        "evaluate_only_s": eval_only_s, "max_memory_allocated_mb": peak_mb,
+        "launches": counts,
         "ka_launches_by_shape": ka_shapes, "kb_launches_by_shape": kb_shapes}
     return stats, counts
 
@@ -1783,7 +1831,7 @@ def run_side_trainer(torch, np, args, sync):
 
 def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
                 replay_rows, delta_last, k10_trainer_ms, ka_shapes, kb_shapes,
-                head_timed):
+                head_timed, noise_timed):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
@@ -1792,8 +1840,8 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
     compare_replay. ``counts`` maps a phase to its launch counts;
     ``launches`` is the trainer phase's (the main path, through cli.main),
     for K10 the side-path trainer's (delta uploads), and the other phases'
-    counts are kept beside it. KB's and head_loss's rows come from
-    head_rows, timed in ``head_timed``."""
+    counts are kept beside it. KB's, c51_target's and head_loss's rows come
+    from head_rows, timed in ``head_timed``, K2's from ``noise_timed``."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
     from rainbow_tpu_torch.ops import preprocess as pp
     from rainbow_tpu_torch.replay import prioritized as rp
@@ -1825,9 +1873,10 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
         bytes=(2 * b * p * 4 + b * p + k * p + 4 * k + b + b * p
                + b * (8 + 4 + 1) + b * (4 + 4 + 4 + 1 + 4) + 2 * b * 4)))
 
-    rows += learner_kernel_rows(torch, A, shapes)
+    rows.append(adam_row(torch, shapes))
     rows += replay_rows
-    rows += noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms)
+    rows += noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms,
+                             noise_timed)
     for r in rows:
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / FP32_FLOP_PER_S)
@@ -1846,24 +1895,24 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
     return rows
 
 
-def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms):
+def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms,
+                     noise_timed):
     """Rows of K2 at the batched round's launch (8192 target rows and 256
     online draws: 73.3 M float32) and of K10 at the last real 1024-env pong
-    delta of compare_delta, with their device time from torch.profiler:
-    K2's of the timed call, K10's from the side Trainer's profiled warm-up
-    (``k10_trainer_ms``), beside that of the timed call.
-    K2's library call is torch.randn of the same count: the normal draw
-    without the transform. No PyTorch call computes K10's strided plane
-    copy with its segmented scatter, so its library_ms is null."""
+    delta of compare_delta. K2's times come from ``noise_timed`` (two
+    noise_times of this run: CUDA graphs, cold and warm), its library call
+    is torch.randn of the same count timed the same way: the normal draw
+    without the transform. K10's device time comes from the side Trainer's
+    profiled warm-up (``k10_trainer_ms``), beside that of the timed call. No
+    PyTorch call computes K10's strided plane copy with its segmented
+    scatter, so its library_ms is null."""
     from rainbow_tpu_torch.kernels.delta import apply_delta
-    from rainbow_tpu_torch.kernels.noise import scaled_noise
     from rainbow_tpu_torch.models.noisy import philox_noise_plain
     from rainbow_tpu_torch.train import _apply_delta_plain
 
     nb = ENVS // cfg.replay_frequency
     shapes = noise_shapes(cfg, A, [(nb * cfg.batch_size,), (nb,)])
     n = sum(torch.Size(s).numel() for s in shapes)
-    k2 = lambda: scaled_noise(7, 0, shapes, "cuda")
     stack, counts, pos, val = delta_last
     k10 = lambda: apply_delta(stack, counts, pos, val)
     e, plane = stack.shape[0], stack.shape[1] * stack.shape[2]
@@ -1874,21 +1923,26 @@ def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms):
     # timed call puts it there.
     spill = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     cold = dict(before=spill.zero_)
+    randn = noise_timed[0]["randn"]
     return [
         dict(name="scaled_noise", route="cuda",
              source="rainbow_tpu_torch/kernels/csrc/noise.cu",
              replaces="rainbow_tpu/models/noisy.py:49",
              shape=f"{len(shapes)} tensors, {n} float32 (round: "
                    f"{nb * cfg.batch_size} target rows + {nb} online draws)",
-             ms=time_ms(torch, k2), device_ms=device_ms(torch, k2),
+             **noise_timed[0]["scaled_noise"],
+             again=noise_timed[1]["scaled_noise"],
              plain_ms=time_ms(torch, lambda: philox_noise_plain(
                  7, 0, shapes, "cuda"), reps=5),
-             library_ms=time_ms(torch, lambda: torch.randn(n,
-                                                           device="cuda")),
+             library_ms=randn["ms"], library_ms_warm=randn["ms_warm"],
+             library_device_ms=randn["device_ms"],
+             library_device_ms_warm=randn["device_ms_warm"],
+             library_again=noise_timed[1]["randn"],
+             library_call="torch.randn, same count",
              # Writes only. Philox: 10 rounds of 2 mulhi, 2 mullo and 4
              # xors plus 9 key bumps per 4 elements (~25 a element);
              # Box-Muller and the transform ~12 a element, counted at the
-             # float32 peak (int32 and float64 run slower on the H100).
+             # float32 peak (int32 runs slower on the H100).
              flops=37 * n, bytes=4 * n),
         dict(name="apply_delta", route="cuda",
              source="rainbow_tpu_torch/kernels/csrc/delta.cu",
@@ -1912,13 +1966,14 @@ def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms):
 def head_shapes(cfg):
     """The main path's launches of csrc/head.cu's kernels, as (name, B,
     dist, caller): KB for the learner's double-Q a* (no distribution), for
-    the act and for the round's target (probabilities), and head_loss at
-    the learner's batch."""
+    the act and for the round's target (probabilities), and c51_target and
+    head_loss at the learner's batch."""
     b = cfg.batch_size
     return (("dueling_head", b, None, "learner a*"),
             ("dueling_head", cfg.num_envs, None, "act"),
             ("dueling_head", cfg.num_envs // cfg.replay_frequency * b,
              "probs", "round target"),
+            ("c51_target", b, None, "learner target"),
             ("head_loss", b, None, "learner loss"))
 
 
@@ -1933,8 +1988,21 @@ def _head_inputs(torch, b, A, atoms):
     return v, a, acts, m, w
 
 
+def _target_args(torch, cfg, b, A):
+    """c51_target's arguments at the learner's batch: the target net's
+    distribution (softmax of _head_inputs' a), a*, returns in [-2, 2] and
+    nonterminals of 1, the configuration's γⁿ and support."""
+    from rainbow_tpu_torch.ops.c51 import support_vector
+
+    _, a, acts, _, w = _head_inputs(torch, b, A, cfg.atoms)
+    pns = torch.softmax(a.view(b, A, cfg.atoms), dim=2)
+    z = support_vector(cfg.v_min, cfg.v_max, cfg.atoms, "cuda")
+    return (pns, acts, w * 4 - 2, torch.ones_like(w),
+            cfg.discount ** cfg.multi_step, z, cfg.v_min, cfg.v_max)
+
+
 def head_times(torch, cfg, A):
-    """Times of KB and head_loss through the wrappers of the
+    """Times of KB, c51_target and head_loss through the wrappers of the
     rainbow_tpu_torch that is imported, at head_shapes(cfg) with A actions
     and the configuration's support, fp32: device time per call from CUDA
     graphs, cold (the L2 flushed before each call) and warm, and CUDA event
@@ -1952,27 +2020,55 @@ def head_times(torch, cfg, A):
         v, a, acts, m, w = _head_inputs(torch, b, A, cfg.atoms)
         if name == "dueling_head":
             fn = lambda: dueling_head_fwd(v, a, z, A, dist)
+        elif name == "c51_target":
+            args = _target_args(torch, cfg, b, A)
+            fn = lambda: k4.c51_target(*args)
         else:
             fn = lambda: k4.head_loss(v, a, acts, m, w)
-        # A cold call's device time is the difference of two replays that
-        # each hold 40 flushes of 128 MB: many replays steady it.
-        out[f"{name} B={b} {dist}"] = dict(
-            ms=time_ms(torch, fn, before=flush), ms_warm=time_ms(torch, fn),
-            device_ms=graph_ms(torch, fn, before=flush, n=40, reps=21),
-            device_ms_warm=graph_ms(torch, fn, n=40, reps=21))
+        out[f"{name} B={b} {dist}"] = graphed_times(torch, fn, flush)
     v, a = _head_inputs(torch, 1, A, cfg.atoms)[:2]
     out["floor"] = graph_ms(torch, lambda: dueling_head_fwd(v, a, z, A, None),
                             n=40, reps=21)
     return out
 
 
+def graphed_times(torch, fn, flush):
+    """One call of ``fn``: its device time from CUDA graphs and its CUDA
+    event time, each cold (``flush`` before each call) and warm. A cold
+    call's device time is the difference of two replays that each hold 40
+    flushes of 128 MB: many replays steady it."""
+    return dict(ms=time_ms(torch, fn, before=flush),
+                ms_warm=time_ms(torch, fn),
+                device_ms=graph_ms(torch, fn, before=flush, n=40, reps=21),
+                device_ms_warm=graph_ms(torch, fn, n=40, reps=21))
+
+
+def noise_times(torch, cfg, A):
+    """K2's times through the rainbow_tpu_torch that is imported, at the
+    batched round's draw (noise_shapes with 8192 target rows and 256 online
+    draws), by graphed_times, beside torch.randn of the same count timed
+    the same way ("randn"). Returns {"scaled_noise": {...}, "randn":
+    {...}}."""
+    from rainbow_tpu_torch.kernels.noise import scaled_noise
+
+    nb = ENVS // cfg.replay_frequency
+    shapes = noise_shapes(cfg, A, [(nb * cfg.batch_size,), (nb,)])
+    n = sum(torch.Size(s).numel() for s in shapes)
+    flush = l2_flush(torch)
+    return {"scaled_noise": graphed_times(
+                torch, lambda: scaled_noise(7, 0, shapes, "cuda"), flush),
+            "randn": graphed_times(
+                torch, lambda: torch.randn(n, device="cuda"), flush)}
+
+
 def head_rows(torch, cfg, A, timed, kb_shapes):
-    """Rows of KB at its three main-path shapes and of head_loss at the
-    learner's batch, from ``timed`` (two head_times of this run), with the
-    plain version (cold) and KB's library yardstick: softmax, the Σ z·p
-    and the argmax (three calls on precombined logits; no one PyTorch call
-    computes the head). Each row states the one-block floor beside its
-    bound. ``kb_shapes``: the main Trainer's KB launches by shape."""
+    """Rows of KB at its three main-path shapes and of c51_target and
+    head_loss at the learner's batch, from ``timed`` (two head_times of
+    this run), with the plain version (cold) and KB's library yardstick:
+    softmax, the Σ z·p and the argmax (three calls on precombined logits;
+    no one PyTorch call computes the head, the projection or the loss).
+    Each row states the one-block floor beside its bound. ``kb_shapes``:
+    the main Trainer's KB launches by shape."""
     from rainbow_tpu_torch.ops import c51 as oc51
     from rainbow_tpu_torch.ops.head import dueling_head_plain
 
@@ -1989,7 +2085,22 @@ def head_rows(torch, cfg, A, timed, kb_shapes):
                          f"({who})",
                    **timed[0][key], again=timed[1][key],
                    one_block_floor_device_ms=timed[0]["floor"])
-        if name == "dueling_head":
+        if name == "c51_target":
+            args = _target_args(torch, cfg, b, A)
+            row.update(
+                replaces="rainbow_tpu/ops/c51.py:28",
+                plain_ms=time_ms(torch, lambda: oc51.c51_target_plain(*args),
+                                 before=flush),
+                library_ms=None,
+                # What the projection needs, not the kernel's dense
+                # atoms × atoms form: per source atom Tz (2 ops), clip (2),
+                # b (2), floor, the fraction, the two weights (3) and the
+                # two scatter-adds (2).
+                flops=13 * b * n,
+                # Read p at a*, the returns, the nonterminals, a* (int64)
+                # and the support; write m.
+                bytes=4 * (b * n + 2 * b + n + b * n) + 8 * b)
+        elif name == "dueling_head":
             logits = (v.view(b, 1, n) + a.view(b, A, n)
                       - a.view(b, A, n).mean(1, keepdim=True))
             row.update(
@@ -2121,39 +2232,12 @@ def ka_rows(torch, ka_shapes):
     return rows
 
 
-def learner_kernel_rows(torch, A, shapes):
-    """Rows of the learner's kernels: the C51 target at B = 32, and clip +
-    Adam over the canonical net with a float32 mu (head_loss's row comes
-    from head_rows)."""
+def adam_row(torch, shapes):
+    """The row of clip + Adam over the canonical net's ``shapes`` with a
+    float32 mu (the C51 target's and head_loss's rows come from
+    head_rows)."""
     from rainbow_tpu_torch.agent import apply_grads_plain
-    from rainbow_tpu_torch.kernels import c51 as k4
     from rainbow_tpu_torch.kernels.adam import clip_adam
-    from rainbow_tpu_torch.ops import c51 as oc51
-
-    g = torch.Generator(device="cuda").manual_seed(18)
-    b = 32
-    rows = []
-
-    z = oc51.support_vector(-10.0, 10.0, 51, "cuda")
-    pns = torch.softmax(torch.randn((b, A, 51), generator=g, device="cuda"),
-                        dim=2)
-    a_star = torch.randint(0, A, (b,), generator=g, device="cuda")
-    ret = torch.rand((b,), generator=g, device="cuda") * 4 - 2
-    nt = torch.ones((b,), device="cuda")
-    args = (pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
-    rows.append(dict(
-        name="c51_target", route="triton",
-        source="rainbow_tpu_torch/kernels/c51.py",
-        replaces="rainbow_tpu/ops/c51.py:28",
-        shape=f"B={b} A={A} atoms=51",
-        ms=time_ms(torch, lambda: k4.c51_target(*args)),
-        plain_ms=time_ms(torch, lambda: oc51.c51_target_plain(*args)),
-        library_ms=None,
-        # What the projection needs, not the kernel's dense 51 × 51 form:
-        # per source atom Tz (2 ops), clip (2), b (2), floor, the fraction,
-        # the two weights (3) and the two scatter-adds (2).
-        flops=13 * b * 51,
-        bytes=4 * (b * 51 + 2 * b + 51 + b * 51) + 8 * b))
 
     n = sum(torch.Size(s).numel() for s in shapes)
     gp = torch.Generator(device="cuda").manual_seed(19)
@@ -2172,7 +2256,7 @@ def learner_kernel_rows(torch, A, shapes):
     def library_adam():
         torch.nn.utils.clip_grad_norm_(leaves, 10.0, foreach=True)
         opt.step()
-    rows.append(dict(
+    return dict(
         name="clip_adam", route="cuda",
         source="rainbow_tpu_torch/kernels/csrc/adam.cu",
         replaces="rainbow_tpu/agent.py:212",
@@ -2183,8 +2267,7 @@ def learner_kernel_rows(torch, A, shapes):
         library_ms=time_ms(torch, library_adam),
         # Read p, g, mu and nu once, write p, mu and nu once: the norm's
         # second read of g (27.5 MB) can come from the 50 MB L2.
-        flops=20 * n, bytes=4 * n * 7))
-    return rows
+        flops=20 * n, bytes=4 * n * 7)
 
 
 # ---------------------------------------------------------------- main -----
@@ -2272,7 +2355,6 @@ def main() -> int:
                                                            report)
     errs["append_framestack"] = compare_append_framestack(torch, np, report)
     errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, report)
-    t_triton = time.perf_counter()
     errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, report)
     shapes = [tuple(v.shape) for v in init_dqn_params(
         cfg, A, torch.Generator().manual_seed(0), "cpu").values()]
@@ -2286,8 +2368,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
         json.dump(report, f, indent=0)
     log(f"[compare] {len(report)} cases agree in "
-        f"{time.perf_counter() - t0:.1f} s (the C51 target's Triton "
-        f"compile included from {t_triton - t0:.1f} s); max |err| {errs}; "
+        f"{time.perf_counter() - t0:.1f} s; max |err| {errs}; "
         f"KB's probabilities at B = {learner[1]}: max |err| {kb_probs:.3g}; "
         f"K2 moments over "
         f"{moments[2]} draws: mean {moments[0]:.3g}, E[eps^2] "
@@ -2390,9 +2471,11 @@ def main() -> int:
         / rate(trainer_stats, "train_with_eval_")}))
 
     # 8. kernels line --------------------------------------------------------
-    # KB's and head_loss's times, taken twice.
+    # KB's, c51_target's, head_loss's and K2's times, each taken twice.
     head_timed = [head_times(torch, cfg, A), head_times(torch, cfg, A)]
     log("[head times] " + json.dumps(head_timed))
+    noise_timed = [noise_times(torch, cfg, A), noise_times(torch, cfg, A)]
+    log("[noise times] " + json.dumps(noise_timed))
     rows = kernel_rows(torch, np, cfg, A, errs, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
@@ -2400,7 +2483,7 @@ def main() -> int:
         stack, staged, shapes, replay_rows, delta_last,
         side_stats["k10_trainer_device_ms"],
         trainer_stats["ka_launches_by_shape"],
-        trainer_stats["kb_launches_by_shape"], head_timed)
+        trainer_stats["kb_launches_by_shape"], head_timed, noise_timed)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

@@ -4,7 +4,7 @@ wrappers.
   noisy_linear_fwd   CUDA C++  csrc/noisy_linear.cu       (models/noisy.py)
   noisy_linear_bwd   CUDA C++  csrc/noisy_linear.cu       (models/noisy.py)
   dueling_head       CUDA C++  csrc/head.cu               (ops/head.py)
-  c51_target         Triton    c51.py                     (ops/c51.py)
+  c51_target         CUDA C++  csrc/head.cu               (ops/c51.py)
   head_loss          CUDA C++  csrc/head.cu               (ops/c51.py)
   append_framestack  CUDA C++  csrc/append_framestack.cu  (ops/preprocess.py)
   clip_adam          CUDA C++  csrc/adam.cu               (agent.py)
@@ -16,8 +16,7 @@ wrappers.
 
 The CUDA sources are compiled with nvcc for sm_90a into shared libraries
 under ``rainbow_tpu_torch/_build/`` at first use (build.py) and called
-through ctypes; the one Triton kernel, c51_target, compiles at its first
-launch. Each wrapper takes CUDA tensors only, checks them, launches, raises
+through ctypes. Each wrapper takes CUDA tensors only, checks them, launches, raises
 on a launch error and adds one to ``LAUNCHES[name]`` (``count_launch``,
 under a lock: an asynchronous evaluation launches from a second thread).
 The plain PyTorch version of each kernel sits beside its caller and runs

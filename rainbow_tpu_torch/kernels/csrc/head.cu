@@ -1,6 +1,6 @@
-// The dueling C51 head's two per-row kernels, hand-written for Hopper
-// (sm_90a): the epilogue after the last noisy layers (KB) and the learner's
-// C51 loss with its gradient (K4 head_loss).
+// The dueling C51 head's per-row kernels, hand-written for Hopper (sm_90a):
+// the epilogue after the last noisy layers (KB), and the learner's C51
+// target (K4 c51_target) and loss with its gradient (K4 head_loss).
 //
 // Both start from the same per-row work, which XLA fuses for the JAX
 // package at rainbow_tpu/models/dqn.py:148-154: the dueling combine in the
@@ -29,6 +29,23 @@
 //
 // the gradient of the scalar loss into both streams; with the noisy-linear
 // backward this is the backward work of fused_dueling_head.
+//
+// c51_target takes each row's target distribution at the double-Q action
+// a*_r (rainbow_tpu/agent.py:198-199) and projects it onto the support
+// (rainbow_tpu/ops/c51.py:28-54), in the JAX package's op order and dense
+// triangular form:
+//
+//   Tz_i = R_r + (nt_r * gamma^n) * z_i,  clipped to [V_min, V_max]
+//   b_i  = (Tz_i - V_min) / dz            (IEEE division)
+//   m_rj = sum_i p_i * clamp(1 - |b_i - j|, 0, 1)
+//
+// An integer b_i puts all of p_i on atom b_i, with no l == u fix-up. Each
+// lane first computes p_i and b_i of its own source atoms; then, over the
+// source atoms in order, the owning lane broadcasts (p_i, b_i) with
+// __shfl_sync and every lane adds to its target atoms, so each m_rj is
+// summed in atom order, with the same bits on every launch and no atomics.
+// At the learner's B = 32 (A = 6, 51 atoms) it reads 6.7 KB of the (B, A,
+// 51) distribution and writes 6.5 KB: bound by the launch.
 //
 // Layout: one warp per row, lanes strided over the atoms, each lane holding
 // NPL = ceil(atoms / 32) of them in registers (atoms <= MAX_ATOMS = 128);
@@ -86,6 +103,7 @@ constexpr int LOSS_WARPS = 4;    // rows per block of head_loss
 constexpr int LOSS_BLOCKS = 8;   // blocks (SMs) of its cluster, the most
                                  // a portable cluster holds
 constexpr int GROUP = 6;         // actions whose reductions overlap in KB
+constexpr int TARGET_WARPS = 4;  // rows per block of c51_target
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f(float x) { return x; }
@@ -374,6 +392,68 @@ __global__ void __launch_bounds__(LOSS_WARPS * 32)
   if (rank == 0 && threadIdx.x == 0) *loss = total * (1.f / b);
 }
 
+// One row of K4's target per warp (see the header).
+template <int NPL>
+__global__ void __launch_bounds__(TARGET_WARPS * 32)
+    c51_target_kernel(const float* __restrict__ pns,
+                      const void* __restrict__ a_star, int act64,
+                      const float* __restrict__ ret,
+                      const float* __restrict__ nt,
+                      const float* __restrict__ z, float* __restrict__ m,
+                      int b, int n_act, int atoms, float gamma_n, float v_min,
+                      float v_max, float delta_z) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * TARGET_WARPS + warp;
+  if (row >= b) return;  // whole warps only; no block barrier follows
+  const int act =
+      act64 ? static_cast<int>(static_cast<const long long*>(a_star)[row])
+            : static_cast<const int*>(a_star)[row];
+  const float* p = pns + (static_cast<size_t>(row) * n_act + act) * atoms;
+  const float r = ret[row], scale = nt[row] * gamma_n;
+  float pi[NPL], bi[NPL], mj[NPL];
+#pragma unroll
+  for (int c = 0; c < NPL; ++c) {
+    const int i = lane + 32 * c;
+    mj[c] = 0.f;
+    pi[c] = i < atoms ? p[i] : 0.f;
+    const float tz = i < atoms ? fminf(fmaxf(r + scale * z[i], v_min), v_max)
+                               : v_min;
+    bi[c] = __fdiv_rn(tz - v_min, delta_z);
+  }
+#pragma unroll
+  for (int c = 0; c < NPL; ++c) {
+    const int n = min(32, atoms - 32 * c);
+#pragma unroll 4
+    for (int s = 0; s < n; ++s) {
+      const float ps = __shfl_sync(FULL, pi[c], s);
+      const float bs = __shfl_sync(FULL, bi[c], s);
+#pragma unroll
+      for (int t = 0; t < NPL; ++t) {
+        const float j = static_cast<float>(lane + 32 * t);
+        mj[t] += ps * fminf(fmaxf(1.f - fabsf(bs - j), 0.f), 1.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NPL; ++c) {
+    const int j = lane + 32 * c;
+    if (j < atoms) m[static_cast<size_t>(row) * atoms + j] = mj[c];
+  }
+}
+
+template <int NPL>
+cudaError_t launch_target(const float* pns, const void* a_star, int act64,
+                          const float* ret, const float* nt, const float* z,
+                          float* m, int b, int n_act, int atoms, float gamma_n,
+                          float v_min, float v_max, float delta_z,
+                          cudaStream_t stream) {
+  c51_target_kernel<NPL><<<(b + TARGET_WARPS - 1) / TARGET_WARPS,
+                           TARGET_WARPS * 32, 0, stream>>>(
+      pns, a_star, act64, ret, nt, z, m, b, n_act, atoms, gamma_n, v_min,
+      v_max, delta_z);
+  return cudaGetLastError();
+}
+
 template <typename T, int NPL>
 cudaError_t launch_head(const void* v, const void* a, const float* z,
                         float* dist, int dist_mode, float* q, long long* act,
@@ -427,6 +507,11 @@ template <typename T, int NPL> struct HeadF {
     return launch_head<T, NPL>(args...);
   }
 };
+template <typename T, int NPL> struct TargetF {
+  template <typename... Args> static cudaError_t run(Args... args) {
+    return launch_target<NPL>(args...);
+  }
+};
 template <typename T, int NPL> struct LossF {
   template <typename... Args> static cudaError_t run(Args... args) {
     return launch_loss<T, NPL>(args...);
@@ -475,4 +560,20 @@ extern "C" int head_loss(const void* v, const void* a, int bf16,
            : by_npl<float, LossF>(atoms, v, a, actions, act64, m, w, losses,
                                   loss, dv, da, b, n_act, atoms, s);
   return static_cast<int>(err);
+}
+
+// K4's target. pns (b, n_act, atoms), ret (b,), nt (b,) and z (atoms,)
+// float32; a_star (b,) int64 (act64 = 1) or int32, each in [0, n_act); m
+// (b, atoms) float32. 1 <= atoms <= 128, b >= 1. One launch on stream.
+// Returns cudaGetLastError().
+extern "C" int c51_target(const float* pns, const void* a_star, int act64,
+                          const float* ret, const float* nt, const float* z,
+                          float* m, int b, int n_act, int atoms,
+                          float gamma_n, float v_min, float v_max,
+                          float delta_z, void* stream) {
+  if (atoms < 1 || atoms > MAX_ATOMS || b < 1 || n_act < 1)
+    return cudaErrorInvalidValue;
+  return static_cast<int>(by_npl<float, TargetF>(
+      atoms, pns, a_star, act64, ret, nt, z, m, b, n_act, atoms, gamma_n,
+      v_min, v_max, delta_z, static_cast<cudaStream_t>(stream)));
 }

@@ -1,75 +1,97 @@
 """Launch wrapper of the noise kernel (csrc/noise.cu), K2.
 
 Its plain version is models/noisy.py::philox_noise_plain; the stream both
-follow is written down in csrc/noise.cu.
+follow is written down in csrc/noise.cu. A draw is one float32 buffer laid
+out by ``noise_layout``; the tensors handed back are views of it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence
+import math
+from typing import List, Sequence, Tuple
 
 import torch
 
 from rainbow_tpu_torch.kernels import build, count_launch
 
 NAME = "scaled_noise"
-MAX_TENSORS = 16  # csrc/noise.cu's MAX_TENSORS; checked against the library
-_LL = ctypes.c_longlong
-
-
-class _Table(ctypes.Structure):
-    _fields_ = [("out", ctypes.c_void_p * MAX_TENSORS),
-                ("n", _LL * MAX_TENSORS), ("base", _LL * MAX_TENSORS),
-                ("thread_start", _LL * (MAX_TENSORS + 1)),
-                ("count", ctypes.c_int)]
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
 
 
 @functools.cache
 def _lib():
     lib = build.load("noise")
-    if lib.noise_max_tensors() != MAX_TENSORS:
-        raise RuntimeError(f"{NAME}: table size differs from csrc/noise.cu")
-    fn = lib.scaled_noise
-    fn.argtypes = [ctypes.POINTER(_Table), ctypes.c_ulonglong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.scaled_noise.argtypes = [_P, _LL, ctypes.c_ulonglong,
+                                 ctypes.c_ulonglong, _P]
+    lib.noise_box_muller.argtypes = [_P, _P, _LL, _P]
+    for fn in (lib.scaled_noise, lib.noise_box_muller):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def noise_layout(shapes: Tuple[tuple, ...]) -> Tuple[Tuple[int, ...], int]:
+    """(the float offset of each tensor of a draw of ``shapes`` in its
+    buffer, the buffer's length in floats). Tensor k takes ceil(n_k / 4)
+    Philox counters and starts at 4 × the counters before it, so every
+    offset is a multiple of 4 floats (16 bytes) and the length is the
+    draw's stream words (models/noisy.py::noise_words)."""
+    offsets, at = [], 0
+    for shape in shapes:
+        offsets.append(at)
+        at += 4 * -(-math.prod(shape) // 4)
+    return tuple(offsets), at
+
+
+def _check_cuda(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{NAME}: needs a CUDA device, got {dev}")
 
 
 def scaled_noise(seed: int, offset: int, shapes: Sequence[tuple],
                  device) -> List[torch.Tensor]:
     """K2: one float32 tensor of sign(n)·√|n| per shape in ``shapes``, drawn
     from the stream at (``seed``, ``offset``) on the CUDA ``device``, in one
-    launch on its current stream. The caller advances the stream (see
-    models/noisy.py::noise_words)."""
+    launch on its current stream. The tensors are contiguous views of one
+    buffer (noise_layout), which lives as long as any of them. The caller
+    advances the stream (see models/noisy.py::noise_words)."""
     dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"{NAME}: needs a CUDA device, got {dev}")
-    if not 0 < len(shapes) <= MAX_TENSORS:
-        raise ValueError(f"{NAME}: draws 1 to {MAX_TENSORS} tensors, got "
-                         f"{len(shapes)}")
+    _check_cuda(dev)
+    if not shapes:
+        raise ValueError(f"{NAME}: draws at least one tensor")
     if offset % 4 or not 0 <= seed < 2 ** 64 or offset < 0:
         raise ValueError(f"{NAME}: needs a 64-bit seed and an offset that is "
                          f"a multiple of 4, got {seed}, {offset}")
-    fn = _lib()
-    table = _Table()
-    outs = []
-    base, threads = offset // 4, 0
-    for k, shape in enumerate(shapes):
-        out = torch.empty(shape, dtype=torch.float32, device=dev)
-        if out.data_ptr() % 16:
-            raise RuntimeError(f"{NAME}: output {k} is not 16-byte aligned")
-        m = -(-out.numel() // 4)
-        table.out[k], table.n[k] = out.data_ptr(), out.numel()
-        table.base[k], table.thread_start[k] = base, threads
-        base, threads = base + m, threads + m
-        outs.append(out)
-    table.thread_start[len(shapes)] = threads
-    table.count = len(shapes)
-    err = fn(ctypes.byref(table), seed,
-             torch.cuda.current_stream(dev).cuda_stream)
+    shapes = tuple(tuple(s) for s in shapes)
+    offsets, total = noise_layout(shapes)
+    buf = torch.empty(total, dtype=torch.float32, device=dev)
+    if buf.data_ptr() % 16:
+        raise RuntimeError(f"{NAME}: the buffer is not 16-byte aligned")
+    err = _lib().scaled_noise(buf.data_ptr(), total // 4, offset // 4, seed,
+                              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
     count_launch(NAME)
-    return outs
+    return [buf[o:o + math.prod(s)].view(s) for o, s in zip(offsets, shapes)]
+
+
+def box_muller(words: torch.Tensor) -> torch.Tensor:
+    """The kernel's Box–Muller and transform alone, on given words: ``words``
+    (..., 2k) int64 in [0, 2^32), read as pairs (a, b), on the card; returns
+    (..., 2k) float32, the eps of each pair in its two places. Checks the
+    kernel's float32 arithmetic against models/noisy.py::
+    scaled_box_muller_plain on chosen words; not on the main path, so it
+    counts no launch."""
+    _check_cuda(words.device)
+    if words.dtype != torch.int64 or words.shape[-1] % 2:
+        raise ValueError(f"{NAME}: words must be int64 pairs, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    words = words.contiguous()
+    out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
+    err = _lib().noise_box_muller(
+        words.data_ptr(), out.data_ptr(), words.numel() // 2,
+        torch.cuda.current_stream(words.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
+    return out

@@ -101,13 +101,27 @@ def noise_words(shapes: Sequence[tuple]) -> int:
     return 4 * sum(-(-math.prod(s) // 4) for s in shapes)
 
 
+def scaled_box_muller_plain(words: torch.Tensor) -> torch.Tensor:
+    """Box–Muller and the transform of the noise stream (csrc/noise.cu), in
+    float64 with one rounding to float32: ``words`` (..., 2k) int64 in
+    [0, 2^32), read as pairs (a, b), gives (..., 2k) float32 with
+    sign(z)·√|z| of z = (r cos t, r sin t) in each pair's two places, where
+    r = √(−2 ln((a + 1)·2⁻³²)) and t = 2π·b·2⁻³²."""
+    w = words.double()
+    r = torch.sqrt(-2.0 * torch.log((w[..., 0::2] + 1.0) * 2.0 ** -32))
+    t = 6.283185307179586 * (w[..., 1::2] * 2.0 ** -32)
+    z = torch.stack((r * torch.cos(t), r * torch.sin(t)), dim=-1)
+    eps = torch.sign(z) * torch.sqrt(torch.abs(z))
+    return eps.flatten(-2).float()
+
+
 def philox_noise_plain(seed: int, offset: int, shapes: Sequence[tuple],
                        device="cpu") -> List[torch.Tensor]:
     """Plain version of the noise kernel (K2): for each shape, float32
     sign(n)·√|n| of standard normals n from the stream at (``seed``,
     ``offset``), in csrc/noise.cu's word-to-element map: Philox on int64
-    tensors, Box–Muller and the transform in float64, one rounding to
-    float32. Runs on any device; the kernel replaces it on the card."""
+    tensors, then scaled_box_muller_plain (float64, one rounding to
+    float32). Runs on any device; the kernel replaces it on the card."""
     key = (seed & _MASK32, (seed >> 32) & _MASK32)
     base = offset // 4
     outs = []
@@ -117,12 +131,8 @@ def philox_noise_plain(seed: int, offset: int, shapes: Sequence[tuple],
         c = torch.arange(base, base + m, dtype=torch.int64, device=device)
         zero = torch.zeros_like(c)
         w = philox4x32_10(torch.stack((c & _MASK32, c >> 32, zero, zero),
-                                      dim=-1), key).double()
-        r = torch.sqrt(-2.0 * torch.log((w[:, 0::2] + 1.0) * 2.0 ** -32))
-        t = 6.283185307179586 * (w[:, 1::2] * 2.0 ** -32)
-        z = torch.stack((r * torch.cos(t), r * torch.sin(t)), dim=-1)
-        eps = torch.sign(z) * torch.sqrt(torch.abs(z))
-        outs.append(eps.reshape(-1)[:n].float().reshape(shape))
+                                      dim=-1), key)
+        outs.append(scaled_box_muller_plain(w).reshape(-1)[:n].reshape(shape))
         base += m
     return outs
 

@@ -1,5 +1,6 @@
 """The port's kernels on the card against their plain versions, at small
-and ragged shapes (the noisy-linear kernels also at the main path's). These need an NVIDIA GPU with nvcc and Triton; without a
+and ragged shapes (the noisy-linear kernels also at the main path's).
+These need an NVIDIA GPU and nvcc (every kernel is CUDA C++); without a
 card every test here skips. On the card, from the repository root
 (--noconftest: tests/conftest.py sets up JAX, which the port does not need):
 
@@ -11,7 +12,8 @@ kernels, which add their split partial sums in a fixed order, give the same
 bits on a second launch; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
 integer work is bit-exact. The noise kernel (K2) computes Box-Muller in
-float64 as its plain version does and agrees to 1e-5 with the same signs;
+float32, its plain version in float64 with one rounding: they agree to
+1e-5 with the same signs, on the draws and on chosen words;
 the delta kernel (K10) is bit-exact. The replay's sampler (K5) is bit-exact; its
 gather (K6) copies frames, actions and nonterminals exactly and its returns
 and IS weights agree to 1e-6 relative; its write-back (K7) writes the last
@@ -40,11 +42,12 @@ from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                     noisy_linear_fwd)
 from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
 from rainbow_tpu_torch.kernels.delta import apply_delta
-from rainbow_tpu_torch.kernels.noise import scaled_noise
+from rainbow_tpu_torch.kernels.noise import box_muller, scaled_noise
 from rainbow_tpu_torch.models.noisy import (NoiseStream, init_noisy_params,
                                             noisy_linear_bwd_plain,
                                             noisy_linear_plain,
-                                            philox_noise_plain, scale_noise)
+                                            philox_noise_plain, scale_noise,
+                                            scaled_box_muller_plain)
 from rainbow_tpu_torch.ops import c51 as oc51
 from rainbow_tpu_torch.ops import preprocess as pp
 from rainbow_tpu_torch.ops.c51 import support_vector
@@ -272,6 +275,11 @@ def test_c51_target_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(got.sum(1), torch.ones(b, device=cuda),
                                atol=1e-5, rtol=0)
+    # Each row sums its source atoms in order: a second launch, with an
+    # int32 a*, gives the same bits.
+    again = k4.c51_target(pns, a_star.int(), ret, nt, 0.99 ** 3, z, -10.0,
+                          10.0)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -517,12 +525,17 @@ def test_replay_kernels_match_plain(cuda, case):
 def test_noise_kernel_matches_plain(cuda, lead):
     """K2 against philox_noise_plain on the card and on the CPU: eight
     ragged tensors (none a multiple of 4 long) in one launch, at an offset
-    and a seed beyond 32 bits."""
+    and a seed beyond 32 bits; the tensors are 16-byte aligned views of
+    one buffer."""
     shapes = [lead + (d,) for d in (301, 70, 301, 70, 70, 51, 70, 153)]
     for seed, offset in ((0, 0), (2 ** 40 + 5, 4 * 12345)):
         reset_launches()
         got = scaled_noise(seed, offset, shapes, cuda)
         assert launches()["scaled_noise"] == 1
+        storage = got[0].untyped_storage().data_ptr()
+        assert all(t.untyped_storage().data_ptr() == storage
+                   and t.data_ptr() % 16 == 0 and t.is_contiguous()
+                   for t in got)
         for want in (philox_noise_plain(seed, offset, shapes, cuda),
                      philox_noise_plain(seed, offset, shapes)):
             for a, b in zip(got, want):
@@ -530,6 +543,33 @@ def test_noise_kernel_matches_plain(cuda, lead):
                 torch.testing.assert_close(a.cpu(), b.cpu(), atol=1e-5,
                                            rtol=0)
                 assert torch.equal(torch.sign(a).cpu(), torch.sign(b).cpu())
+
+
+EDGE_A = (0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1)
+EDGE_B = (0, 1, 2 ** 30 - 1, 2 ** 30, 2 ** 30 + 1, 2 ** 31, 3 * 2 ** 30,
+          2 ** 32 - 1)
+
+
+def test_noise_box_muller_matches_plain_on_chosen_words(cuda):
+    """The kernel's float32 Box-Muller and transform alone against the
+    float64 plain version: on every pair of the edge words (u1 = 1 and
+    near it, the log1p switch at a = 2^31, the quadrant boundaries of b,
+    where the plain version's tiny values must keep their signs) and on
+    10^6 random pairs; 1e-5 with the same signs."""
+    a = torch.tensor(EDGE_A, dtype=torch.int64, device=cuda)
+    b = torch.tensor(EDGE_B, dtype=torch.int64, device=cuda)
+    edge = torch.stack(torch.meshgrid(a, b, indexing="ij"), -1).reshape(-1)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rand = torch.randint(0, 2 ** 32, (2 * 10 ** 6,), generator=g,
+                         device=cuda)
+    before = launches()
+    for words in (edge, rand):
+        got = box_muller(words)
+        want = scaled_box_muller_plain(words)
+        assert got.dtype == torch.float32 and got.shape == words.shape
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        assert torch.equal(torch.sign(got), torch.sign(want))
+    assert launches() == before  # not a launch of the main path
 
 
 @pytest.mark.parametrize("h,padded", [(4, False), (4, True), (3, True)])

@@ -23,6 +23,7 @@ from rainbow_tpu_torch.kernels.adam import clip_adam
 from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 from rainbow_tpu_torch.kernels import dueling_head as kb
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
+from rainbow_tpu_torch.kernels import noise as k2
 from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
                                                     noisy_linear_fwd)
 from rainbow_tpu_torch.models.noisy import init_noisy_params, noisy_linear
@@ -57,8 +58,14 @@ def _layer():
     lambda: clip_adam([torch.zeros(3)], [torch.zeros(3)], [torch.zeros(3)],
                       [torch.zeros(3)], torch.zeros((), dtype=torch.int32),
                       1e-3, 0.9, 0.999, 1e-8, 10.0),
+    lambda: k2.scaled_noise(0, 0, [(5,), (3, 2)], "cpu"),
+    lambda: k2.box_muller(torch.zeros(4, dtype=torch.int64)),
+    lambda: k4.c51_target(torch.zeros(2, 3, 51), torch.zeros(2).int(),
+                          torch.zeros(2), torch.ones(2), 0.97,
+                          support_vector(-10, 10, 51, "cpu"), -10, 10),
 ], ids=["noisy_linear_fwd", "dueling_head", "append_framestack",
-        "noisy_linear_bwd", "c51_target", "c51_loss", "clip_adam"])
+        "noisy_linear_bwd", "c51_target", "c51_loss", "clip_adam",
+        "scaled_noise", "box_muller", "c51_target_int32"])
 def test_wrappers_refuse_cpu_tensors(call):
     before = kernels.launches()
     with pytest.raises(ValueError, match="CUDA"):
@@ -101,13 +108,17 @@ def _head_call(name, atoms, n_act=2, dtype=torch.float32, dist=None):
     if name == "dueling_head":
         return dueling_head_fwd(v, a, support_vector(-10, 10, atoms, "cpu"),
                                 n_act, dist)
+    if name == "c51_target":
+        return k4.c51_target(a.view(2, n_act, atoms), torch.zeros(2).long(),
+                             torch.zeros(2), torch.ones(2), 0.97,
+                             support_vector(-10, 10, atoms, "cpu"), -10, 10)
     return k4.head_loss(v, a, torch.zeros(2).long(), torch.zeros(2, atoms),
                         torch.ones(2))
 
 
-@pytest.mark.parametrize("name", ["dueling_head", "head_loss"])
+@pytest.mark.parametrize("name", ["dueling_head", "head_loss", "c51_target"])
 def test_head_wrappers_refuse_cpu_tensors_and_too_many_atoms(name):
-    """Both kernels of csrc/head.cu take at most MAX_ATOMS atoms (each lane
+    """The kernels of csrc/head.cu take at most MAX_ATOMS atoms (each lane
     of a row's warp holds at most 4): the wrappers raise above it before
     anything else, on CPU tensors at any width, and launch nothing."""
     before = kernels.launches()
@@ -129,7 +140,7 @@ def test_dueling_head_wrapper_refuses_an_unknown_mode():
 
 def test_head_source_exports_what_the_wrappers_bind(monkeypatch):
     """build.SOURCES names csrc/head.cu, which exports each C function the
-    two wrappers bind, with as many parameters as the wrappers declare."""
+    three wrappers bind, with as many parameters as the wrappers declare."""
     assert "head" in build.SOURCES
     src = (ROOT / "rainbow_tpu_torch/kernels/csrc/head.cu").read_text()
     bound = {}
@@ -141,13 +152,60 @@ def test_head_source_exports_what_the_wrappers_bind(monkeypatch):
 
     monkeypatch.setattr(build, "load", lambda name: Lib())
     kb._lib.__wrapped__()
+    k4._target_lib.__wrapped__()
     k4._loss_lib.__wrapped__()
-    assert set(bound) == {"dueling_head", "head_loss"}
+    assert set(bound) == {"dueling_head", "c51_target", "head_loss"}
     for fn, ns in bound.items():
         sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
         assert sig, fn
         assert len(sig.group(1).split(",")) == len(ns.argtypes), fn
         assert ns.restype is not None
+
+
+def test_noise_source_exports_what_the_wrapper_binds(monkeypatch):
+    """csrc/noise.cu exports the draw and the Box–Muller entry with as many
+    parameters as kernels/noise.py declares."""
+    src = (ROOT / "rainbow_tpu_torch/kernels/csrc/noise.cu").read_text()
+    lib = types.SimpleNamespace(scaled_noise=types.SimpleNamespace(),
+                                noise_box_muller=types.SimpleNamespace())
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    k2._lib.__wrapped__()
+    for fn in ("scaled_noise", "noise_box_muller"):
+        sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+        assert sig, fn
+        ns = getattr(lib, fn)
+        assert len(sig.group(1).split(",")) == len(ns.argtypes), fn
+        assert ns.restype is not None
+
+
+_IMPORTS = re.compile(r"^\s*(import|from)\s+(triton|jax|rainbow_tpu)\b",
+                      re.M)
+
+
+def test_port_imports_no_triton_jax_or_reference():
+    """No module of the port, and not chip_smoke.py, imports triton, jax or
+    the JAX package, at the top or inside a function; and every module of
+    the port imports in an interpreter where those three cannot be
+    imported."""
+    files = sorted((ROOT / "rainbow_tpu_torch").rglob("*.py"))
+    for path in files + [ROOT / "chip_smoke.py"]:
+        assert not _IMPORTS.search(path.read_text()), path
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for name in ('triton', 'jax', 'rainbow_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import rainbow_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    rainbow_tpu_torch.__path__, 'rainbow_tpu_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= len(files) - 1
 
 
 def test_build_names_libraries_by_source_hash():

@@ -1,7 +1,9 @@
 """The port's noise draws (K2's plain version, models/noisy.py) on the CPU:
 Philox4x32-10 against Random123's known answers, the moments of the scaled
 noise, the stream's offsets, draw_noise's shapes against the JAX
-package's, and the noise stream through a checkpoint.
+package's, the noise stream through a checkpoint, the kernel's buffer
+layout (kernels/noise.py::noise_layout), and the plain Box–Muller on the
+words where the kernel's float32 reductions have their edges.
 
 The draws cannot match JAX's bits (threefry), so JAX is compared on shapes
 and dtypes only; the values are held to Random123's vectors (exact) and to
@@ -11,6 +13,7 @@ import dataclasses
 import math
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +21,7 @@ import rainbow_tpu
 from rainbow_tpu.models import dqn as jdqn
 
 import rainbow_tpu_torch
+from rainbow_tpu_torch.kernels import noise as k2
 from rainbow_tpu_torch.models import dqn as tdqn
 from rainbow_tpu_torch.models import noisy as tnoisy
 from rainbow_tpu_torch.train import Trainer
@@ -132,3 +136,85 @@ def test_noise_stream_survives_a_checkpoint(tmp_path):
     assert back.agent.noise == stream
     got = back._draw_act_noise()
     assert all(torch.equal(got[k][i], want[k][i]) for k in got for i in (0, 1))
+
+
+@pytest.mark.parametrize("shapes", [
+    [(3,), (), (5, 7), (1,), (2, 3, 3)],       # none a multiple of 4
+    [(), (301,), (), (70,), (4, 51), (0,)],    # () leads, an empty tensor
+    [(8192, 3136), (8192, 512), (256, 51), (256, 306)],
+], ids=["ragged", "scalars", "round"])
+def test_noise_layout_packs_a_draw_into_one_aligned_buffer(shapes):
+    """Each tensor starts at a multiple of 4 floats (16 bytes), at 4 × the
+    Philox counters of the tensors before it; the tensors do not overlap;
+    the buffer is the draw's noise_words long. The plain draw laid out that
+    way is the stream's counters in order: tensor k is the slice of the
+    draw-wide Box–Muller output at its offset, its padding the spare values
+    of its last counter."""
+    offsets, total = k2.noise_layout(tuple(shapes))
+    assert total == tnoisy.noise_words(shapes)
+    assert len(offsets) == len(shapes) and offsets[0] == 0
+    ends = [o + math.prod(s) for o, s in zip(offsets, shapes)]
+    for k, o in enumerate(offsets):
+        assert o % 4 == 0
+        assert o == 4 * sum(-(-math.prod(s) // 4) for s in shapes[:k])
+        assert ends[k] <= (offsets[k + 1] if k + 1 < len(shapes) else total)
+    if total > 10 ** 6:
+        return
+    seed, offset = 2 ** 40 + 3, 4 * 77
+    c = torch.arange(offset // 4, offset // 4 + total // 4)
+    zero = torch.zeros_like(c)
+    words = tnoisy.philox4x32_10(
+        torch.stack((c & 0xFFFFFFFF, c >> 32, zero, zero), dim=-1),
+        (seed & 0xFFFFFFFF, seed >> 32))
+    buf = tnoisy.scaled_box_muller_plain(words).reshape(-1)
+    want = tnoisy.philox_noise_plain(seed, offset, shapes)
+    for o, s, w in zip(offsets, shapes, want):
+        assert torch.equal(buf[o:o + math.prod(s)].view(s), w)
+
+
+EDGE_A = (0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1)
+EDGE_B = (0, 1, 2 ** 30 - 1, 2 ** 30, 2 ** 30 + 1, 2 ** 31, 3 * 2 ** 30,
+          2 ** 32 - 1)
+
+
+def test_plain_box_muller_on_edge_words_is_the_float64_formula():
+    """scaled_box_muller_plain on the words at the edges of the kernel's
+    float32 reductions (u1 = 1 and near it, the log1p switch at a = 2^31,
+    the quadrant boundaries of b) is the stream's float64 formula, written
+    out here in numpy, rounded once to float32. At b = 2^30, 2^31 and
+    3·2^30 the float64 cos or sin of fl(qπ/2) is a tiny value of definite
+    sign, which the kernel must reproduce."""
+    a, b = (x.ravel() for x in np.meshgrid(np.array(EDGE_A, np.int64),
+                                           np.array(EDGE_B, np.int64),
+                                           indexing="ij"))
+    r = np.sqrt(-2.0 * np.log((a.astype(np.float64) + 1.0) * 2.0 ** -32))
+    t = 6.283185307179586 * (b.astype(np.float64) * 2.0 ** -32)
+    z = np.stack((r * np.cos(t), r * np.sin(t)), axis=-1).reshape(-1)
+    want = (np.sign(z) * np.sqrt(np.abs(z))).astype(np.float32)
+    words = torch.from_numpy(np.stack((a, b), axis=-1).reshape(-1))
+    got = tnoisy.scaled_box_muller_plain(words)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
+    # The boundary values: positive at b = 2^30 (cos) and 2^31 (sin),
+    # negative at 3·2^30 (cos), for every a below 2^32 − 1 (where r = 0).
+    at = {(int(x), int(y)): (float(got[2 * i]), float(got[2 * i + 1]))
+          for i, (x, y) in enumerate(zip(a, b))}
+    for x in EDGE_A[:-1]:
+        assert 0 < at[x, 2 ** 30][0] < 1e-7
+        assert 0 < at[x, 2 ** 31][1] < 1e-7
+        assert -1e-7 < at[x, 3 * 2 ** 30][0] < 0
+        assert at[x, 0][1] == 0.0
+    assert all(v == (0.0, 0.0) for (x, _), v in at.items() if x == 2 ** 32 - 1)
+
+
+def test_plain_noise_values_are_pinned():
+    """philox_noise_plain's values, bit for bit, as the stream defines them
+    (the CPU tests that learn depend on the exact draws)."""
+    got = tnoisy.philox_noise_plain(2 ** 40 + 5, 4 * 12345,
+                                    [(2, 3), (5,), ()])
+    want = [[0xbe3f837a, 0xbf8836f6, 0xbeca3ab6, 0xbf93c29d, 0xbec6576f,
+             0x3fcf5bee],
+            [0x3f61de86, 0x3f72fd41, 0x3f8e493c, 0x3f5b6a9f, 0xbf3a2bd1],
+            [0x3e7d7eeb]]
+    for g, w in zip(got, want):
+        assert g.reshape(-1).numpy().view(np.uint32).tolist() == w
