@@ -15,11 +15,17 @@ exit code:
             the shapes the actor and the learner give it, with stated
             tolerances (KA also at its split and tile edges, KB and the C51
             loss at B = 1, 31, 33, A = 3, 6, 18 and 21, 51, 128 atoms, each
-            twice, for equal bits); the replay's sampler, gather and
-            write-back on a random ring of the canonical width (7.05 GB),
-            where they are also timed; the noise draws (K2) at the act's,
-            the round's and the sequential update's shapes, with the
-            moments of the round's 71 M target draws, and K2's float32
+            twice, for equal bits); the append + frame-stack kernel (KC)
+            at N = 1, 10, 40 and 1024, H = 4 and 3, no, bucketed and dense
+            reset rows, with and without a replay, three appends in a row,
+            and one kernel launched per append; the replay's sampler,
+            gather and write-back on a random ring of the canonical width
+            (7.05 GB), where they are also timed, and the sampler (K5) alone
+            at B = 1 and 32, on trees of depth 0 to 22 and on ties, a second
+            launch with the same bits, at most two kernels a call; the
+            noise draws (K2) at the act's, the round's and the sequential
+            update's shapes, with the moments of the round's 71 M target
+            draws, and K2's float32
             Box-Muller alone on edge words and 10^6 random word pairs,
             against the float64 plain version; the delta kernel
             (K10) on real 1024-env pong deltas, against the dense engine's
@@ -42,7 +48,8 @@ exit code:
             save on a 64-column ring restored exactly into a new Trainer;
             --evaluate of the best model. Launch counts (K5-K7 once per
             round), KA's launches by shape, env-steps/s, updates/s, eval,
-            save and restore times, the peak of allocated device memory.
+            save and restore times, the peak of allocated device memory,
+            KC's launches by N, K and mode, K5's by B.
             Then the side paths, each with its own launch counts: the
             sequential PER round (4 rounds of 256 updates, K5-K7 and K2
             once per update), and delta uploads (K10) with the pipelined
@@ -55,7 +62,9 @@ exit code:
             probabilities, the C51 target and loss at B = 32, and K2 at
             the round's draw beside torch.randn of the same count, cold
             and warm, from CUDA graphs, beside one launch's floor, KB at
-            B = 1); one JSON line.
+            B = 1; KC at N = 1024 with the Trainer's last K, and at
+            N = 10 without a replay, K5 at B = 8192 and 32, K6 and K7 at
+            the round, the same way); one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -182,7 +191,7 @@ def graph_ms(torch, fn, before=None, n=20, reps=5):
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(n):
                 body()
         times = []
@@ -375,15 +384,21 @@ def compare_dueling_head(torch, A, learner, report):
     return worst, target_probs
 
 
-def _random_step(torch, np, rng, n, f, h, c, k_frac=0.1):
-    """Seeded inputs of one append + frame-stack step, on the CPU."""
+def _random_step(torch, np, rng, n, f, h, c, k_mode="bucket"):
+    """Seeded inputs of one append + frame-stack step, on the CPU. Reset
+    rows: none (K = 0), packed into a padded bucket by pack_resets (about
+    a third of the envs reset), or dense (K = N, reset_idx = arange(N), as
+    actor_step passes them)."""
     from rainbow_tpu_torch.replay.prioritized import init_replay
     from rainbow_tpu_torch.train import pack_resets
 
-    kinds = np.where(rng.random(n) < k_frac, rng.integers(1, 3, n), 0)
-    kinds = kinds.astype(np.uint8)
+    kinds = np.where(rng.random(n) < (0.0 if k_mode == "none" else 0.35),
+                     rng.integers(1, 3, n), 0).astype(np.uint8)
     resets = rng.integers(0, 256, (n, f, f), np.uint8)
-    packed, ridx = pack_resets(resets, kinds)
+    if k_mode == "dense":
+        packed, ridx = resets, np.arange(n, dtype=np.int32)
+    else:
+        packed, ridx = pack_resets(resets, kinds)
     rep = init_replay(n, c, f, device="cpu")
     rep.frames.copy_(torch.from_numpy(rng.integers(0, 256, rep.frames.shape,
                                                    np.uint8)))
@@ -420,17 +435,60 @@ def _same_replay(torch, a, b):
                for f in dataclasses.fields(a))
 
 
+def graph_kernels(torch, fn):
+    """How many kernels one call of ``fn`` launches, as (kernel nodes, all
+    nodes) of a CUDA graph that captures the call (after one call outside
+    the capture on the capturing stream, which allocates that stream's kept
+    buffers), counted with libcuda's graph calls. The profiler can miss the first kernel of a short
+    window."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(drv.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(drv.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    del graph
+    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL is 0
+
+
+KC_CASES = [(n, h, k_mode) for n in (1, 10, 40, 1024) for h in (4, 3)
+            for k_mode in ("none", "bucket", "dense")]
+
+
 def compare_append_framestack(torch, np, report):
-    """KC against append_framestack_plain, bit-exact: all three reset kinds,
-    padded reset indices, reward clipping and a ring wrap, with and without
-    a replay, for H = 4 (word path) and H = 3 (byte path)."""
+    """KC against append_framestack_plain, bit-exact: N = 1, 10, 40 and
+    1024, no reset rows, a padded bucket and dense rows (all three reset
+    kinds), reward clipping and a wrap of a two-column ring, with and
+    without a replay, for H = 4 (vector path) and H = 3 (byte path), three
+    appends in a row (the write head and full checked after each). One
+    append with a replay launches one kernel (graph_kernels)."""
     from rainbow_tpu_torch.ops import preprocess as pp
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 
     rng = np.random.default_rng(3)
-    for n, h, c in ((1024, 4, 8), (64, 3, 5)):
+    for n, h, k_mode in KC_CASES:
         for with_rep in (True, False):
-            base = _random_step(torch, np, rng, n, 84, h, c)
+            base = _random_step(torch, np, rng, n, 84, h, 2, k_mode)
             k = _to(torch, base, "cuda")
             p = _to(torch, base, "cuda")
             for step in range(3):  # consecutive steps: the head advances
@@ -442,12 +500,23 @@ def compare_append_framestack(torch, np, report):
                                     s["dones"], 1.0) if with_rep else ())
                 append_framestack(*args(k), *extra(k))
                 pp.append_framestack_plain(*args(p), *extra(p))
-                tag = f"append_framestack N={n} H={h} replay={with_rep} step {step}"
+                tag = (f"append_framestack N={n} H={h} K={k_mode} "
+                       f"replay={with_rep} step {step}")
                 check(torch.equal(k["stack"], p["stack"]), tag + ": stack differs")
                 if with_rep:
                     check(_same_replay(torch, k["rep"], p["rep"]),
                           tag + ": replay differs")
-                report.append(("append_framestack", n, h, with_rep, step, 0.0))
+                    check(int(k["rep"].index) == step % 2
+                          and bool(k["rep"].full), tag + ": write head")
+                report.append(("append_framestack", n, h, k_mode, with_rep,
+                               step, 0.0))
+    base = _to(torch, _random_step(torch, np, rng, ENVS, 84, 4, 2), "cuda")
+    kernels = graph_kernels(torch, lambda: append_framestack(
+        base["stack"], base["obs"], base["reset_packed"], base["reset_idx"],
+        base["kinds"], base["rep"], base["actions"], base["rewards"],
+        base["dones"], 1.0))
+    check(kernels == (1, 1), f"append_framestack: one append with a replay "
+          f"launched (kernels, graph nodes) {kernels}")
     return 0.0
 
 
@@ -707,7 +776,9 @@ def compare_replay(torch, np, cfg, report):
     half of the mass in the round's case so that draws repeat. K5 must be
     bit-exact; K6's window, actions and nonterminals bit-exact, its returns
     and weights within 1e-6 relative (1e-6 absolute near 0); K7 as
-    _check_write_back. Returns (errors by kernel, timing rows)."""
+    _check_write_back. K5 also alone (compare_k5): B = 1 and 32 on this
+    ring, and rings of other depths, ties and an empty deep ring. Returns
+    (errors by kernel, timing rows)."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels import replay as k_replay
@@ -769,23 +840,134 @@ def compare_replay(torch, np, cfg, report):
         del kern, plain
         report.append(("replay", name, nb, bs, 4 + n, repeated, max(errs)))
     # Timing at the canonical round on the random ring as it was made (no
-    # hot leaves).
+    # hot leaves), twice.
     rep.priorities.copy_(base_prio)
     rep.index.fill_(500)
     rep.full.fill_(True)
-    rows = replay_kernel_rows(torch, rep, g, nb0, cfg.batch_size, 3)
+    compare_k5(torch, rep, g, report)
+    timed = [replay_times(torch, cfg, rep, g) for _ in range(2)]
+    log("[replay times] " + json.dumps(timed))
+    rows = replay_kernel_rows(torch, rep, g, nb0, cfg.batch_size, 3, timed)
     del rep
     torch.cuda.empty_cache()
     return {"stratified_sample": 0.0, "gather_window": err6,
             "write_priorities": 0.0}, rows
 
 
-def replay_kernel_rows(torch, rep, g, nb, bs, n):
-    """Rows of K5, K6 and K7 at the canonical round's shapes on the ring of
-    compare_replay, with their device time from torch.profiler beside the
-    event time. K6's bound counts the frames this round's draws need: each
-    distinct frame that is not blanked read once, every window frame
-    written. No single PyTorch call computes any of the three, so
+# K5 alone: (name, E, C, index, history, n_step, B, priorities). The
+# depths (log2 of the padded leaf count) are 0, 1, 4, 5, 7, 21 and 22:
+# no stored level, a first step of 1 to 5 levels, four stored levels.
+# "ties": ones and u = 0, so that every value (j + 0)·total/B with B the
+# count of unmasked leaves is a left sum exactly.
+K5_CASES = (
+    ("depth_0", 1, 1, 0, 4, 3, 4, "gamma"),
+    ("depth_1", 1, 2, 0, 1, 0, 5, "gamma"),
+    ("depth_4", 2, 8, 3, 4, 1, 32, "gamma"),
+    ("depth_5_b1", 3, 9, 4, 2, 1, 1, "gamma"),
+    ("depth_7", 5, 20, 7, 4, 3, 32, "gamma"),
+    ("depth_21", 2048, 1000, 500, 4, 3, 8192, "gamma"),
+    ("depth_22", 4096, 1000, 999, 4, 3, 8192, "gamma"),
+    ("ties", 64, 16, 8, 4, 3, 576, "ones"),
+    ("ties_seg_2", 64, 16, 8, 4, 3, 288, "ones"),
+    ("empty_depth_20", 1024, 976, 500, 4, 3, 8192, "zeros"),
+)
+
+
+def _k5_bits(torch, rep, u, history, n_step, tag):
+    """K5 against stratified_sample_plain, bit-exact, and a second launch
+    with the same bits; one call launches tree_plan(n).launches kernels."""
+    from rainbow_tpu_torch.kernels import replay as k_replay
+    from rainbow_tpu_torch.replay import prioritized as rp
+
+    got = k_replay.stratified_sample(rep, u, history, n_step)
+    want = rp.stratified_sample_plain(rep, u, history, n_step)
+    check(all(a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in zip(got, want)),
+          f"stratified_sample {tag}: differs from the plain version")
+    again = k_replay.stratified_sample(rep, u, history, n_step)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"stratified_sample {tag}: a second launch differs")
+    plan = k_replay.tree_plan(rep.priorities.numel())
+    kernels = graph_kernels(torch, lambda: k_replay.stratified_sample(
+        rep, u, history, n_step))
+    check(kernels == (plan.launches, plan.launches) and plan.launches <= 2,
+          f"stratified_sample {tag}: launched (kernels, graph nodes) "
+          f"{kernels}, planned {plan.launches}")
+    return float(want[2])
+
+
+def compare_k5(torch, rep, g, report):
+    """K5 alone: B = 1 and 32 on the canonical ring ``rep``, then K5_CASES
+    on rings that hold only priorities (frames of one byte)."""
+    from rainbow_tpu_torch.replay.prioritized import init_replay
+
+    for b in (1, 32):
+        u = torch.rand(b, generator=g, device="cuda")
+        total = _k5_bits(torch, rep, u, 4, 3, f"canonical B={b}")
+        report.append(("stratified_sample", "canonical", b, total))
+    for name, e, c, index, hist, n_step, b, prio in K5_CASES:
+        r = init_replay(e, c, 1, "cuda")
+        if prio == "gamma":
+            pr = -torch.log(torch.rand((e, c), generator=g, device="cuda"))
+            pr[torch.rand((e, c), generator=g, device="cuda") < 0.1] = 0.0
+            r.priorities.copy_(pr)
+        elif prio == "ones":
+            r.priorities.fill_(1.0)
+        r.index.fill_(index)
+        r.full.fill_(True)
+        u = (torch.zeros(b, device="cuda") if prio == "ones"
+             else torch.rand(b, generator=g, device="cuda"))
+        total = _k5_bits(torch, r, u, hist, n_step, name)
+        check(prio != "ones" or total == e * (c - hist - n_step),
+              f"stratified_sample {name}: total {total}")
+        report.append(("stratified_sample", name, b, total))
+        del r
+
+
+def replay_times(torch, cfg, rep, g):
+    """Times of K5 (the round's B = 8192 and the sequential update's 32),
+    K6 and K7 at the canonical round's shapes, on the ring ``rep``, through
+    the wrappers of the rainbow_tpu_torch that is imported, by
+    graphed_times. Returns {"<name> B=<b>": {...}}."""
+    import dataclasses
+
+    from rainbow_tpu_torch.kernels import replay as k_replay
+
+    nb, bs, n = ENVS // cfg.replay_frequency, cfg.batch_size, cfg.multi_step
+    b = nb * bs
+    u = torch.rand(b, generator=g, device="cuda")
+    u_seq = torch.rand(bs, generator=g, device="cuda")
+    idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
+    idxs = idx.view(bs, nb).T.contiguous()
+    losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
+    copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
+                               max_priority=rep.max_priority.clone())
+    flush = l2_flush(torch)
+    out = {
+        f"stratified_sample B={b}": graphed_times(
+            torch, lambda: k_replay.stratified_sample(rep, u, 4, n), flush),
+        f"stratified_sample B={bs}": graphed_times(
+            torch, lambda: k_replay.stratified_sample(rep, u_seq, 4, n),
+            flush),
+        f"gather_window B={b}": graphed_times(
+            torch, lambda: k_replay.gather_window(
+                rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99), flush),
+        f"write_priorities B={b}": graphed_times(
+            torch, lambda: k_replay.write_priorities(copy, idxs, losses,
+                                                     0.5), flush)}
+    del copy
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
+    """Rows of K5 (at the round's B = nb·bs and the sequential update's
+    B = bs), K6 and K7 at the canonical round's shapes on the ring of
+    compare_replay, from ``timed`` (two replay_times of this run: device
+    times from CUDA graphs, cold and warm, and CUDA event times), with the
+    plain version's time. K6's bound counts the frames this round's draws
+    need: each distinct frame that is not blanked read once, every window
+    frame written. No single PyTorch call computes any of the three, so
     library_ms is null."""
     import dataclasses
 
@@ -806,50 +988,64 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n):
     losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
     copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
                                max_priority=rep.max_priority.clone())
-    k5 = lambda: k_replay.stratified_sample(rep, u, 4, n)
-    k6 = lambda: k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n,
-                                        0.99)
-    k7 = lambda: k_replay.write_priorities(copy, idxs, losses, 0.5)
-    return [
-        dict(name="stratified_sample", route="cuda",
-             source="rainbow_tpu_torch/kernels/csrc/replay.cu",
-             replaces="rainbow_tpu/replay/prioritized.py:102",
-             shape=f"{e}x{c} leaves, B={b}",
-             ms=time_ms(torch, k5), device_ms=device_ms(torch, k5),
-             plain_ms=time_ms(torch, lambda: rp.stratified_sample_plain(
-                 rep, u, 4, n)),
-             library_ms=None,
-             # Read the priorities, the head and u; write idx, p, total.
-             # The tree's adds, and per draw a compare and a subtract per
-             # level.
-             flops=tree_levels + 2 * b * (tree_levels.bit_length()),
-             bytes=4 * leaves + 4 + 4 * b + 12 * b + 4),
-        dict(name="gather_window", route="cuda",
-             source="rainbow_tpu_torch/kernels/csrc/replay.cu",
-             replaces="rainbow_tpu/replay/prioritized.py:157",
-             shape=f"nb={nb} bs={bs} window={w} x {fp} B",
-             ms=time_ms(torch, k6), device_ms=device_ms(torch, k6),
-             plain_ms=time_ms(torch, lambda: rp.gather_window_plain(
-                 rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)),
-             library_ms=None,
-             # Read each distinct unblanked frame once; per draw its window's
-             # timesteps, its n rewards, a nonterminal, an action, idx and
-             # p; write the window and five scalars; per batch one max.
-             flops=b * (2 * n + 8), frames_read=frames_read,
-             bytes=(frames_read * fp + b * w * fp
-                    + b * (4 * w + 4 * n + 1 + 4 + 8 + 4)
-                    + b * (8 + 4 + 4 + 4 + 4) + 4 * nb + 4 + 4 + 1)),
-        dict(name="write_priorities", route="cuda",
-             source="rainbow_tpu_torch/kernels/csrc/replay.cu",
-             replaces="rainbow_tpu/replay/prioritized.py:285",
-             shape=f"B={b} into {e}x{c}",
-             ms=time_ms(torch, k7), device_ms=device_ms(torch, k7),
-             plain_ms=time_ms(torch, lambda: rp.update_priorities_plain(
-                 copy, idxs, losses, 0.5)),
-             library_ms=None,
-             flops=2 * b,
-             bytes=12 * b + 4 * b + 8),
-    ]
+    source = "rainbow_tpu_torch/kernels/csrc/replay.cu"
+    flush = l2_flush(torch)
+    plan = k_replay.tree_plan(leaves)
+    rows = []
+    for draws, who in ((b, "round"), (bs, "sequential update")):
+        ud = u[:draws]
+        key = f"stratified_sample B={draws}"
+        # The profiler's device time of each of the call's launches (early
+        # in the run, where it agrees with the graphs), per call.
+        split = {}
+        for name, us in _kernel_us(torch, lambda: k_replay.stratified_sample(
+                rep, ud, 4, n), 20, flush).items():
+            for kernel in ("tree_build_kernel", "descend_kernel"):
+                if kernel in name:
+                    split[kernel] = us / 20 / 1e3
+        rows.append(dict(
+            name="stratified_sample", route="cuda", source=source,
+            replaces="rainbow_tpu/replay/prioritized.py:102",
+            shape=f"{e}x{c} leaves, B={draws} ({who})", draws=draws,
+            plan=dataclasses.asdict(plan),
+            **timed[0][key], again=timed[1][key],
+            profiler_device_ms_by_launch=split,
+            plain_ms=time_ms(torch, lambda: rp.stratified_sample_plain(
+                rep, ud, 4, n), before=flush),
+            library_ms=None,
+            # Read the priorities, the head and u; write idx, p, total.
+            # The tree's adds, and per draw a compare and a subtract per
+            # level.
+            flops=tree_levels + 2 * draws * (tree_levels.bit_length()),
+            bytes=4 * leaves + 4 + 4 * draws + 12 * draws + 4))
+    key = f"gather_window B={b}"
+    rows.append(dict(
+        name="gather_window", route="cuda", source=source,
+        replaces="rainbow_tpu/replay/prioritized.py:157",
+        shape=f"nb={nb} bs={bs} window={w} x {fp} B",
+        **timed[0][key], again=timed[1][key],
+        plain_ms=time_ms(torch, lambda: rp.gather_window_plain(
+            rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99), before=flush),
+        library_ms=None,
+        # Read each distinct unblanked frame once; per draw its window's
+        # timesteps, its n rewards, a nonterminal, an action, idx and
+        # p; write the window and five scalars; per batch one max.
+        flops=b * (2 * n + 8), frames_read=frames_read,
+        bytes=(frames_read * fp + b * w * fp
+               + b * (4 * w + 4 * n + 1 + 4 + 8 + 4)
+               + b * (8 + 4 + 4 + 4 + 4) + 4 * nb + 4 + 4 + 1)))
+    key = f"write_priorities B={b}"
+    rows.append(dict(
+        name="write_priorities", route="cuda", source=source,
+        replaces="rainbow_tpu/replay/prioritized.py:285",
+        shape=f"B={b} into {e}x{c}",
+        **timed[0][key], again=timed[1][key],
+        plain_ms=time_ms(torch, lambda: rp.update_priorities_plain(
+            copy, idxs, losses, 0.5), before=flush),
+        library_ms=None,
+        flops=2 * b,
+        bytes=12 * b + 4 * b + 8))
+    return rows
 
 
 def noise_shapes(cfg, A, leads):
@@ -1439,11 +1635,12 @@ class _Watch:
     Trainer.save_checkpoint to time them (each iteration synchronised with
     ``sync``), Trainer._eval_async_drain to mark the end of each run's
     training loop (``loop_ends``: its first call with ``wait``, after the
-    main stream has finished), KA's two wrappers and KB's to count their
-    launches by shape (``ka_shapes``, ``kb_shapes``), and the replay's, the
-    noise's and the
-    delta's plain versions to fail if the card's path calls them. With
-    ``warmup_profile`` a torch.profiler of the card's kernels runs from
+    main stream has finished), KA's two wrappers, KB's, KC's and K5's to
+    count their launches by shape (``ka_shapes``, ``kb_shapes``,
+    ``kc_shapes`` by N, K and with or without a replay, with the last
+    1024-env append's K in ``kc_last_k``, ``k5_shapes`` by B), and the
+    replay's, the noise's and the delta's plain versions to fail if the
+    card's path calls them. With ``warmup_profile`` a torch.profiler of the card's kernels runs from
     construction until the first learning iteration (``warmup_prof``)."""
 
     def __init__(self, torch, sync=True, warmup_profile=False):
@@ -1452,10 +1649,14 @@ class _Watch:
         from rainbow_tpu_torch import train as tm
         from rainbow_tpu_torch.models import noisy
         from rainbow_tpu_torch.ops import head
+        from rainbow_tpu_torch.ops import preprocess as pp
         from rainbow_tpu_torch.replay import prioritized as rp
 
         self.iters, self.evals, self.saves = [], [], []
         self.ka_shapes, self.kb_shapes = {}, {}
+        self.kc_shapes, self.k5_shapes = {}, {}
+        self.kc_last_k = None
+        tally_lock = threading.Lock()  # an async evaluation appends too
         self.loop_ends = []
         self._undo = []
         self.warmup_prof = None
@@ -1513,6 +1714,26 @@ class _Watch:
                 return real(v, a, support, action_space, dist)
             return wrapper
 
+        def add(shapes, key):
+            with tally_lock:
+                shapes[key] = shapes.get(key, 0) + 1
+
+        def tally_kc(real):
+            def wrapper(stack, obs, packed, ridx, kinds, rep=None, *a):
+                n, k = stack.shape[0], packed.shape[0]
+                add(self.kc_shapes, f"append_framestack N={n} K={k} "
+                    f"{'replay' if rep is not None else 'stack'}")
+                if rep is not None and n == ENVS:
+                    self.kc_last_k = k
+                return real(stack, obs, packed, ridx, kinds, rep, *a)
+            return wrapper
+
+        def tally_k5(real):
+            def wrapper(state, u, *a):
+                add(self.k5_shapes, f"stratified_sample B={u.shape[0]}")
+                return real(state, u, *a)
+            return wrapper
+
         def drain(real):
             def wrapper(trainer, wait=False):
                 if wait and len(self.loop_ends) < self._loops:
@@ -1531,6 +1752,10 @@ class _Watch:
         # ops/head.py calls KB as kb.dueling_head_fwd(v, a, support, A,
         # dist).
         self._patch(head.kb, "dueling_head_fwd", tally_kb)
+        # ops/preprocess.py calls KC as kc.append_framestack(...), and
+        # replay/prioritized.py K5 as k_replay.stratified_sample(...).
+        self._patch(pp.kc, "append_framestack", tally_kc)
+        self._patch(rp.k_replay, "stratified_sample", tally_k5)
         self._patch(tm, "train_iter_packed", timed_iter)
         self._patch(tm.Trainer, "_eval_async_drain", drain)
         self._patch(tm.Trainer, "run", lambda r: self._counted(r))
@@ -1634,6 +1859,8 @@ def run_trainer(torch, np):
                                list(watch.saves))
         ka_shapes = dict(watch.ka_shapes)
         kb_shapes = dict(watch.kb_shapes)
+        kc_shapes, k5_shapes = dict(watch.kc_shapes), dict(watch.k5_shapes)
+        kc_last_k = watch.kc_last_k
         gross = watch.train_span(iters)
         res = tr.results_dir
         rounds = sum(1 for n, _, _ in iters if n)
@@ -1726,7 +1953,13 @@ def run_trainer(torch, np):
         "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
         "evaluate_only_s": eval_only_s, "max_memory_allocated_mb": peak_mb,
         "launches": counts,
-        "ka_launches_by_shape": ka_shapes, "kb_launches_by_shape": kb_shapes}
+        "ka_launches_by_shape": ka_shapes, "kb_launches_by_shape": kb_shapes,
+        "kc_launches_by_shape": kc_shapes, "kc_last_k": kc_last_k,
+        "k5_launches_by_shape": k5_shapes}
+    check(sum(kc_shapes.values()) == counts["append_framestack"]
+          and sum(k5_shapes.values()) == counts["stratified_sample"],
+          f"trainer: KC or K5 launches by shape {kc_shapes} {k5_shapes} do "
+          f"not add up to {counts}")
     return stats, counts
 
 
@@ -1794,7 +2027,9 @@ def run_side_trainer(torch, np, args, sync):
              "upload_forms": dict(tr.upload_forms),
              "eval_steps": list(tr.metrics["steps"]),
              "noise_offset": tr.agent.noise.offset,
-             "timer_s": dict(tr.timer.totals), "launches": counts}
+             "timer_s": dict(tr.timer.totals), "launches": counts,
+             "kc_launches_by_shape": dict(watch.kc_shapes),
+             "k5_launches_by_shape": dict(watch.k5_shapes)}
     if sync:
         stats["median_round_call_ms"] = 1e3 * statistics.median(
             b - a for n, a, b in iters if n)
@@ -1829,9 +2064,61 @@ def run_side_trainer(torch, np, args, sync):
 
 # ------------------------------------------------------------- kernels -----
 
-def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
-                replay_rows, delta_last, k10_trainer_ms, ka_shapes, kb_shapes,
-                head_timed, noise_timed):
+def kc_cases(k_last):
+    """KC's timed shapes, as (N, K, with a replay, caller): the Trainer's
+    1024-env append at its last K, and the evaluation's 10-env frame-stack
+    step without resets."""
+    return ((ENVS, k_last, True, "Trainer append, its last K"),
+            (10, 0, False, "evaluation, frame stack only"))
+
+
+def _kc_key(n, k, with_rep):
+    return f"append_framestack N={n} K={k} {'replay' if with_rep else 'stack'}"
+
+
+def _kc_args(torch, np, n, k, with_rep, seed=23):
+    """One append's arguments on the card, from a seed: n envs with H = 4,
+    k reset rows (k envs reset, packed by pack_resets into a bucket of k),
+    and with a replay a two-column ring."""
+    from rainbow_tpu_torch.replay.prioritized import init_replay
+    from rainbow_tpu_torch.train import pack_resets
+
+    rng = np.random.default_rng(seed)
+    kinds = np.zeros(n, np.uint8)
+    kinds[rng.choice(n, size=k, replace=False)] = rng.integers(1, 3, k)
+    packed, ridx = pack_resets(rng.integers(0, 256, (n, 84, 84), np.uint8),
+                               kinds)
+    check(packed.shape[0] == k, f"KC inputs: {packed.shape[0]} rows, not {k}")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    args = (up(rng.integers(0, 256, (n, 84, 84, 4), np.uint8)),
+            up(rng.integers(0, 256, (n, 84, 84), np.uint8)), up(packed),
+            up(ridx), up(kinds))
+    if not with_rep:
+        return args
+    return args + (init_replay(n, 2, 84, "cuda"), up(rng.integers(0, 6, n)),
+                   up(rng.normal(size=n).astype(np.float32)), up(kinds > 0),
+                   1.0)
+
+
+def kc_times(torch, np, k_last):
+    """KC's times at kc_cases(k_last) through the wrapper of the
+    rainbow_tpu_torch that is imported, by graphed_times. Returns
+    {_kc_key(...): {...}}."""
+    from rainbow_tpu_torch.kernels.append_framestack import append_framestack
+
+    flush = l2_flush(torch)
+    out = {}
+    for n, k, with_rep, _ in kc_cases(k_last):
+        args = _kc_args(torch, np, n, k, with_rep)
+        out[_kc_key(n, k, with_rep)] = graphed_times(
+            torch, lambda: append_framestack(*args), flush)
+        del args
+    return out
+
+
+def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
+                delta_last, k10_trainer_ms, ka_shapes, kb_shapes, head_timed,
+                noise_timed, kc_timed, k_last, kc_shapes, k5_shapes):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
@@ -1841,38 +2128,44 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
     ``launches`` is the trainer phase's (the main path, through cli.main),
     for K10 the side-path trainer's (delta uploads), and the other phases'
     counts are kept beside it. KB's, c51_target's and head_loss's rows come
-    from head_rows, timed in ``head_timed``, K2's from ``noise_timed``."""
-    from rainbow_tpu_torch.kernels.append_framestack import append_framestack
-    from rainbow_tpu_torch.ops import preprocess as pp
-    from rainbow_tpu_torch.replay import prioritized as rp
+    from head_rows, timed in ``head_timed``, K2's from ``noise_timed``,
+    KC's at kc_cases(k_last) from ``kc_timed`` (two kc_times); KC's and
+    K5's rows carry the main Trainer's launches by shape (``kc_shapes``,
+    ``k5_shapes``)."""
+    import dataclasses
 
-    b = stack.shape[0]
+    from rainbow_tpu_torch.kernels.append_framestack import launch_plan
+    from rainbow_tpu_torch.ops import preprocess as pp
+
     rows = ka_rows(torch, ka_shapes)
 
     rows += head_rows(torch, cfg, A, head_timed, kb_shapes)
 
-    # KC at the actor's step: the live stack's shape, this run's last reset
-    # count, one replay column.
-    obs, packed, ridx, rewards, dones, kinds = staged
-    k = packed.shape[0]
-    st = stack.clone()
-    rep = rp.init_replay(b, 4, 84, "cuda")
-    acts = torch.zeros(b, dtype=torch.int64, device="cuda")
-    call = lambda fn: (lambda: fn(st, obs, packed, ridx, kinds, rep, acts,
-                                  rewards, dones, 1.0))
     p = 84 * 84
-    rows.append(dict(
-        name="append_framestack", route="cuda",
-        source="rainbow_tpu_torch/kernels/csrc/append_framestack.cu",
-        replaces="rainbow_tpu/replay/prioritized.py:73",
-        shape=f"N={b} H=4 K={k} resets",
-        ms=time_ms(torch, call(append_framestack)),
-        plain_ms=time_ms(torch, call(pp.append_framestack_plain)),
-        library_ms=None,
-        flops=0,
-        bytes=(2 * b * p * 4 + b * p + k * p + 4 * k + b + b * p
-               + b * (8 + 4 + 1) + b * (4 + 4 + 4 + 1 + 4) + 2 * b * 4)))
-
+    flush = l2_flush(torch)
+    for n, k, with_rep, who in kc_cases(k_last):
+        key = _kc_key(n, k, with_rep)
+        args = _kc_args(torch, np, n, k, with_rep)
+        # The stack in and out, obs, the reset rows and their indices, the
+        # kinds; with a replay the frames column, the transition in, the
+        # ring's scalars out and t in and out.
+        nbytes = 2 * n * p * 4 + n * p + k * p + 4 * k + n
+        if with_rep:
+            nbytes += n * p + n * (8 + 4 + 1) + n * (4 + 4 + 4 + 1 + 4) + 8 * n
+        rows.append(dict(
+            name="append_framestack", route="cuda",
+            source="rainbow_tpu_torch/kernels/csrc/append_framestack.cu",
+            replaces="rainbow_tpu/replay/prioritized.py:73",
+            shape=f"N={n} H=4 K={k} {'with' if with_rep else 'without'} a "
+                  f"replay ({who})",
+            plan=dataclasses.asdict(launch_plan(n, p, 4)),
+            launches_at_shape=kc_shapes.get(key, 0),
+            kc_launches_by_shape=kc_shapes,
+            **kc_timed[0][key], again=kc_timed[1][key],
+            plain_ms=time_ms(torch, lambda: pp.append_framestack_plain(
+                *args), before=flush),
+            library_ms=None, flops=0, bytes=nbytes))
+        del args
     rows.append(adam_row(torch, shapes))
     rows += replay_rows
     rows += noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms,
@@ -1892,6 +2185,12 @@ def kernel_rows(torch, np, cfg, A, errs, counts, stack, staged, shapes,
         r["actor_launches"] = counts["actor"][r["name"]]
         r["eval_launches"] = counts["evaluate"][r["name"]]
         r["max_abs_err"] = errs[r["name"]]
+        if r["name"] == "stratified_sample":
+            r["launches_at_shape"] = k5_shapes.get(
+                f"stratified_sample B={r['draws']}", 0)
+            r["k5_launches_by_shape"] = k5_shapes
+        if r["name"] in ("stratified_sample", "append_framestack"):
+            r["one_block_floor_device_ms"] = head_timed[0]["floor"]
     return rows
 
 
@@ -2476,14 +2775,19 @@ def main() -> int:
     log("[head times] " + json.dumps(head_timed))
     noise_timed = [noise_times(torch, cfg, A), noise_times(torch, cfg, A)]
     log("[noise times] " + json.dumps(noise_timed))
+    k_last = trainer_stats["kc_last_k"]
+    kc_timed = [kc_times(torch, np, k_last), kc_times(torch, np, k_last)]
+    log("[kc times] " + json.dumps(kc_timed))
     rows = kernel_rows(torch, np, cfg, A, errs, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
         "sequential": seq_counts, "side": side_counts},
-        stack, staged, shapes, replay_rows, delta_last,
+        shapes, replay_rows, delta_last,
         side_stats["k10_trainer_device_ms"],
         trainer_stats["ka_launches_by_shape"],
-        trainer_stats["kb_launches_by_shape"], head_timed, noise_timed)
+        trainer_stats["kb_launches_by_shape"], head_timed, noise_timed,
+        kc_timed, k_last, trainer_stats["kc_launches_by_shape"],
+        trainer_stats["k5_launches_by_shape"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

@@ -19,18 +19,23 @@ under ``rainbow_tpu_torch/_build/`` at first use (build.py) and called
 through ctypes. Each wrapper takes CUDA tensors only, checks them, launches, raises
 on a launch error and adds one to ``LAUNCHES[name]`` (``count_launch``,
 under a lock: an asynchronous evaluation launches from a second thread).
-The plain PyTorch version of each kernel sits beside its caller and runs
-only on CPU tensors.
+A kernel's scratch and tickets that outlive a call come from
+``device_buffer``: one per stream, allocated at the stream's first call,
+outside any CUDA graph capture, and kept. The plain PyTorch version of each
+kernel sits beside its caller and runs only on CPU tensors.
 """
 from __future__ import annotations
 
 import threading
+
+import torch
 
 LAUNCHES = {"noisy_linear_fwd": 0, "noisy_linear_bwd": 0, "dueling_head": 0,
             "c51_target": 0, "head_loss": 0, "append_framestack": 0,
             "clip_adam": 0, "stratified_sample": 0, "gather_window": 0,
             "write_priorities": 0, "scaled_noise": 0, "apply_delta": 0}
 _LOCK = threading.Lock()
+_BUFFERS: dict = {}
 
 
 def count_launch(name: str) -> None:
@@ -48,6 +53,28 @@ def reset_launches() -> None:
 def launches() -> dict:
     with _LOCK:
         return dict(LAUNCHES)
+
+
+def device_buffer(name: str, device: torch.device, numel: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The zeroed buffer ``name`` of the current stream of ``device``
+    (numel elements of dtype), allocated at its first request on that
+    stream and the same tensor ever after. Kernels keep their tickets and
+    cross-launch scratch here, so a call allocates only its outputs; one
+    buffer per stream, so calls on two streams never share one. A stream's
+    first call must come before any CUDA graph capture on it: the wrapper
+    raises otherwise, rather than capture the allocation."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device)
+    key = (name, device, stream.cuda_stream)
+    with _LOCK:
+        if key not in _BUFFERS:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{name}: first call on a stream under CUDA graph "
+                    "capture; make one call on the capturing stream first")
+            _BUFFERS[key] = torch.zeros(numel, dtype=dtype, device=device)
+        return _BUFFERS[key]
 
 
 def check_cuda(name: str, **tensors) -> None:

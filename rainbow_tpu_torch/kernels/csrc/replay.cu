@@ -19,8 +19,8 @@
 // Bounds on the H100 at the canonical round (1024 envs x 976 columns =
 // 999,424 leaves, padded to L = 2^20; 8192 draws = 256 batches x 32;
 // history 4 + n-step 3 = a window of 7 frames of 7056 bytes):
-//   K5 reads the priorities once (4 MB): 1.2 us at 3.35 TB/s. Its levels
-//      (8 MB) stay in the 50 MB L2 between its launches.
+//   K5 reads the priorities once (4 MB): 1.2 us at 3.35 TB/s, below the
+//      floor of its two launches (about 2.5 us each).
 //   K6 reads and writes 8192 x 7 frames: 2 x 405 MB, 0.24 ms. Bound by bytes.
 //   K7 moves about 130 KB: bound by launch latency.
 //
@@ -37,12 +37,27 @@
 // omega = 0.5), so the written priorities and the max are the same bits.
 //
 // Design.
-//   K5: three launches. (1) Each block masks an aligned chunk of 2048 leaves
-//       (the write head read on the device) and reduces it pairwise in
-//       shared memory, writing every level inside the chunk. (2) One block
-//       builds the levels above the chunks (at most 2048 chunk tops, so
-//       L <= 2^22). (3) One thread per draw descends from the root. The
-//       tree is a heap: node k's children are 2k and 2k+1, leaves at L + i.
+//   K5: two launches, and one where the tree has at most 32 leaves. The
+//       tree over the L = 2^D masked leaves is stored only every fifth level:
+//       heights 5, 10, 15 and 20 below D (for L = 2^20: 32,768 + 1,024 + 32
+//       floats, in a scratch the wrapper keeps per stream), never the leaves.
+//       A warp sums 32 values with __shfl_xor_sync at offsets 1, 2, 4, 8 and
+//       16: after offset 2^s every lane holds the sum of its aligned block of
+//       2^(s+1) lanes, which is exactly the tree's node over them.
+//       (1) The build: a thread loads 4 leaves (one float4) and applies the
+//       write head's mask in 32-bit arithmetic; 8 lanes sum a height-5
+//       node, and a block of
+//       256 threads its 1024 leaves' 32 height-5 nodes and one height-10
+//       node. The last block to finish (a ticket, after __threadfence) sums
+//       heights 15 and 20 from 10 and 15.
+//       (2) The descent: one warp per draw. From the root it loads the 2^r
+//       nodes of the highest stored level (r = D - 5 * stored, 1 to 5), then
+//       from the node it reached the 32 nodes five levels down, down to the
+//       32 leaves, read from the priorities through the same mask: one
+//       coalesced 128-byte load a step, 4 in place of 20 dependent loads at
+//       D = 20. Each step rebuilds the four levels in between by the same
+//       shuffles and descends them with broadcasts of the left sums. The
+//       first step's sum is the total.
 //   K6: two launches. (1) One block per batch: its threads take the batch's
 //       rows, find each row's window and episode-blanking mask from
 //       `timesteps == 0`, write the row's scalar fields and unnormalised IS
@@ -64,9 +79,13 @@
 
 namespace {
 
-constexpr int CHUNK = 2048;        // leaves per block of the first K5 pass
-constexpr int TREE_THREADS = 1024; // CHUNK / 2: one node per thread per level
-constexpr int MAX_TOPS = 2048;     // chunk tops the single second-pass block takes
+constexpr int BUILD_THREADS = 256;   // 4 leaves a thread: 1024 a block
+constexpr int DESCEND_WARPS = 8;     // draws a block of the descent
+constexpr int MAX_DEPTH = 22;        // L <= 2^22 (replay.py::MAX_LEAVES)
+constexpr int MAX_STORED = 4;        // heights 5, 10, 15, 20
+constexpr int TOP_NODES = 16;        // height-15 nodes a warp of the build's
+                                     // last block sums: 8 x 16 = 2^22 >> 15
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int FIELD_THREADS = 128;
 constexpr int COPY_WARPS = 8;
 constexpr int WRITE_THREADS = 1024;
@@ -90,83 +109,179 @@ __device__ __forceinline__ float pow_scalar(float x, float e) {
 
 // ---------------------------------------------------------------- K5 -----
 
-__global__ void __launch_bounds__(TREE_THREADS) tree_chunks_kernel(
+// The stored levels of a tree over L = 2^D leaves: heights 5, 10, ... below
+// D, level k (height 5k) at off[k - 1] in the scratch. The wrapper's plan
+// (kernels/replay.py::tree_plan) gives D, stored and off.
+struct Tree {
+  int L, D, stored;
+  int off[MAX_STORED];
+};
+
+// Whether ring position pos is sampleable: its (-history+1 .. +n_step)
+// window does not cross the write head (prioritized.py::_valid_time_mask),
+// in 32-bit arithmetic (pos and head lie in [0, C)).
+__device__ __forceinline__ bool valid_pos(int pos, int head, int C,
+                                          int history, int n_step) {
+  int ahead = head - pos;
+  if (ahead < 0) ahead += C;
+  int behind = pos - head;
+  if (behind < 0) behind += C;
+  return ahead > n_step && behind >= history;
+}
+
+// Leaf i of the masked priorities: 0 past the n stored leaves and where
+// the position is not sampleable.
+__device__ __forceinline__ float masked_leaf(const float* __restrict__ prio,
+                                             int i, int n, int C, int head,
+                                             int history, int n_step) {
+  if (i >= n) return 0.f;
+  return valid_pos(i % C, head, C, history, n_step) ? prio[i] : 0.f;
+}
+
+// The 32 lanes' values summed in the tree's pairing: lv[s] is the sum of the
+// lane's aligned block of 2^s lanes, lv[5] the warp's total.
+__device__ __forceinline__ void warp_levels(float v, float (&lv)[6]) {
+  lv[0] = v;
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+    lv[s + 1] = __fadd_rn(lv[s], __shfl_xor_sync(FULL, lv[s], 1 << s));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  float lv[6];
+  warp_levels(v, lv);
+  return lv[5];
+}
+
+__global__ void __launch_bounds__(BUILD_THREADS) tree_build_kernel(
     const float* __restrict__ prio, const int32_t* __restrict__ index, int C,
-    int n, int L, int S, int history, int n_step, float* __restrict__ tree) {
-  __shared__ float s[CHUNK];
+    int n, int history, int n_step, Tree tr, float* __restrict__ levels,
+    unsigned* ticket) {
+  constexpr int WARPS = BUILD_THREADS / 32;
+  __shared__ float s_nodes[32];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int head = *index;
-  const int base = blockIdx.x * S;
-  for (int k = threadIdx.x; k < S; k += blockDim.x) {
-    const int i = base + k;
-    float v = 0.f;
-    if (i < n) {
-      const int pos = i % C;
-      const int ahead = wrap(static_cast<long long>(head) - pos, C);
-      const int behind = wrap(static_cast<long long>(pos) - head, C);
-      if (ahead > n_step && behind >= history) v = prio[i];
-    }
-    s[k] = v;
-    tree[L + i] = v;
-  }
-  __syncthreads();
-  int M = L / 2;  // first node of the level being built
-  for (int width = S / 2; width >= 1; width /= 2, M /= 2) {
-    const int k = threadIdx.x;
-    float v = 0.f;
-    if (k < width) v = __fadd_rn(s[2 * k], s[2 * k + 1]);
-    __syncthreads();
-    if (k < width) {
-      s[k] = v;
-      tree[M + blockIdx.x * width + k] = v;
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(TREE_THREADS) tree_top_kernel(
-    float* __restrict__ tree, int M0) {
-  __shared__ float s[MAX_TOPS];
-  for (int k = threadIdx.x; k < M0; k += blockDim.x) s[k] = tree[M0 + k];
-  __syncthreads();
-  int M = M0 / 2;
-  for (int width = M0 / 2; width >= 1; width /= 2, M /= 2) {
-    const int k = threadIdx.x;
-    float v = 0.f;
-    if (k < width) v = __fadd_rn(s[2 * k], s[2 * k + 1]);
-    __syncthreads();
-    if (k < width) {
-      s[k] = v;
-      tree[M + k] = v;
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void descend_kernel(const float* __restrict__ tree,
-                               const float* __restrict__ u, int B, int L,
-                               int n, int64_t* __restrict__ idx_out,
-                               float* __restrict__ p_out,
-                               float* __restrict__ total_out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const float total = tree[1];
-  if (j == 0) *total_out = total;
-  if (j >= B) return;
-  const float seg = __fdiv_rn(total, static_cast<float>(B));
-  float v = __fmul_rn(__fadd_rn(static_cast<float>(j), u[j]), seg);
-  int node = 1;
-  while (node < L) {
-    const float left = tree[2 * node];
-    if (v > left) {
-      node = 2 * node + 1;
-      v = __fsub_rn(v, left);
+  const int t = blockIdx.x * BUILD_THREADS + threadIdx.x;
+  const int i0 = 4 * t;  // this thread's four leaves: a node of height 2
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  if (i0 < n) {
+    if (i0 + 3 < n) {  // the wrapper checks prio is 16-byte aligned
+      const float4 v = reinterpret_cast<const float4*>(prio)[t];
+      l[0] = v.x;
+      l[1] = v.y;
+      l[2] = v.z;
+      l[3] = v.w;
     } else {
-      node = 2 * node;
+      for (int k = 0; k < 4 && i0 + k < n; ++k) l[k] = prio[i0 + k];
+    }
+    int pos = i0 % C;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!valid_pos(pos, head, C, history, n_step)) l[k] = 0.f;
+      if (++pos == C) pos = 0;
     }
   }
-  int leaf = node - L;
-  if (leaf > n - 1) leaf = n - 1;
-  idx_out[j] = leaf;
-  p_out[j] = tree[L + leaf];
+  float h5 = __fadd_rn(__fadd_rn(l[0], l[1]), __fadd_rn(l[2], l[3]));
+#pragma unroll
+  for (int s = 1; s < 8; s <<= 1)  // heights 3, 4, 5 over 8 lanes
+    h5 = __fadd_rn(h5, __shfl_xor_sync(FULL, h5, s));
+  const int node = t >> 3;
+  if ((lane & 7) == 0 && node < (tr.L >> 5)) levels[tr.off[0] + node] = h5;
+  if (tr.stored < 2) return;
+  // L >= 2^11: every block holds 1024 leaves, and its height-10 node.
+  if ((lane & 7) == 0) s_nodes[threadIdx.x >> 3] = h5;
+  __syncthreads();
+  if (warp == 0) {
+    const float h10 = warp_sum(s_nodes[lane]);
+    if (lane == 0) levels[tr.off[1] + blockIdx.x] = h10;
+  }
+  if (tr.stored < 3) return;
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's height-10 node before its ticket
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // The last block: heights 15 and 20, each node from 32 nodes of the level
+  // below (read past L1, which may not hold the other blocks' writes). A
+  // warp loads all of its nodes' children before it sums any: one round
+  // trip a level, not one a node.
+  for (int k = 2; k < tr.stored; ++k) {
+    const int count = tr.L >> (5 * (k + 1));  // at most WARPS * TOP_NODES
+    const float* src = levels + tr.off[k - 1];
+    float v[TOP_NODES];
+#pragma unroll
+    for (int r = 0; r < TOP_NODES; ++r) {
+      const int nd = warp + r * WARPS;
+      v[r] = nd < count ? __ldcg(src + nd * 32 + lane) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < TOP_NODES; ++r) {
+      const int nd = warp + r * WARPS;
+      if (nd >= count) break;  // nd grows with r: the whole warp leaves
+      const float sum = warp_sum(v[r]);
+      if (lane == 0) levels[tr.off[k] + nd] = sum;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+__global__ void __launch_bounds__(DESCEND_WARPS * 32) descend_kernel(
+    const float* __restrict__ prio, const int32_t* __restrict__ index, int C,
+    int n, int history, int n_step, Tree tr,
+    const float* __restrict__ levels, const float* __restrict__ u, int B,
+    int64_t* __restrict__ idx_out, float* __restrict__ p_out,
+    float* __restrict__ total_out) {
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * DESCEND_WARPS + (threadIdx.x >> 5);
+  if (j >= B) return;  // the whole warp: j is the warp's draw
+  const int head = *index;
+  float v = 0.f, total = 0.f, leaf_p = 0.f;
+  int node = 0;  // the node reached, numbered within its height
+  for (int s = tr.stored; s >= 0; --s) {  // its children at height 5s
+    const int k = s == tr.stored ? tr.D - 5 * tr.stored : 5;
+    const int width = 1 << k;
+    const int child = node * width + lane;
+    float x = 0.f;
+    if (lane < width)
+      x = s > 0 ? levels[tr.off[s - 1] + child]
+                : masked_leaf(prio, child, n, C, head, history, n_step);
+    float lv[6];
+    warp_levels(x, lv);
+    if (s == tr.stored) {
+      float sum = lv[0];
+#pragma unroll
+      for (int t = 1; t <= 5; ++t)
+        if (t == k) sum = lv[t];
+      total = __shfl_sync(FULL, sum, 0);
+      const float seg = __fdiv_rn(total, static_cast<float>(B));
+      v = __fmul_rn(__fadd_rn(static_cast<float>(j), u[j]), seg);
+    }
+    int base = 0;
+#pragma unroll
+    for (int t = 4; t >= 0; --t) {
+      if (t < k) {
+        const float left = __shfl_sync(FULL, lv[t], base);
+        if (v > left) {
+          base += 1 << t;
+          v = __fsub_rn(v, left);
+        }
+      }
+    }
+    node = node * width + base;
+    if (s == 0) leaf_p = __shfl_sync(FULL, lv[0], base);
+  }
+  if (lane != 0) return;
+  if (node > n - 1) {  // the total's overshoot lands in the padding
+    node = n - 1;
+    leaf_p = masked_leaf(prio, node, n, C, head, history, n_step);
+  }
+  idx_out[j] = node;
+  p_out[j] = leaf_p;
+  if (j == 0) *total_out = total;
 }
 
 // ---------------------------------------------------------------- K6 -----
@@ -306,33 +421,53 @@ __global__ void __launch_bounds__(WRITE_THREADS) write_priorities_kernel(
 
 }  // namespace
 
-// K5. priorities (E*C,) float32, index int32 0-d, u (B,) float32 in [0, 1);
-// tree (2L,) float32 scratch with L the power of two >= E*C; outputs idx (B,)
-// int64, p (B,) float32, total 0-d float32. Returns a CUDA error code.
+// K5. priorities (E*C,) float32, 16-byte aligned, index int32 0-d, u (B,)
+// float32 in [0, 1). The plan (kernels/replay.py::tree_plan): D = log2 of
+// the least power of two L >= E*C, at most 22; stored = the count of stored
+// heights (5, 10, ... below D); off[k] the offset of height 5(k + 1) in
+// levels, a float32 scratch of sum over those heights h of L >> h. The plan
+// is checked, not recomputed: a plan that disagrees with E*C is refused.
+// ticket an int32 0 between launches; outputs idx (B,) int64, p (B,)
+// float32, total 0-d float32. Returns a CUDA error code.
 extern "C" int stratified_sample(const void* priorities, const void* index,
                                  int E, int C, int history, int n_step,
-                                 const void* u, int B, int L, void* tree,
+                                 const void* u, int B, int D, int stored,
+                                 const int* off, void* levels, void* ticket,
                                  void* idx, void* p, void* total,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = E * C;
-  const int S = L < CHUNK ? L : CHUNK;
-  const int chunks = L / S;
-  if (chunks > MAX_TOPS || B < 1) return static_cast<int>(cudaErrorInvalidValue);
-  float* t = static_cast<float*>(tree);
-  tree_chunks_kernel<<<chunks, TREE_THREADS, 0, s>>>(
-      static_cast<const float*>(priorities),
-      static_cast<const int32_t*>(index), C, n, L, S, history, n_step, t);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (chunks > 1) {
-    tree_top_kernel<<<1, TREE_THREADS, 0, s>>>(t, chunks);
-    err = cudaGetLastError();
+  if (B < 1 || n < 1 || D < 0 || D > MAX_DEPTH ||
+      (1 << D) < n || (D > 0 && (1 << (D - 1)) >= n) ||
+      stored != (D > 0 ? (D - 1) / 5 : 0) ||
+      reinterpret_cast<uintptr_t>(priorities) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tree tr{};
+  tr.L = 1 << D;
+  tr.D = D;
+  tr.stored = stored;
+  for (int k = 0, expect = 0; k < stored; ++k) {
+    if (off[k] != expect) return static_cast<int>(cudaErrorInvalidValue);
+    tr.off[k] = off[k];
+    expect += tr.L >> (5 * (k + 1));
+  }
+  const float* pr = static_cast<const float*>(priorities);
+  const int32_t* head = static_cast<const int32_t*>(index);
+  float* lv = static_cast<float*>(levels);
+  if (tr.stored > 0) {
+    const int leaves_a_block = 4 * BUILD_THREADS;
+    const int blocks = tr.L > leaves_a_block ? tr.L / leaves_a_block : 1;
+    tree_build_kernel<<<blocks, BUILD_THREADS, 0, s>>>(
+        pr, head, C, n, history, n_step, tr, lv,
+        static_cast<unsigned*>(ticket));
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  descend_kernel<<<(B + 255) / 256, 256, 0, s>>>(
-      t, static_cast<const float*>(u), B, L, n, static_cast<int64_t*>(idx),
-      static_cast<float*>(p), static_cast<float*>(total));
+  descend_kernel<<<(B + DESCEND_WARPS - 1) / DESCEND_WARPS,
+                   DESCEND_WARPS * 32, 0, s>>>(
+      pr, head, C, n, history, n_step, tr, lv, static_cast<const float*>(u),
+      B, static_cast<int64_t*>(idx), static_cast<float*>(p),
+      static_cast<float*>(total));
   return static_cast<int>(cudaGetLastError());
 }
 

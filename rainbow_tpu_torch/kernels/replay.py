@@ -8,23 +8,27 @@ gather_window_plain and update_priorities_plain.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
-                                       check_shape, count_launch)
+                                       check_shape, count_launch,
+                                       device_buffer)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-MAX_LEAVES = 1 << 22  # csrc/replay.cu: 2048 chunks of 2048 leaves
+STEP = 5              # csrc/replay.cu: K5 stores every fifth tree level
+MAX_LEAVES = 1 << 22  # K5's scratch is sized for it (heights 5 to 20)
+MAX_STORED = 4        # stored heights at MAX_LEAVES
 MAX_WINDOW = 64       # csrc/replay.cu: the blanking mask is one uint64
 
 
 @functools.cache
 def _lib():
     lib = build.load("replay")
-    lib.stratified_sample.argtypes = [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
-                                      _P, _P, _P, _P]
+    lib.stratified_sample.argtypes = [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
+                                      ctypes.POINTER(_I)] + [_P] * 6
     lib.gather_window.argtypes = ([_P] * 7 + [_I, _I, _I] + [_P] * 3
                                   + [_I, _I, _F, _F, _I, _I] + [_P] * 9)
     lib.write_priorities.argtypes = [_P, _P, _I, _I, _F, _P, _P, _P]
@@ -54,12 +58,50 @@ def _check_ring(name: str, state) -> tuple:
     return e, c
 
 
+@dataclasses.dataclass(frozen=True)
+class TreePlan:
+    """K5's tree over ``leaves`` = 2^depth (the leaf count padded to a power
+    of two): the stored levels are the heights in ``heights`` (every fifth
+    below the root, never the leaves), height heights[k] at offsets[k] of
+    the scratch; the descent's first step takes ``first_step`` levels from
+    the root and every other step five; ``launches`` is 2 with a stored
+    level to build, else 1."""
+    leaves: int
+    depth: int
+    heights: tuple
+    offsets: tuple
+    scratch: int
+    first_step: int
+    launches: int
+
+
+def tree_plan(n: int) -> TreePlan:
+    """K5's plan for ``n`` leaves: the depth, stored levels and offsets the
+    kernels run with (csrc/replay.cu::stratified_sample checks them)."""
+    depth = (n - 1).bit_length()
+    leaves = 1 << depth
+    heights = tuple(range(STEP, depth, STEP))
+    sizes = [leaves >> h for h in heights]
+    offsets = tuple(sum(sizes[:k]) for k in range(len(sizes)))
+    return TreePlan(leaves=leaves, depth=depth, heights=heights,
+                    offsets=offsets, scratch=sum(sizes),
+                    first_step=depth - STEP * len(heights),
+                    launches=2 if heights else 1)
+
+
+SCRATCH = tree_plan(MAX_LEAVES).scratch  # floats, one scratch per stream
+
+
 def stratified_sample(state, u: torch.Tensor, history: int, n_step: int):
     """K5: one stratified draw per entry of ``u`` (B,) float32 in [0, 1)
     over the ring's priorities masked around the write head. Returns (leaf
     indices (B,) int64, their priorities (B,) float32, the total 0-d
-    float32), the bits of prioritized.py::stratified_sample_plain. Three
-    launches on the current stream, with an (2L,) float32 scratch tree."""
+    float32), the bits of prioritized.py::stratified_sample_plain. Two
+    launches on the current stream (one with at most 32 leaves: tree_plan);
+    the stored tree levels and the build's ticket live in the current
+    stream's buffers (kernels.device_buffer), so a call allocates only its
+    three outputs, and calls on one stream run one at a time. The
+    priorities must be 16-byte aligned."""
     name = "stratified_sample"
     e, c = _check_ring(name, state)
     check_cuda(name, u=u)
@@ -70,17 +112,23 @@ def stratified_sample(state, u: torch.Tensor, history: int, n_step: int):
     if n > MAX_LEAVES:
         raise ValueError(f"{name}: {n} leaves exceed the kernel's "
                          f"{MAX_LEAVES}")
+    if state.priorities.data_ptr() % 16:
+        raise ValueError(f"{name}: priorities must be 16-byte aligned (the "
+                         "build reads four leaves at a time)")
     b = u.shape[0]
-    leaves = 1 << (n - 1).bit_length()
+    plan = tree_plan(n)
     dev = u.device
-    tree = torch.empty(2 * leaves, dtype=torch.float32, device=dev)
+    levels = device_buffer(name + " levels", dev, SCRATCH, torch.float32)
+    ticket = device_buffer(name + " ticket", dev, 1, torch.int32)
     idx = torch.empty(b, dtype=torch.int64, device=dev)
     p = torch.empty(b, dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
+    offsets = (_I * MAX_STORED)(*plan.offsets)
     _raise_on(name, _lib().stratified_sample(
         state.priorities.data_ptr(), state.index.data_ptr(), e, c, history,
-        n_step, u.data_ptr(), b, leaves, tree.data_ptr(), idx.data_ptr(),
-        p.data_ptr(), total.data_ptr(), _stream(u)))
+        n_step, u.data_ptr(), b, plan.depth, len(plan.heights), offsets,
+        levels.data_ptr(), ticket.data_ptr(), idx.data_ptr(), p.data_ptr(),
+        total.data_ptr(), _stream(u)))
     count_launch(name)
     return idx, p, total
 

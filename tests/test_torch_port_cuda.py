@@ -11,10 +11,14 @@ bf16 differs by a few bf16 ulps of O(1) values, and the noisy-linear
 kernels, which add their split partial sums in a fixed order, give the same
 bits on a second launch; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
-integer work is bit-exact. The noise kernel (K2) computes Box-Muller in
+integer work is bit-exact: the append + frame-stack kernel (KC) at
+N = 1 to 1024, no, bucketed and dense reset rows, H = 4 (vector path) and
+3, in one launch an append. The noise kernel (K2) computes Box-Muller in
 float32, its plain version in float64 with one rounding: they agree to
 1e-5 with the same signs, on the draws and on chosen words;
-the delta kernel (K10) is bit-exact. The replay's sampler (K5) is bit-exact; its
+the delta kernel (K10) is bit-exact. The replay's sampler (K5) is
+bit-exact, on ties and on trees of depth 5 to 22, in at most two launches
+and with no allocation but its outputs; its
 gather (K6) copies frames, actions and nonterminals exactly and its returns
 and IS weights agree to 1e-6 relative; its write-back (K7) writes the last
 of consecutive draws of a leaf, exactly. Adam's kernel does the plain version's float32
@@ -176,18 +180,35 @@ def _same(a, b):
                for f in dataclasses.fields(a))
 
 
+def _kc_step(rng, n, k_mode):
+    """One step's kinds and reset rows: none (K = 0), packed by pack_resets
+    into a padded bucket, or dense (K = N, arange(N), as actor_step)."""
+    kinds = rng.integers(0, 3, n).astype(np.uint8)
+    if k_mode == "none":
+        kinds[:] = 0
+    resets = rng.integers(0, 256, (n, 84, 84), np.uint8)
+    if k_mode == "dense":
+        return kinds, resets, np.arange(n, dtype=np.int32)
+    return (kinds, *pack_resets(resets, kinds))
+
+
+@pytest.mark.parametrize("with_rep", [True, False], ids=["replay", "stack"])
+@pytest.mark.parametrize("k_mode", ["none", "bucket", "dense"])
+@pytest.mark.parametrize("n", [1, 10, 40, 1024])
 @pytest.mark.parametrize("history", [4, 3])
-def test_append_framestack_kernel_matches_plain(cuda, history):
+def test_append_framestack_kernel_matches_plain(cuda, history, n, k_mode,
+                                                with_rep):
+    """KC against its plain version, bit for bit, over four appends in a
+    row that wrap a three-column ring: the stack, the ring and its write
+    head after each."""
     rng = np.random.default_rng(2)
-    n, c = 40, 3
+    c = 3
     u8 = lambda *s: torch.from_numpy(rng.integers(0, 256, s, np.uint8))
     stack0 = u8(n, 84, 84, history)
     states = {dev: (stack0.to(dev, copy=True), rp.init_replay(n, c, 84, dev))
               for dev in ("cuda", "cpu")}
-    for step in range(4):  # wraps the three-column ring
-        kinds = rng.integers(0, 3, n).astype(np.uint8)
-        packed, ridx = pack_resets(rng.integers(0, 256, (n, 84, 84),
-                                                np.uint8), kinds)
+    for step in range(4):
+        kinds, packed, ridx = _kc_step(rng, n, k_mode)
         inputs = [u8(n, 84, 84), torch.from_numpy(packed),
                   torch.from_numpy(ridx), torch.from_numpy(kinds)]
         extra = [torch.from_numpy(rng.integers(0, 6, n)),
@@ -196,10 +217,97 @@ def test_append_framestack_kernel_matches_plain(cuda, history):
         for dev, fn in (("cuda", append_framestack),
                         ("cpu", pp.append_framestack_plain)):
             stack, rep = states[dev]
-            fn(stack, *(t.to(dev) for t in inputs), rep,
-               *(t.to(dev) for t in extra), 1.0)
+            fn(stack, *(t.to(dev) for t in inputs),
+               *((rep, *(t.to(dev) for t in extra), 1.0) if with_rep
+                 else ()))
         assert torch.equal(states["cuda"][0].cpu(), states["cpu"][0])
         assert _same(states["cuda"][1], states["cpu"][1])
+        if with_rep:
+            assert int(states["cuda"][1].index) == (step + 1) % c
+            assert bool(states["cuda"][1].full) == (step + 1 >= c)
+
+
+def _graph_kernels(fn):
+    """(kernel nodes, all nodes) of a CUDA graph that captures one call of
+    ``fn``, after one call outside the capture on the capturing stream
+    (which allocates that stream's kept buffers), counted with libcuda's
+    graph calls (the profiler can miss a short window's first kernel)."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert drv.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    del graph
+    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL is 0
+
+
+@pytest.mark.parametrize("with_rep", [True, False], ids=["replay", "stack"])
+def test_append_framestack_launches_once_per_append(cuda, with_rep):
+    """One kernel per append, with a replay too (its last block advances the
+    write head): seven appends in a row into a three-column ring leave
+    index and full as the plain version does after each."""
+    rng = np.random.default_rng(4)
+    n, c = 1024, 3
+    stack = torch.from_numpy(rng.integers(0, 256, (n, 84, 84, 4),
+                                          np.uint8)).to(cuda)
+    rep = rp.init_replay(n, c, 84, cuda)
+    for step in range(7):
+        kinds, packed, ridx = _kc_step(rng, n, "bucket")
+        args = [torch.from_numpy(a).to(cuda) for a in (
+            rng.integers(0, 256, (n, 84, 84), np.uint8), packed, ridx,
+            kinds)]
+        extra = ((rep, torch.zeros(n, dtype=torch.int64, device=cuda),
+                  torch.zeros(n, device=cuda),
+                  torch.from_numpy(kinds > 0).to(cuda), 1.0)
+                 if with_rep else ())
+        # Runs the append once, and captures it once more without running.
+        assert _graph_kernels(lambda: append_framestack(stack, *args,
+                                                        *extra)) == (1, 1)
+        assert int(rep.index) == ((step + 1) % c if with_rep else 0)
+        assert bool(rep.full) == (with_rep and step + 1 >= c)
+
+
+@pytest.mark.parametrize("arg,offset,align", [("stack", 4, 16),
+                                              ("obs", 2, 4)])
+def test_append_framestack_refuses_misaligned_vector_inputs(cuda, arg,
+                                                            offset, align):
+    """The vector path (H = 4, 84·84 % 4 == 0) moves the stack 16 bytes and
+    obs, reset rows and frames 4 bytes at a time: the wrapper raises on a
+    tensor that is not so aligned, before any launch."""
+    n = 2
+    shapes = {"stack": (n, 84, 84, 4), "obs": (n, 84, 84)}
+    t = {}
+    for name, shape in shapes.items():
+        off = offset if name == arg else 0
+        raw = torch.zeros(int(np.prod(shape)) + off, dtype=torch.uint8,
+                          device=cuda)
+        t[name] = raw[off:].view(shape)
+    reset_launches()
+    with pytest.raises(ValueError, match=f"{arg} must be {align}-byte"):
+        append_framestack(t["stack"], t["obs"],
+                          torch.zeros(0, 84, 84, dtype=torch.uint8,
+                                      device=cuda),
+                          torch.zeros(0, dtype=torch.int32, device=cuda),
+                          torch.zeros(n, dtype=torch.uint8, device=cuda))
+    assert launches()["append_framestack"] == 0
 
 
 def test_actor_steps_on_card_match_cpu(cuda):
@@ -473,28 +581,45 @@ def check_write_back(rep0, kern, plain, draw_idx, idxs, p):
 
 
 REPLAY_CASES = {
-    # (E, C, index, full, n_step, num_batches, batch_size, hot leaves, empty)
-    "round": (64, 976, 500, True, 3, 16, 32, 3, False),
-    "throughput": (64, 976, 500, True, 3, 4, 256, 0, False),
-    "window_24": (16, 128, 70, True, 20, 8, 32, 0, False),
-    "after_wrap": (32, 61, 0, True, 3, 8, 16, 2, False),
-    "head_at_last": (32, 61, 60, True, 3, 8, 16, 0, False),
-    "partial": (32, 61, 40, False, 3, 8, 16, 0, False),
-    "empty": (8, 61, 30, False, 3, 2, 16, 0, True),
+    # (E, C, index, full, n_step, num_batches, batch_size, hot leaves, empty,
+    # ties). K5's tree depths: round and throughput 16 (a first step of one
+    # level, three stored levels), window_24 11, depth_7 7 (one stored
+    # level), n_le_32 5 (none: the leaves alone). ties: priorities of one
+    # and u = 0, so that every draw's value is a left sum exactly.
+    "round": (64, 976, 500, True, 3, 16, 32, 3, False, False),
+    "throughput": (64, 976, 500, True, 3, 4, 256, 0, False, False),
+    "window_24": (16, 128, 70, True, 20, 8, 32, 0, False, False),
+    "after_wrap": (32, 61, 0, True, 3, 8, 16, 2, False, False),
+    "head_at_last": (32, 61, 60, True, 3, 8, 16, 0, False, False),
+    "partial": (32, 61, 40, False, 3, 8, 16, 0, False, False),
+    "empty": (8, 61, 30, False, 3, 2, 16, 0, True, False),
+    "depth_7": (4, 30, 12, True, 3, 4, 8, 0, False, False),
+    "n_le_32": (2, 13, 5, True, 3, 2, 4, 0, False, False),
+    "b1": (64, 976, 500, True, 3, 1, 1, 0, False, False),
+    "b32": (64, 976, 500, True, 3, 1, 32, 0, False, False),
+    "ties": (64, 16, 8, True, 3, 18, 32, 0, False, True),
 }
 
 
 @pytest.mark.parametrize("case", list(REPLAY_CASES))
 def test_replay_kernels_match_plain(cuda, case):
-    e, c, index, full, n, nb, bs, hot, empty = REPLAY_CASES[case]
+    e, c, index, full, n, nb, bs, hot, empty, ties = REPLAY_CASES[case]
     rep = _card_ring(cuda, e, c, index, full, hot, empty)
     g = torch.Generator(device=cuda).manual_seed(10)
     u = torch.rand(nb * bs, generator=g, device=cuda)
+    if ties:
+        rep.priorities.fill_(1.0)
+        u.zero_()
     reset_launches()
     idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
     want = rp.stratified_sample_plain(rep, u, 4, n)
     for a, b in zip((idx, p, total), want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+    again = k_replay.stratified_sample(rep, u, 4, n)
+    for a, b in zip((idx, p, total), again):
+        assert torch.equal(a, b)
+    if ties:  # 9 unmasked columns a row: total = B, every value j exact
+        assert float(total) == nb * bs == e * (c - 7)
     got = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)
     want = rp.gather_window_plain(rep, idx, p, total, 0.6, nb, bs, 4, n,
                                   0.99)
@@ -517,8 +642,135 @@ def test_replay_kernels_match_plain(cuda, case):
     # leaves and an empty ring repeat leaves for certain.
     assert repeated > 0 or not (hot or empty)
     assert launches() == dict(dict.fromkeys(LAUNCHES, 0),
-                              stratified_sample=1, gather_window=1,
+                              stratified_sample=2, gather_window=1,
                               write_priorities=1)
+
+
+@pytest.mark.parametrize("b", [1, 32, 8192])
+@pytest.mark.parametrize("depth", [20, 21, 22])
+def test_stratified_sample_kernel_on_deep_trees(cuda, depth, b):
+    """K5 on rings of priorities alone (frames of one byte) whose padded
+    leaf count is 2^20 (the canonical ring's), 2^21 and 2^22 (four stored
+    levels): the plain version's bits, twice; two kernels a call, and no
+    allocation but the three outputs."""
+    e = (1 << (depth - 1)) // 1000 + 1
+    rep = rp.init_replay(e, 1000, 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(depth)
+    pr = -torch.log(torch.rand((e, 1000), generator=g, device=cuda))
+    pr[torch.rand((e, 1000), generator=g, device=cuda) < 0.1] = 0.0
+    rep.priorities.copy_(pr)
+    rep.index.fill_(321)
+    rep.full.fill_(True)
+    assert k_replay.tree_plan(e * 1000).depth == depth
+    u = torch.rand(b, generator=g, device=cuda)
+    want = rp.stratified_sample_plain(rep, u, 4, 3)
+    for _ in range(2):
+        got = k_replay.stratified_sample(rep, u, 4, 3)
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+    del got
+    assert _graph_kernels(lambda: k_replay.stratified_sample(
+        rep, u, 4, 3)) == (2, 2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = k_replay.stratified_sample(rep, u, 4, 3)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before \
+        == 3
+    del out
+
+
+def test_kept_buffers_are_per_stream(cuda):
+    """K5's tree levels and ticket and KC's ticket are kept per stream: K5
+    launched on two streams at once gives the plain version's bits on
+    both, and a stream's first call under graph capture raises instead of
+    capturing an allocation."""
+    from rainbow_tpu_torch.kernels import device_buffer
+
+    rep = rp.init_replay(600, 1000, 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    rep.priorities.copy_(-torch.log(torch.rand((600, 1000), generator=g,
+                                               device=cuda)))
+    rep.index.fill_(77)
+    rep.full.fill_(True)
+    u = torch.rand(8192, generator=g, device=cuda)
+    want = rp.stratified_sample_plain(rep, u, 4, 3)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    bufs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            bufs.append(device_buffer("stratified_sample levels", cuda,
+                                      k_replay.SCRATCH, torch.float32))
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(k_replay.stratified_sample(rep, u, 4, 3))
+    torch.cuda.synchronize()
+    for out in got:
+        for a, w in zip(out, want):
+            assert torch.equal(a, w)
+    fresh = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="under CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=fresh):
+            k_replay.stratified_sample(rep, u, 4, 3)
+
+
+def test_replay_and_append_kernels_refuse_a_plan_that_disagrees(cuda):
+    """The C entries run with the wrappers' plans and check them: a depth,
+    a stored count or an offset of K5's plan that disagrees with the ring,
+    or a KC grid that does not cover the items exactly, is refused
+    (cudaErrorInvalidValue) before any launch; misaligned priorities make
+    K5's wrapper raise."""
+    import ctypes
+
+    from rainbow_tpu_torch.kernels import append_framestack as kc
+
+    rep = rp.init_replay(40, 100, 1, cuda)  # 4000 leaves: depth 12
+    u = torch.rand(32, device=cuda)
+    out = [torch.empty(32, dtype=torch.int64, device=cuda),
+           torch.empty(32, device=cuda), torch.empty((), device=cuda)]
+    levels = torch.zeros(k_replay.SCRATCH, device=cuda)
+    ticket = torch.zeros(1, dtype=torch.int32, device=cuda)
+    plan = k_replay.tree_plan(4000)
+    assert (plan.depth, plan.offsets) == (12, (0, 128))
+
+    def k5(depth, stored, offsets):
+        off = (ctypes.c_int * k_replay.MAX_STORED)(*offsets)
+        return k_replay._lib().stratified_sample(
+            rep.priorities.data_ptr(), rep.index.data_ptr(), 40, 100, 4, 3,
+            u.data_ptr(), 32, depth, stored, off, levels.data_ptr(),
+            ticket.data_ptr(), *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream)
+
+    reset_launches()
+    assert k5(12, 2, (0, 128)) == 0
+    torch.cuda.synchronize()
+    for bad in ((11, 2, (0, 64)), (13, 2, (0, 256)), (12, 1, (0,)),
+                (12, 2, (0, 127))):
+        assert k5(*bad) == 1, bad  # cudaErrorInvalidValue
+    bumped = torch.zeros(4001, device=cuda)[1:].view(40, 100)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k_replay.stratified_sample(dataclasses.replace(
+            rep, priorities=bumped), u, 4, 3)
+
+    n, p = 10, 84 * 84
+    stack = torch.zeros((n, 84, 84, 4), dtype=torch.uint8, device=cuda)
+    obs = torch.zeros((n, 84, 84), dtype=torch.uint8, device=cuda)
+    ridx = torch.zeros(0, dtype=torch.int32, device=cuda)
+    kinds = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    blocks = kc.launch_plan(n, p, 4).blocks
+    for grid, rc in ((blocks, 0), (blocks - 1, 1), (blocks + 1, 1)):
+        assert kc._lib()(stack.data_ptr(), obs.data_ptr(), obs.data_ptr(),
+                         ridx.data_ptr(), 0, kinds.data_ptr(), n, p, 4, 1,
+                         grid, *([None] * 10), 0, None, None, None, 0.0,
+                         None, torch.cuda.current_stream().cuda_stream) \
+            == rc, grid
+    torch.cuda.synchronize()
+    assert launches()["stratified_sample"] == 0
 
 
 @pytest.mark.parametrize("lead", [(), (5,), (33,)])

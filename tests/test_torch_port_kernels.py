@@ -178,6 +178,31 @@ def test_noise_source_exports_what_the_wrapper_binds(monkeypatch):
         assert ns.restype is not None
 
 
+def test_replay_and_append_sources_export_what_the_wrappers_bind(
+        monkeypatch):
+    """csrc/append_framestack.cu and csrc/replay.cu export each C function
+    that kernels/append_framestack.py and kernels/replay.py bind, with as
+    many parameters as the wrappers declare."""
+    from rainbow_tpu_torch.kernels import append_framestack as kc
+    from rainbow_tpu_torch.kernels import replay as k_replay
+
+    for source, wrapper, fns in (
+            ("append_framestack", kc, ("append_framestack",)),
+            ("replay", k_replay, ("stratified_sample", "gather_window",
+                                  "write_priorities"))):
+        src = (ROOT / f"rainbow_tpu_torch/kernels/csrc/{source}.cu").read_text()
+        lib = types.SimpleNamespace(**{fn: types.SimpleNamespace()
+                                       for fn in fns})
+        monkeypatch.setattr(build, "load", lambda name: lib)
+        wrapper._lib.__wrapped__()
+        for fn in fns:
+            sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+            assert sig, fn
+            ns = getattr(lib, fn)
+            assert len(sig.group(1).split(",")) == len(ns.argtypes), fn
+            assert ns.restype is not None
+
+
 _IMPORTS = re.compile(r"^\s*(import|from)\s+(triton|jax|rainbow_tpu)\b",
                       re.M)
 
