@@ -20,16 +20,20 @@ exit code:
             reset rows, with and without a replay, three appends in a row,
             and one kernel launched per append; the replay's sampler,
             gather and write-back on a random ring of the canonical width
-            (7.05 GB), where they are also timed, and the sampler (K5) alone
-            at B = 1 and 32, on trees of depth 0 to 22 and on ties, a second
-            launch with the same bits, at most two kernels a call; the
+            (7.05 GB), where they are also timed; the write-back (K7) alone
+            there at B = 1 to 8192 in ragged layouts, with runs of one leaf
+            across its blocks' edges, a hot leaf, NaN and -0.0 losses and
+            an empty ring, bit for bit, one kernel a call; the sampler (K5)
+            alone at B = 1 and 32, on trees of depth 0 to 22 and on ties, a
+            second launch with the same bits, at most two kernels a call; the
             noise draws (K2) at the act's, the round's and the sequential
             update's shapes, with the moments of the round's 71 M target
             draws, and K2's float32
             Box-Muller alone on edge words and 10^6 random word pairs,
             against the float64 plain version; the delta kernel
             (K10) on real 1024-env pong deltas, against the dense engine's
-            observations too.
+            observations too, and on random deltas at N = 1 and 1024 with
+            an env whose whole plane changed, one kernel a call.
 3. update   one learner update (compute_update_pretarget + apply_grads) and
             one sequential learn_step of the canonical net on the card
             against the same through the plain versions on the CPU.
@@ -63,8 +67,10 @@ exit code:
             the round's draw beside torch.randn of the same count, cold
             and warm, from CUDA graphs, beside one launch's floor, KB at
             B = 1; KC at N = 1024 with the Trainer's last K, and at
-            N = 10 without a replay, K5 at B = 8192 and 32, K6 and K7 at
-            the round, the same way); one JSON line.
+            N = 10 without a replay, K5 and K7 at B = 8192 and 32, K6 at
+            the round, K10 at the last real delta beside its sector floor,
+            K9 beside clip_grad_norm_ + fused Adam, the same way); one
+            JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -214,9 +220,18 @@ def graph_ms(torch, fn, before=None, n=20, reps=5):
 
 def l2_flush(torch):
     """A ``before`` for time_ms and device_ms that leaves nothing of the
-    timed call's inputs in the 50 MB L2: it writes 128 MB."""
+    timed call's inputs in the 50 MB L2: it writes 128 MB, so the L2 is
+    left full of dirty lines, which the timed call's misses write back."""
     spill = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     return spill.zero_
+
+
+def l2_clean_flush(torch):
+    """As l2_flush, but it reads 128 MB: the L2 is left full of clean lines,
+    so the timed call's misses write nothing back, and the lines the call
+    writes are written back by the next flush, which counts them to it."""
+    spill = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+    return lambda: spill.amax()
 
 
 # ------------------------------------------------------------- compare -----
@@ -739,32 +754,134 @@ def _replay_on_card(torch, e, c, seed, history=4):
     return rep, g
 
 
+def _same_bits(torch, a, b):
+    """Elementwise: equal bits, or NaN in both."""
+    return ((a.view(torch.int32) == b.view(torch.int32))
+            | (torch.isnan(a) & torch.isnan(b)))
+
+
 def _check_write_back(torch, rep0, kern, plain, draw_idx, idxs, p):
-    """K7 against its plain version: untouched and once-written leaves
-    exact, each repeated leaf holds the value of the last draw of its run
-    (in draw order), the max exact. Returns the number of repeated leaves."""
+    """K7 against its plain version, bit for bit (NaN by isnan): untouched
+    and once-written leaves exact, each repeated leaf holds the value of
+    the last draw of its run (in draw order), the max exact. Returns the
+    number of repeated leaves."""
+    same = lambda a, b: bool(_same_bits(torch, a, b).all())
     n = rep0.priorities.numel()
     flat = idxs.reshape(-1)
     counts = torch.bincount(flat, minlength=n)
     got, want = kern.priorities.view(-1), plain.priorities.view(-1)
-    check(torch.equal(got[counts == 0], rep0.priorities.view(-1)[counts == 0]),
+    check(same(got[counts == 0], rep0.priorities.view(-1)[counts == 0]),
           "write_priorities: an untouched leaf changed")
-    check(torch.equal(got[counts == 1], want[counts == 1]),
+    check(same(got[counts == 1], want[counts == 1]),
           "write_priorities: a once-drawn leaf differs from the plain version")
     nb, bs = idxs.shape
     j = torch.arange(nb * bs, device=flat.device)
     p_draw = p[j % nb, j // nb]
     last = torch.ones_like(draw_idx, dtype=torch.bool)
     last[:-1] = draw_idx[1:] != draw_idx[:-1]
-    check(torch.equal(got[draw_idx[last]], p_draw[last]),
+    check(same(got[draw_idx[last]], p_draw[last]),
           "write_priorities: a repeated leaf is not its run's last value")
     hits = torch.zeros(n, device=flat.device).index_add_(
-        0, flat, (got[flat] == p.reshape(-1)).float())
+        0, flat, _same_bits(torch, got[flat], p.reshape(-1)).float())
     check(bool((hits[counts > 1] > 0).all()),
           "write_priorities: a repeated leaf holds none of its candidates")
-    check(torch.equal(kern.max_priority, plain.max_priority),
+    check(same(kern.max_priority, plain.max_priority),
           "write_priorities: max_priority differs")
     return int((counts > 1).sum())
+
+
+# K7 alone on the canonical ring: (name, nb, bs, runs of one leaf in draw
+# order as [start, stop), special). B = 1 to 8192 in ragged layouts; runs
+# inside one block of 256 threads and across a block edge (batch order
+# puts draws j and j + 1 bs elements apart: draws 5..12 of the round
+# straddle batches 7 and 8, draws 250..260 wrap to the next row); the whole
+# round on one leaf; a NaN loss inside a run; a -0.0 loss; an empty ring
+# (no mass: K5 puts every draw on one leaf); an old max_priority that is a
+# NaN with its sign bit set, which stays NaN.
+K7_CASES = (
+    ("b1", 1, 1, (), None),
+    ("b31_run", 1, 31, ((3, 9),), None),
+    ("b32", 1, 32, (), None),
+    ("b33", 3, 11, ((0, 4),), None),
+    ("b255", 15, 17, ((100, 120),), None),
+    ("b256", 8, 32, ((0, 256),), None),
+    ("b257_across_edge", 1, 257, ((250, 257),), None),
+    ("round", 256, 32, ((1, 4), (5, 13), (250, 261)), None),
+    ("round_hot_leaf", 256, 32, ((0, 8192),), None),
+    ("round_nan_loss", 256, 32, ((5, 13),), "nan"),
+    ("b32_nan_loss_in_a_run", 1, 32, ((3, 9),), "nan"),
+    ("b32_negative_zero", 1, 32, (), "-0"),
+    ("round_empty_ring", 256, 32, (), "empty"),
+    ("round_old_negative_nan", 256, 32, (), "old_negative_nan"),
+)
+
+
+def compare_write_back(torch, rep, g, report):
+    """K7 alone on the canonical ring ``rep`` (K7_CASES) against
+    update_priorities_plain, by _check_write_back; a NaN loss must make
+    max_priority NaN, as torch.maximum does, and a -0.0 loss write -0.0,
+    as torch.pow does. One kernel node a call at the round and at B = 32
+    (graph_kernels)."""
+    import dataclasses
+
+    from rainbow_tpu_torch.kernels import replay as k_replay
+    from rainbow_tpu_torch.replay import prioritized as rp
+
+    n = rep.priorities.numel()
+    base = rep.priorities.clone()
+    for name, nb, bs, runs, special in K7_CASES:
+        b = nb * bs
+        if special == "empty":
+            rep.priorities.zero_()
+            draw, _, _ = k_replay.stratified_sample(
+                rep, torch.rand(b, generator=g, device="cuda"), 4, 3)
+            check(draw.unique().numel() == 1,
+                  f"write_priorities {name}: draws on more than one leaf")
+        else:
+            draw = torch.sort(torch.randint(0, n, (b,), generator=g,
+                                            device="cuda")).values
+        for a, z in runs:  # still nondecreasing: draw[a] <= draw[z]
+            draw[a:z] = draw[a].clone()
+        loss_draw = torch.rand(b, generator=g, device="cuda") * 5
+        if special == "nan":
+            loss_draw[6] = float("nan")  # inside the run, not its last draw
+        if special == "-0":
+            loss_draw[7] = -0.0
+        idxs = draw.view(bs, nb).T.contiguous()
+        losses = loss_draw.view(bs, nb).T.contiguous()
+        old = rep.max_priority.clone()
+        if special == "old_negative_nan":  # what x86 makes of 0·inf
+            old.view(torch.int32).fill_(-0x400000)
+        kern, plain = (dataclasses.replace(
+            rep, priorities=rep.priorities.clone(),
+            max_priority=old.clone()) for _ in range(2))
+        k_replay.write_priorities(kern, idxs, losses, 0.5)
+        rp.update_priorities_plain(plain, idxs, losses, 0.5)
+        repeated = _check_write_back(torch, rep, kern, plain, draw, idxs,
+                                     losses ** 0.5)
+        check(bool(torch.isnan(kern.max_priority))
+              == (special in ("nan", "old_negative_nan")),
+              f"write_priorities {name}: max_priority "
+              f"{float(kern.max_priority)}")
+        if special == "-0" and bool(draw[7] != draw[8]):
+            check(int(kern.priorities.view(-1)[draw[7]].view(torch.int32))
+                  == -2 ** 31, f"write_priorities {name}: not -0.0")
+        check(repeated > 0 or not runs,
+              f"write_priorities {name}: no repeated leaf to check")
+        report.append(("write_priorities", name, nb, bs, repeated,
+                       float(kern.max_priority)))
+        del kern, plain
+        rep.priorities.copy_(base)
+    copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
+                               max_priority=rep.max_priority.clone())
+    for nb, bs in ((256, 32), (1, 32)):
+        idxs = torch.randint(0, n, (nb, bs), generator=g, device="cuda")
+        losses = torch.rand((nb, bs), generator=g, device="cuda")
+        kernels = graph_kernels(torch, lambda: k_replay.write_priorities(
+            copy, idxs, losses, 0.5))
+        check(kernels == (1, 1), f"write_priorities B={nb * bs}: (kernel "
+              f"nodes, graph nodes) {kernels}, not one kernel")
+    del copy
 
 
 def compare_replay(torch, np, cfg, report):
@@ -776,9 +893,11 @@ def compare_replay(torch, np, cfg, report):
     half of the mass in the round's case so that draws repeat. K5 must be
     bit-exact; K6's window, actions and nonterminals bit-exact, its returns
     and weights within 1e-6 relative (1e-6 absolute near 0); K7 as
-    _check_write_back. K5 also alone (compare_k5): B = 1 and 32 on this
-    ring, and rings of other depths, ties and an empty deep ring. Returns
-    (errors by kernel, timing rows)."""
+    _check_write_back. K7 also alone (compare_write_back): B = 1 to 8192,
+    runs across its blocks' edges, a hot leaf, NaN and -0.0 losses, an
+    empty ring. K5 also alone (compare_k5): B = 1 and 32 on this ring, and
+    rings of other depths, ties and an empty deep ring. Returns (errors by
+    kernel, timing rows)."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels import replay as k_replay
@@ -844,6 +963,7 @@ def compare_replay(torch, np, cfg, report):
     rep.priorities.copy_(base_prio)
     rep.index.fill_(500)
     rep.full.fill_(True)
+    compare_write_back(torch, rep, g, report)
     compare_k5(torch, rep, g, report)
     timed = [replay_times(torch, cfg, rep, g) for _ in range(2)]
     log("[replay times] " + json.dumps(timed))
@@ -925,10 +1045,10 @@ def compare_k5(torch, rep, g, report):
 
 
 def replay_times(torch, cfg, rep, g):
-    """Times of K5 (the round's B = 8192 and the sequential update's 32),
-    K6 and K7 at the canonical round's shapes, on the ring ``rep``, through
-    the wrappers of the rainbow_tpu_torch that is imported, by
-    graphed_times. Returns {"<name> B=<b>": {...}}."""
+    """Times of K5 and K7 at the round's B = 8192 and the sequential
+    update's 32, and of K6 at the round, on the ring ``rep``, through the
+    wrappers of the rainbow_tpu_torch that is imported, by graphed_times.
+    Returns {"<name> B=<b>": {...}}."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels import replay as k_replay
@@ -940,6 +1060,8 @@ def replay_times(torch, cfg, rep, g):
     idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
     idxs = idx.view(bs, nb).T.contiguous()
     losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
+    idxs_seq = k_replay.stratified_sample(rep, u_seq, 4, n)[0].view(1, bs)
+    losses_seq = torch.rand((1, bs), generator=g, device="cuda") * 5
     copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
                                max_priority=rep.max_priority.clone())
     flush = l2_flush(torch)
@@ -954,15 +1076,19 @@ def replay_times(torch, cfg, rep, g):
                 rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99), flush),
         f"write_priorities B={b}": graphed_times(
             torch, lambda: k_replay.write_priorities(copy, idxs, losses,
-                                                     0.5), flush)}
+                                                     0.5), flush),
+        f"write_priorities B={bs}": graphed_times(
+            torch, lambda: k_replay.write_priorities(copy, idxs_seq,
+                                                     losses_seq, 0.5),
+            flush)}
     del copy
     torch.cuda.empty_cache()
     return out
 
 
 def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
-    """Rows of K5 (at the round's B = nb·bs and the sequential update's
-    B = bs), K6 and K7 at the canonical round's shapes on the ring of
+    """Rows of K5 and K7 (at the round's B = nb·bs and the sequential
+    update's B = bs) and K6 at the canonical round's shapes on the ring of
     compare_replay, from ``timed`` (two replay_times of this run: device
     times from CUDA graphs, cold and warm, and CUDA event times), with the
     plain version's time. K6's bound counts the frames this round's draws
@@ -1034,17 +1160,26 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
         bytes=(frames_read * fp + b * w * fp
                + b * (4 * w + 4 * n + 1 + 4 + 8 + 4)
                + b * (8 + 4 + 4 + 4 + 4) + 4 * nb + 4 + 4 + 1)))
-    key = f"write_priorities B={b}"
-    rows.append(dict(
-        name="write_priorities", route="cuda", source=source,
-        replaces="rainbow_tpu/replay/prioritized.py:285",
-        shape=f"B={b} into {e}x{c}",
-        **timed[0][key], again=timed[1][key],
-        plain_ms=time_ms(torch, lambda: rp.update_priorities_plain(
-            copy, idxs, losses, 0.5), before=flush),
-        library_ms=None,
-        flops=2 * b,
-        bytes=12 * b + 4 * b + 8))
+    idxs_seq = idx[:bs].view(1, bs)
+    losses_seq = losses[:1].clone()
+    for draws, who, ix, ls in ((b, "round", idxs, losses),
+                               (bs, "sequential update", idxs_seq,
+                                losses_seq)):
+        key = f"write_priorities B={draws}"
+        rows.append(dict(
+            name="write_priorities", route="cuda", source=source,
+            replaces="rainbow_tpu/replay/prioritized.py:285",
+            shape=f"B={draws} into {e}x{c} ({who})", draws=draws,
+            plan={"threads": k_replay.WRITE_THREADS,
+                  "blocks": k_replay.write_blocks(draws)},
+            **timed[0][key], again=timed[1][key],
+            plain_ms=time_ms(torch, lambda: rp.update_priorities_plain(
+                copy, ix, ls, 0.5), before=flush),
+            library_ms=None,
+            # Read idxs, losses and max_priority, write the priorities and
+            # max_priority; a pow and a compare a draw.
+            flops=2 * draws,
+            bytes=12 * draws + 4 * draws + 8))
     return rows
 
 
@@ -1146,18 +1281,18 @@ def compare_noise(torch, cfg, A, report):
 def compare_delta(torch, np, cfg, report, steps=6):
     """K10 on real 1024-env pong deltas: two engines with one seed step the
     same random actions, one densely and one with step_delta; each delta
-    goes through K10 against the card's frame stack (advanced by KC with
-    every step's observations and resets, as the engine's mirror of it is)
-    and must equal its plain version and the dense engine's observations,
-    bit for bit, unpadded and padded to its bucket. Returns the last delta
-    (stack, counts, pos, val) for the kernels line and the forms the steps
-    took."""
+    (its counts as delta_offsets) goes through K10 against the card's frame
+    stack (advanced by KC with every step's observations and resets, as the
+    engine's mirror of it is) and must equal its plain version and the
+    dense engine's observations, bit for bit, unpadded and padded to its
+    bucket. Then compare_delta_edges. Returns the last delta (stack,
+    offsets, pos, val) for the kernels line and the forms the steps took."""
     from rainbow_tpu_torch.envs.engine import BatchedEnv
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
     from rainbow_tpu_torch.kernels.delta import apply_delta
     from rainbow_tpu_torch.ops.preprocess import init_framestack
-    from rainbow_tpu_torch.train import (_apply_delta_plain, pack_delta,
-                                         pack_resets)
+    from rainbow_tpu_torch.train import (_apply_delta_plain, delta_offsets,
+                                         pack_delta, pack_resets)
 
     dense, delta = (BatchedEnv(GAME, ENVS, SEED + 5) for _ in range(2))
     first = dense.reset_all()
@@ -1177,22 +1312,57 @@ def compare_delta(torch, np, cfg, report, steps=6):
             check(np.array_equal(dpos, obs), "delta: dense fallback differs")
         else:
             forms["delta"] += 1
+            offsets = cuda(delta_offsets(counts))
             for pos, val in ((dpos, dval), pack_delta(dpos, dval)):
-                args = (cuda(counts), cuda(pos), cuda(val))
+                args = (offsets, cuda(pos), cuda(val))
                 got = apply_delta(stack, *args)
                 check(torch.equal(got, _apply_delta_plain(stack, *args)),
                       f"apply_delta step {step}: differs from the plain "
                       "version")
                 check(torch.equal(got, want), f"apply_delta step {step}: "
                       "differs from the dense observations")
-            last = (stack.clone(), cuda(counts), cuda(dpos), cuda(dval))
+            last = (stack.clone(), offsets, cuda(dpos), cuda(dval))
             report.append(("apply_delta", step, int(dpos.shape[0]), 0.0))
         packed, ridx = pack_resets(resets, kinds)
         append_framestack(stack, want, cuda(packed), cuda(ridx), cuda(kinds))
     dense.close()
     delta.close()
     check(forms["delta"] > 0, f"delta: no step took the delta form {forms}")
+    compare_delta_edges(torch, np, report)
     return last, forms
+
+
+def compare_delta_edges(torch, np, report):
+    """K10 against its plain version, bit for bit, on random deltas: one
+    env whose whole plane changed, and 1024 envs with unchanged ones, one
+    whole plane and positions past the plane (dropped), padded to a bucket;
+    one kernel node a call."""
+    from rainbow_tpu_torch.kernels.delta import apply_delta
+    from rainbow_tpu_torch.train import (_apply_delta_plain, delta_offsets,
+                                         pack_delta)
+
+    plane = 84 * 84
+    for n in (1, ENVS):
+        rng = np.random.default_rng(n)
+        counts = rng.integers(0, 80, n).astype(np.int32)
+        counts[n // 2] = plane
+        pos = np.concatenate([
+            np.arange(plane) if e == n // 2
+            else np.sort(rng.choice(plane + 50, c, replace=False))
+            for e, c in enumerate(counts)]).astype(np.uint16)
+        val = rng.integers(0, 256, pos.shape[0]).astype(np.uint8)
+        pos, val = pack_delta(pos, val)
+        stack = torch.from_numpy(rng.integers(0, 256, (n, 84, 84, 4),
+                                              np.uint8)).cuda()
+        args = [torch.from_numpy(a).cuda()
+                for a in (delta_offsets(counts), pos, val)]
+        got = apply_delta(stack, *args)
+        check(torch.equal(got, _apply_delta_plain(stack, *args)),
+              f"apply_delta N={n}: differs from the plain version")
+        kernels = graph_kernels(torch, lambda: apply_delta(stack, *args))
+        check(kernels == (1, 1), f"apply_delta N={n}: (kernel nodes, graph "
+              f"nodes) {kernels}, not one kernel")
+        report.append(("apply_delta", f"N={n}", int(counts.sum()), 0.0))
 
 
 def check_learner_update_against_plain(torch, np, cfg, A):
@@ -1638,14 +1808,12 @@ class _Watch:
     main stream has finished), KA's two wrappers, KB's, KC's and K5's to
     count their launches by shape (``ka_shapes``, ``kb_shapes``,
     ``kc_shapes`` by N, K and with or without a replay, with the last
-    1024-env append's K in ``kc_last_k``, ``k5_shapes`` by B), and the
+    1024-env append's K in ``kc_last_k``, ``k5_shapes`` and ``k7_shapes``
+    by B), and the
     replay's, the noise's and the delta's plain versions to fail if the
-    card's path calls them. With ``warmup_profile`` a torch.profiler of the card's kernels runs from
-    construction until the first learning iteration (``warmup_prof``)."""
+    card's path calls them."""
 
-    def __init__(self, torch, sync=True, warmup_profile=False):
-        from torch.profiler import ProfilerActivity, profile
-
+    def __init__(self, torch, sync=True):
         from rainbow_tpu_torch import train as tm
         from rainbow_tpu_torch.models import noisy
         from rainbow_tpu_torch.ops import head
@@ -1654,23 +1822,14 @@ class _Watch:
 
         self.iters, self.evals, self.saves = [], [], []
         self.ka_shapes, self.kb_shapes = {}, {}
-        self.kc_shapes, self.k5_shapes = {}, {}
+        self.kc_shapes, self.k5_shapes, self.k7_shapes = {}, {}, {}
         self.kc_last_k = None
         tally_lock = threading.Lock()  # an async evaluation appends too
         self.loop_ends = []
         self._undo = []
-        self.warmup_prof = None
-        self._profiling = warmup_profile
-        if warmup_profile:
-            self.warmup_prof = profile(activities=[ProfilerActivity.CUDA])
-            self.warmup_prof.__enter__()
 
         def timed_iter(real):
             def wrapper(*args):
-                if args[2] and self._profiling:
-                    torch.cuda.synchronize()
-                    self.warmup_prof.__exit__(None, None, None)
-                    self._profiling = False
                 t0 = time.perf_counter()
                 out = real(*args)
                 if sync:
@@ -1734,6 +1893,12 @@ class _Watch:
                 return real(state, u, *a)
             return wrapper
 
+        def tally_k7(real):
+            def wrapper(state, idxs, *a):
+                add(self.k7_shapes, f"write_priorities B={idxs.numel()}")
+                return real(state, idxs, *a)
+            return wrapper
+
         def drain(real):
             def wrapper(trainer, wait=False):
                 if wait and len(self.loop_ends) < self._loops:
@@ -1756,6 +1921,7 @@ class _Watch:
         # replay/prioritized.py K5 as k_replay.stratified_sample(...).
         self._patch(pp.kc, "append_framestack", tally_kc)
         self._patch(rp.k_replay, "stratified_sample", tally_k5)
+        self._patch(rp.k_replay, "write_priorities", tally_k7)
         self._patch(tm, "train_iter_packed", timed_iter)
         self._patch(tm.Trainer, "_eval_async_drain", drain)
         self._patch(tm.Trainer, "run", lambda r: self._counted(r))
@@ -1786,24 +1952,12 @@ class _Watch:
         first = next(i for i, (n, _, _) in enumerate(iters) if n)
         return self.loop_ends[-1] - iters[first][1]
 
-    def warmup_kernel_ms(self, torch, only):
-        """Mean device time of one launch of the kernels whose name holds
-        ``only`` over the profiled warm-up, and their launch count."""
-        evs = [e for e in self.warmup_prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and only in e.key]
-        n = sum(e.count for e in evs)
-        return sum(e.self_device_time_total for e in evs) / 1e3 / n, n
-
     def _patch(self, owner, name, make):
         real = getattr(owner, name)
         self._undo.append((owner, name, real))
         setattr(owner, name, make(real))
 
     def close(self):
-        if self._profiling:
-            self.warmup_prof.__exit__(None, None, None)
-            self._profiling = False
         for owner, name, real in reversed(self._undo):
             setattr(owner, name, real)
 
@@ -1860,6 +2014,7 @@ def run_trainer(torch, np):
         ka_shapes = dict(watch.ka_shapes)
         kb_shapes = dict(watch.kb_shapes)
         kc_shapes, k5_shapes = dict(watch.kc_shapes), dict(watch.k5_shapes)
+        k7_shapes = dict(watch.k7_shapes)
         kc_last_k = watch.kc_last_k
         gross = watch.train_span(iters)
         res = tr.results_dir
@@ -1955,11 +2110,12 @@ def run_trainer(torch, np):
         "launches": counts,
         "ka_launches_by_shape": ka_shapes, "kb_launches_by_shape": kb_shapes,
         "kc_launches_by_shape": kc_shapes, "kc_last_k": kc_last_k,
-        "k5_launches_by_shape": k5_shapes}
+        "k5_launches_by_shape": k5_shapes, "k7_launches_by_shape": k7_shapes}
     check(sum(kc_shapes.values()) == counts["append_framestack"]
-          and sum(k5_shapes.values()) == counts["stratified_sample"],
-          f"trainer: KC or K5 launches by shape {kc_shapes} {k5_shapes} do "
-          f"not add up to {counts}")
+          and sum(k5_shapes.values()) == counts["stratified_sample"]
+          and sum(k7_shapes.values()) == counts["write_priorities"],
+          f"trainer: KC, K5 or K7 launches by shape {kc_shapes} {k5_shapes} "
+          f"{k7_shapes} do not add up to {counts}")
     return stats, counts
 
 
@@ -1990,9 +2146,7 @@ def run_side_trainer(torch, np, args, sync):
     synchronised there, an asynchronous evaluation left running), as for
     the main Trainer. With ``sync`` every iteration is synchronised and
     timed (not for the pipelined actor, whose overlap that would undo).
-    With delta uploads the warm-up is profiled for K10's device time on
-    the Trainer's path (``k10_trainer_device_ms``). Returns (stats, launch
-    counts)."""
+    Returns (stats, launch counts)."""
     import shutil
 
     from rainbow_tpu_torch import cli
@@ -2000,9 +2154,8 @@ def run_side_trainer(torch, np, args, sync):
 
     run_id = args[args.index("--id") + 1]
     shutil.rmtree(os.path.join(ROOT, "results", run_id), ignore_errors=True)
-    delta = "--delta-uploads" in args
     reset_launches()
-    watch = _Watch(torch, sync=sync, warmup_profile=delta)
+    watch = _Watch(torch, sync=sync)
     try:
         t0 = time.perf_counter()
         tr = cli.main(args)
@@ -2029,15 +2182,11 @@ def run_side_trainer(torch, np, args, sync):
              "noise_offset": tr.agent.noise.offset,
              "timer_s": dict(tr.timer.totals), "launches": counts,
              "kc_launches_by_shape": dict(watch.kc_shapes),
-             "k5_launches_by_shape": dict(watch.k5_shapes)}
+             "k5_launches_by_shape": dict(watch.k5_shapes),
+             "k7_launches_by_shape": dict(watch.k7_shapes)}
     if sync:
         stats["median_round_call_ms"] = 1e3 * statistics.median(
             b - a for n, a, b in iters if n)
-    if delta:
-        ms, k10_n = watch.warmup_kernel_ms(torch, "delta")
-        check(k10_n > 0, f"{run_id}: no K10 kernel in the profiled warm-up")
-        stats["k10_trainer_device_ms"] = ms
-        stats["k10_trainer_profiled_launches"] = k10_n
     if c.async_eval:
         check(tr.metrics["steps"] == [c.evaluation_interval]
               and all(np.isfinite(tr.metrics["Qs"][0])),
@@ -2117,8 +2266,9 @@ def kc_times(torch, np, k_last):
 
 
 def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
-                delta_last, k10_trainer_ms, ka_shapes, kb_shapes, head_timed,
-                noise_timed, kc_timed, k_last, kc_shapes, k5_shapes):
+                delta_last, delta_timed, adam_timed, ka_shapes, kb_shapes,
+                head_timed, noise_timed, kc_timed, k_last, kc_shapes,
+                replay_shapes):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
@@ -2129,9 +2279,10 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
     for K10 the side-path trainer's (delta uploads), and the other phases'
     counts are kept beside it. KB's, c51_target's and head_loss's rows come
     from head_rows, timed in ``head_timed``, K2's from ``noise_timed``,
-    KC's at kc_cases(k_last) from ``kc_timed`` (two kc_times); KC's and
-    K5's rows carry the main Trainer's launches by shape (``kc_shapes``,
-    ``k5_shapes``)."""
+    K10's from ``delta_timed`` (two delta_times), K9's from ``adam_timed``
+    (two adam_times), KC's at kc_cases(k_last) from ``kc_timed`` (two
+    kc_times); KC's, K5's and K7's rows carry the main Trainer's launches
+    by shape (``kc_shapes``, ``replay_shapes``: K5's and K7's by B)."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels.append_framestack import launch_plan
@@ -2166,9 +2317,9 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
                 *args), before=flush),
             library_ms=None, flops=0, bytes=nbytes))
         del args
-    rows.append(adam_row(torch, shapes))
+    rows.append(adam_row(torch, shapes, adam_timed))
     rows += replay_rows
-    rows += noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms,
+    rows += noise_delta_rows(torch, cfg, A, delta_last, delta_timed,
                              noise_timed)
     for r in rows:
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
@@ -2185,43 +2336,34 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
         r["actor_launches"] = counts["actor"][r["name"]]
         r["eval_launches"] = counts["evaluate"][r["name"]]
         r["max_abs_err"] = errs[r["name"]]
-        if r["name"] == "stratified_sample":
-            r["launches_at_shape"] = k5_shapes.get(
-                f"stratified_sample B={r['draws']}", 0)
-            r["k5_launches_by_shape"] = k5_shapes
+        if r["name"] in ("stratified_sample", "write_priorities"):
+            r["launches_at_shape"] = replay_shapes.get(
+                f"{r['name']} B={r['draws']}", 0)
+            r["replay_launches_by_shape"] = replay_shapes
         if r["name"] in ("stratified_sample", "append_framestack"):
             r["one_block_floor_device_ms"] = head_timed[0]["floor"]
     return rows
 
 
-def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms,
-                     noise_timed):
+def noise_delta_rows(torch, cfg, A, delta_last, delta_timed, noise_timed):
     """Rows of K2 at the batched round's launch (8192 target rows and 256
     online draws: 73.3 M float32) and of K10 at the last real 1024-env pong
     delta of compare_delta. K2's times come from ``noise_timed`` (two
     noise_times of this run: CUDA graphs, cold and warm), its library call
     is torch.randn of the same count timed the same way: the normal draw
-    without the transform. K10's device time comes from the side Trainer's
-    profiled warm-up (``k10_trainer_ms``), beside that of the timed call. No
-    PyTorch call computes K10's strided plane copy with its segmented
-    scatter, so its library_ms is null."""
-    from rainbow_tpu_torch.kernels.delta import apply_delta
+    without the transform. K10's come from ``delta_timed`` (two
+    delta_times, the same way); no PyTorch call computes K10's strided
+    plane copy with its segmented scatter, so its library_ms is null."""
     from rainbow_tpu_torch.models.noisy import philox_noise_plain
     from rainbow_tpu_torch.train import _apply_delta_plain
 
     nb = ENVS // cfg.replay_frequency
     shapes = noise_shapes(cfg, A, [(nb * cfg.batch_size,), (nb,)])
     n = sum(torch.Size(s).numel() for s in shapes)
-    stack, counts, pos, val = delta_last
-    k10 = lambda: apply_delta(stack, counts, pos, val)
-    e, plane = stack.shape[0], stack.shape[1] * stack.shape[2]
-    # On the Trainer's path the act of the iteration before runs between
-    # the stack's last write (its append) and K10, and its float conversion
-    # of the stack writes 115 MB, more than the 50 MB L2, so K10 plausibly
-    # finds the 29 MB stack in device memory; writing 64 MB ahead of each
-    # timed call puts it there.
-    spill = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    cold = dict(before=spill.zero_)
+    stack, offsets, pos, val = delta_last
+    e, plane, h = stack.shape[0], stack.shape[1] * stack.shape[2], \
+        stack.shape[3]
+    entries = int(pos.shape[0])
     randn = noise_timed[0]["randn"]
     return [
         dict(name="scaled_noise", route="cuda",
@@ -2246,19 +2388,22 @@ def noise_delta_rows(torch, cfg, A, delta_last, k10_trainer_ms,
         dict(name="apply_delta", route="cuda",
              source="rainbow_tpu_torch/kernels/csrc/delta.cu",
              replaces="rainbow_tpu/train.py:176",
-             shape=f"N={e} H={stack.shape[3]} {pos.shape[0]} entries",
-             ms=time_ms(torch, k10, **cold),
-             device_ms=k10_trainer_ms,
-             device_ms_timed_call=device_ms(torch, k10, only="delta", **cold),
+             shape=f"N={e} H={h} {entries} entries",
+             **delta_timed[0], again=delta_timed[1],
              plain_ms=time_ms(torch, lambda: _apply_delta_plain(
-                 stack, counts, pos, val), **cold),
+                 stack, offsets, pos, val), before=l2_flush(torch)),
              library_ms=None,
              library_note="no single PyTorch call copies the newest plane "
                           "and scatters the segments",
-             # Read the newest plane, the counts and the entries; write
+             # Read the newest plane, the offsets and the entries; write
              # the plane; a compare per entry.
-             flops=int(pos.shape[0]),
-             bytes=2 * e * plane + 4 * e + 3 * int(pos.shape[0])),
+             flops=entries,
+             bytes=2 * e * plane + 4 * (e + 1) + 3 * entries,
+             # Every 32-byte sector of the interleaved (N, P, H) stack that
+             # holds newest-plane bytes holds the other frames too: the
+             # whole stack comes in from device memory.
+             sector_floor_ms=1e3 * (h * e * plane + e * plane + 4 * (e + 1)
+                                    + 3 * entries) / HBM_BYTES_PER_S),
     ]
 
 
@@ -2340,6 +2485,73 @@ def graphed_times(torch, fn, flush):
                 ms_warm=time_ms(torch, fn),
                 device_ms=graph_ms(torch, fn, before=flush, n=40, reps=21),
                 device_ms_warm=graph_ms(torch, fn, n=40, reps=21))
+
+
+def delta_times(torch, stack, offsets, pos, val):
+    """K10's times on one delta through the wrapper of the rainbow_tpu_torch
+    that is imported, by graphed_times, and its device time cold after
+    l2_clean_flush (``device_ms_clean_l2``). Cold, the 29 MB stack is in
+    device memory, as on the Trainer's path: the act of the iteration
+    before runs between the stack's last write (its append) and K10, and
+    its float conversion of the stack writes 115 MB, more than the 50 MB
+    L2. After l2_flush K10's reads of the stack also write back as many
+    bytes of the flush's dirty lines; after l2_clean_flush they do not,
+    which is the traffic of the sector floor. Beside it, timed the same
+    way (``plane_copy``), torch's copy of the newest plane alone,
+    ``stack[..., -1].contiguous()``, which moves the same sectors without
+    the scatter: a yardstick, not a library call for the function."""
+    from rainbow_tpu_torch.kernels.delta import apply_delta
+
+    k10 = lambda: apply_delta(stack, offsets, pos, val)
+    flush = l2_flush(torch)
+    return dict(graphed_times(torch, k10, flush),
+                device_ms_clean_l2=graph_ms(torch, k10,
+                                            before=l2_clean_flush(torch),
+                                            n=40, reps=21),
+                plane_copy=graphed_times(
+                    torch, lambda: stack[..., -1].contiguous(), flush))
+
+
+ADAM_HYPER = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)  # lr, b1, b2, eps, clip
+
+
+def _adam_inputs(torch, shapes):
+    """Params, grads, zero moments with a float32 mu and Adam's count for
+    the canonical net's ``shapes``, from a seed."""
+    gp = torch.Generator(device="cuda").manual_seed(19)
+    p = [torch.randn(s, generator=gp, device="cuda") * 0.05 for s in shapes]
+    grads = [torch.randn(s, generator=gp, device="cuda") * 1e-3
+             for s in shapes]
+    mu = [torch.zeros(s, device="cuda") for s in shapes]
+    nu = [torch.zeros(s, device="cuda") for s in shapes]
+    return p, grads, mu, nu, torch.zeros((), dtype=torch.int32,
+                                         device="cuda")
+
+
+def adam_times(torch, shapes):
+    """K9's times over the canonical net's ``shapes`` with a float32 mu
+    through the wrapper of the rainbow_tpu_torch that is imported, and the
+    library's (clip_grad_norm_ with foreach, then a fused Adam, capturable
+    so that a CUDA graph holds it), each by graphed_times. Returns
+    {"clip_adam": {...}, "library": {...}}."""
+    from rainbow_tpu_torch.kernels.adam import clip_adam
+
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes)
+    leaves = [torch.nn.Parameter(t.clone()) for t in p]
+    for t, gr in zip(leaves, grads):
+        t.grad = gr.clone()
+    lr, b1, b2, eps, clip = ADAM_HYPER
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(b1, b2), eps=eps,
+                           fused=True, capturable=True)
+
+    def library():
+        torch.nn.utils.clip_grad_norm_(leaves, clip, foreach=True)
+        opt.step()
+    flush = l2_flush(torch)
+    return {"clip_adam": graphed_times(
+                torch, lambda: clip_adam(p, grads, mu, nu, count,
+                                         *ADAM_HYPER), flush),
+            "library": graphed_times(torch, library, flush)}
 
 
 def noise_times(torch, cfg, A):
@@ -2531,39 +2743,28 @@ def ka_rows(torch, ka_shapes):
     return rows
 
 
-def adam_row(torch, shapes):
+def adam_row(torch, shapes, timed):
     """The row of clip + Adam over the canonical net's ``shapes`` with a
-    float32 mu (the C51 target's and head_loss's rows come from
-    head_rows)."""
+    float32 mu, from ``timed`` (two adam_times of this run: CUDA graphs,
+    cold and warm, the library's beside it)."""
     from rainbow_tpu_torch.agent import apply_grads_plain
-    from rainbow_tpu_torch.kernels.adam import clip_adam
 
     n = sum(torch.Size(s).numel() for s in shapes)
-    gp = torch.Generator(device="cuda").manual_seed(19)
-    p = [torch.randn(s, generator=gp, device="cuda") * 0.05 for s in shapes]
-    grads = [torch.randn(s, generator=gp, device="cuda") * 1e-3
-             for s in shapes]
-    mu = [torch.zeros(s, device="cuda") for s in shapes]
-    nu = [torch.zeros(s, device="cuda") for s in shapes]
-    count = torch.zeros((), dtype=torch.int32, device="cuda")
-    hyper = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)
-    leaves = [torch.nn.Parameter(t.clone()) for t in p]
-    for t, gr in zip(leaves, grads):
-        t.grad = gr.clone()
-    opt = torch.optim.Adam(leaves, lr=6.25e-5, eps=1.5e-4, fused=True)
-
-    def library_adam():
-        torch.nn.utils.clip_grad_norm_(leaves, 10.0, foreach=True)
-        opt.step()
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes)
+    lib = timed[0]["library"]
     return dict(
         name="clip_adam", route="cuda",
         source="rainbow_tpu_torch/kernels/csrc/adam.cu",
         replaces="rainbow_tpu/agent.py:212",
         shape=f"{n} params in {len(shapes)} tensors, fp32 mu",
-        ms=time_ms(torch, lambda: clip_adam(p, grads, mu, nu, count, *hyper)),
-        plain_ms=time_ms(torch, lambda: apply_grads_plain(p, grads, mu, nu,
-                                                          count, *hyper)),
-        library_ms=time_ms(torch, library_adam),
+        **timed[0]["clip_adam"], again=timed[1]["clip_adam"],
+        plain_ms=time_ms(torch, lambda: apply_grads_plain(
+            p, grads, mu, nu, count, *ADAM_HYPER)),
+        library_ms=lib["ms"], library_ms_warm=lib["ms_warm"],
+        library_device_ms=lib["device_ms"],
+        library_device_ms_warm=lib["device_ms_warm"],
+        library_again=timed[1]["library"],
+        library_call="clip_grad_norm_(foreach) + Adam(fused, capturable)",
         # Read p, g, mu and nu once, write p, mu and nu once: the norm's
         # second read of g (27.5 MB) can come from the 50 MB L2.
         flops=20 * n, bytes=4 * n * 7)
@@ -2778,16 +2979,20 @@ def main() -> int:
     k_last = trainer_stats["kc_last_k"]
     kc_timed = [kc_times(torch, np, k_last), kc_times(torch, np, k_last)]
     log("[kc times] " + json.dumps(kc_timed))
+    delta_timed = [delta_times(torch, *delta_last) for _ in range(2)]
+    log("[delta times] " + json.dumps(delta_timed))
+    adam_timed = [adam_times(torch, shapes) for _ in range(2)]
+    log("[adam times] " + json.dumps(adam_timed))
     rows = kernel_rows(torch, np, cfg, A, errs, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
         "sequential": seq_counts, "side": side_counts},
-        shapes, replay_rows, delta_last,
-        side_stats["k10_trainer_device_ms"],
+        shapes, replay_rows, delta_last, delta_timed, adam_timed,
         trainer_stats["ka_launches_by_shape"],
         trainer_stats["kb_launches_by_shape"], head_timed, noise_timed,
         kc_timed, k_last, trainer_stats["kc_launches_by_shape"],
-        trainer_stats["k5_launches_by_shape"])
+        {**trainer_stats["k5_launches_by_shape"],
+         **trainer_stats["k7_launches_by_shape"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

@@ -22,7 +22,8 @@
 //   K5 reads the priorities once (4 MB): 1.2 us at 3.35 TB/s, below the
 //      floor of its two launches (about 2.5 us each).
 //   K6 reads and writes 8192 x 7 frames: 2 x 405 MB, 0.24 ms. Bound by bytes.
-//   K7 moves about 130 KB: bound by launch latency.
+//   K7 moves about 130 KB at the round (0.04 us): bound by launch latency
+//      and one dependent round trip.
 //
 // Bit-exactness with the plain versions. K5 builds every tree node as
 // left + right of its two children, in the tree's own pairing (float addition
@@ -34,7 +35,8 @@
 // bit for bit; its returns and IS weights agree to about 1e-6 relative
 // (pow and the gamma-weighted sum run in another order). K7 computes
 // loss^omega as torch.pow does for the same exponent (a square root at
-// omega = 0.5), so the written priorities and the max are the same bits.
+// omega = 0.5), so the written priorities and the max are the same bits;
+// a NaN priority makes the max NaN, as torch.maximum and jnp.maximum do.
 //
 // Design.
 //   K5: two launches, and one where the tree has at most 32 leaves. The
@@ -67,13 +69,23 @@
 //       is split by frame, not by batch: a block per batch would leave 32
 //       blocks on 132 SMs for the throughput preset (32 batches of 256).
 //       Draw j goes to batch j % nb, row j / nb (prioritized.py:270-273).
-//   K7: one block of 1024 threads walks the draws in draw order. Stratified
-//       draws are nondecreasing in draw order, so a leaf drawn more than once
-//       is drawn by a run of consecutive draws: only the last draw of each
-//       run writes, so the winner is deterministic. The max of all the new
-//       priorities is reduced in the block, without atomics, and combined
-//       with the old max in the same launch.
+//   K7: a grid over the draws, one thread a draw, WRITE_THREADS a block.
+//       Thread q takes element q of the (nb, bs) batch-order inputs, so a
+//       warp's loads of idxs and losses are contiguous, and derives its
+//       draw j = r * nb + k from q = k * bs + r. Stratified draws are
+//       nondecreasing in draw order, so a leaf drawn more than once is
+//       drawn by a run of consecutive draws: only the last draw of each
+//       run writes (the next draw's leaf, read from global memory, differs),
+//       so the winner is deterministic, also where a run straddles two
+//       blocks. The max is order-free and exact: each priority's bits as an
+//       int32 (max_word: on values >= +0 int order is float order, a NaN
+//       becomes 0x7fc00000, above +inf, and -0.0 a negative int), a warp
+//       and a block reduction of int max, then one atomicMax a block into
+//       max_priority's word, in the same launch; max_priority's old value
+//       is read with the draws' loads, so the atomic, which returns
+//       nothing, is the block's last step.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,7 +100,8 @@ constexpr int TOP_NODES = 16;        // height-15 nodes a warp of the build's
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int FIELD_THREADS = 128;
 constexpr int COPY_WARPS = 8;
-constexpr int WRITE_THREADS = 1024;
+constexpr int WRITE_THREADS = 256;  // K7: one draw a thread
+constexpr int NAN_WORD = 0x7fc00000;  // the positive quiet NaN
 
 __device__ __forceinline__ int wrap(long long a, int c) {
   long long r = a % c;
@@ -391,32 +404,45 @@ __global__ void __launch_bounds__(COPY_WARPS * 32) gather_frames_kernel(
 
 // ---------------------------------------------------------------- K7 -----
 
+// A priority's word for the max: its bits as an int32, any NaN as NAN_WORD.
+__device__ __forceinline__ int max_word(float x) {
+  return isnan(x) ? NAN_WORD : __float_as_int(x);
+}
+
 __global__ void __launch_bounds__(WRITE_THREADS) write_priorities_kernel(
     const int64_t* __restrict__ idxs, const float* __restrict__ losses, int nb,
-    int bs, float omega, float* __restrict__ prio,
-    float* __restrict__ max_priority) {
-  __shared__ float s_max[WRITE_THREADS];
-  const long long B = static_cast<long long>(nb) * bs;
-  float local_max = 0.f;
-  for (long long j = threadIdx.x; j < B; j += blockDim.x) {
-    const long long q = (j % nb) * bs + j / nb;  // element [j % nb, j / nb]
-    const long long leaf = idxs[q];
+    int bs, float omega, float* __restrict__ prio, float* max_priority) {
+  __shared__ int s_max[WRITE_THREADS / 32];
+  int* const target = reinterpret_cast<int*>(max_priority);
+  // The old max, read with the draws' loads: no round trip of its own.
+  const int old = threadIdx.x == 0 ? *reinterpret_cast<volatile int*>(target)
+                                   : 0;
+  const int B = nb * bs;  // the entry checks it fits
+  const int q = blockIdx.x * WRITE_THREADS + threadIdx.x;
+  int word = INT_MIN;  // below every priority's word
+  if (q < B) {
+    const int j = (q % bs) * nb + q / bs;  // element [q / bs, q % bs]
+    const int jn = j + 1;
+    const int64_t leaf = idxs[q];
+    const int64_t next = jn < B ? idxs[(jn % nb) * bs + jn / nb] : -1;
     const float p = pow_scalar(losses[q], omega);
-    local_max = fmaxf(local_max, p);
-    if (j + 1 < B) {
-      const long long qn = ((j + 1) % nb) * bs + (j + 1) / nb;
-      if (idxs[qn] == leaf) continue;  // a later draw of the run writes
-    }
-    prio[leaf] = p;
+    word = max_word(p);
+    if (next != leaf) prio[leaf] = p;  // else a later draw of the run writes
   }
-  s_max[threadIdx.x] = local_max;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    word = max(word, __shfl_xor_sync(FULL, word, o));
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = word;
   __syncthreads();
-  for (int h = blockDim.x / 2; h >= 1; h /= 2) {
-    if (threadIdx.x < h)
-      s_max[threadIdx.x] = fmaxf(s_max[threadIdx.x], s_max[threadIdx.x + h]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *max_priority = fmaxf(*max_priority, s_max[0]);
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int w = 1; w < WRITE_THREADS / 32; ++w) word = max(word, s_max[w]);
+  // An old NaN of either sign stays NaN: a negative one is a negative int
+  // that atomicMax would drop, so a block that reads one raises its word to
+  // NAN_WORD. Until the first atomic lands every block reads the old value,
+  // so the block that lands it writes NAN_WORD, which none can lower.
+  if (isnan(__int_as_float(old))) word = NAN_WORD;
+  atomicMax(target, word);
 }
 
 }  // namespace
@@ -519,13 +545,19 @@ extern "C" int gather_window(
 
 // K7. idxs and losses (nb, bs) in batch order (element [k, r] is draw
 // r * nb + k); priorities (E*C,) and max_priority 0-d float32, in place.
-// Returns a CUDA error code.
+// blocks is the wrapper's plan (kernels/replay.py::write_blocks): one
+// thread a draw, WRITE_THREADS a block; a plan that does not cover the
+// nb * bs draws exactly is refused. Returns a CUDA error code.
 extern "C" int write_priorities(const void* idxs, const void* losses, int nb,
-                                int bs, float omega, void* priorities,
-                                void* max_priority, void* stream) {
+                                int bs, float omega, int blocks,
+                                void* priorities, void* max_priority,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nb < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  write_priorities_kernel<<<1, WRITE_THREADS, 0, s>>>(
+  const long long b = static_cast<long long>(nb) * bs;
+  if (nb < 1 || bs < 1 || b > INT_MAX ||
+      blocks != (b + WRITE_THREADS - 1) / WRITE_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  write_priorities_kernel<<<blocks, WRITE_THREADS, 0, s>>>(
       static_cast<const int64_t*>(idxs), static_cast<const float*>(losses), nb,
       bs, omega, static_cast<float*>(priorities),
       static_cast<float*>(max_priority));

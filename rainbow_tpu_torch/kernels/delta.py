@@ -24,22 +24,24 @@ def _lib():
     return fn
 
 
-def apply_delta(stack: torch.Tensor, counts: torch.Tensor, pos: torch.Tensor,
-                val: torch.Tensor) -> torch.Tensor:
+def apply_delta(stack: torch.Tensor, offsets: torch.Tensor,
+                pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """K10: the observations (N, F, F) uint8 of a delta upload: the stack's
     newest plane ``stack[..., -1]`` with ``val`` written at ``pos`` within
-    each env's segment of ``counts`` (see train.py::_apply_delta_plain), in
-    one launch on the current stream. ``stack`` is uint8 (N, F, F, H),
-    ``counts`` int32 (N,), ``pos`` uint16 and ``val`` uint8 (kp,); entries
-    past sum(counts) are dropped."""
-    check_cuda(NAME, stack=stack, counts=counts, pos=pos, val=val)
+    each env's segment [offsets[e], offsets[e + 1]) (see
+    train.py::_apply_delta_plain), in one launch on the current stream.
+    ``stack`` is uint8 (N, F, F, H), ``offsets`` int32 (N + 1,), the
+    exclusive sums of the per-env counts from 0 (train.delta_offsets),
+    ``pos`` uint16 and ``val`` uint8 (kp,); entries past offsets[N] are
+    dropped."""
+    check_cuda(NAME, stack=stack, offsets=offsets, pos=pos, val=val)
     if stack.dim() != 4 or stack.shape[1] != stack.shape[2]:
         raise ValueError(f"{NAME}: stack must be (N, F, F, H), got "
                          f"{tuple(stack.shape)}")
     n, f, _, h = stack.shape
     kp = pos.shape[0] if pos.dim() == 1 else -1
     for arg, t, dtype, shape in (("stack", stack, torch.uint8, stack.shape),
-                                 ("counts", counts, torch.int32, (n,)),
+                                 ("offsets", offsets, torch.int32, (n + 1,)),
                                  ("pos", pos, torch.uint16, (kp,)),
                                  ("val", val, torch.uint8, (kp,))):
         check_dtype(NAME, arg, t, dtype)
@@ -48,7 +50,7 @@ def apply_delta(stack: torch.Tensor, counts: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"{NAME}: a 4-frame stack must be 16-byte aligned "
                          "with a plane of a multiple of 4 pixels")
     obs = torch.empty((n, f, f), dtype=torch.uint8, device=stack.device)
-    err = _lib()(stack.data_ptr(), counts.data_ptr(), pos.data_ptr(),
+    err = _lib()(stack.data_ptr(), offsets.data_ptr(), pos.data_ptr(),
                  val.data_ptr(), n, f * f, h, kp, obs.data_ptr(),
                  torch.cuda.current_stream(stack.device).cuda_stream)
     if err:

@@ -22,6 +22,7 @@ STEP = 5              # csrc/replay.cu: K5 stores every fifth tree level
 MAX_LEAVES = 1 << 22  # K5's scratch is sized for it (heights 5 to 20)
 MAX_STORED = 4        # stored heights at MAX_LEAVES
 MAX_WINDOW = 64       # csrc/replay.cu: the blanking mask is one uint64
+WRITE_THREADS = 256   # csrc/replay.cu: K7's threads a block, one a draw
 
 
 @functools.cache
@@ -31,7 +32,7 @@ def _lib():
                                       ctypes.POINTER(_I)] + [_P] * 6
     lib.gather_window.argtypes = ([_P] * 7 + [_I, _I, _I] + [_P] * 3
                                   + [_I, _I, _F, _F, _I, _I] + [_P] * 9)
-    lib.write_priorities.argtypes = [_P, _P, _I, _I, _F, _P, _P, _P]
+    lib.write_priorities.argtypes = [_P, _P, _I, _I, _F, _I, _P, _P, _P]
     for fn in (lib.stratified_sample, lib.gather_window,
                lib.write_priorities):
         fn.restype = _I
@@ -205,15 +206,22 @@ def window_fields(window: torch.Tensor, history: int, n_step: int,
                 .permute(0, 1, 3, 4, 2))
 
 
+def write_blocks(draws: int) -> int:
+    """K7's grid for ``draws`` draws: one thread a draw, WRITE_THREADS a
+    block (csrc/replay.cu::write_priorities checks it)."""
+    return -(-draws // WRITE_THREADS)
+
+
 def write_priorities(state, idxs: torch.Tensor, losses: torch.Tensor,
                      priority_exponent: float) -> None:
     """K7: ``priorities[idxs] = losses ** priority_exponent`` and
     ``max_priority = max(max_priority, max of those)``, in place, in one
-    launch. ``idxs`` and ``losses`` are (nb, bs) in batch order, as
-    gather_window returns them (element [k, r] is draw r·nb + k), or (B,)
-    in draw order. Where consecutive draws hit one leaf, the last of them
-    is written; a leaf repeated by draws that are not consecutive gets one
-    of its values."""
+    launch of write_blocks(B) blocks. ``idxs`` and ``losses`` are (nb, bs)
+    in batch order, as gather_window returns them (element [k, r] is draw
+    r·nb + k), or (B,) in draw order. Where consecutive draws hit one leaf,
+    the last of them is written; a leaf repeated by draws that are not
+    consecutive gets one of its values. A NaN priority makes max_priority
+    NaN, as torch.maximum does."""
     name = "write_priorities"
     e, c = state.priorities.shape
     if idxs.dim() == 1:
@@ -232,6 +240,6 @@ def write_priorities(state, idxs: torch.Tensor, losses: torch.Tensor,
         check_shape(name, arg, t, shape)
     _raise_on(name, _lib().write_priorities(
         idxs.data_ptr(), losses.data_ptr(), nb, bs, float(priority_exponent),
-        state.priorities.data_ptr(), state.max_priority.data_ptr(),
-        _stream(idxs)))
+        write_blocks(nb * bs), state.priorities.data_ptr(),
+        state.max_priority.data_ptr(), _stream(idxs)))
     count_launch(name)

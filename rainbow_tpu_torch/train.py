@@ -132,7 +132,7 @@ def actor_step_packed(params: dict, noise: Optional[NoiseStream],
 def _host_step(obs_form, resets, rewards, dones, kinds) -> list:
     """One engine step packed on the host, in the order an iteration takes
     it after ``prev_actions``: ``obs_form`` (the observations, or a delta's
-    counts, positions and values), the packed reset frames and their
+    offsets, positions and values), the packed reset frames and their
     indices, rewards float32, dones bool, reset kinds."""
     packed, ridx = pack_resets(resets, kinds)
     return [np.ascontiguousarray(a) for a in (
@@ -149,33 +149,42 @@ def stage_step(outputs, device) -> tuple:
                  for a in _host_step((obs,), resets, rewards, dones, kinds))
 
 
-def _apply_delta_plain(stack: torch.Tensor, counts: torch.Tensor,
+def delta_offsets(counts: np.ndarray) -> np.ndarray:
+    """The exclusive offsets (N + 1,) int32 of a delta's per-env counts
+    (engine.step_delta's): env e owns entries [offsets[e], offsets[e + 1]).
+    Built on the host beside the counts, so that the delta kernel reads an
+    env's segment in two loads instead of summing the counts before it."""
+    return np.concatenate(([0], np.cumsum(counts))).astype(np.int32)
+
+
+def _apply_delta_plain(stack: torch.Tensor, offsets: torch.Tensor,
                        pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Plain version of the delta kernel (K10): the step's observations
     (N, F, F) uint8 rebuilt from the stack's newest plane and the sparse
-    delta (JAX train.py:176-195). Env e owns entries [start_e, start_e +
-    counts[e]) of ``pos`` (uint16 positions within its F·F plane) and
-    ``val`` (uint8), start_e the sum of the counts before it; entries past
-    sum(counts) (padding) and positions beyond the plane are dropped."""
+    delta (JAX train.py:176-195, which takes the counts). Env e owns
+    entries [offsets[e], offsets[e + 1]) of ``pos`` (uint16 positions within
+    its F·F plane) and ``val`` (uint8), ``offsets`` the delta_offsets of
+    the counts; entries past offsets[N] (padding) and positions beyond the
+    plane are dropped."""
     n, f = stack.shape[0], stack.shape[1]
     obs = stack[..., -1].reshape(-1).clone()
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int64)
     env = torch.repeat_interleave(
-        torch.arange(n, device=stack.device),
-        counts.to(torch.int64))[:pos.shape[0]]
+        torch.arange(n, device=stack.device), counts)[:pos.shape[0]]
     p = pos[:env.shape[0]].to(torch.int64)
     keep = p < f * f
     obs[(env * (f * f) + p)[keep]] = val[:env.shape[0]][keep]
     return obs.view(n, f, f)
 
 
-def apply_delta(stack: torch.Tensor, counts: torch.Tensor, pos: torch.Tensor,
-                val: torch.Tensor) -> torch.Tensor:
+def apply_delta(stack: torch.Tensor, offsets: torch.Tensor,
+                pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """The observations of a delta upload (see _apply_delta_plain): one
     launch of the delta kernel on CUDA tensors, the plain version on CPU
     tensors."""
     if stack.is_cuda:
-        return k10.apply_delta(stack, counts, pos, val)
-    return _apply_delta_plain(stack, counts, pos, val)
+        return k10.apply_delta(stack, offsets, pos, val)
+    return _apply_delta_plain(stack, offsets, pos, val)
 
 
 def pack_delta(dpos: np.ndarray, dval: np.ndarray):
@@ -201,12 +210,13 @@ def pack_delta(dpos: np.ndarray, dval: np.ndarray):
 def actor_step_delta(params: dict, noise: Optional[NoiseStream],
                      cfg: RainbowConfig, action_space: int,
                      stack: torch.Tensor, rep: rp.ReplayState, prev_actions,
-                     delta_counts, delta_pos, delta_val, reset_packed,
+                     delta_offsets, delta_pos, delta_val, reset_packed,
                      reset_idx, rewards, dones, kinds,
                      noise_eps: Optional[dict] = None) -> torch.Tensor:
     """actor_step_packed with the observations as a sparse delta against the
-    stack's newest plane (engine.step_delta; JAX train.py:200-215)."""
-    obs = apply_delta(stack, delta_counts, delta_pos, delta_val)
+    stack's newest plane (engine.step_delta, its counts as delta_offsets;
+    JAX train.py:200-215)."""
+    obs = apply_delta(stack, delta_offsets, delta_pos, delta_val)
     return actor_step_packed(params, noise, cfg, action_space, stack, rep,
                              prev_actions, obs, reset_packed, reset_idx,
                              rewards, dones, kinds, noise_eps)
@@ -325,14 +335,14 @@ def train_iter_packed(cfg: RainbowConfig, action_space: int,
 
 def train_iter_delta(cfg: RainbowConfig, action_space: int, num_learns: int,
                      agent: ag.AgentState, stack: torch.Tensor,
-                     rep: rp.ReplayState, prev_actions, delta_counts,
+                     rep: rp.ReplayState, prev_actions, delta_offsets,
                      delta_pos, delta_val, reset_packed, reset_idx, rewards,
                      dones, kinds, beta, sync_target: bool,
                      draws: Optional[dict] = None):
     """train_iter_packed with the observations as a sparse delta against the
     stack's newest plane (JAX train.py:302-316): the delta kernel rebuilds
     them, then the iteration runs as train_iter_packed."""
-    obs = apply_delta(stack, delta_counts, delta_pos, delta_val)
+    obs = apply_delta(stack, delta_offsets, delta_pos, delta_val)
     return train_iter_packed(cfg, action_space, num_learns, agent, stack, rep,
                              prev_actions, obs, reset_packed, reset_idx,
                              rewards, dones, kinds, beta, sync_target, draws)
@@ -613,7 +623,8 @@ class Trainer:
         plain copy on the current stream and ``event`` is None."""
         if self._use_delta:
             counts, dpos, dval, *rest = self.env.step_delta(acts_np)
-            obs_form = (dpos,) if counts is None else (counts, dpos, dval)
+            obs_form = ((dpos,) if counts is None
+                        else (delta_offsets(counts), dpos, dval))
         else:
             obs, *rest = self.env.step(acts_np)
             obs_form = (obs,)

@@ -16,12 +16,14 @@ N = 1 to 1024, no, bucketed and dense reset rows, H = 4 (vector path) and
 3, in one launch an append. The noise kernel (K2) computes Box-Muller in
 float32, its plain version in float64 with one rounding: they agree to
 1e-5 with the same signs, on the draws and on chosen words;
-the delta kernel (K10) is bit-exact. The replay's sampler (K5) is
+the delta kernel (K10) is bit-exact, in one kernel node. The replay's sampler (K5) is
 bit-exact, on ties and on trees of depth 5 to 22, in at most two launches
 and with no allocation but its outputs; its
 gather (K6) copies frames, actions and nonterminals exactly and its returns
 and IS weights agree to 1e-6 relative; its write-back (K7) writes the last
-of consecutive draws of a leaf, exactly. Adam's kernel does the plain version's float32
+of consecutive draws of a leaf, exactly, at B = 1 to 8192, with runs
+across its blocks' edges, and makes max_priority NaN on a NaN loss as
+torch.maximum does, in one kernel node. Adam's kernel does the plain version's float32
 ops in the same order except the global norm's sum, so params agree to
 1e-7 after three steps (3·lr·2^-7 with a bf16 mu, where a rounding that
 falls the other way moves an update by 2^-7 of lr), and two runs give the
@@ -646,6 +648,115 @@ def test_replay_kernels_match_plain(cuda, case):
                               write_priorities=1)
 
 
+def same_bits(a, b):
+    """Equal bits, or NaN in both."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+# K7 alone: (nb, bs, runs of one leaf in draw order as [start, stop),
+# special). B = 1 to 8192 in ragged layouts; runs inside one block of 256
+# threads and across a block edge (batch order puts draws j and j + 1 bs
+# elements apart: draws 5..12 of the round straddle batches 7 and 8, draws
+# 250..260 wrap to the next row); the whole round on one leaf; a NaN loss
+# inside a run and at the round; a -0.0 loss; an empty ring (all mass 0,
+# so K5 puts every draw on one leaf); an old max_priority that is a NaN with
+# its sign bit set, which stays NaN.
+K7_CASES = {
+    "b1": (1, 1, (), None),
+    "b31_run": (1, 31, ((3, 9),), None),
+    "b32": (1, 32, (), None),
+    "b33": (3, 11, ((0, 4),), None),
+    "b255": (15, 17, ((100, 120),), None),
+    "b256": (8, 32, ((0, 256),), None),
+    "b257_across_edge": (1, 257, ((250, 257),), None),
+    "round": (256, 32, ((1, 4), (5, 13), (250, 261)), None),
+    "round_hot_leaf": (256, 32, ((0, 8192),), None),
+    "round_nan_loss": (256, 32, ((5, 13),), "nan"),
+    "b32_nan_loss_in_a_run": (1, 32, ((3, 9),), "nan"),
+    "b32_negative_zero": (1, 32, (), "-0"),
+    "round_empty_ring": (256, 32, (), "empty"),
+    "round_old_negative_nan": (256, 32, (), "old_negative_nan"),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_write_priorities_kernel_matches_plain_bit_for_bit(cuda, case):
+    """K7 against update_priorities_plain on the card: once-drawn leaves
+    and untouched leaves hold the plain version's bits, each leaf drawn by
+    a run holds its last draw's priority, and max_priority the plain
+    version's bits; a NaN loss makes max_priority NaN, as torch.maximum
+    and JAX's jnp.maximum do. One launch a call."""
+    nb, bs, runs, special = K7_CASES[case]
+    b = nb * bs
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    rep = rp.init_replay(64, 976, 1, cuda)  # priorities alone
+    pr = -torch.log(torch.rand((64, 976), generator=g, device=cuda))
+    pr[torch.rand((64, 976), generator=g, device=cuda) < 0.1] = 0.0
+    rep.priorities.copy_(pr * (special != "empty"))
+    rep.max_priority.fill_(float(pr.max()))
+    if special == "old_negative_nan":  # what x86 makes of 0·inf
+        rep.max_priority.view(torch.int32).fill_(-0x400000)
+    rep.index.fill_(500)
+    rep.full.fill_(True)
+    n = rep.priorities.numel()
+    if special == "empty":
+        draw, _, _ = k_replay.stratified_sample(
+            rep, torch.rand(b, generator=g, device=cuda), 4, 3)
+        assert draw.unique().numel() == 1
+    else:
+        draw = torch.sort(torch.randint(0, n, (b,), generator=g,
+                                        device=cuda)).values
+    for a, z in runs:  # still nondecreasing: draw[a] <= draw[z]
+        draw[a:z] = draw[a].clone()
+    loss_draw = torch.rand(b, generator=g, device=cuda) * 5
+    if special == "nan":
+        loss_draw[6] = float("nan")  # inside the run, not its last draw
+    if special == "-0":
+        loss_draw[7] = -0.0
+    idxs = draw.view(bs, nb).T.contiguous()
+    losses = loss_draw.view(bs, nb).T.contiguous()
+    kern, plain = (dataclasses.replace(
+        rep, priorities=rep.priorities.clone(),
+        max_priority=rep.max_priority.clone()) for _ in range(2))
+    reset_launches()
+    k_replay.write_priorities(kern, idxs, losses, 0.5)
+    assert launches() == dict(dict.fromkeys(LAUNCHES, 0), write_priorities=1)
+    rp.update_priorities_plain(plain, idxs, losses, 0.5)
+    assert same_bits(kern.max_priority, plain.max_priority)
+    assert bool(torch.isnan(kern.max_priority)) == (
+        special in ("nan", "old_negative_nan"))
+    want = rep.priorities.clone().view(-1)
+    last = torch.ones(b, dtype=torch.bool, device=cuda)
+    last[:-1] = draw[1:] != draw[:-1]
+    want[draw[last]] = (loss_draw ** 0.5)[last]
+    got = kern.priorities.view(-1)
+    assert same_bits(got, want)
+    once = torch.bincount(draw, minlength=n) <= 1
+    assert same_bits(got[once], plain.priorities.view(-1)[once])
+    if special == "-0":  # sqrt(-0.0) is -0.0, as torch.pow gives
+        assert int(got[draw[7]].view(torch.int32)) == -2 ** 31
+
+
+def test_write_priorities_launches_one_kernel_and_checks_its_plan(cuda):
+    """K7 is one kernel node in a captured CUDA graph, at the round and at
+    B = 32, and its C entry refuses a grid that does not cover the draws
+    exactly (cudaErrorInvalidValue) before any launch."""
+    rep = _card_ring(cuda, 8, 61, 30, True)
+    for nb, bs in ((256, 32), (1, 32)):
+        idxs = torch.randint(0, 8 * 61, (nb, bs), device=cuda)
+        losses = torch.rand((nb, bs), device=cuda)
+        assert _graph_kernels(lambda: k_replay.write_priorities(
+            rep, idxs, losses, 0.5)) == (1, 1)
+        blocks = k_replay.write_blocks(nb * bs)
+        for grid, rc in ((blocks - 1, 1), (blocks + 1, 1), (blocks, 0)):
+            assert k_replay._lib().write_priorities(
+                idxs.data_ptr(), losses.data_ptr(), nb, bs, 0.5, grid,
+                rep.priorities.data_ptr(), rep.max_priority.data_ptr(),
+                torch.cuda.current_stream().cuda_stream) == rc, grid
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("b", [1, 32, 8192])
 @pytest.mark.parametrize("depth", [20, 21, 22])
 def test_stratified_sample_kernel_on_deep_trees(cuda, depth, b):
@@ -837,12 +948,41 @@ def test_delta_kernel_matches_plain(cuda, h, padded):
     val = rng.integers(0, 256, pos.shape[0]).astype(np.uint8)
     if padded:
         pos, val = ttrain.pack_delta(pos, val)
-    args = [torch.from_numpy(x) for x in (counts, pos, val)]
+    args = [torch.from_numpy(x) for x in (ttrain.delta_offsets(counts), pos,
+                                          val)]
     want = ttrain._apply_delta_plain(stack, *args)
     reset_launches()
     got = apply_delta(stack.to(cuda), *(a.to(cuda) for a in args))
     assert launches()["apply_delta"] == 1
     assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 1024])
+def test_delta_kernel_at_one_and_1024_envs(cuda, n):
+    """K10 at one env and at the canonical 1024, with an env (at N = 1 the
+    only one) whose whole plane changed and, at 1024, unchanged envs and
+    positions past the plane (dropped), padded to a bucket: the plain
+    version's bits, in one kernel node."""
+    rng = np.random.default_rng(n)
+    stack = torch.from_numpy(rng.integers(0, 256, (n, 84, 84, 4), np.uint8))
+    counts = rng.integers(0, 80, n).astype(np.int32)
+    counts[n // 2] = 84 * 84
+    pos = np.concatenate([
+        np.arange(84 * 84) if e == n // 2
+        else np.sort(rng.choice(84 * 84 + 50, c, replace=False))
+        for e, c in enumerate(counts)]).astype(np.uint16)
+    val = rng.integers(0, 256, pos.shape[0]).astype(np.uint8)
+    pos, val = ttrain.pack_delta(pos, val)
+    args = [torch.from_numpy(x) for x in (ttrain.delta_offsets(counts), pos,
+                                          val)]
+    want = ttrain._apply_delta_plain(stack, *args)
+    dev_stack = stack.to(cuda)
+    dev_args = [a.to(cuda) for a in args]
+    got = apply_delta(dev_stack, *dev_args)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, ttrain._apply_delta_plain(dev_stack, *dev_args))
+    assert _graph_kernels(lambda: apply_delta(dev_stack, *dev_args)) \
+        == (1, 1)
 
 
 def test_sequential_learn_step_on_card_matches_cpu(cuda):

@@ -23,7 +23,7 @@ from rainbow_tpu_torch.ops.preprocess import init_framestack
 from rainbow_tpu_torch.replay import prioritized as rp
 from rainbow_tpu_torch.train import (Trainer, _apply_delta_plain,
                                      actor_step_delta, actor_step_packed,
-                                     pack_delta, pack_resets)
+                                     delta_offsets, pack_delta, pack_resets)
 
 F = 84
 
@@ -68,9 +68,40 @@ def test_apply_delta_matches_jax(padded, h):
     want = np.asarray(jax_apply_delta(jnp.asarray(stack), jnp.asarray(counts),
                                       jnp.asarray(ppos), jnp.asarray(pval)))
     got = _apply_delta_plain(torch.from_numpy(stack),
-                             torch.from_numpy(counts),
+                             torch.from_numpy(delta_offsets(counts)),
                              torch.from_numpy(ppos), torch.from_numpy(pval))
     assert got.dtype == torch.uint8 and got.shape == (5, F, F)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("n", [1, 9, 1024])
+def test_apply_delta_offsets_match_jax_counts(n, padded):
+    """The port takes a delta's exclusive offsets, built on the host
+    (delta_offsets), where JAX takes the counts: the same observations at
+    one env, nine and the canonical 1024, each with an unchanged env (but
+    at N = 1) and an env whose whole plane changed, padded to a bucket or
+    not."""
+    rng = np.random.default_rng(n)
+    stack, counts, pos, val = _random_delta(rng, n, 4,
+                                            empty_env=1 if n > 1 else -1)
+    whole = n // 2
+    counts[whole] = F * F
+    pos = np.concatenate([
+        np.arange(F * F) if e == whole
+        else np.sort(rng.choice(F * F, c, replace=False))
+        for e, c in enumerate(counts)]).astype(np.uint16)
+    val = rng.integers(0, 256, pos.shape[0]).astype(np.uint8)
+    offsets = delta_offsets(counts)
+    assert offsets.dtype == np.int32 and offsets.shape == (n + 1,)
+    np.testing.assert_array_equal(offsets, np.cumsum([0, *counts]))
+    if padded:
+        pos, val = pack_delta(pos, val)
+    want = np.asarray(jax_apply_delta(jnp.asarray(stack), jnp.asarray(counts),
+                                      jnp.asarray(pos), jnp.asarray(val)))
+    got = _apply_delta_plain(torch.from_numpy(stack),
+                             torch.from_numpy(offsets),
+                             torch.from_numpy(pos), torch.from_numpy(val))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -117,7 +148,8 @@ def test_actor_step_delta_equals_dense_on_the_native_engine():
         else:
             got = actor_step_delta(
                 agent.params, None, cfg, a_space, stack, rep, acts,
-                torch.from_numpy(counts), torch.from_numpy(dpos.copy()),
+                torch.from_numpy(delta_offsets(counts)),
+                torch.from_numpy(dpos.copy()),
                 torch.from_numpy(dval.copy()), packed, ridx, *tail,
                 noise_eps=eps)
         forms.append(counts is not None)

@@ -203,6 +203,21 @@ def test_replay_and_append_sources_export_what_the_wrappers_bind(
             assert ns.restype is not None
 
 
+def test_delta_source_exports_what_the_wrapper_binds(monkeypatch):
+    """csrc/delta.cu exports apply_delta with as many parameters as
+    kernels/delta.py declares, the env offsets among them (not counts)."""
+    from rainbow_tpu_torch.kernels import delta as k10
+
+    src = (ROOT / "rainbow_tpu_torch/kernels/csrc/delta.cu").read_text()
+    lib = types.SimpleNamespace(apply_delta=types.SimpleNamespace())
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    k10._lib.__wrapped__()
+    sig = re.search(r'extern "C" int apply_delta\(([^)]*)\)', src)
+    assert sig and "offsets" in sig.group(1)
+    assert len(sig.group(1).split(",")) == len(lib.apply_delta.argtypes)
+    assert lib.apply_delta.restype is not None
+
+
 _IMPORTS = re.compile(r"^\s*(import|from)\s+(triton|jax|rainbow_tpu)\b",
                       re.M)
 

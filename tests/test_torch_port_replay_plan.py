@@ -1,6 +1,7 @@
 """The designs of the replay append + frame-stack kernel (KC,
-kernels/append_framestack.py) and of the stratified sampler (K5,
-kernels/replay.py), held on the CPU where no card is:
+kernels/append_framestack.py), of the stratified sampler (K5) and of the
+priority write-back (K7, kernels/replay.py), held on the CPU where no card
+is:
 
 - K5's tree plan (the stored levels every fifth height, their offsets in
   the scratch, the first step's levels, the launches) and a torch
@@ -10,11 +11,18 @@ kernels/replay.py), held on the CPU where no card is:
   rows sorted ascending, distinct, padded with N, for every bucket), and a
   numpy rendering of its vector path (a pixel's history as one 32-bit word,
   the shift-and-insert per reset kind) against append_framestack_plain and
-  the JAX package's update_framestack.
+  the JAX package's update_framestack;
+- K7's grid (write_blocks: one thread a draw, every draw once) and a torch
+  rendering of its threads (batch-order element q as draw j, the next
+  draw's leaf, the last draw of a run writing) and of its max (int words,
+  NaN as 0x7fc00000, an atomicMax a block) against update_priorities_plain,
+  NaN and -0.0 losses and an old NaN of either sign included.
 
 Everything here is exact: integer work, and float sums in the tree's own
 pairing on both sides.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -284,3 +292,121 @@ def test_kc_word_rendering_matches_plain_and_jax(k_mode):
     want = jpp.update_framestack(*map(jnp.asarray, (stack, obs, dense,
                                                      kinds)))
     np.testing.assert_array_equal(new, np.asarray(want))
+
+
+# ------------------------------------------------------------------ K7 ----
+
+NAN_WORD = 0x7fc00000  # csrc/replay.cu: the max's word of any NaN
+
+
+def test_k7_write_blocks_cover_every_draw_once():
+    for b in range(1, 8194):
+        blocks = k_replay.write_blocks(b)
+        assert (blocks - 1) * k_replay.WRITE_THREADS < b \
+            <= blocks * k_replay.WRITE_THREADS, b
+    assert k_replay.write_blocks(8192) == 32  # the round: 32 of 132 SMs
+    assert k_replay.write_blocks(32) == 1     # the sequential update
+
+
+def _max_word(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isnan(x), NAN_WORD, x.view(torch.int32))
+
+
+def _render_k7(rep, idxs, losses, omega):
+    """K7's design in torch: thread q of write_blocks(B) blocks takes
+    element q of the (nb, bs) inputs as draw j = (q % bs)·nb + q // bs,
+    reads the next draw's leaf at element ((j+1) % nb)·bs + (j+1) // nb and
+    writes its priority only where that leaf differs (the last draw of a
+    run); the max is the int max of the words of each block, combined
+    block by block with max_priority's word by atomicMax (NAN_WORD from a
+    block that read an old NaN). Returns (priorities, max_priority) after
+    the launch."""
+    nb, bs = idxs.shape
+    b = nb * bs
+    flat, p = idxs.reshape(-1), losses.reshape(-1) ** omega
+    q = torch.arange(b)
+    jn = (q % bs) * nb + q // bs + 1
+    nxt = torch.where(jn < b, flat[((jn % nb) * bs + jn // nb) % b], -1)
+    prio = rep.priorities.clone().view(-1)
+    writes = nxt != flat
+    assert flat[writes].unique().numel() == int(writes.sum())  # no races
+    prio[flat[writes]] = p[writes]
+    old_nan = bool(torch.isnan(rep.max_priority))
+    word = int(rep.max_priority.view(torch.int32))  # the old max's bits
+    words = _max_word(p)
+    for blk in range(k_replay.write_blocks(b)):  # an atomicMax a block
+        w = int(words[blk * k_replay.WRITE_THREADS:
+                      (blk + 1) * k_replay.WRITE_THREADS].max())
+        word = max(word, NAN_WORD if old_nan else w)
+    return prio.view(rep.priorities.shape), torch.tensor(
+        word, dtype=torch.int32).view(torch.float32)
+
+
+def _same_bits(a, b):
+    """Equal bits, or NaN in both."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+# (nb, bs, runs of one leaf in draw order as [start, stop), special): the
+# round and the sequential update, ragged layouts, runs inside a block of
+# 256 threads and across a block edge (batch order puts draws j and j + 1
+# at elements bs apart, so draws 5..12 of the round straddle the edge
+# between batches 7 and 8), the whole round on one leaf, NaN and -0.0.
+K7_CASES = {
+    "b1": (1, 1, (), None),
+    "b31_run": (1, 31, ((3, 9),), None),
+    "b33": (3, 11, ((0, 4),), None),
+    "b255": (15, 17, ((100, 120),), None),
+    "b256": (8, 32, ((0, 256),), None),
+    "b257_across_edge": (1, 257, ((250, 257),), None),
+    "round": (256, 32, ((1, 4), (5, 13), (250, 261)), None),
+    "round_hot_leaf": (256, 32, ((0, 8192),), None),
+    "round_nan_loss": (256, 32, ((5, 13),), "nan"),
+    "b32_nan_loss_in_a_run": (1, 32, ((3, 9),), "nan"),
+    "b32_negative_zero": (1, 32, (), "-0"),
+    "round_old_nan": (256, 32, ((5, 13),), "old_nan"),
+    "round_old_negative_nan": (256, 32, (), "old_negative_nan"),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_rendering_matches_plain(case):
+    nb, bs, runs, special = K7_CASES[case]
+    b = nb * bs
+    rng = np.random.default_rng(len(case))
+    rep = _priority_ring(64, 976, 500, "exp", seed=3)
+    rep.max_priority.fill_(float(rep.priorities.max()))
+    if special == "old_nan":
+        rep.max_priority.fill_(float("nan"))
+    if special == "old_negative_nan":  # what x86 makes of 0·inf
+        rep.max_priority.view(torch.int32).fill_(-0x400000)
+    draw = np.sort(rng.integers(0, 64 * 976, b))
+    for a, z in runs:  # still nondecreasing: draw[a] <= draw[z]
+        draw[a:z] = draw[a]
+    loss_draw = rng.uniform(0.0, 5.0, b).astype(np.float32)
+    if special == "nan":
+        loss_draw[6] = np.nan  # inside the run, not its last draw
+    if special == "-0":
+        loss_draw[7] = -0.0
+    j = np.arange(b)
+    idxs = torch.from_numpy(draw.reshape(bs, nb).T.copy())
+    losses = torch.from_numpy(loss_draw.reshape(bs, nb).T.copy())
+    assert torch.equal(idxs[j % nb, j // nb], torch.from_numpy(draw))
+    prio, mx = _render_k7(rep, idxs, losses, 0.5)
+
+    plain = dataclasses.replace(rep, priorities=rep.priorities.clone(),
+                                max_priority=rep.max_priority.clone())
+    trp.update_priorities_plain(plain, idxs, losses, 0.5)
+    assert _same_bits(mx, plain.max_priority)
+    assert torch.isnan(mx) == (special in ("nan", "old_nan",
+                                           "old_negative_nan"))
+    want = rep.priorities.clone().view(-1)
+    last = np.append(draw[1:] != draw[:-1], True)
+    p_draw = torch.from_numpy(loss_draw) ** 0.5
+    want[torch.from_numpy(draw[last])] = p_draw[torch.from_numpy(last)]
+    assert _same_bits(prio.view(-1), want)
+    once = torch.bincount(torch.from_numpy(draw), minlength=64 * 976) <= 1
+    assert _same_bits(prio.view(-1)[once], plain.priorities.view(-1)[once])
+    if special == "-0":  # torch.pow keeps the sign: the leaf holds -0.0
+        assert int(prio.view(-1)[draw[7]].view(torch.int32)) == -2 ** 31

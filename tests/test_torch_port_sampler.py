@@ -153,6 +153,29 @@ def test_write_back_plain_matches_jax_in_batch_order():
     assert float(t.max_priority) == float(j2.max_priority)
 
 
+@pytest.mark.parametrize("nan_at", [0, 5, 11])
+def test_write_back_plain_propagates_a_nan_loss_as_jax_does(nan_at):
+    """A NaN loss makes max_priority NaN in JAX (jnp.maximum) and in the
+    plain version (torch.maximum), and its leaf's priority NaN; a -0.0 loss
+    writes a zero that compares equal to JAX's (JAX's pow gives +0.0, the
+    port's torch.pow -0.0). The other leaves are exact."""
+    j, t = _ring(4, 32, 9, True)
+    rng = np.random.default_rng(nan_at)
+    idxs = rng.choice(4 * 32, size=(3, 4), replace=False).astype(np.int64)
+    losses = rng.uniform(0.01, 9.0, (3, 4)).astype(np.float32)
+    losses.reshape(-1)[nan_at] = np.nan
+    losses.reshape(-1)[(nan_at + 1) % 12] = -0.0
+    j2 = jrp.update_priorities(j, jnp.asarray(idxs.reshape(-1)),
+                               jnp.asarray(losses.reshape(-1)), 0.5)
+    trp.update_priorities(t, torch.from_numpy(idxs), torch.from_numpy(losses),
+                          0.5)
+    assert np.isnan(float(j2.max_priority))
+    assert np.isnan(float(t.max_priority))
+    np.testing.assert_array_equal(t.priorities.numpy(),
+                                  np.asarray(j2.priorities))  # NaN == NaN
+    assert np.isnan(t.priorities.view(-1)[idxs.reshape(-1)[nan_at]].item())
+
+
 @pytest.mark.parametrize("call", [
     lambda t: k_replay.stratified_sample(t, torch.rand(4), 4, 3),
     lambda t: k_replay.gather_window(
