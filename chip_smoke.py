@@ -58,7 +58,24 @@ exit code:
             sequential PER round (4 rounds of 256 updates, K5-K7 and K2
             once per update), and delta uploads (K10) with the pipelined
             actor (depth 2) and an asynchronous evaluation (9 rounds).
-8. kernels  each kernel's time against its plain version, a library call
+8. distributed  the data-parallel learner (parallel/learner.py) at the
+            canonical width, cuDNN held to its deterministic algorithms:
+            (a) a world-size-1 NCCL group in this process, a batched round
+            of 256 updates (batch 32, the full 1024-env ring) and a
+            sequential round of 32, each bit for bit against
+            train.learner_round on the same draws, with the same launches;
+            (b) two ranks of this script (--rank) on the one card over gloo,
+            512 envs and a full ring each: two batched rounds of 256
+            updates with their own draws, the ranks' params bit-identical
+            after each, then each rank's Trainer through cli.main
+            (--process-count 2 --pipeline-actor: 2 rounds, the chief's
+            evaluation, a
+            replay-bearing save per rank restored exactly, one more round);
+            this process then holds both shards on the card and runs the
+            same two rounds, which must give the ranks' bits. The all-reduce
+            of one update's gradients is timed over NCCL and gloo. Nothing
+            wider is measured: NCCL puts no two ranks on one device.
+9. kernels  each kernel's time against its plain version, a library call
             and its bound, at the main path's shapes (KA's forward at the
             learner's, the target's and the actor's batch and its backward
             at the learner's, cold and warm, the library call's device time
@@ -70,7 +87,9 @@ exit code:
             N = 10 without a replay, K5 and K7 at B = 8192 and 32, K6 at
             the round, K10 at the last real delta beside its sector floor,
             K9 beside clip_grad_norm_ + fused Adam, the same way); one
-            JSON line.
+            JSON line, with each kernel's launches in the main Trainer
+            (``launches``) and in the distributed phase
+            (``distributed_launches``) among others.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -126,6 +145,10 @@ def parse_args():
                    help="also trace 20 actor iterations and a training "
                    "iteration of 64 updates with torch.profiler "
                    "into chiprun_out/chip_smoke/")
+    # One rank of the [distributed] phase, which starts two of them.
+    p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--work", default=None, help=argparse.SUPPRESS)
     return p.parse_args()
 
 
@@ -1801,9 +1824,10 @@ MEMORY_ARGS = ["--num-envs", "1024", "--memory-capacity", "65536",
 
 
 class _Watch:
-    """Wraps train.train_iter_packed, Trainer.evaluate_now and
-    Trainer.save_checkpoint to time them (each iteration synchronised with
-    ``sync``), Trainer._eval_async_drain to mark the end of each run's
+    """Wraps train.train_iter_sharded (the Trainer's iteration),
+    Trainer.evaluate_now and Trainer.save_checkpoint to time them (each
+    iteration synchronised with ``sync``), Trainer._eval_async_drain to
+    mark the end of each run's
     training loop (``loop_ends``: its first call with ``wait``, after the
     main stream has finished), KA's two wrappers, KB's, KC's and K5's to
     count their launches by shape (``ka_shapes``, ``kb_shapes``,
@@ -1922,7 +1946,7 @@ class _Watch:
         self._patch(pp.kc, "append_framestack", tally_kc)
         self._patch(rp.k_replay, "stratified_sample", tally_k5)
         self._patch(rp.k_replay, "write_priorities", tally_k7)
-        self._patch(tm, "train_iter_packed", timed_iter)
+        self._patch(tm, "train_iter_sharded", timed_iter)
         self._patch(tm.Trainer, "_eval_async_drain", drain)
         self._patch(tm.Trainer, "run", lambda r: self._counted(r))
         self._patch(tm.Trainer, "evaluate_now",
@@ -2211,6 +2235,402 @@ def run_side_trainer(torch, np, args, sync):
     return stats, counts
 
 
+# --------------------------------------------------------- distributed -----
+
+DIST_UPDATES = 256      # updates in each batched distributed round
+DIST_SEQ_UPDATES = 32   # updates in the one-rank sequential round
+DIST_BETA = 0.4
+RANK_TIMEOUT_S = 600
+# Each rank's Trainer: 512 of 1024 envs with the pipelined actor, 2 rounds
+# of 256 updates from T = 5120, the chief's evaluation at T = 6144 with a
+# replay-bearing save per rank (64 columns an env), which a new Trainer
+# restores exactly and trains on for one more round.
+RANK_TRAINER_ARGS = ["--num-envs", "1024", "--learn-start", "5120",
+                     "--T-max", "6144", "--evaluation-interval", "6144",
+                     "--memory-capacity", "65536", "--memory", "memory",
+                     "--max-episode-length", "4000", "--pipeline-actor",
+                     "--pipeline-depth", "2", "--id", "chip_distributed",
+                     "--seed", "0", "--process-count", "2"]
+ROUND_KERNELS = ("noisy_linear_fwd", "noisy_linear_bwd", "dueling_head",
+                 "c51_target", "head_loss", "clip_adam", "stratified_sample",
+                 "gather_window", "write_priorities", "scaled_noise")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_ring(torch, e, c, seed):
+    """A random ring of e envs at full width (_replay_on_card), written to
+    column 500 of a wrapped ring."""
+    rep, _ = _replay_on_card(torch, e, c, seed)
+    rep.index.fill_(500)
+    rep.full.fill_(True)
+    return rep
+
+
+def _digest(torch, t):
+    """A digest of a tensor's bits."""
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).cpu()
+                          .view(torch.uint8).numpy().tobytes()
+                          ).hexdigest()[:24]
+
+
+def _round_digests(torch, agents, reps, shards, loss):
+    """Digests of the bits a round leaves: the loss, the first replica's
+    params, target, Adam moments and count, and each local shard's
+    priorities and max_priority under its global index."""
+    a = agents[0]
+    out = {"loss": _digest(torch, loss),
+           "count": _digest(torch, a.opt_state.count)}
+    for name, tree in (("params", a.params), ("target", a.target_params),
+                       ("mu", a.opt_state.mu), ("nu", a.opt_state.nu)):
+        out[name] = _digest(torch, torch.cat([v.reshape(-1).float()
+                                              for v in tree.values()]))
+    for s, rep in enumerate(reps):
+        out[f"priorities{shards.index(s)}"] = _digest(torch, rep.priorities)
+        out[f"max_priority{shards.index(s)}"] = _digest(torch,
+                                                        rep.max_priority)
+    return out
+
+
+def allreduce_ms(torch, dist, numel, reps=10):
+    """Median host time of one all_reduce of ``numel`` float32 on the card
+    (the gradients' flat buffer of one update), synchronised each side."""
+    buf = torch.ones(numel, dtype=torch.float32, device="cuda")
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _round_draws(torch, cfg, A, nl, seq):
+    """Draws of a round in train.learner_round's form, made on the card."""
+    from rainbow_tpu_torch.models.dqn import draw_noise
+    from rainbow_tpu_torch.models.noisy import NoiseStream
+
+    bs = cfg.batch_size
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    ns = NoiseStream(SEED + 9)
+    lead = (nl,) if seq else (nl * bs,)
+    return {"u": torch.rand((nl, bs) if seq else (nl * bs,), generator=g,
+                            device="cuda"),
+            "target": draw_noise(cfg, A, ns, lead, "cuda"),
+            "online": draw_noise(cfg, A, ns, (nl,), "cuda")}
+
+
+def one_rank_rounds(torch, np, cfg, A):
+    """(a) A world-size-1 NCCL group in this process: a batched round of
+    DIST_UPDATES and a sequential round of DIST_SEQ_UPDATES updates through
+    parallel.learner.distributed_round (its all-reduces run over NCCL), each
+    against train.learner_round from the same agent, ring and draws, bit for
+    bit (loss, params, target, Adam state, priorities, max_priority) and
+    with the same launches. The all-reduce is timed first, which also sets
+    NCCL up; the rounds run in turns, learner_round, distributed,
+    distributed, learner_round, each from the same state. Returns (stats,
+    the first distributed round's launch counts of each kind)."""
+    import torch.distributed as dist
+
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch import train as tt
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.parallel import learner as pl
+
+    stats, total = {}, {}
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        numel = sum(v.numel() for v in ag.init_agent(
+            cfg, A, SEED, "cuda").params.values())
+        stats["nccl_allreduce_ms_per_update"] = allreduce_ms(torch, dist,
+                                                             numel)
+        stats["grad_floats"] = numel
+        rep = _dist_ring(torch, ENVS, cfg.capacity_per_env, 31)
+        prio0, maxp0 = rep.priorities.clone(), rep.max_priority.clone()
+        for seq, nl in ((False, DIST_UPDATES), (True, DIST_SEQ_UPDATES)):
+            c = cfg.replace(sequential_per=seq)
+            draws = _round_draws(torch, c, A, nl, seq)
+            runs = []  # in turns: plain, distributed, distributed, plain
+            for how in ("learner_round", "distributed", "distributed",
+                        "learner_round"):
+                agent = ag.init_agent(c, A, SEED + 5, "cuda")
+                rep.priorities.copy_(prio0)
+                rep.max_priority.copy_(maxp0)
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                if how == "distributed":
+                    loss = pl.distributed_round(
+                        [agent], [rep], c, A, nl, DIST_BETA,
+                        pl.Shards(["cuda:0"], c), [draws])
+                else:
+                    loss = tt.learner_round(agent, rep, c, A, nl, DIST_BETA,
+                                            draws)
+                torch.cuda.synchronize()
+                runs.append((how, time.perf_counter() - t0, launches(),
+                             _round_digests(torch, [agent], [rep],
+                                            pl.Shards(["cuda:0"], c), loss),
+                             float(loss)))
+            name = "sequential" if seq else "batched"
+            for how, _, counts, digests, loss in runs[1:]:
+                check(digests == runs[0][3], f"[distributed] one-rank NCCL "
+                      f"{name}: {how} gives {digests}, learner_round "
+                      f"{runs[0][3]}")
+                check(counts == runs[0][2], f"[distributed] one-rank "
+                      f"{name}: {how} launches {counts}, learner_round's "
+                      f"{runs[0][2]}")
+            cd = runs[1][2]
+            check(all(cd[k] > 0 for k in ROUND_KERNELS if k !=
+                      "scaled_noise"), f"[distributed] {name}: a kernel "
+                  f"never launched {cd}")
+            check(np.isfinite(runs[0][4]), f"[distributed] {name}: loss "
+                  f"{runs[0][4]}")
+            for k, v in cd.items():  # the first distributed round's
+                total[k] = total.get(k, 0) + v
+            stats[name] = {
+                "updates": nl, "loss": runs[0][4], "bit_equal": True,
+                "distributed_s": [r[1] for r in runs if r[0] ==
+                                  "distributed"],
+                "learner_round_s": [r[1] for r in runs if r[0] ==
+                                    "learner_round"]}
+        del rep, prio0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return stats, total
+
+
+def two_rank_rounds(torch, cfg, A):
+    """(b) Two ranks of this script (``--rank``) on the one card over gloo,
+    512 envs each with a full ring: two batched rounds of DIST_UPDATES
+    updates each (their own draws), the ranks' params held bit-identical
+    after each round (multihost.tensors_agree), then each rank's Trainer
+    through cli.main with a replay-bearing save restored exactly. This
+    process then holds both shards on the card (data parallel, devices
+    cuda:0 twice) and runs the same two rounds: every digest must equal the
+    ranks'. Any failure of a rank fails the run. Returns (stats, the ranks'
+    launch counts summed)."""
+    import shutil
+
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.parallel import learner as pl
+
+    work = os.path.join(ROOT, "results", "chip_distributed_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--port", str(port), "--work", work], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    outs, deadline = [], time.monotonic() + RANK_TIMEOUT_S
+    try:  # one deadline for the pair: a rank's wait takes what is left
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        with open(os.path.join(OUT_DIR, f"distributed_rank{r}.txt"),
+                  "w") as f:
+            f.write(out)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"[distributed] rank {r} exited with "
+              f"{p.returncode}:\n{out[-3000:]}")
+    res = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    t1 = time.perf_counter()
+    n = ENVS // 2
+    reps = [_dist_ring(torch, n, cfg.capacity_per_env, 40 + s)
+            for s in (0, 1)]
+    agents = pl.replicate(ag.init_agent(cfg, A, SEED + 7, "cuda:0"),
+                          ["cuda:0", "cuda:0"])
+    shards = pl.Shards(["cuda:0", "cuda:0"], cfg)
+    for i in range(2):
+        loss = pl.distributed_round(agents, reps, cfg, A, DIST_UPDATES,
+                                    DIST_BETA, shards)
+        want = _round_digests(torch, agents, reps, shards, loss)
+        for r in (0, 1):
+            got = res[r]["rounds"][i]
+            check(all(got[k] == want[k] for k in got),
+                  f"[distributed] round {i}: rank {r} {got} differs from "
+                  f"one process with two shards {want}")
+    one_process_s = time.perf_counter() - t1
+    del reps, agents
+    torch.cuda.empty_cache()
+    counts = {}
+    for r in res:
+        for k, v in list(r["round_launches"].items()) + list(
+                r["trainer_launches"].items()):
+            counts[k] = counts.get(k, 0) + v
+    stats = {"ranks_wall_s": ranks_s, "one_process_two_shards_s":
+             one_process_s, "bit_equal_to_one_process": True,
+             **{f"rank{i}": {k: v for k, v in r.items() if k != "rounds"}
+                for i, r in enumerate(res)}}
+    return stats, counts
+
+
+def distributed_rank(args) -> int:
+    """One rank of two_rank_rounds, in a process of its own on the card's
+    cuda:0, in a gloo group with the other (the kernels are already
+    built), working in ``args.work``/rank{R}/. Writes its results to
+    ``args.work``/rank{R}.json."""
+    import torch
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, ROOT)
+    # A directory of its own, so that what each rank writes is told apart.
+    os.makedirs(os.path.join(args.work, f"rank{args.rank}"))
+    os.chdir(os.path.join(args.work, f"rank{args.rank}"))
+    import numpy as np
+    import torch.distributed as dist
+
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch import canonical, cli
+    from rainbow_tpu_torch.envs import engine
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.parallel import learner as pl
+    from rainbow_tpu_torch.parallel.mesh import init_distributed
+    from rainbow_tpu_torch.parallel.multihost import (agent_tensors,
+                                                      tensors_agree)
+    from rainbow_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rank = args.rank
+    # gloo: NCCL will not put two ranks on one card.
+    init_distributed(f"127.0.0.1:{args.port}", 2, rank, "cuda:0",
+                     backend="gloo")
+    try:
+        cfg = canonical(game=GAME, num_envs=ENVS, seed=SEED)
+        probe = engine.BatchedEnv(GAME, 1, 0)
+        A = probe.action_space
+        probe.close()
+        rep = _dist_ring(torch, ENVS // 2, cfg.capacity_per_env, 40 + rank)
+        agent = ag.init_agent(cfg, A, SEED + 7, "cuda:0")
+        shards = pl.Shards(["cuda:0"], cfg)
+        out = {"rounds": [], "round_s": [], "agree": []}
+        reset_launches()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = pl.distributed_round([agent], [rep], cfg, A, DIST_UPDATES,
+                                        DIST_BETA, shards)
+            torch.cuda.synchronize()
+            out["round_s"].append(time.perf_counter() - t0)
+            out["agree"].append(tensors_agree(agent_tensors(agent)))
+            check(out["agree"][-1], f"rank {rank}: replicas differ")
+            check(np.isfinite(float(loss)), f"rank {rank}: loss {loss}")
+            out["rounds"].append(_round_digests(torch, [agent], [rep],
+                                                shards, loss))
+        out["round_launches"] = launches()
+        check(all(out["round_launches"][k] > 0 for k in ROUND_KERNELS),
+              f"rank {rank}: a kernel never launched "
+              f"{out['round_launches']}")
+        numel = sum(v.numel() for v in agent.params.values())
+        out["gloo_allreduce_ms_per_update"] = allreduce_ms(torch, dist,
+                                                           numel)
+        del rep, agent
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        t0 = time.perf_counter()
+        tr = cli.main(RANK_TRAINER_ARGS + [
+            "--process-id", str(rank), "--coordinator",
+            f"127.0.0.1:{args.port}"], device="cuda:0")
+        torch.cuda.synchronize()
+        out["trainer_s"] = time.perf_counter() - t0
+        out["trainer_launches"] = launches()
+        c = tr.cfg
+        rounds = (c.total_steps - c.learn_start) // c.num_envs + 1
+        check(tr.T == c.total_steps and tr.envs_local == ENVS // 2
+              and tr.agent.step == rounds * tr.learns_per_iter
+              and tr.metrics["steps"] == [c.total_steps],
+              f"rank {rank}: T {tr.T}, step {tr.agent.step}, evaluations "
+              f"{tr.metrics['steps']}")
+        check(all(v > 0 for k, v in out["trainer_launches"].items()
+                  if k != "apply_delta"), f"rank {rank}: a kernel never "
+              f"launched {out['trainer_launches']}")
+        check(tensors_agree(agent_tensors(tr.agent)),
+              f"rank {rank}: the Trainers' replicas differ")
+        mine = sorted(os.listdir(tr.results_dir))
+        chief = ["Q.html", "Reward.html", "metrics.json", "model.npz"]
+        check(mine == sorted([f"memory_checkpoint.npz.proc{rank}-of-2"]
+                             + chief * (rank == 0)),
+              f"rank {rank}: files {mine}")
+        tr2 = Trainer(c.replace(run_id="chip_distributed_restore",
+                                total_steps=c.total_steps + c.num_envs),
+                      device="cuda:0")
+        t0 = time.perf_counter()
+        tr2.restore_checkpoint(os.path.join(tr.results_dir,
+                                            "memory_checkpoint.npz"))
+        out["restore_s"] = time.perf_counter() - t0
+        want, got = agent_tensors(tr.agent), agent_tensors(tr2.agent)
+        check(tr2.T == tr.T and tr2.agent.noise == tr.agent.noise
+              and all(torch.equal(got[k], v) for k, v in want.items())
+              and all(torch.equal(getattr(tr2.rep, f), getattr(tr.rep, f))
+                      for f in ("frames", "priorities", "index", "full",
+                                "t", "max_priority")),
+              f"rank {rank}: the restore is not exact")
+        tr.env.close()
+        del tr
+        tr2.run()
+        check(tr2.T == c.total_steps + c.num_envs
+              and tensors_agree(agent_tensors(tr2.agent)),
+              f"rank {rank}: after the restore, T {tr2.T} or replicas "
+              "differ")
+        out["restored_step"] = tr2.agent.step
+        with open(os.path.join(args.work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        print(f"rank {rank}: " + json.dumps(
+            {k: v for k, v in out.items() if k != "rounds"}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_distributed(torch, np, cfg, A):
+    """[distributed]: one_rank_rounds (NCCL, world size 1) and
+    two_rank_rounds (two gloo ranks on the card), with cuDNN held to its
+    deterministic algorithms so that equal inputs give equal bits. Nothing
+    wider was measured: NCCL puts no two ranks on one device. Returns
+    (stats, the distributed launch counts of both)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        one, one_counts = one_rank_rounds(torch, np, cfg, A)
+        t1 = time.perf_counter()
+        two, two_counts = two_rank_rounds(torch, cfg, A)
+        t2 = time.perf_counter()
+    finally:
+        torch.backends.cudnn.deterministic = before
+    counts = {k: one_counts.get(k, 0) + two_counts.get(k, 0)
+              for k in set(one_counts) | set(two_counts)}
+    return {"one_rank_nccl": one, "two_gloo_ranks": two,
+            "one_rank_wall_s": t1 - t0, "two_rank_wall_s": t2 - t1,
+            "launches": counts}, counts
+
+
 # ------------------------------------------------------------- kernels -----
 
 def kc_cases(k_last):
@@ -2335,6 +2755,7 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
         r["train_launches"] = counts["train"][r["name"]]
         r["actor_launches"] = counts["actor"][r["name"]]
         r["eval_launches"] = counts["evaluate"][r["name"]]
+        r["distributed_launches"] = counts["distributed"].get(r["name"], 0)
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in ("stratified_sample", "write_priorities"):
             r["launches_at_shape"] = replay_shapes.get(
@@ -2629,11 +3050,23 @@ def head_rows(torch, cfg, A, timed, kb_shapes):
                 bytes=4 * (b * n + b * A * n + n + b * A + b) + 8 * b
                 + (4 * b * A * n if dist else 0))
         else:
+            import torch.nn.functional as F
+            aa = a.view(b, A, n)
+            q_a = (v[:, None] + aa - aa.mean(1, keepdim=True))[
+                torch.arange(b, device="cuda"), acts]
             row.update(
                 replaces="rainbow_tpu/ops/c51.py:57",
                 plain_ms=time_ms(torch, lambda: oc51.head_loss_plain(
                     v, a, acts, m, w), before=flush),
+                # No one call computes the combine, the weighted loss and
+                # its gradient; the nearest, timed beside it, is the loss
+                # alone on the chosen action's combined logits.
                 library_ms=None,
+                yardstick="F.cross_entropy with probability targets on the "
+                "chosen action's combined logits (the loss alone: no "
+                "dueling combine, IS weights or gradient)",
+                yardstick_ms=time_ms(torch, lambda: F.cross_entropy(
+                    q_a, m, reduction="none"), before=flush),
                 flops=b * A * n * 4 + b * n * 12,
                 # Read v, a, m, w and the actions, write dv, da, the losses
                 # and the loss.
@@ -2774,6 +3207,8 @@ def adam_row(torch, shapes, timed):
 
 def main() -> int:
     args = parse_args()
+    if args.rank is not None:
+        return distributed_rank(args)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -2970,7 +3405,12 @@ def main() -> int:
         "side_vs_main_with_eval": rate(side_stats, "train_")
         / rate(trainer_stats, "train_with_eval_")}))
 
-    # 8. kernels line --------------------------------------------------------
+    # 8. distributed -------------------------------------------------------
+    torch.cuda.empty_cache()
+    dist_stats, dist_counts = run_distributed(torch, np, cfg, A)
+    log("[distributed] " + json.dumps(dist_stats))
+
+    # 9. kernels line --------------------------------------------------------
     # KB's, c51_target's, head_loss's and K2's times, each taken twice.
     head_timed = [head_times(torch, cfg, A), head_times(torch, cfg, A)]
     log("[head times] " + json.dumps(head_timed))
@@ -2986,7 +3426,8 @@ def main() -> int:
     rows = kernel_rows(torch, np, cfg, A, errs, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
-        "sequential": seq_counts, "side": side_counts},
+        "sequential": seq_counts, "side": side_counts,
+        "distributed": dist_counts},
         shapes, replay_rows, delta_last, delta_timed, adam_timed,
         trainer_stats["ka_launches_by_shape"],
         trainer_stats["kb_launches_by_shape"], head_timed, noise_timed,

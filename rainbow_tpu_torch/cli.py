@@ -4,12 +4,18 @@ batched-engine knobs) on top of the typed config presets.
 
 Run:  python -m rainbow_tpu_torch.cli --game pong --num-envs 1024
 Eval: python -m rainbow_tpu_torch.cli --evaluate --model results/default/model.npz
+Two processes, one GPU each (NCCL), the same flags but --process-id:
+      python -m rainbow_tpu_torch.cli --num-envs 1024 --process-count 2 \
+          --process-id 0 --coordinator 127.0.0.1:29500   (and --process-id 1)
 
 Training runs on the card; ``main(device="cpu")`` is for tests.
 """
 from __future__ import annotations
 
 import argparse
+
+import torch
+import torch.distributed as dist
 
 from rainbow_tpu_torch import config as cfg_mod
 from rainbow_tpu_torch.utils.logging import log
@@ -71,8 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "unlike the reference's partial weights+memory resume)")
     p.add_argument("--render", action="store_true", default=None,
                    help="save eval-episode frames (reference --render)")
-    # Batched-engine and device knobs (the JAX package's "TPU-native" flags;
-    # the side paths among them raise until ported, see train.Trainer)
+    # Batched-engine and device knobs (the JAX package's "TPU-native" flags)
     p.add_argument("--num-envs", type=int, default=None)
     p.add_argument("--compute-dtype", default=None,
                    choices=["float32", "bfloat16"])
@@ -109,10 +114,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "critical path)")
     p.add_argument("--profile", action="store_true", default=None,
                    help="capture a torch.profiler trace of the training loop")
-    # Multi-process training: the flags are kept so that command lines stay
-    # those of the JAX package; more than one process raises until ported.
+    # Multi-process training (torch.distributed): one process per GPU with
+    # the same flags except --process-id. Each runs num_envs/P envs and its
+    # own replay shard; the learner averages gradients over all of them
+    # (parallel/learner.py).
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="coordinator address (multi-process, not ported)")
+                   help="rank 0's address for torch.distributed "
+                        "(multi-process)")
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--process-count", type=int, default=None)
     return p
@@ -136,12 +144,24 @@ def parse_config(argv=None):
 
 def main(argv=None, device="cuda"):
     """Train, or with --evaluate evaluate, as the flags say; returns the
-    Trainer."""
+    Trainer. With --process-count > 1 this process joins the process group
+    first (NCCL on CUDA, gloo on the CPU), unless one exists already, and
+    runs on ``cuda:{local rank}`` (the process id modulo the local GPUs)
+    unless ``device`` names the CPU or a card."""
     cfg, args = parse_config(argv)
     if args.process_count and args.process_count > 1:
-        raise NotImplementedError(
-            "--process-count > 1: multi-process training is not ported yet "
-            "(Queue 1 item 12 in ROADMAP.md)")
+        if not args.coordinator or args.process_id is None:
+            raise ValueError("--process-count > 1 needs --coordinator "
+                             "HOST:PORT (rank 0's address) and --process-id")
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", args.process_id
+                               % max(torch.cuda.device_count(), 1))
+            device = dev
+        if not (dist.is_available() and dist.is_initialized()):
+            from rainbow_tpu_torch.parallel.mesh import init_distributed
+            init_distributed(args.coordinator, args.process_count,
+                             args.process_id, device)
     # Echo options (reference main.py:63-65).
     print(" " * 26 + "Options")
     for k, v in sorted(vars(cfg).items()):

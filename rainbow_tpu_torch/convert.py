@@ -22,8 +22,9 @@ from rainbow_tpu_torch.device import resolve_device
 from rainbow_tpu_torch.models.dqn import NOISY_LAYERS
 from rainbow_tpu_torch.replay.prioritized import ReplayState
 
-_NOISY = (("w_mu", "weight_mu"), ("w_sigma", "weight_sigma"),
-          ("b_mu", "bias_mu"), ("b_sigma", "bias_sigma"))
+# A noisy layer's (JAX key, port key) pairs.
+JAX_NOISY_KEYS = (("w_mu", "weight_mu"), ("w_sigma", "weight_sigma"),
+                  ("b_mu", "bias_mu"), ("b_sigma", "bias_sigma"))
 
 
 def _flat_from_jax(tree: dict, device, dtype=torch.float32) -> dict:
@@ -37,7 +38,7 @@ def _flat_from_jax(tree: dict, device, dtype=torch.float32) -> dict:
         out[f"convs.{2 * i}.weight"] = w
         out[f"convs.{2 * i}.bias"] = np.asarray(conv["b"])
     for name in NOISY_LAYERS:
-        for jk, tk in _NOISY:
+        for jk, tk in JAX_NOISY_KEYS:
             out[f"{name}.{tk}"] = np.asarray(tree[name][jk])
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             .to(device=dev, dtype=dtype) for k, v in out.items()}
@@ -83,6 +84,6 @@ def params_to_jax(params: dict) -> dict:
     return {
         "convs": [{"w": np.transpose(sd[f"convs.{i}.weight"], (2, 3, 1, 0)),
                    "b": sd[f"convs.{i}.bias"]} for i in conv_ids],
-        **{name: {jk: sd[f"{name}.{tk}"] for jk, tk in _NOISY}
+        **{name: {jk: sd[f"{name}.{tk}"] for jk, tk in JAX_NOISY_KEYS}
            for name in NOISY_LAYERS},
     }

@@ -28,18 +28,34 @@ ARCHS = {
 }
 
 NOISY_LAYERS = ("fc_h_v", "fc_h_a", "fc_z_v", "fc_z_a")
-_NOISY_KEYS = ("weight_mu", "weight_sigma", "bias_mu", "bias_sigma")
+NOISY_KEYS = ("weight_mu", "weight_sigma", "bias_mu", "bias_sigma")
 
 
 def layer(params: dict, name: str) -> dict:
     """One noisy layer's params out of the flat dict."""
-    return {k: params[f"{name}.{k}"] for k in _NOISY_KEYS}
+    return {k: params[f"{name}.{k}"] for k in NOISY_KEYS}
 
 
 def _noisy_dims(cfg, action_space: int) -> dict:
     flat, h = cfg.conv_output_size, cfg.hidden_size
     return {"fc_h_v": (flat, h), "fc_h_a": (flat, h),
             "fc_z_v": (h, cfg.atoms), "fc_z_a": (h, action_space * cfg.atoms)}
+
+
+def param_shapes(cfg, action_space: int) -> dict:
+    """The shape of every network param, in init_dqn_params' keys and
+    order."""
+    shapes, cin = {}, cfg.history_length
+    for i, (cout, k, _s) in enumerate(ARCHS[cfg.architecture]):
+        shapes[f"convs.{2 * i}.weight"] = (cout, cin, k, k)
+        shapes[f"convs.{2 * i}.bias"] = (cout,)
+        cin = cout
+    for name, (din, dout) in _noisy_dims(cfg, action_space).items():
+        shapes.update({f"{name}.weight_mu": (dout, din),
+                       f"{name}.weight_sigma": (dout, din),
+                       f"{name}.bias_mu": (dout,),
+                       f"{name}.bias_sigma": (dout,)})
+    return shapes
 
 
 def init_dqn_params(cfg, action_space: int, generator: torch.Generator,

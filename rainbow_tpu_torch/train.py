@@ -1,7 +1,7 @@
-"""The batched actor's per-iteration step, the learner rounds (batched and
-sequential PER), the fused training iteration with dense or delta
-observations, and the Trainer (rainbow_tpu/train.py:45-316, 351-448,
-451-1165).
+"""The batched actor's per-iteration step, the single-device learner round
+(batched or sequential PER, the one-shard case of parallel/learner.py),
+the fused training iteration over one shard or several, and the Trainer
+(rainbow_tpu/train.py:45-316, 351-448, 451-1165).
 
 One actor iteration appends the transition that just ended to the replay,
 advances the frame stack (one launch of the append + frame-stack kernel on
@@ -20,8 +20,8 @@ replay the JAX package's) passes them in ``draws``: ``"u"`` the round's
 stratified uniforms, ``"target"`` the target forward's noise, ``"online"``
 the per-update online noise (models.dqn.draw_noise with lead (num_learns,)
 for both in the sequential round, per row for the batched round's target),
-``"act"`` the act forward's noise. The Trainer passes ``"act"`` itself, to
-hold the act noise between redraws as the JAX package's Trainer does.
+``"act"`` the act forward's noise. The Trainer passes the act noise
+itself, to hold it between redraws as the JAX package's Trainer does.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import os
 import queue
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -40,14 +40,17 @@ import torch
 from rainbow_tpu_torch import agent as ag
 from rainbow_tpu_torch import checkpoint as ckpt
 from rainbow_tpu_torch.config import RainbowConfig
-from rainbow_tpu_torch.device import resolve_device
 from rainbow_tpu_torch.envs.engine import delta_bucket
 from rainbow_tpu_torch.kernels import delta as k10
-from rainbow_tpu_torch.models.dqn import draw_noise_sets, forward_head
+from rainbow_tpu_torch.models.dqn import draw_noise
 from rainbow_tpu_torch.models.noisy import NoiseStream
 from rainbow_tpu_torch.ops.preprocess import (append_framestack,
                                               init_framestack,
                                               to_network_input)
+from rainbow_tpu_torch.parallel.learner import (Shards, distributed_round,
+                                                replicate)
+from rainbow_tpu_torch.parallel.mesh import indexed, make_mesh, world
+from rainbow_tpu_torch.parallel.multihost import broadcast_floats
 from rainbow_tpu_torch.replay import prioritized as rp
 from rainbow_tpu_torch.utils.logging import Timer, log
 from rainbow_tpu_torch.utils.plotting import plot_line
@@ -226,80 +229,27 @@ def learner_round(agent: ag.AgentState, rep: rp.ReplayState,
                   cfg: RainbowConfig, action_space: int, num_learns: int,
                   beta, draws: Optional[dict] = None) -> torch.Tensor:
     """``num_learns`` learner updates against ``rep`` (JAX train.py:451-463):
-    the sequential PER round with cfg.sequential_per, else the batched one.
-    Updates ``agent`` and ``rep.priorities``/``max_priority`` in place;
-    returns the mean loss as a 0-d device tensor."""
-    impl = _learner_round_impl if cfg.sequential_per \
-        else _learner_round_batched_impl
-    return impl(agent, rep, cfg, action_space, num_learns, beta, draws)
+    the sequential PER round with cfg.sequential_per, else the batched one,
+    as the one-shard case of parallel.learner.distributed_round. Updates
+    ``agent`` and ``rep.priorities``/``max_priority`` in place; returns the
+    mean loss as a 0-d device tensor.
 
-
-def _learner_round_batched_impl(agent: ag.AgentState, rep: rp.ReplayState,
-                                cfg: RainbowConfig, action_space: int,
-                                num_learns: int, beta,
-                                draws: Optional[dict] = None) -> torch.Tensor:
-    """The batched-PER learner round (JAX train.py:351-418): one stratified
-    draw of all ``num_learns`` batches against the round-start priorities,
-    one windowed gather, one target-net forward over all of the round's
-    rows with per-row noise, then per update the double-Q target, the
-    gradient and clip + Adam with the online noise of that update (one draw
-    shared over its batch), and one priority write-back at the end. The
-    target and online noise are one draw of the noise stream."""
-    draws = draws or {}
-    nb, bs = num_learns, cfg.batch_size
-    big = rp.sample_many(rep, beta, num_batches=nb, batch_size=bs,
-                         history=cfg.history_length, n_step=cfg.multi_step,
-                         discount=cfg.discount, generator=agent.generator,
-                         u=draws.get("u"))
-    dev = big["weights"].device
-    ns_flat = rp.states_to_float(
-        big["next_states"].reshape((nb * bs,) + big["next_states"].shape[2:]))
-    target_eps, online = draws.get("target"), draws.get("online")
-    if target_eps is None or online is None:
-        target_eps, online = draw_noise_sets(cfg, action_space, agent.noise,
-                                             [(nb * bs,), (nb,)], dev)
-    with torch.no_grad():
-        pns_target = forward_head(agent.target_params, cfg, action_space,
-                                  ns_flat, dist="probs",
-                                  noise_eps=target_eps).dist
-    del ns_flat
-    pns_target = pns_target.view(nb, bs, action_space, cfg.atoms)
-    losses = []
-    for u in range(nb):
-        batch = {k: big[k][u] for k in ("actions", "returns", "nonterminals",
-                                         "weights")}
-        batch["states"] = rp.states_to_float(big["states"][u])
-        batch["next_states"] = rp.states_to_float(big["next_states"][u])
-        eps = {name: (e_in[u], e_out[u])
-               for name, (e_in, e_out) in online.items()}
-        grads, l = ag.compute_update_pretarget(agent, cfg, action_space,
-                                               batch, pns_target[u], eps)
-        ag.apply_grads(agent, cfg, grads)
-        losses.append(l)
-    losses = torch.stack(losses)
-    rp.update_priorities(rep, big["idxs"], losses, cfg.priority_exponent)
-    return losses.mean()
-
-
-def _learner_round_impl(agent: ag.AgentState, rep: rp.ReplayState,
-                        cfg: RainbowConfig, action_space: int,
-                        num_learns: int, beta,
-                        draws: Optional[dict] = None) -> torch.Tensor:
-    """The sequential PER round (JAX train.py:421-448; reference
-    agent.py:61-100 per update): ``num_learns`` learn steps, each with fresh
-    online noise, sampling against the priorities the previous update
-    wrote, then its update, clip + Adam and its write-back. Injected draws
-    carry a leading (num_learns,) axis: ``"u"`` (num_learns, B), ``"online"``
-    and ``"target"`` draw_noise dicts."""
-    draws = draws or {}
-    losses = []
-    for i in range(num_learns):
-        d = {"u": draws["u"][i]} if "u" in draws else {}
-        for k in ("online", "target"):
-            if k in draws:
-                d[k] = {n: (a[i], b[i]) for n, (a, b) in draws[k].items()}
-        losses.append(ag.learn_step(agent, rep, cfg, action_space, beta, d))
-    return torch.stack(losses).mean()
+    The batched round (JAX train.py:351-418) takes one stratified draw of
+    all ``num_learns`` batches against the round-start priorities, one
+    windowed gather, one target-net forward over all of the round's rows
+    with per-row noise, then per update the double-Q target, the gradient
+    and clip + Adam with the online noise of that update (one draw shared
+    over its batch), and one priority write-back at the end; the target and
+    online noise are one draw of the noise stream. The sequential round
+    (JAX train.py:421-448; reference agent.py:61-100 per update) takes
+    ``num_learns`` learn steps, each with fresh online and target noise,
+    sampling against the priorities the previous update wrote, then its
+    update, clip + Adam and its write-back. Injected ``draws``: ``"u"``,
+    ``"online"`` and ``"target"`` (draw_noise dicts), with a leading
+    (num_learns,) axis in the sequential round."""
+    return distributed_round([agent], [rep], cfg, action_space, num_learns,
+                             beta, Shards([rep.priorities.device], cfg,
+                                          group=False), [draws or {}])
 
 
 def train_iter_packed(cfg: RainbowConfig, action_space: int,
@@ -318,45 +268,100 @@ def train_iter_packed(cfg: RainbowConfig, action_space: int,
     (train.py:1042-1051), where JAX's function alone would reuse its noise
     key. Updates
     ``agent``, ``stack`` and ``rep`` in place; returns (actions (N,) int64,
-    mean loss, 0 without a round), both on the device."""
+    mean loss, 0 without a round), both on the device. The one-shard case
+    of train_iter_sharded; ``draws`` holds the round's and ``"act"``."""
     draws = draws or {}
-    loss = torch.zeros((), dtype=torch.float32, device=stack.device)
+    return train_iter_sharded(
+        cfg, action_space, num_learns, [agent], [stack], [rep],
+        Shards([stack.device], cfg, group=False), prev_actions,
+        [(obs, reset_packed, reset_idx, rewards, dones, kinds)], beta,
+        sync_target, draws.get("act"), [draws])
+
+
+def act_sharded(agents: list, cfg: RainbowConfig, action_space: int,
+                stacks: list, shards: Shards,
+                act_noise: Optional[dict] = None) -> torch.Tensor:
+    """Every local shard's actions, in env order, as (N_local,) int64 on the
+    first shard device: shard s acts on its stack with its replica and its
+    rows of ``act_noise`` (models.dqn.draw_noise over all envs of the
+    process group with cfg.per_env_noise, else one shared draw; a fresh
+    draw of the shared noise stream when None)."""
+    if act_noise is None:
+        lead = ((shards.count * stacks[0].shape[0],) if cfg.per_env_noise
+                else ())
+        act_noise = draw_noise(cfg, action_space, agents[0].noise, lead,
+                               shards.devices[0])
+    out = []
+    for s, (agent, stack, dev) in enumerate(zip(agents, stacks,
+                                                shards.devices)):
+        n = stack.shape[0]
+        rows = slice(shards.index(s) * n, (shards.index(s) + 1) * n)
+        eps = {k: ((a[rows], b[rows]) if cfg.per_env_noise else (a, b))
+               for k, (a, b) in act_noise.items()}
+        eps = {k: (a.to(dev), b.to(dev)) for k, (a, b) in eps.items()}
+        out.append(ag.act(agent.params, cfg, action_space,
+                          to_network_input(stack), None, eps)
+                   .to(shards.devices[0]))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def train_iter_sharded(cfg: RainbowConfig, action_space: int,
+                       num_learns: int, agents: list, stacks: list,
+                       reps: list, shards: Shards, prev_actions,
+                       tails: list, beta, sync_target: bool,
+                       act_noise: Optional[dict] = None,
+                       draws: Optional[List[dict]] = None):
+    """train_iter_packed over the local shards (one on a single device;
+    JAX train.py:319-350, train_iter_mp, for more): with ``num_learns`` > 0
+    the round (parallel.learner.distributed_round, with ``draws`` per
+    shard) against the pre-append replay shards and, if ``sync_target``,
+    every replica's target sync; then per shard the append + frame-stack
+    advance of its rows (``tails[s]``: what actor_step_packed takes after
+    prev_actions, with the shard's packed resets) and its actions
+    (act_sharded, with ``act_noise`` over all envs of the process group).
+    Per-shard packed resets stand in for JAX's dense reset frames, which
+    exist there only so that every process runs one SPMD program. Returns
+    (actions (N_local,) int64 on the first shard device, mean loss)."""
+    dev0 = shards.devices[0]
+    loss = torch.zeros((), dtype=torch.float32, device=dev0)
     if num_learns:
-        loss = learner_round(agent, rep, cfg, action_space, num_learns, beta,
-                             draws)
+        loss = distributed_round(agents, reps, cfg, action_space, num_learns,
+                                 beta, shards, draws)
         if sync_target:
-            ag.update_target(agent)
-    _update_core(cfg, stack, rep, prev_actions, obs, reset_packed, reset_idx,
-                 rewards, dones, kinds)
-    actions = ag.act(agent.params, cfg, action_space,
-                     to_network_input(stack), agent.noise, draws.get("act"))
-    return actions, loss
-
-
-def train_iter_delta(cfg: RainbowConfig, action_space: int, num_learns: int,
-                     agent: ag.AgentState, stack: torch.Tensor,
-                     rep: rp.ReplayState, prev_actions, delta_offsets,
-                     delta_pos, delta_val, reset_packed, reset_idx, rewards,
-                     dones, kinds, beta, sync_target: bool,
-                     draws: Optional[dict] = None):
-    """train_iter_packed with the observations as a sparse delta against the
-    stack's newest plane (JAX train.py:302-316): the delta kernel rebuilds
-    them, then the iteration runs as train_iter_packed."""
-    obs = apply_delta(stack, delta_offsets, delta_pos, delta_val)
-    return train_iter_packed(cfg, action_space, num_learns, agent, stack, rep,
-                             prev_actions, obs, reset_packed, reset_idx,
-                             rewards, dones, kinds, beta, sync_target, draws)
+            for agent in agents:
+                ag.update_target(agent)
+    at = 0
+    for stack, rep, dev, tail in zip(stacks, reps, shards.devices, tails):
+        n = stack.shape[0]
+        _update_core(cfg, stack, rep, prev_actions[at:at + n].to(dev),
+                     *tail)
+        at += n
+    return act_sharded(agents, cfg, action_space, stacks, shards,
+                       act_noise), loss
 
 
 class Trainer:
-    """The training loop of one process on one device (JAX train.py:466-1165
-    without data parallelism): the learn cadence, β annealing, the target
-    sync, evaluation with the best-model save, metrics and plots, and
-    atomic checkpoints, around one training iteration per step
-    (``train_iter_packed``, or ``train_iter_delta`` for a delta upload).
-    Host-side scheduling only; every iteration's device work is queued, and
-    the waits are the fetch of the actions and, pipelined, the settle
-    window.
+    """The training loop (JAX train.py:466-1165): the learn cadence, β
+    annealing, the target sync, evaluation with the best-model save,
+    metrics and plots, and atomic checkpoints, around one training
+    iteration per step (``train_iter_sharded`` over this process's shards,
+    after the delta kernel for a delta upload). Host-side scheduling only;
+    every iteration's device work is queued, and the waits are the fetch
+    of the actions and, pipelined, the settle window.
+
+    Shards: one on ``device``, or, with cfg.data_parallel or as a rank of a
+    torch.distributed process group of more than one process, one per
+    device of ``devices`` (by default every local CUDA device for
+    data_parallel in one process, the ``device`` alone for a rank), each
+    with an agent replica, a replay shard and its rows of the env slice.
+    A rank runs ``num_envs // world`` envs seeded at rank · 7919; only
+    rank 0 evaluates (its results are broadcast, so every rank records the
+    same metrics) and writes model.npz, metrics.json, the plots, the
+    heartbeat and a profile; every rank writes its own checkpoints, named
+    ``<name>.proc{rank}-of-{world}``, and restores from the base path.
+    Delta uploads raise under more than one process and stay dense in a
+    sharded run, asynchronous evaluation stays off under more than one
+    process, as in the JAX package.
 
     Side paths, as in the JAX Trainer: cfg.sequential_per picks the
     learner round; cfg.delta_uploads sends the engine's sparse frame deltas
@@ -369,25 +374,34 @@ class Trainer:
     params at the scheduled T."""
 
     def __init__(self, cfg: RainbowConfig,
-                 make_env: Optional[Callable] = None, device="cuda"):
-        if cfg.data_parallel:
-            raise NotImplementedError(
-                "Trainer: cfg.data_parallel is not ported yet (Queue 1 item "
-                "12, data-parallel training, in ROADMAP.md)")
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "Trainer: multi-process training is not ported yet (Queue 1 "
-                "item 12 in ROADMAP.md)")
+                 make_env: Optional[Callable] = None, device="cuda",
+                 devices: Optional[list] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.proc_id, self.num_procs = world()
+        self.multi_process = self.num_procs > 1
+        self.is_chief = self.proc_id == 0  # the file-writing process
+        sharded = self.multi_process or cfg.data_parallel
+        if sharded and (devices is not None or not self.multi_process):
+            self.devices = make_mesh(devices, device)
+        else:
+            self.devices = [indexed(device)]
+        self.device = self.devices[0]
         self.make_env = make_env or make_env_factory(cfg)
         self.results_dir = os.path.join(cfg.results_dir, cfg.run_id)
-        os.makedirs(self.results_dir, exist_ok=True)
+        if self.is_chief:
+            os.makedirs(self.results_dir, exist_ok=True)
         self.metrics = {"steps": [], "rewards": [], "Qs": [],
                         "best_avg_reward": -float("inf")}
         self.timer = Timer()
+        # Per-rank env slice (JAX train.py:506-530): cfg.num_envs counts
+        # the envs of every process.
+        if self.multi_process:
+            if cfg.num_envs % self.num_procs:
+                raise ValueError(f"num_envs {cfg.num_envs} must divide over "
+                                 f"{self.num_procs} processes")
+            if cfg.delta_uploads:
+                raise ValueError("delta_uploads is a single-process mode")
+        self.envs_local = cfg.num_envs // self.num_procs
         # Ring-capacity guard (JAX train.py:516-528): each env's ring must
         # hold one full (-history+1 .. +n) window beyond the write-head
         # exclusion zone, or the masked sampler has no valid mass.
@@ -399,13 +413,17 @@ class Trainer:
                 f"{cfg.num_envs}) is below the minimum {min_cap} for "
                 f"history={cfg.history_length}, n={cfg.multi_step}; raise "
                 f"memory_capacity or lower num_envs")
-        self.env = self.make_env(num_envs=cfg.num_envs, training=True,
-                                 seed_offset=0)
+        self.env = self.make_env(num_envs=self.envs_local, training=True,
+                                 seed_offset=self.proc_id * 7919)
         self.action_space = self.env.action_space
         self.agent = ag.init_agent(cfg, self.action_space, cfg.seed,
                                    self.device)
         if cfg.model_path:  # pretrained weights (reference agent.py:26-36)
-            params = ckpt.load_params(cfg.model_path, self.device)
+            from rainbow_tpu_torch.utils import torch_import as tim
+            params = (tim.load_jax_params(cfg.model_path, cfg,
+                                          self.action_space, self.device)
+                      if tim.is_jax_checkpoint(cfg.model_path)
+                      else ckpt.load_params(cfg.model_path, self.device))
             for k, v in params.items():
                 self.agent.params[k].copy_(v)
                 self.agent.target_params[k].copy_(v)
@@ -414,8 +432,17 @@ class Trainer:
         # agent's.
         self.eval_generator = torch.Generator(
             device=self.device).manual_seed(cfg.seed + 2)
-        self.rep = rp.init_replay(cfg.num_envs, cfg.capacity_per_env,
-                                  cfg.frame_size, self.device)
+        # A replica of the agent and a replay shard per device (JAX
+        # train.py:556-598); the replicas share one noise stream.
+        if self.envs_local % len(self.devices):
+            raise ValueError(f"num_envs {cfg.num_envs} must divide over "
+                             f"{self.num_procs * len(self.devices)} devices")
+        self.envs_per_shard = self.envs_local // len(self.devices)
+        self.shards = Shards(self.devices, cfg, group=sharded)
+        self.agents = replicate(self.agent, self.devices)
+        self.reps = [rp.init_replay(self.envs_per_shard, cfg.capacity_per_env,
+                                    cfg.frame_size, d) for d in self.devices]
+        self.rep = self.reps[0]  # the replay, or the first shard
         self.T = 0  # env steps taken (reference's T, in agent steps)
         # Learn cadence (JAX train.py:544-552).
         if cfg.num_envs >= cfg.replay_frequency:
@@ -427,8 +454,8 @@ class Trainer:
         self.beta_rate = ((1.0 - cfg.priority_weight)
                           / max(cfg.total_steps - cfg.learn_start, 1))
         self._last_loss = None
-        self._use_delta = cfg.delta_uploads and hasattr(self.env,
-                                                        "step_delta")
+        self._use_delta = (cfg.delta_uploads and not sharded
+                           and hasattr(self.env, "step_delta"))
         # Iterations by upload form: a delta, or dense (no delta uploads, or
         # the engine's dense fallback for a near-dense step).
         self.upload_forms = {"delta": 0, "dense": 0}
@@ -448,39 +475,66 @@ class Trainer:
               "eval_generator": self.eval_generator, "T": self.T,
               "metrics_json": np.frombuffer(json.dumps(self.metrics).encode(),
                                             np.uint8)}
-        if include_replay:
+        if include_replay:  # the shards' env rows in order, as one ring
             st["replay"] = {f.name: getattr(self.rep, f.name)  # no copies
+                            if len(self.reps) == 1 or getattr(
+                                self.rep, f.name).dim() == 0
+                            else torch.cat([getattr(r, f.name).cpu()
+                                            for r in self.reps])
                             for f in dataclasses.fields(self.rep)}
         return st
+
+    def _ckpt_path(self, name: str) -> str:
+        """A rank of a multi-process run writes a file of its own (its
+        replay shard lives only there), JAX train.py:617-622."""
+        if self.multi_process:
+            name += f".proc{self.proc_id}-of-{self.num_procs}"
+        return os.path.join(self.results_dir, name)
 
     def save_checkpoint(self, name="checkpoint.npz", include_replay=None):
         if include_replay is None:
             include_replay = self.cfg.memory_path is not None
-        ckpt.save_state(os.path.join(self.results_dir, name),
+        ckpt.save_state(self._ckpt_path(name),
                         self._full_state(include_replay),
                         compress=include_replay and self.cfg.compress_memory)
 
     def restore_checkpoint(self, path: str):
         """Restore a checkpoint written by save_checkpoint, in place: params,
         target, Adam state, the generators and the noise stream, T, metrics
-        and, if it holds one, the replay."""
+        and, if it holds one, the replay; into every replica and replay
+        shard. A rank of a multi-process run passes the base path and loads
+        its own file (JAX train.py:624-649), or, without one, the base file,
+        taking its own env rows of the ring."""
+        if self.multi_process:
+            own = f"{path}.proc{self.proc_id}-of-{self.num_procs}"
+            if os.path.exists(own):
+                path = own
         st = ckpt.load_state(path)
-        a, sa = self.agent, st["agent"]
-        for dst, src in ((a.params, sa["params"]),
-                         (a.target_params, sa["target_params"]),
-                         (a.opt_state.mu, sa["opt_state"]["mu"]),
-                         (a.opt_state.nu, sa["opt_state"]["nu"])):
-            for k, v in dst.items():
-                v.copy_(src[k])
-        a.opt_state.count.copy_(sa["opt_state"]["count"])
-        a.step = int(sa["step"])
-        a.generator.set_state(sa["generator"].get_state())
-        a.noise = NoiseStream(int(sa["noise"]["seed"]),
-                              int(sa["noise"]["offset"]))
+        sa = st["agent"]
+        noise = NoiseStream(int(sa["noise"]["seed"]),
+                            int(sa["noise"]["offset"]))
+        for a in self.agents:
+            for dst, src in ((a.params, sa["params"]),
+                             (a.target_params, sa["target_params"]),
+                             (a.opt_state.mu, sa["opt_state"]["mu"]),
+                             (a.opt_state.nu, sa["opt_state"]["nu"])):
+                for k, v in dst.items():
+                    v.copy_(src[k])
+            a.opt_state.count.copy_(sa["opt_state"]["count"])
+            a.step = int(sa["step"])
+            a.generator.set_state(sa["generator"].get_state())
+            a.noise = noise
         self.eval_generator.set_state(st["eval_generator"].get_state())
-        if "replay" in st:
-            for k, v in st["replay"].items():
-                getattr(self.rep, k).copy_(v)
+        n = self.envs_per_shard
+        for k, v in st.get("replay", {}).items():
+            # This process's rows, or its slice of a ring of every env (a
+            # single-process checkpoint restored into a rank).
+            first = (self.proc_id * self.envs_local
+                     if v.dim() and v.shape[0] == self.cfg.num_envs else 0)
+            for s, rep in enumerate(self.reps):
+                dst = getattr(rep, k)
+                dst.copy_(v[first + s * n:first + (s + 1) * n] if dst.dim()
+                          else v)
         self.T = int(st["T"])
         self.metrics = json.loads(st["metrics_json"].tobytes().decode())
         log(f"Restored checkpoint at T={self.T} from {path}")
@@ -499,11 +553,22 @@ class Trainer:
 
     def evaluate_now(self, val_states, evaluate_only=False):
         """Evaluate the current policy (episodes + validation Q); unless
-        ``evaluate_only``, record it (JAX train.py:671-732)."""
+        ``evaluate_only``, record it (JAX train.py:671-732). Under more than
+        one process only rank 0 evaluates, and broadcasts the episodes'
+        rewards and the Q values, so every rank records the same
+        metrics."""
         from rainbow_tpu_torch import evaluate as ev
-        avg_r, avg_q, rewards, qs = ev.evaluate(
-            self.cfg, self.agent.params, self.action_space,
-            self._eval_env_factory(), val_states, self.eval_generator)
+        if self.is_chief:
+            avg_r, avg_q, rewards, qs = ev.evaluate(
+                self.cfg, self.agent.params, self.action_space,
+                self._eval_env_factory(), val_states, self.eval_generator)
+        if self.multi_process:
+            n_ep = self.cfg.evaluation_episodes
+            got = broadcast_floats(rewards + qs if self.is_chief else (),
+                                   n_ep + int(val_states.shape[0]),
+                                   self.device)
+            rewards, qs = got[:n_ep], got[n_ep:]
+            avg_r, avg_q = float(np.mean(rewards)), float(np.mean(qs))
         if not evaluate_only:
             self._apply_eval_result(self.T, self.agent.params, avg_r, avg_q,
                                     rewards, qs)
@@ -515,10 +580,14 @@ class Trainer:
         self.metrics["steps"].append(T)
         self.metrics["rewards"].append(rewards)
         self.metrics["Qs"].append(qs)
-        if avg_r > self.metrics["best_avg_reward"]:
+        best = avg_r > self.metrics["best_avg_reward"]
+        if best:
             self.metrics["best_avg_reward"] = avg_r
+        if not self.is_chief:
+            return
+        if best:  # best save, test.py:43-46
             ckpt.save_params(os.path.join(self.results_dir, "model.npz"),
-                             params)  # best save, test.py:43-46
+                             params)
         with open(os.path.join(self.results_dir, "metrics.json"), "w") as f:
             json.dump(self.metrics, f)
         plot_line(self.metrics["steps"], self.metrics["rewards"], "Reward",
@@ -614,13 +683,15 @@ class Trainer:
     # ---- staging --------------------------------------------------------
     def _stage(self, acts_np, stream=None):
         """Step the engine with ``acts_np``, pack the step on the host and
-        upload it (JAX train.py:914-951): returns (is_delta, tail, event),
-        ``tail`` the device tensors train_iter_delta (a delta) or
-        train_iter_packed (dense: no delta uploads, or the engine's dense
+        upload it (JAX train.py:914-951): returns (is_delta, tails, event),
+        ``tails`` one tuple of device tensors per shard, its rows of the
+        step: what actor_step_delta (a delta, one shard) or
+        actor_step_packed (dense: no delta uploads, or the engine's dense
         fallback) take after prev_actions. With a CUDA ``stream`` (the
         pipelined worker's), the upload goes through pinned memory on that
         stream without blocking, and ``event`` marks its end; else it is a
-        plain copy on the current stream and ``event`` is None."""
+        plain copy on the current stream and ``event`` is None. Shards off
+        the stream's device take plain copies."""
         if self._use_delta:
             counts, dpos, dval, *rest = self.env.step_delta(acts_np)
             obs_form = ((dpos,) if counts is None
@@ -628,35 +699,47 @@ class Trainer:
         else:
             obs, *rest = self.env.step(acts_np)
             obs_form = (obs,)
-        host = _host_step(obs_form, *rest)
-        if stream is None:
-            return len(obs_form) == 3, tuple(
-                torch.from_numpy(a).to(self.device) for a in host), None
-        with torch.cuda.stream(stream):
-            # The engine's buffers are rewritten two steps on: the copies
-            # into pinned memory finish here, on this thread.
-            tail = tuple(torch.from_numpy(a).pin_memory().to(
-                self.device, non_blocking=True) for a in host)
+        n = self.envs_per_shard
+        hosts = ([_host_step(obs_form, *rest)] if len(self.devices) == 1
+                 else [_host_step((obs[s * n:(s + 1) * n],),
+                                  *(x[s * n:(s + 1) * n] for x in rest))
+                       for s in range(len(self.devices))])
+        tails = []
+        for host, dev in zip(hosts, self.devices):
+            if stream is None or dev != stream.device:
+                tails.append(tuple(torch.from_numpy(a).to(dev)
+                                   for a in host))
+                continue
+            with torch.cuda.stream(stream):
+                # The engine's buffers are rewritten two steps on: the
+                # copies into pinned memory finish here, on this thread.
+                tails.append(tuple(torch.from_numpy(a).pin_memory().to(
+                    dev, non_blocking=True) for a in host))
+        done = None
+        if stream is not None:
             done = torch.cuda.Event()
             done.record(stream)
-        return len(obs_form) == 3, tail, done
+        return len(obs_form) == 3, tails, done
 
-    def _launch(self, staged, stack, prev_actions, num_learns, beta,
+    def _launch(self, staged, stacks, prev_actions, num_learns, beta,
                 sync_target, act_noise):
-        """Launch one training iteration on the staged step; returns the
-        actions (N,) int64 on the device."""
-        is_delta, tail, done = staged
+        """Launch one training iteration on the staged step over the shards'
+        stacks; returns the actions (N_local,) int64 on the first device."""
+        is_delta, tails, done = staged
         if done is not None:  # the upload ran on the worker's stream
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(done)
-            for t in tail:
-                t.record_stream(cur)
+            for t in sum(tails, ()):
+                if t.device == self.device:
+                    t.record_stream(cur)
         self.upload_forms["delta" if is_delta else "dense"] += 1
-        fn = train_iter_delta if is_delta else train_iter_packed
-        actions, loss = fn(self.cfg, self.action_space, num_learns,
-                           self.agent, stack, self.rep, prev_actions, *tail,
-                           np.float32(beta), bool(sync_target),
-                           {"act": act_noise})
+        if is_delta:  # one shard: the delta kernel rebuilds its observations
+            (offsets, pos, val, *rest), = tails
+            tails = [(apply_delta(stacks[0], offsets, pos, val), *rest)]
+        actions, loss = train_iter_sharded(
+            self.cfg, self.action_space, num_learns, self.agents, stacks,
+            self.reps, self.shards, prev_actions, tails, np.float32(beta),
+            bool(sync_target), act_noise)
         if num_learns:  # a device scalar, fetched by the heartbeat
             self._last_loss = loss
         return actions
@@ -701,15 +784,18 @@ class Trainer:
         cfg = self.cfg
         log("Building validation memory")
         val_states = self.build_validation_states()
-        stack = init_framestack(cfg.num_envs, cfg.history_length,
-                                self.env.reset_all(), self.device)
+        frames, n = self.env.reset_all(), self.envs_per_shard
+        # A stack per shard (its env rows).
+        stacks = [init_framestack(n, cfg.history_length,
+                                 frames[s * n:(s + 1) * n], d)
+                 for s, d in enumerate(self.devices)]
         # The act noise is held between redraws, as JAX's act reuses
         # agent.noise_key until reset_noise (train.py:262, 1042-1051). This
         # first act, on this thread, also compiles the head kernel's variant
         # that an asynchronous evaluation launches.
         act_noise = self._draw_act_noise()
-        actions = ag.act(self.agent.params, cfg, self.action_space,
-                         to_network_input(stack), None, act_noise)
+        actions = act_sharded(self.agents, cfg, self.action_space, stacks,
+                              self.shards, act_noise)
         pipelined = cfg.pipeline_actor
         if pipelined:
             # A depth-D action queue, seeded with D copies of the first
@@ -743,7 +829,7 @@ class Trainer:
         last_log_t, last_log_T = time.time(), self.T
         while self.T < cfg.total_steps:
             now = time.time()
-            if now - last_log_t > 60:  # throughput heartbeat
+            if now - last_log_t > 60 and self.is_chief:  # heartbeat
                 sps = (self.T - last_log_T) / (now - last_log_t)
                 loss_s = ("" if self._last_loss is None
                           else f" | loss: {float(self._last_loss):.4f}")
@@ -751,7 +837,7 @@ class Trainer:
                     f"{self.timer.summary()}")
                 last_log_t, last_log_T = now, self.T
             it += 1
-            if cfg.profile:  # trace a steady-state window
+            if cfg.profile and self.is_chief:  # a steady-state window
                 if it == 20:
                     prof = self._start_profile()
                 elif it == 40 and prof is not None:
@@ -782,7 +868,7 @@ class Trainer:
                 self.timer.stop("fetch")
                 fut = pool.submit(self._stage, pa_np, stage_stream)  # t+1
                 self.timer.start("actor")
-                a_new = self._launch(staged, stack, a_exec, num_learns, beta,
+                a_new = self._launch(staged, stacks, a_exec, num_learns, beta,
                                      sync_target, act_noise)
                 action_queue.append(a_new)
                 fetch_q.append(self._fetch(fetch_pool, a_new))
@@ -795,23 +881,25 @@ class Trainer:
                 staged = self._stage(acts_np)
                 self.timer.stop("env")
                 self.timer.start("actor")
-                actions = self._launch(staged, stack, actions, num_learns,
+                actions = self._launch(staged, stacks, actions, num_learns,
                                        beta, sync_target, act_noise)
                 acts_np = actions.cpu().numpy()
                 self.timer.stop("actor")
             if learning:
                 if self.T >= next_target_sync:  # main.py:177-178
                     if not sync_target:  # else synced inside the iteration
-                        ag.update_target(self.agent)
+                        for agent in self.agents:
+                            ag.update_target(agent)
                     next_target_sync += cfg.target_update
                 if self.T >= next_eval:  # main.py:166-174
-                    if cfg.async_eval:
+                    if cfg.async_eval and not self.multi_process:
                         self._eval_async_start(val_states)
                     else:
                         avg_r, avg_q = self.evaluate_now(val_states)
-                        log(f"T = {self.T} / {cfg.total_steps} | Avg. "
-                            f"reward: {avg_r} | Avg. Q: {avg_q:.4f} | "
-                            f"{self.timer.summary()}")
+                        if self.is_chief:
+                            log(f"T = {self.T} / {cfg.total_steps} | Avg. "
+                                f"reward: {avg_r} | Avg. Q: {avg_q:.4f} | "
+                                f"{self.timer.summary()}")
                     next_eval += cfg.evaluation_interval
                     if (cfg.memory_path is not None
                             and not cfg.memory_save_interval):

@@ -88,10 +88,16 @@ def test_main_takes_the_side_paths(tmp_path, monkeypatch):
     assert tr.agent.step > 0
 
 
-def test_main_refuses_more_than_one_process():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["--process-count", "2", "--env-backend", "fake"],
+@pytest.mark.parametrize("argv", [[], ["--coordinator", "127.0.0.1:1"],
+                                  ["--process-id", "0"]])
+def test_main_needs_a_coordinator_and_an_id_for_more_than_one_process(argv):
+    """--process-count 2 without --coordinator or --process-id raises a
+    clear error before anything starts (two gloo processes train in
+    test_torch_port_parallel.py)."""
+    with pytest.raises(ValueError, match="--coordinator HOST:PORT"):
+        tcli.main(["--process-count", "2", "--env-backend", "fake", *argv],
                   device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_entry_points_raise_without_a_card():

@@ -27,7 +27,9 @@ torch.maximum does, in one kernel node. Adam's kernel does the plain version's f
 ops in the same order except the global norm's sum, so params agree to
 1e-7 after three steps (3·lr·2^-7 with a bf16 mu, where a rounding that
 falls the other way moves an update by 2^-7 of lr), and two runs give the
-same bits. After a learner round, params agree to lr/100.
+same bits. After a learner round, params agree to lr/100. The distributed
+round at world size 1 over NCCL gives learner_round's bits, with cuDNN held
+to its deterministic algorithms.
 """
 import dataclasses
 
@@ -58,6 +60,7 @@ from rainbow_tpu_torch.ops import c51 as oc51
 from rainbow_tpu_torch.ops import preprocess as pp
 from rainbow_tpu_torch.ops.c51 import support_vector
 from rainbow_tpu_torch.ops.head import dueling_head_plain
+from rainbow_tpu_torch.parallel import learner as pl
 from rainbow_tpu_torch.replay import prioritized as rp
 from rainbow_tpu_torch import train as ttrain
 from rainbow_tpu_torch.train import actor_step_packed, pack_resets, stage_step
@@ -1027,3 +1030,138 @@ def test_sequential_learn_step_on_card_matches_cpu(cuda):
         dueling_head=4, noisy_linear_bwd=8, c51_target=2, head_loss=2,
         clip_adam=2, stratified_sample=2, gather_window=2,
         write_priorities=2)
+
+
+def _round_inputs(cfg, n_act, dev, seq, n_shards=1):
+    """Agents, replay shards and draws of a learner round, the same on any
+    device: the _card_ring of 4 envs per shard, init_agent's params, draws
+    from a CPU generator and the CPU noise stream."""
+    nl, bs = 2, cfg.batch_size // n_shards
+    gen, ns = torch.Generator().manual_seed(8), NoiseStream(8)
+    lead = (nl,) if seq else (nl * bs,)
+    draws, reps = [], []
+    for s in range(n_shards):
+        d = {"u": torch.rand((nl, bs) if seq else (nl * bs,), generator=gen),
+             "target": draw_noise(cfg, n_act, ns, lead, "cpu"),
+             "online": draw_noise(cfg, n_act, ns, (nl,), "cpu")}
+        if s:  # the online noise is the same on every shard
+            d["online"] = draws[0]["online"]
+        draws.append({"u": d["u"].to(dev), **{
+            k: {n: (x.to(dev), y.to(dev)) for n, (x, y) in d[k].items()}
+            for k in ("target", "online")}})
+        base = _card_ring("cpu", 4, 32, 9, True, seed=9 + s)
+        reps.append(rp.ReplayState(**{f.name: getattr(base, f.name).to(dev)
+                                      for f in dataclasses.fields(base)}))
+    agent = ag.init_agent(cfg, n_act, 0, "cpu")
+    agent = ag.AgentState(
+        params={k: v.to(dev) for k, v in agent.params.items()},
+        target_params={k: v.to(dev) for k, v in agent.target_params.items()},
+        opt_state=ag.init_adam({k: v.to(dev) for k, v in
+                                agent.params.items()}, cfg),
+        generator=torch.Generator(device=dev))
+    return agent, reps, draws
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda):
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["batched", "sequential"])
+def test_one_rank_nccl_round_matches_learner_round(deterministic_cudnn, seq):
+    """The distributed round over a world-size-1 NCCL group (its all-reduces
+    run) against train.learner_round on the same inputs and draws: the
+    loss, params, Adam state, priorities and max_priority bit for bit, and
+    the same kernel launches."""
+    import socket
+    import torch.distributed as dist
+    cfg = rainbow_tpu_torch.canonical(num_envs=4, memory_capacity=128,
+                                      hidden_size=32, batch_size=4,
+                                      sequential_per=seq)
+    n_act, nl = 6, 2
+    out = []
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        for distributed in (False, True):
+            agent, (rep,), (d,) = _round_inputs(cfg, n_act, "cuda", seq)
+            reset_launches()
+            if distributed:
+                loss = pl.distributed_round([agent], [rep], cfg, n_act, nl,
+                                            0.5, pl.Shards(["cuda"], cfg),
+                                            [d])
+            else:
+                loss = ttrain.learner_round(agent, rep, cfg, n_act, nl, 0.5,
+                                            d)
+            torch.cuda.synchronize()
+            out.append((loss, agent, rep, launches()))
+    finally:
+        dist.destroy_process_group()
+    (l0, a0, r0, c0), (l1, a1, r1, c1) = out
+    assert torch.equal(l0, l1) and c0 == c1
+    for tree in ("params", "target_params"):
+        for k, v in getattr(a0, tree).items():
+            assert torch.equal(getattr(a1, tree)[k], v), (tree, k)
+    for k in a0.params:
+        assert torch.equal(a1.opt_state.mu[k], a0.opt_state.mu[k]), k
+        assert torch.equal(a1.opt_state.nu[k], a0.opt_state.nu[k]), k
+    assert torch.equal(a1.opt_state.count, a0.opt_state.count)
+    assert torch.equal(r1.priorities, r0.priorities)
+    assert torch.equal(r1.max_priority, r0.max_priority)
+
+
+def test_two_shards_on_one_card_match_the_cpu(deterministic_cudnn):
+    """Two shards on one card and one stream (their K5 levels and tickets
+    share kernels.device_buffer's buffers, in stream order) against the
+    same two shards on the CPU: params to lr/100, priorities to 1e-4,
+    replicas bit-identical; a second run on the card gives the same bits."""
+    cfg = rainbow_tpu_torch.canonical(num_envs=8, memory_capacity=256,
+                                      hidden_size=32, batch_size=8)
+    n_act, out = 6, {}
+    for run, dev in (("card", "cuda"), ("again", "cuda"), ("cpu", "cpu")):
+        agent, reps, draws = _round_inputs(cfg, n_act, dev, False, 2)
+        agents = pl.replicate(agent, [dev, dev])
+        loss = pl.distributed_round(agents, reps, cfg, n_act, 2, 0.5,
+                                    pl.Shards([dev, dev], cfg), draws)
+        out[run] = (loss.cpu(), agents, [r.priorities.cpu() for r in reps])
+    for k, v in out["card"][1][0].params.items():
+        assert torch.equal(out["card"][1][1].params[k], v), k
+        assert torch.equal(out["again"][1][0].params[k], v), k
+        torch.testing.assert_close(v.cpu(), out["cpu"][1][0].params[k],
+                                   atol=6.25e-5 / 100, rtol=0)
+    for got, again, want in zip(out["card"][2], out["again"][2],
+                                out["cpu"][2]):
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert out["card"][0] == pytest.approx(float(out["cpu"][0]), rel=1e-4)
+
+
+def test_data_parallel_trainer_on_one_card(cuda, tmp_path):
+    """The sharded Trainer on the card: data_parallel with two shards on
+    cuda:0, the pipelined actor staging each shard's rows through pinned
+    memory on its stream; the replicas stay bit-identical and every
+    iteration launches one append per shard."""
+    cfg = rainbow_tpu_torch.data_efficient(
+        num_envs=8, memory_capacity=8 * 128, batch_size=8, total_steps=256,
+        learn_start=64, replay_frequency=4, target_update=128,
+        evaluation_interval=10 ** 9, architecture="data-efficient",
+        hidden_size=32, multi_step=3, env_backend="fake",
+        results_dir=str(tmp_path), run_id="dp", max_episode_length=400,
+        data_parallel=True, pipeline_actor=True, pipeline_depth=2)
+    tr = ttrain.Trainer(cfg, devices=["cuda:0", "cuda:0"])
+    reset_launches()
+    tr.run()
+    counts = launches()
+    assert tr.T == 256 and tr.agent.step > 0
+    a, b = tr.agents
+    for k, v in a.params.items():
+        assert torch.equal(b.params[k], v), k
+    # (the validation states' appends come on top)
+    assert counts["append_framestack"] >= 2 * tr.T // cfg.num_envs
+    assert counts["clip_adam"] == 2 * tr.agent.step

@@ -257,6 +257,10 @@ def test_port_imports_nothing_of_jax():
     Optax or the JAX package."""
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "rainbow_tpu_torch").rglob("*.py"))
+    port = root / "rainbow_tpu_torch"
+    for module in ("parallel/learner.py", "parallel/mesh.py",
+                   "parallel/multihost.py", "utils/torch_import.py"):
+        assert port / module in files, module
     files.append(root / "chip_smoke.py")
     banned = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|rainbow_tpu)(\.|\s|$)", re.M)

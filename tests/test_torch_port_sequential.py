@@ -1,6 +1,6 @@
 """The port's sequential PER path (replay.sample, agent.compute_update,
-agent.learn_step, train._learner_round_impl) against the JAX package's, on
-the CPU through the kernels' plain versions.
+agent.learn_step, train.learner_round's sequential round) against the JAX
+package's, on the CPU through the kernels' plain versions.
 
 JAX draws inside these functions: ``sample``'s uniforms from the sample
 key, the online noise from ``agent.noise_key`` (shared over the batch) and

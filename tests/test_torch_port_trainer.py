@@ -2,7 +2,8 @@
 package's, on the CPU with the fake env.
 
 Both Trainers run the same configs, sized like tests/test_train_smoke.py::
-tiny_cfg, and each package's ``train_iter_packed``, ``evaluate`` and
+tiny_cfg, and each package's iteration (the JAX package's
+``train_iter_packed``, the port's ``train_iter_sharded``), ``evaluate`` and
 ``Trainer.save_checkpoint`` are wrapped to record what the schedule decided
 in every iteration: (num_learns, β, sync_target), each save's (T, name,
 include_replay), which iterations redrew the act noise, and, for the
@@ -73,13 +74,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _record(monkeypatch, train_mod, ev_mod, beta_at, prev_at, gate=None):
-    """Wrap the package's iteration, evaluation and save; returns the log.
+def _record(monkeypatch, train_mod, ev_mod, iter_name, beta_at, prev_at,
+            gate=None):
+    """Wrap the package's iteration (``iter_name``: its act noise, if it
+    takes one, is its last argument), evaluation and save; returns the log.
     With a ``gate`` (asynchronous evaluation), every evaluation waits for
     it, and the end-of-run drain opens it; the evaluations then finish in
     an order other than their submission's."""
     rec = {"iters": [], "saves": [], "evals": 0, "act": [], "lag": []}
-    real_iter = train_mod.train_iter_packed
+    real_iter = getattr(train_mod, iter_name)
     real_eval = ev_mod.evaluate
     real_save = train_mod.Trainer.save_checkpoint
     real_drain = train_mod.Trainer._eval_async_drain
@@ -98,7 +101,7 @@ def _record(monkeypatch, train_mod, ev_mod, beta_at, prev_at, gate=None):
             rec["act"].append(np.asarray(jax.random.key_data(key)).copy())
         else:
             rec["act"].append({k: (a.clone(), b.clone())
-                               for k, (a, b) in args[-1]["act"].items()})
+                               for k, (a, b) in args[-1].items()})
         out = real_iter(*args)
         produced[id(out[0])] = (i, out[0])
         return out
@@ -120,7 +123,7 @@ def _record(monkeypatch, train_mod, ev_mod, beta_at, prev_at, gate=None):
         rec["saves"].append((self.T, name, include_replay))
         return real_save(self, name, include_replay)
 
-    monkeypatch.setattr(train_mod, "train_iter_packed", iteration)
+    monkeypatch.setattr(train_mod, iter_name, iteration)
     monkeypatch.setattr(ev_mod, "evaluate", evaluate)
     monkeypatch.setattr(train_mod.Trainer, "save_checkpoint", save)
     monkeypatch.setattr(train_mod.Trainer, "_eval_async_drain", drain)
@@ -139,12 +142,12 @@ def _run_both(case, tmp_path_factory):
         gate = threading.Event() if jcfg.async_eval else None
         with pytest.MonkeyPatch.context() as mp:
             if pkg == "jax":
-                rec = _record(mp, jtrain, jev, beta_at=-2, prev_at=7,
-                              gate=gate)
+                rec = _record(mp, jtrain, jev, "train_iter_packed",
+                              beta_at=-2, prev_at=7, gate=gate)
                 tr = jtrain.Trainer(jcfg)
             else:
-                rec = _record(mp, ttrain, tev, beta_at=-3, prev_at=6,
-                              gate=gate)
+                rec = _record(mp, ttrain, tev, "train_iter_sharded",
+                              beta_at=-3, prev_at=7, gate=gate)
                 tr = ttrain.Trainer(TorchConfig(**dataclasses.asdict(jcfg)),
                                     device="cpu")
             metrics = tr.run()
@@ -256,18 +259,14 @@ def test_capacity_guard_raises_as_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["sequential_per", "pipeline_actor",
-                                  "async_eval", "delta_uploads",
-                                  "data_parallel"])
+                                  "async_eval", "delta_uploads"])
 def test_unported_side_paths_raise(flag, tmp_path):
-    """Only data parallelism is still unported and raises, naming its
-    ROADMAP item; the Trainer takes the four single-process side paths."""
+    """No side path raises any more: the Trainer takes the four
+    single-process side paths (data parallelism has tests of its own in
+    test_torch_port_parallel.py)."""
     cfg = TorchConfig(**dataclasses.asdict(tiny_cfg(tmp_path)))
-    if flag == "data_parallel":
-        with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP"):
-            ttrain.Trainer(cfg.replace(**{flag: True}), device="cpu")
-    else:
-        tr = ttrain.Trainer(cfg.replace(**{flag: True}), device="cpu")
-        assert getattr(tr.cfg, flag)
+    tr = ttrain.Trainer(cfg.replace(**{flag: True}), device="cpu")
+    assert getattr(tr.cfg, flag)
 
 
 def test_configs_are_the_same_dataclass():
