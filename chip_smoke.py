@@ -33,10 +33,24 @@ exit code:
             against the float64 plain version; the delta kernel
             (K10) on real 1024-env pong deltas, against the dense engine's
             observations too, and on random deltas at N = 1 and 1024 with
-            an env whose whole plane changed, one kernel a call.
+            an env whose whole plane changed, one kernel a call. Every
+            kernel also at the shapes of the JAX package's other
+            configurations (PRESET_RUNS): KA and KB at the data-efficient
+            net's 576 -> 256 -> 6·51 layers and its batches (16 envs, 32,
+            512 target rows, 10 and 250), KA and the C51 kernels at the
+            throughput preset's batch 256, K9 over the data-efficient
+            params, K2 at their rounds' draws, KC at N = 16, and K5-K7 on the
+            data-efficient preset's whole 16 x 6,250 ring at its round
+            (16 x 32, n = 20), bit-exact, a second launch equal.
 3. update   one learner update (compute_update_pretarget + apply_grads) and
             one sequential learn_step of the canonical net on the card
-            against the same through the plain versions on the CPU.
+            against the same through the plain versions on the CPU; one
+            update and one actor step of each other configuration the same
+            way ([update <label>], [actor <label>]; bf16 updates at six
+            seeds, each gradient tensor's reading printed), within
+            PLAIN_TOL of its compute dtype; each update also with a KA
+            backward that drops 256 input features, which the gradient
+            check must refuse.
 4. actor    the canonical preset on the native engine (pong, 1024 envs, the
             full 976-column replay ring on the device, per-env noise):
             actor_step_packed iterations, env-steps/s, launch counts.
@@ -58,6 +72,22 @@ exit code:
             sequential PER round (4 rounds of 256 updates, K5-K7 and K2
             once per update), and delta uploads (K10) with the pipelined
             actor (depth 2) and an asynchronous evaluation (9 rounds).
+            Then the JAX package's other configurations through cli.main
+            at their published widths (PRESET_RUNS, cuts in CUTS):
+            [trainer data-efficient] (16 envs, the preset's 100,000-slot
+            ring, 101 rounds of 16 updates, an evaluation and a checkpoint,
+            the replay-bearing save restored bit for bit), [trainer
+            throughput] (1024 envs, 9 rounds of 32 updates of batch 256)
+            and [trainer bf16] (bfloat16 compute and Adam first moment, 4
+            rounds, its checkpoint restored bit for bit), each with
+            env-steps/s and updates/s over one span, evaluation seconds,
+            peak allocated memory, every round's loss finite and every
+            kernel's launches by shape and dtype; its ring freed before the
+            next. [learning]: the JAX package's learning smoke
+            (tests/test_train_smoke.py, fake env, seeds 7, 3, 42) through
+            cli.main on the card, cuDNN deterministic, each seed's greedy
+            score printed, failing the run unless one clears 1.5 x random;
+            then the three seeds with cuDNN's default algorithms, printed.
 8. distributed  the data-parallel learner (parallel/learner.py) at the
             canonical width, cuDNN held to its deterministic algorithms:
             (a) a world-size-1 NCCL group in this process, a batched round
@@ -89,7 +119,10 @@ exit code:
             K9 beside clip_grad_norm_ + fused Adam, the same way); one
             JSON line, with each kernel's launches in the main Trainer
             (``launches``) and in the distributed phase
-            (``distributed_launches``) among others.
+            (``distributed_launches``) among others; then a row for every
+            shape the other configurations' Trainers launch that those
+            rows do not hold (``phase``: its ``launches`` are that
+            Trainer's, ``launches_at_shape`` at the row's shape).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -99,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -116,10 +150,13 @@ TRAIN_ITERS = 4     # then fused iterations with a learner round each
 SYNC_AT = 2         # the train iteration that syncs the target net
 PROFILE_UPDATES = 64  # --profile: the traced training iteration's round
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-# float32 on the CUDA cores (the kernels here use no tensor cores).
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3
+# bandwidth, and the operations' rate by the type of their operands:
+# float32 on the CUDA cores, bf16 on the tensor cores. A row's bound takes
+# the peak of its ``flop_dtype`` (float32 unless the row says bf16), though
+# the kernels here use no tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+FLOP_PER_S = {"fp32": 67e12, "bf16": 989e12}
 
 
 class Failed(Exception):
@@ -259,10 +296,6 @@ def l2_clean_flush(torch):
 
 # ------------------------------------------------------------- compare -----
 
-def max_err(a, b):
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
-
-
 def check_close(name, got, want, atol, rtol):
     """|got - want| <= atol + rtol·|want| everywhere; returns max |diff|."""
     diff = (got.float() - want.float()).abs()
@@ -273,10 +306,40 @@ def check_close(name, got, want, atol, rtol):
     return float(diff.max())
 
 
-def compare_noisy_linear(torch, A, learner, report):
+def noisy_layer_batches(cfgs, A, fwd):
+    """KA's main-path launches of each configuration in ``cfgs``, as
+    (B, noise modes, in, out, relu) per layer (fc_h with its ReLU, fc_z_v,
+    fc_z_a), each shape once with the union of its modes, in order.
+    Forward (``fwd``): the act over the envs, the evaluation's 10 episodes
+    and 250-state validation chunks in every mode; the learner's batch with
+    shared noise; the round's target forward over all of its rows with
+    per-row noise. Backward: the learner's batch in every mode."""
+    from rainbow_tpu_torch.models.dqn import _noisy_dims
+
+    all_modes = ("mu", "shared", "row")
+    out = {}
+    for c in cfgs:
+        rows = c.num_envs // c.replay_frequency * c.batch_size
+        batches = ([(c.num_envs, all_modes), (10, all_modes),
+                    (250, all_modes), (c.batch_size, ("shared",)),
+                    (rows, ("row",))] if fwd
+                   else [(c.batch_size, all_modes)])
+        dims = _noisy_dims(c, A)
+        layers = ((*dims["fc_h_v"], True), (*dims["fc_z_v"], False),
+                  (*dims["fc_z_a"], False))
+        for b, modes in batches:
+            for n_in, n_out, relu in layers:
+                key = (b, n_in, n_out, relu)
+                have = out.get(key, ())
+                out[key] = have + tuple(m for m in modes if m not in have)
+    return [(b, modes, i, o, r) for (b, i, o, r), modes in out.items()]
+
+
+def compare_noisy_linear(torch, A, cfgs, report):
     """KA against noisy_linear_plain: fp32 and bf16, at the layer shapes and
-    batches of the acting path (the three noise modes) and of the learner
-    (``learner`` = (batch, round rows)), and at shapes that cross both
+    batches of each configuration in ``cfgs`` (noisy_layer_batches: the
+    acting path in the three noise modes, the learner's shared noise and
+    its round's per-row target forward), and at shapes that cross both
     paths' split and tile edges (B = 1 and 33, IN = 3137, OUT = 513: the
     scalar-load path). A second launch must give the same bits. Returns
     the largest fp32 error."""
@@ -289,17 +352,8 @@ def compare_noisy_linear(torch, A, learner, report):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     ns = NoiseStream(1)
-    # (batch, noise modes): the actor (1024), the evaluation episodes (10)
-    # and the validation-Q chunks (250) in every mode; the learner's update
-    # forwards (one draw shared over the batch) and its round's target
-    # forward over all the round's rows (per-row noise). Each through
-    # fc_h_* and both fc_z_*. Then the edge shapes.
     all_modes = ("mu", "shared", "row")
-    batches = [(1024, all_modes), (10, all_modes), (250, all_modes),
-               (learner[0], ("shared",)), (learner[1], ("row",))]
-    shapes = [(b, modes, i, o, r) for b, modes in batches
-              for i, o, r in ((3136, 512, True), (512, 51, False),
-                              (512, A * 51, False))]
+    shapes = noisy_layer_batches(cfgs, A, fwd=True)
     shapes += [(1, all_modes, 3136, 512, True),
                (33, all_modes, 3137, 513, True),
                (1024, ("row",), 3137, 513, True)]
@@ -352,16 +406,17 @@ def _tie_top(torch, a, n_act, atoms):
     a[0] = (lean * 4).reshape(-1).to(a.dtype)
 
 
-def compare_dueling_head(torch, A, learner, report):
+def compare_dueling_head(torch, A, cfgs, report):
     """KB against dueling_head_plain, fp32 and bf16 streams: no
-    distribution, probs and log-probs at the acting path's batches; at the
-    learner's (``learner`` = (batch, round rows)) the selection's action
-    only and the round's target probabilities; then HEAD_EDGES in every
-    mode. Argmax must agree wherever the top-2 gap of q exceeds q's
-    tolerance, a second launch must give the same bits, and in a row whose
-    top q is tied (edge shapes) the first of the tied actions must win.
-    Returns the largest error, and the largest of the probabilities alone
-    at the round target's batch (KB takes exp from __expf there)."""
+    distribution, probs and log-probs at each configuration's acting
+    batches (its envs, the evaluation's 10 and 250); at its learner's batch
+    the selection's action only and at its round's rows the target
+    probabilities; then HEAD_EDGES in every mode. Argmax must agree
+    wherever the top-2 gap of q exceeds q's tolerance, a second launch must
+    give the same bits, and in a row whose top q is tied (edge shapes) the
+    first of the tied actions must win. Returns the largest error, and the
+    largest of the probabilities alone at the round targets' batches (KB
+    takes exp from __expf there)."""
     from rainbow_tpu_torch.ops.c51 import support_vector
     from rainbow_tpu_torch.ops.head import dueling_head_plain
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
@@ -374,9 +429,16 @@ def compare_dueling_head(torch, A, learner, report):
     tol = {"probs": 1e-6, "log": 1e-5, "q": 1e-5}
     worst = target_probs = 0.0
     all_dists = (None, "probs", "log")
-    batches = [(1024, all_dists), (10, all_dists), (250, all_dists),
-               (learner[0], (None,)), (learner[1], ("probs",))]
-    cases = [(b, n_act, 51, dists, False) for b, dists in batches
+    batches, targets = {}, set()
+    for c in cfgs:
+        rows = c.num_envs // c.replay_frequency * c.batch_size
+        targets.add(rows)
+        for b, dists in ((c.num_envs, all_dists), (10, all_dists),
+                         (250, all_dists), (c.batch_size, (None,)),
+                         (rows, ("probs",))):
+            have = batches.get(b, ())
+            batches[b] = have + tuple(d for d in dists if d not in have)
+    cases = [(b, n_act, 51, dists, False) for b, dists in batches.items()
              for n_act in sorted({A, 18})]
     cases += [(b, n_act, atoms, all_dists, True)
               for b, n_act, atoms in HEAD_EDGES]
@@ -399,7 +461,7 @@ def compare_dueling_head(torch, A, learner, report):
                 if dist:
                     errs.append(check_close(tag + " dist", got[0],
                                             want.dist, tol[dist], 0))
-                    if dist == "probs" and b == learner[1]:
+                    if dist == "probs" and b in targets:
                         target_probs = max(target_probs, errs[-1])
                 else:
                     check(got[0] is None, tag + ": wrote a distribution")
@@ -509,12 +571,12 @@ def graph_kernels(torch, fn):
     return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL is 0
 
 
-KC_CASES = [(n, h, k_mode) for n in (1, 10, 40, 1024) for h in (4, 3)
+KC_CASES = [(n, h, k_mode) for n in (1, 10, 16, 40, 1024) for h in (4, 3)
             for k_mode in ("none", "bucket", "dense")]
 
 
 def compare_append_framestack(torch, np, report):
-    """KC against append_framestack_plain, bit-exact: N = 1, 10, 40 and
+    """KC against append_framestack_plain, bit-exact: N = 1, 10, 16, 40 and
     1024, no reset rows, a padded bucket and dense rows (all three reset
     kinds), reward clipping and a wrap of a two-column ring, with and
     without a replay, for H = 4 (vector path) and H = 3 (byte path), three
@@ -558,12 +620,12 @@ def compare_append_framestack(torch, np, report):
     return 0.0
 
 
-def compare_noisy_linear_bwd(torch, A, report):
-    """KA's backward against noisy_linear_bwd_plain at the learner's shapes
-    (B = 32, fc_h_* with its ReLU and both fc_z_*) and at shapes that cross
-    the split and tile edges (B = 1 and 33, IN = 3137, OUT = 513), in the
-    three noise modes, fp32 and bf16. A second launch must give the same
-    bits. Returns the largest fp32 error."""
+def compare_noisy_linear_bwd(torch, A, cfgs, report):
+    """KA's backward against noisy_linear_bwd_plain at each configuration's
+    learner shapes (its batch, fc_h_* with its ReLU and both fc_z_*) and at
+    shapes that cross the split and tile edges (B = 1 and 33, IN = 3137,
+    OUT = 513), in the three noise modes, fp32 and bf16. A second launch
+    must give the same bits. Returns the largest fp32 error."""
     from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan,
                                                         noisy_linear_bwd,
                                                         noisy_linear_fwd)
@@ -581,10 +643,10 @@ def compare_noisy_linear_bwd(torch, A, report):
     names = ("dx", "dw_mu", "dw_sigma", "db_mu", "db_sigma")
     modes = ("mu", "shared", "row")
     worst32 = 0.0
-    for b, n_in, n_out, relu in ((32, 3136, 512, True), (32, 512, A * 51,
-                                                          False),
-                                 (32, 512, 51, False), (1, 3136, 512, True),
-                                 (33, 3137, 513, True)):
+    cases = [(b, i, o, r) for b, _, i, o, r in
+             noisy_layer_batches(cfgs, A, fwd=False)]
+    for b, n_in, n_out, relu in cases + [(1, 3136, 512, True),
+                                         (33, 3137, 513, True)]:
         prm = init_noisy_params(g, n_in, n_out, 0.5)
         w = (prm["weight_mu"], prm["weight_sigma"])
         x = torch.rand((b, n_in), generator=g, device="cuda") * 2
@@ -615,59 +677,70 @@ def compare_noisy_linear_bwd(torch, A, report):
     return worst32
 
 
-def compare_c51(torch, A, report):
-    """K4's two kernels against their plain versions at the learner's
-    shapes (B = 32, A actions, 51 atoms): the target with rows whose b lands
-    exactly on an atom and rows with nonterminal 0, and the loss with fp32
-    and bf16 streams, there and at HEAD_EDGES and B = 1024 (a second launch
-    of either must give the same bits). Returns the largest errors (target,
-    loss)."""
+def compare_c51(torch, A, cfgs, report):
+    """K4's two kernels against their plain versions at each configuration's
+    learner shape (its batch, A actions, 51 atoms, its γⁿ): the target with
+    rows whose b lands exactly on an atom and rows with nonterminal 0, and
+    the loss on the projected target with fp32 and bf16 streams, there and
+    at HEAD_EDGES and B = 1024 (a second launch of either must give the
+    same bits). Returns the largest errors (target, loss)."""
     from rainbow_tpu_torch.kernels import c51 as k4
     from rainbow_tpu_torch.ops import c51 as oc51
 
     g = torch.Generator(device="cuda").manual_seed(12)
-    b = 32
     z = oc51.support_vector(-10.0, 10.0, 51, "cuda")
-    pns = torch.softmax(torch.randn((b, A, 51), generator=g, device="cuda")
-                        * 2, dim=2)
-    a_star = torch.randint(0, A, (b,), generator=g, device="cuda")
-    ret = torch.rand((b,), generator=g, device="cuda") * 24 - 12
-    nt = (torch.rand((b,), generator=g, device="cuda") > 0.3).float()
-    ret[:3] = torch.tensor([-10.0, 0.0, 10.0], device="cuda")
-    nt[:4] = 0.0
-    # b = (Tz − V_min)/Δz reaches 50, where a float32 ulp is 3.8e-6: the
-    # kernel divides by Δz, PyTorch's CUDA division by a scalar multiplies
-    # by its reciprocal, so b and each weight 1 − |b − j| may differ by that
-    # much; the probabilities below 1 are summed in another order.
-    got = k4.c51_target(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
-    want = oc51.c51_target_plain(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0,
-                                 10.0)
-    err_t = check_close("c51_target", got, want, 1e-5, 0)
-    check(torch.equal(k4.c51_target(pns, a_star.int(), ret, nt, 0.99 ** 3, z,
-                                    -10.0, 10.0), got),
-          "c51_target: a second launch (int32 a*) differs")
-    # Integer b: the whole mass (Σp = 1 to float32 rounding) on one atom.
-    for m in (got, want):
-        for row, atom in ((0, 0), (1, 25), (2, 50)):
-            rest = torch.cat((m[row, :atom], m[row, atom + 1:]))
-            check(abs(float(m[row, atom]) - 1.0) < 1e-5
-                  and not bool(rest.any()), "c51_target: integer-b rows")
-    report.append(("c51_target", b, A, err_t))
+    learners = []
+    for c in cfgs:
+        key = (c.batch_size, c.discount ** c.multi_step)
+        if key not in learners:
+            learners.append(key)
+    err_t, projected = 0.0, {}
+    for b, gamma_n in learners:
+        pns = torch.softmax(torch.randn((b, A, 51), generator=g,
+                                        device="cuda") * 2, dim=2)
+        a_star = torch.randint(0, A, (b,), generator=g, device="cuda")
+        ret = torch.rand((b,), generator=g, device="cuda") * 24 - 12
+        nt = (torch.rand((b,), generator=g, device="cuda") > 0.3).float()
+        ret[:3] = torch.tensor([-10.0, 0.0, 10.0], device="cuda")
+        nt[:4] = 0.0
+        # b = (Tz − V_min)/Δz reaches 50, where a float32 ulp is 3.8e-6: the
+        # kernel divides by Δz, PyTorch's CUDA division by a scalar
+        # multiplies by its reciprocal, so b and each weight 1 − |b − j|
+        # may differ by that much; the probabilities below 1 are summed in
+        # another order.
+        tag = f"c51_target B={b} gamma^n={gamma_n:.6f}"
+        got = k4.c51_target(pns, a_star, ret, nt, gamma_n, z, -10.0, 10.0)
+        want = oc51.c51_target_plain(pns, a_star, ret, nt, gamma_n, z,
+                                     -10.0, 10.0)
+        err = check_close(tag, got, want, 1e-5, 0)
+        check(torch.equal(k4.c51_target(pns, a_star.int(), ret, nt, gamma_n,
+                                        z, -10.0, 10.0), got),
+              tag + ": a second launch (int32 a*) differs")
+        # Integer b: the whole mass (Σp = 1 to float32 rounding) on one atom.
+        for m in (got, want):
+            for row, atom in ((0, 0), (1, 25), (2, 50)):
+                rest = torch.cat((m[row, :atom], m[row, atom + 1:]))
+                check(abs(float(m[row, atom]) - 1.0) < 1e-5
+                      and not bool(rest.any()), tag + ": integer-b rows")
+        report.append(("c51_target", b, A, gamma_n, err))
+        err_t = max(err_t, err)
+        projected.setdefault(b, (pns, ret, nt, gamma_n))
     err_l = 0.0
-    # The learner's shape with the projected target, then HEAD_EDGES and
+    # Each learner's shape with the projected target, then HEAD_EDGES and
     # the act's width with a random target distribution.
-    cases = [(b, A, 51, True)] + [(n, k, atoms, False)
-                                  for n, k, atoms in HEAD_EDGES
-                                  + [(1024, 6, 51), (1024, 18, 128)]]
-    for n, n_act, atoms, projected in cases:
+    cases = [(b, A, 51, True) for b in projected] + [
+        (n, k, atoms, False) for n, k, atoms in HEAD_EDGES
+        + [(1024, 6, 51), (1024, 18, 128)]]
+    for n, n_act, atoms, is_projected in cases:
         for dt in (torch.float32, torch.bfloat16):
             v = (torch.randn((n, atoms), generator=g, device="cuda")
                  * 2).to(dt)
             a = (torch.randn((n, n_act * atoms), generator=g, device="cuda")
                  * 2).to(dt)
             acts = torch.randint(0, n_act, (n,), generator=g, device="cuda")
-            if projected:
-                m = oc51.c51_target_plain(pns, acts, ret, nt, 0.99 ** 3, z,
+            if is_projected:
+                pns, ret, nt, gamma_n = projected[n]
+                m = oc51.c51_target_plain(pns, acts, ret, nt, gamma_n, z,
                                           -10.0, 10.0)
             else:
                 m = torch.softmax(torch.randn((n, atoms), generator=g,
@@ -696,7 +769,7 @@ def compare_c51(torch, A, report):
 
 
 def compare_adam(torch, shapes, report):
-    """K9 against apply_grads_plain over the canonical net's tensors, 3
+    """K9 against apply_grads_plain over a net's tensors (``shapes``), 3
     steps from zero moments, with the global norm below and above the clip
     and with float32 and bfloat16 mu; a second kernel run must give the same
     bits. Returns the largest param error."""
@@ -705,8 +778,12 @@ def compare_adam(torch, shapes, report):
 
     g = torch.Generator(device="cuda").manual_seed(13)
     worst = 0.0
+    n = sum(math.prod(x) for x in shapes)
     for mdt in (torch.float32, torch.bfloat16):
-        for clip, scale in (("below", 1e-4), ("above", 1e-2)):
+        # Gradients of a global norm about 0.26 and 26 (the clip is 10),
+        # whatever the count of params.
+        for clip, scale in (("below", 0.26 / math.sqrt(n)),
+                            ("above", 26 / math.sqrt(n))):
             runs = {}
             for run in ("kernel", "plain", "again"):
                 gp = torch.Generator(device="cuda").manual_seed(14)
@@ -728,7 +805,7 @@ def compare_adam(torch, shapes, report):
                     params, mu, nu, count = runs[run]
                     fn(params, grads, mu, nu, count, 6.25e-5, 0.9, 0.999,
                        1.5e-4, 10.0)
-            tag = f"clip_adam {clip} mu {mdt}"
+            tag = f"clip_adam {n} params {clip} mu {mdt}"
             kp, kmu, knu, kc = runs["kernel"]
             pp_, pmu, pnu, pc = runs["plain"]
             check(int(kc) == int(pc) == 3, tag + ": count")
@@ -751,7 +828,7 @@ def compare_adam(torch, shapes, report):
             for a, b in zip(runs["kernel"][:3], runs["again"][:3]):
                 check(all(torch.equal(x, y) for x, y in zip(a, b)),
                       tag + ": two runs differ")
-            report.append(("clip_adam", clip, str(mdt), err))
+            report.append(("clip_adam", n, clip, str(mdt), err))
             worst = max(worst, err)
     return worst
 
@@ -907,37 +984,22 @@ def compare_write_back(torch, rep, g, report):
     del copy
 
 
-def compare_replay(torch, np, cfg, report):
-    """K5, K6 and K7 against their plain versions on a random ring of the
-    canonical width (1024 envs x 976 columns, 7.05 GB of frames on the
-    card): the canonical round (256 batches of 32), the throughput preset's
-    (32 of 256), the data-efficient window of 24 frames (n-step 20), an
-    empty ring and a ring just after a wrap, with three leaves that hold
-    half of the mass in the round's case so that draws repeat. K5 must be
-    bit-exact; K6's window, actions and nonterminals bit-exact, its returns
-    and weights within 1e-6 relative (1e-6 absolute near 0); K7 as
-    _check_write_back. K7 also alone (compare_write_back): B = 1 to 8192,
-    runs across its blocks' edges, a hot leaf, NaN and -0.0 losses, an
-    empty ring. K5 also alone (compare_k5): B = 1 and 32 on this ring, and
-    rings of other depths, ties and an empty deep ring. Returns (errors by
-    kernel, timing rows)."""
+def replay_cases(torch, rep, g, base_prio, cases, tag, report):
+    """K5, K6 and K7 against their plain versions on the ring ``rep`` for
+    each of ``cases`` (name, write head, full, n_step, batches, batch size,
+    three hot leaves that hold half of the mass so that draws repeat, an
+    empty ring), from the priorities ``base_prio``: K5 bit-exact
+    (_k5_bits), K6's window, actions and nonterminals bit-exact and its
+    returns and weights within 1e-6 relative (1e-6 absolute near 0), K7 by
+    _check_write_back; a second launch of each gives the same bits.
+    Returns K6's largest error."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels import replay as k_replay
     from rainbow_tpu_torch.replay import prioritized as rp
 
-    e, c = ENVS, cfg.capacity_per_env
-    rep, g = _replay_on_card(torch, e, c, 20)
-    base_prio = rep.priorities.clone()
+    e, c = rep.priorities.shape
     hot = torch.randperm(e * c, generator=g, device="cuda")[:3]
-    nb0 = ENVS // cfg.replay_frequency
-    cases = (  # name, index, full, n_step, num_batches, batch_size, hot, empty
-        ("round", 500, True, 3, nb0, cfg.batch_size, True, False),
-        ("throughput", 500, True, 3, 32, 256, False, False),
-        ("window_24", 321, True, 20, nb0, cfg.batch_size, False, False),
-        ("empty", 321, False, 3, nb0, cfg.batch_size, False, True),
-        ("after_wrap", 0, True, 3, nb0, cfg.batch_size, False, False),
-    )
     err6 = 0.0
     for name, index, full, n, nb, bs, with_hot, empty in cases:
         rep.priorities.copy_(base_prio)
@@ -947,40 +1009,74 @@ def compare_replay(torch, np, cfg, report):
             rep.priorities.zero_()
         rep.index.fill_(index)
         rep.full.fill_(full)
+        name = tag + name
         u = torch.rand(nb * bs, generator=g, device="cuda")
+        _k5_bits(torch, rep, u, 4, n, name)
         idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
-        want = rp.stratified_sample_plain(rep, u, 4, n)
-        check(all(a.dtype == b.dtype and torch.equal(a, b)
-                  for a, b in zip((idx, p, total), want)),
-              f"stratified_sample {name}: differs from the plain version")
-        got = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n,
-                                     0.99)
+        got, again = (k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs,
+                                             4, n, 0.99) for _ in range(2))
         want = rp.gather_window_plain(rep, idx, p, total, 0.6, nb, bs, 4, n,
                                       0.99)
+        for k in want:
+            check(got[k].dtype == want[k].dtype
+                  and torch.equal(got[k], again[k]),
+                  f"gather_window {name}: {k}: a second launch differs")
         for k in ("idxs", "states", "next_states", "actions",
                   "nonterminals"):
-            check(got[k].dtype == want[k].dtype and torch.equal(got[k],
-                                                                want[k]),
+            check(torch.equal(got[k], want[k]),
                   f"gather_window {name}: {k} differs")
         errs = [check_close(f"gather_window {name} {k}", got[k], want[k],
                             1e-6, 1e-6)
                 for k in ("returns", "weights", "weights_max")]
-        if empty:
-            check(not bool(got["weights"].any()), "gather_window: empty "
-                  "ring must give zero weights")
+        check(not empty or not bool(got["weights"].any()),
+              f"gather_window {name}: an empty ring must give zero weights")
         err6 = max(err6, *errs)
         losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
-        kern, plain = (dataclasses.replace(
+        kern, plain, second = (dataclasses.replace(
             rep, priorities=rep.priorities.clone(),
-            max_priority=rep.max_priority.clone()) for _ in range(2))
+            max_priority=rep.max_priority.clone()) for _ in range(3))
         k_replay.write_priorities(kern, got["idxs"], losses, 0.5)
+        k_replay.write_priorities(second, got["idxs"], losses, 0.5)
         rp.update_priorities_plain(plain, got["idxs"], losses, 0.5)
         repeated = _check_write_back(torch, rep, kern, plain, idx,
                                      got["idxs"], losses ** 0.5)
+        check(bool(_same_bits(torch, kern.priorities,
+                              second.priorities).all())
+              and bool(_same_bits(torch, kern.max_priority,
+                                  second.max_priority)),
+              f"write_priorities {name}: a second launch differs")
         check(repeated > 0 or not (with_hot or empty),
               f"write_priorities {name}: no repeated leaf to check")
-        del kern, plain
+        del kern, plain, second, got, want, again
         report.append(("replay", name, nb, bs, 4 + n, repeated, max(errs)))
+    return err6
+
+
+def compare_replay(torch, np, cfg, report, tp_cfg):
+    """K5, K6 and K7 against their plain versions on a random ring of the
+    canonical width (1024 envs x 976 columns, 7.05 GB of frames on the
+    card): the canonical round (256 batches of 32), the throughput preset's
+    (32 of 256), the data-efficient window of 24 frames (n-step 20), an
+    empty ring and a ring just after a wrap, with three leaves that hold
+    half of the mass in the round's case so that draws repeat, each as
+    replay_cases checks it. K7 also alone (compare_write_back): B = 1 to 8192,
+    runs across its blocks' edges, a hot leaf, NaN and -0.0 losses, an
+    empty ring. K5 also alone (compare_k5): B = 1 and 32 on this ring, and
+    rings of other depths, ties and an empty deep ring. K5-K7 are timed at
+    the canonical round, and K6 also at the throughput preset's (``tp_cfg``:
+    32 batches of 256). Returns (errors by kernel, timing rows)."""
+    e, c = ENVS, cfg.capacity_per_env
+    rep, g = _replay_on_card(torch, e, c, 20)
+    base_prio = rep.priorities.clone()
+    nb0 = ENVS // cfg.replay_frequency
+    cases = (  # name, index, full, n_step, num_batches, batch_size, hot, empty
+        ("round", 500, True, 3, nb0, cfg.batch_size, True, False),
+        ("throughput", 500, True, 3, 32, 256, False, False),
+        ("window_24", 321, True, 20, nb0, cfg.batch_size, False, False),
+        ("empty", 321, False, 3, nb0, cfg.batch_size, False, True),
+        ("after_wrap", 0, True, 3, nb0, cfg.batch_size, False, False),
+    )
+    err6 = replay_cases(torch, rep, g, base_prio, cases, "", report)
     # Timing at the canonical round on the random ring as it was made (no
     # hot leaves), twice.
     rep.priorities.copy_(base_prio)
@@ -991,7 +1087,49 @@ def compare_replay(torch, np, cfg, report):
     timed = [replay_times(torch, cfg, rep, g) for _ in range(2)]
     log("[replay times] " + json.dumps(timed))
     rows = replay_kernel_rows(torch, rep, g, nb0, cfg.batch_size, 3, timed)
+    # K6 at the throughput Trainer's round (K5 and K7 draw 8192 there too).
+    nb_tp = ENVS // tp_cfg.replay_frequency
+    timed = [replay_times(torch, tp_cfg, rep, g, ("gather_window",))
+             for _ in range(2)]
+    log("[replay times throughput] " + json.dumps(timed))
+    rows += [dict(r, phase="throughput") for r in replay_kernel_rows(
+        torch, rep, g, nb_tp, tp_cfg.batch_size, tp_cfg.multi_step, timed,
+        ("gather_window",))]
     del rep
+    torch.cuda.empty_cache()
+    return {"stratified_sample": 0.0, "gather_window": err6,
+            "write_priorities": 0.0}, rows
+
+
+def compare_preset_replay(torch, cfg, report):
+    """K5, K6 and K7 on the data-efficient preset's whole ring (``cfg``: 16
+    envs x 6,250 columns, 100,000 leaves, 706 MB of frames on the card) at
+    its round (16 batches of 32, n = 20: a window of 24 frames): three hot
+    leaves (draws repeat), the head just after a wrap, a partly filled ring
+    and an empty one. K5 bit-exact, K6's frames, actions and nonterminals
+    exact and its returns and weights within 1e-6 relative (1e-6 absolute
+    near 0), K7 by _check_write_back; a second launch of each gives the
+    same bits. Then K5-K7 timed at the round. The ring is freed before it
+    returns. Returns (errors by kernel, timing rows)."""
+    e, c, n = cfg.num_envs, cfg.capacity_per_env, cfg.multi_step
+    nb, bs = e // cfg.replay_frequency, cfg.batch_size
+    rep, g = _replay_on_card(torch, e, c, 24)
+    base_prio = rep.priorities.clone()
+    err6 = replay_cases(torch, rep, g, base_prio, (
+        # name, index, full, n_step, num_batches, batch_size, hot, empty
+        ("round", 500, True, n, nb, bs, True, False),
+        ("after_wrap", 0, True, n, nb, bs, False, False),
+        ("partial", 4000, False, n, nb, bs, False, False),
+        ("empty", 321, False, n, nb, bs, False, True)),
+        f"data-efficient ring {e}x{c} ", report)
+    rep.priorities.copy_(base_prio)
+    rep.index.fill_(500)
+    rep.full.fill_(True)
+    timed = [replay_times(torch, cfg, rep, g, seq=False) for _ in range(2)]
+    log("[replay times data-efficient] " + json.dumps(timed))
+    rows = [dict(r, phase="data-efficient") for r in replay_kernel_rows(
+        torch, rep, g, nb, bs, n, timed, seq=False)]
+    del rep, base_prio
     torch.cuda.empty_cache()
     return {"stratified_sample": 0.0, "gather_window": err6,
             "write_priorities": 0.0}, rows
@@ -1067,16 +1205,22 @@ def compare_k5(torch, rep, g, report):
         del r
 
 
-def replay_times(torch, cfg, rep, g):
-    """Times of K5 and K7 at the round's B = 8192 and the sequential
-    update's 32, and of K6 at the round, on the ring ``rep``, through the
-    wrappers of the rainbow_tpu_torch that is imported, by graphed_times.
-    Returns {"<name> B=<b>": {...}}."""
+REPLAY_KERNELS = ("stratified_sample", "gather_window", "write_priorities")
+
+
+def replay_times(torch, cfg, rep, g, kernels=REPLAY_KERNELS, seq=True):
+    """Times of K5 and K7 at the round's B (8192 in the canonical one) and,
+    with ``seq``, the sequential update's batch, and of K6 at the round, on
+    the ring ``rep`` with ``cfg``'s round (its envs' updates of its batch,
+    its n), through the wrappers of the rainbow_tpu_torch that is imported,
+    by graphed_times; of ``kernels`` alone. Returns {"<name> B=<b>":
+    {...}}."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels import replay as k_replay
 
-    nb, bs, n = ENVS // cfg.replay_frequency, cfg.batch_size, cfg.multi_step
+    nb = rep.priorities.shape[0] // cfg.replay_frequency
+    bs, n = cfg.batch_size, cfg.multi_step
     b = nb * bs
     u = torch.rand(b, generator=g, device="cuda")
     u_seq = torch.rand(bs, generator=g, device="cuda")
@@ -1088,36 +1232,34 @@ def replay_times(torch, cfg, rep, g):
     copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
                                max_priority=rep.max_priority.clone())
     flush = l2_flush(torch)
-    out = {
-        f"stratified_sample B={b}": graphed_times(
-            torch, lambda: k_replay.stratified_sample(rep, u, 4, n), flush),
-        f"stratified_sample B={bs}": graphed_times(
-            torch, lambda: k_replay.stratified_sample(rep, u_seq, 4, n),
-            flush),
-        f"gather_window B={b}": graphed_times(
-            torch, lambda: k_replay.gather_window(
-                rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99), flush),
-        f"write_priorities B={b}": graphed_times(
-            torch, lambda: k_replay.write_priorities(copy, idxs, losses,
-                                                     0.5), flush),
-        f"write_priorities B={bs}": graphed_times(
-            torch, lambda: k_replay.write_priorities(copy, idxs_seq,
-                                                     losses_seq, 0.5),
-            flush)}
+    calls = {
+        f"stratified_sample B={b}":
+        lambda: k_replay.stratified_sample(rep, u, 4, n),
+        f"stratified_sample B={bs}":
+        lambda: k_replay.stratified_sample(rep, u_seq, 4, n),
+        f"gather_window B={b}": lambda: k_replay.gather_window(
+            rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99),
+        f"write_priorities B={b}":
+        lambda: k_replay.write_priorities(copy, idxs, losses, 0.5),
+        f"write_priorities B={bs}":
+        lambda: k_replay.write_priorities(copy, idxs_seq, losses_seq, 0.5)}
+    out = {key: graphed_times(torch, fn, flush) for key, fn in calls.items()
+           if key.split()[0] in kernels and (seq or key.endswith(f"={b}"))}
     del copy
     torch.cuda.empty_cache()
     return out
 
 
-def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
-    """Rows of K5 and K7 (at the round's B = nb·bs and the sequential
-    update's B = bs) and K6 at the canonical round's shapes on the ring of
-    compare_replay, from ``timed`` (two replay_times of this run: device
-    times from CUDA graphs, cold and warm, and CUDA event times), with the
-    plain version's time. K6's bound counts the frames this round's draws
-    need: each distinct frame that is not blanked read once, every window
-    frame written. No single PyTorch call computes any of the three, so
-    library_ms is null."""
+def replay_kernel_rows(torch, rep, g, nb, bs, n, timed,
+                       kernels=REPLAY_KERNELS, seq=True):
+    """Rows of K5 and K7 (at the round's B = nb·bs and, with ``seq``, the
+    sequential update's B = bs) and K6 at a round's shapes (nb batches of
+    bs, n-step n) on the ring ``rep``, of ``kernels`` alone, from ``timed``
+    (two replay_times of this run: device times from CUDA graphs, cold and
+    warm, and CUDA event times), with the plain version's time. K6's bound
+    counts the frames this round's draws need: each distinct frame that is
+    not blanked read once, every window frame written. No single PyTorch
+    call computes any of the three, so library_ms is null."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels import replay as k_replay
@@ -1141,7 +1283,9 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
     flush = l2_flush(torch)
     plan = k_replay.tree_plan(leaves)
     rows = []
-    for draws, who in ((b, "round"), (bs, "sequential update")):
+    for draws, who in ((b, "round"), (bs, "sequential update"))[:1 + seq]:
+        if "stratified_sample" not in kernels:
+            break
         ud = u[:draws]
         key = f"stratified_sample B={draws}"
         # The profiler's device time of each of the call's launches (early
@@ -1156,6 +1300,7 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
             name="stratified_sample", route="cuda", source=source,
             replaces="rainbow_tpu/replay/prioritized.py:102",
             shape=f"{e}x{c} leaves, B={draws} ({who})", draws=draws,
+            tally_key=f"stratified_sample B={draws} on {e}x{c}",
             plan=dataclasses.asdict(plan),
             **timed[0][key], again=timed[1][key],
             profiler_device_ms_by_launch=split,
@@ -1167,32 +1312,36 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
             # level.
             flops=tree_levels + 2 * draws * (tree_levels.bit_length()),
             bytes=4 * leaves + 4 + 4 * draws + 12 * draws + 4))
-    key = f"gather_window B={b}"
-    rows.append(dict(
-        name="gather_window", route="cuda", source=source,
-        replaces="rainbow_tpu/replay/prioritized.py:157",
-        shape=f"nb={nb} bs={bs} window={w} x {fp} B",
-        **timed[0][key], again=timed[1][key],
-        plain_ms=time_ms(torch, lambda: rp.gather_window_plain(
-            rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99), before=flush),
-        library_ms=None,
-        # Read each distinct unblanked frame once; per draw its window's
-        # timesteps, its n rewards, a nonterminal, an action, idx and
-        # p; write the window and five scalars; per batch one max.
-        flops=b * (2 * n + 8), frames_read=frames_read,
-        bytes=(frames_read * fp + b * w * fp
-               + b * (4 * w + 4 * n + 1 + 4 + 8 + 4)
-               + b * (8 + 4 + 4 + 4 + 4) + 4 * nb + 4 + 4 + 1)))
+    if "gather_window" in kernels:
+        key = f"gather_window B={b}"
+        rows.append(dict(
+            name="gather_window", route="cuda", source=source, draws=b,
+            replaces="rainbow_tpu/replay/prioritized.py:157",
+            shape=f"nb={nb} bs={bs} window={w} x {fp} B",
+            tally_key=f"gather_window {nb}x{bs} window={w} on {e}x{c}",
+            **timed[0][key], again=timed[1][key],
+            plain_ms=time_ms(torch, lambda: rp.gather_window_plain(
+                rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99), before=flush),
+            library_ms=None,
+            # Read each distinct unblanked frame once; per draw its window's
+            # timesteps, its n rewards, a nonterminal, an action, idx and
+            # p; write the window and five scalars; per batch one max.
+            flops=b * (2 * n + 8), frames_read=frames_read,
+            bytes=(frames_read * fp + b * w * fp
+                   + b * (4 * w + 4 * n + 1 + 4 + 8 + 4)
+                   + b * (8 + 4 + 4 + 4 + 4) + 4 * nb + 4 + 4 + 1)))
     idxs_seq = idx[:bs].view(1, bs)
     losses_seq = losses[:1].clone()
     for draws, who, ix, ls in ((b, "round", idxs, losses),
                                (bs, "sequential update", idxs_seq,
-                                losses_seq)):
+                                losses_seq))[:(1 + seq) * (
+                                    "write_priorities" in kernels)]:
         key = f"write_priorities B={draws}"
         rows.append(dict(
             name="write_priorities", route="cuda", source=source,
             replaces="rainbow_tpu/replay/prioritized.py:285",
             shape=f"B={draws} into {e}x{c} ({who})", draws=draws,
+            tally_key=f"write_priorities B={draws} into {e}x{c}",
             plan={"threads": k_replay.WRITE_THREADS,
                   "blocks": k_replay.write_blocks(draws)},
             **timed[0][key], again=timed[1][key],
@@ -1204,6 +1353,14 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n, timed):
             flops=2 * draws,
             bytes=12 * draws + 4 * draws + 8))
     return rows
+
+
+def param_shapes(cfg, A):
+    """The shapes of ``cfg``'s net's param tensors, in the params' order
+    (K9's tensors)."""
+    from rainbow_tpu_torch.models import dqn
+
+    return [tuple(s) for s in dqn.param_shapes(cfg, A).values()]
 
 
 def noise_shapes(cfg, A, leads):
@@ -1240,11 +1397,13 @@ def check_noise(name, got, want, torch):
     return err
 
 
-def compare_noise(torch, cfg, A, report):
+def compare_noise(torch, cfg, A, report, others=()):
     """K2 against philox_noise_plain on the card at the main path's draws:
     the act's (1024 rows), the batched round's (8192 target rows and 256
     online draws in one launch) and the sequential update's (online and
-    target, shared), each at its own offset of a seed beyond 32 bits; and
+    target, shared), and the act's and the batched round's of the other
+    configurations (``others``), each at its own offset of a seed beyond
+    32 bits; and
     the kernel's Box-Muller alone (kernels.noise.box_muller) against
     scaled_box_muller_plain on the edge words and on 10^6 random pairs.
     The kernel computes Box-Muller and the transform in float32 (its
@@ -1271,11 +1430,22 @@ def compare_noise(torch, cfg, A, report):
         report.append(("scaled_noise", name, w.numel(), err))
         worst = max(worst, err)
     nb = ENVS // cfg.replay_frequency
-    cases = (("act", [(ENVS,)]), ("round", [(nb * cfg.batch_size,), (nb,)]),
-             ("sequential", [(), ()]))
+    cases = [("act", cfg, [(ENVS,)]),
+             ("round", cfg, [(nb * cfg.batch_size,), (nb,)]),
+             ("sequential", cfg, [(), ()])]
+    seen = {str(noise_shapes(c, A, leads)) for _, c, leads in cases}
+    for c in others:
+        nb_c = c.num_envs // c.replay_frequency
+        for name, leads in (("act", [(c.num_envs,)]),
+                            ("round", [(nb_c * c.batch_size,), (nb_c,)])):
+            key = str(noise_shapes(c, A, leads))
+            if key not in seen:
+                seen.add(key)
+                cases.append((f"{name} {c.architecture} B={c.batch_size} "
+                              f"N={c.num_envs}", c, leads))
     seed, offset, moments = 2 ** 40 + SEED, 0, None
-    for name, leads in cases:
-        shapes = noise_shapes(cfg, A, leads)
+    for name, c, leads in cases:
+        shapes = noise_shapes(c, A, leads)
         got = scaled_noise(seed, offset, shapes, "cuda")
         want = philox_noise_plain(seed, offset, shapes, "cuda")
         err = 0.0
@@ -1388,19 +1558,103 @@ def compare_delta_edges(torch, np, report):
         report.append(("apply_delta", f"N={n}", int(counts.sum()), 0.0))
 
 
-def check_learner_update_against_plain(torch, np, cfg, A):
-    """One learner update of the canonical net (compute_update_pretarget +
+# The plain-path checks' tolerances by compute dtype: losses (atol, rtol),
+# gradients, params after one Adam step, q at the act (atol, rtol), and the
+# top-2 gap of q beyond which an action must agree (atol, rtol of the top
+# q; in bfloat16 twice q's tolerance: two values each within it of the
+# plain ones can swap order only inside it).
+# float32: sums of up to 3136 terms in other orders; each gradient tensor
+# to 1e-4 of its largest value plus 1e-3 relative, each param to lr/100.
+# bfloat16: losses and q to the kernels' bound (6e-2, 3e-2): the plain
+# versions round after every op, cuDNN and the kernels once. A gradient
+# does not hold elementwise to a share of its tensor's largest value (bf16
+# moves single elements of a sum of products that cancel by far more than
+# the sum's rounding), so each tensor of the card's bf16 gradient is held
+# to the plain path's bf16 gradient on the CPU in norm, as a share of the
+# plain gradient's norm (``("norm", {prefix: bound})``), with a bound for
+# each kind of tensor from its own readings on the card at
+# BF16_UPDATE_SEEDS, where [update bf16] checks it (PERF.md §6).
+# cuDNN's bf16 convolutions round at other points than the CPU's, so the
+# features
+# differ in their last bits, ReLU masks flip near zero and the head's p - m
+# cancels: the convolutions' gradients read up to 0.130, fc_h_*'s
+# (KA bwd over those features) up to 0.139, the head's fc_z_* (K4's
+# gradient, then KA bwd) up to 0.062. A KA backward that drops one input
+# chunk (the control) moves fc_h_*'s weight gradients by 0.233 or more and
+# fc_z_*'s by 0.636 or more.
+# Adam's first step g/(|g| + eps) turns a gradient near zero into a step
+# of up to lr either way (a bias of 51 elements has moved by 0.33 of its
+# step's norm), so no bound on the params against the plain path's holds
+# below 2·lr; instead the card's params are held to the plain clip + Adam
+# applied on the CPU to the card's own gradients, to lr/100 as in float32
+# (``("refit", 1e-2)``).
+PLAIN_TOL = {
+    "float32": dict(loss=(1e-4, 1e-4), grad=("max", 1e-4, 1e-3),
+                    params=("lr", 1e-2), q=(1e-4, 1e-4), gap=(1e-4, 0.0)),
+    "bfloat16": dict(loss=(6e-2, 3e-2),
+                     grad=("norm", {"convs.": 0.2, "fc_h_": 0.2,
+                                    "fc_z_": 0.1}),
+                     params=("refit", 1e-2), q=(6e-2, 3e-2),
+                     gap=(1.2e-1, 6e-2)),
+}
+# The input features a control's KA backward drops: one of the small
+# path's input chunks (kernels/noisy_linear.py).
+DROPPED_CHUNK = 256
+
+
+def grad_errors(tol, got, want):
+    """Each tensor of the card's gradient ``got`` against the plain path's
+    ``want`` under ``tol["grad"]`` (PLAIN_TOL): {key: (err, within)}.
+    "max": err is the largest |got - want| as a share of the tensor's
+    largest |want|, within where every element is within atol (that share)
+    + rtol·|want|; "norm": err is ‖got - want‖ as a share of ‖want‖,
+    within the bound of the key's prefix."""
+    how, *g_tol = tol["grad"]
+    out = {}
+    for k, w in want.items():
+        w = w.float()
+        d = (got[k].float() - w).abs()
+        if how == "max":
+            scale = max(float(w.abs().max()), 1e-30)
+            within = bool((d <= g_tol[0] * scale + g_tol[1] * w.abs()).all())
+            out[k] = (float(d.max()) / scale, within)
+        else:
+            bound, = (v for p, v in g_tol[0].items() if k.startswith(p))
+            err = float(d.norm()) / max(float(w.norm()), 1e-30)
+            out[k] = (err, err <= bound)
+    return out
+
+
+def log_grad_readings(label, grads, control):
+    """One line of each gradient tensor's reading against the plain path
+    (grad_errors) and the control's, which the check refused."""
+    log(f"[{label}] grad readings " + json.dumps(
+        {k: [float(f"{e:.4g}"), float(f"{control[k]:.4g}")]
+         for k, e in grads.items()}) + " (each: [the card's, the control's "
+        f"with {DROPPED_CHUNK} input features dropped in KA's backward])")
+
+
+def check_learner_update_against_plain(torch, np, cfg, A, seed=16):
+    """One learner update of ``cfg``'s net (compute_update_pretarget +
     apply_grads) through the kernels on the card and through the plain
-    versions on the CPU, from the same params, batch, pns_target and shared
-    noise. Returns the largest differences (losses, grads relative to each
-    tensor's scale, new params)."""
+    versions on the CPU, from the same params (from ``seed``), batch,
+    pns_target and shared noise, within PLAIN_TOL of its compute dtype.
+    Then a control the gradient check must refuse: the card's update again
+    with KA's backward given x without its first DROPPED_CHUNK input
+    features, as a kernel that dropped one input chunk would compute it;
+    every noisy layer's weight gradients must fail grad_errors. Returns
+    the largest differences (losses, grads as grad_errors reads them, new
+    params), each gradient tensor's reading and the control's."""
     from rainbow_tpu_torch import agent as ag
-    from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
+    from rainbow_tpu_torch.kernels import noisy_linear as ka
+    from rainbow_tpu_torch.models.dqn import (NOISY_LAYERS, draw_noise,
+                                              init_dqn_params)
     from rainbow_tpu_torch.models.noisy import NoiseStream
 
+    tol = PLAIN_TOL[cfg.compute_dtype]
     b = cfg.batch_size
-    rng = np.random.default_rng(15)
-    params = init_dqn_params(cfg, A, torch.Generator().manual_seed(16), "cpu")
+    rng = np.random.default_rng(seed - 1)
+    params = init_dqn_params(cfg, A, seed, "cpu")
     u8 = lambda: rng.integers(0, 256, (b, 84, 84, cfg.history_length))
     batch = {"states": torch.from_numpy(u8().astype(np.float32) / 255),
              "next_states": torch.from_numpy(u8().astype(np.float32) / 255),
@@ -1414,46 +1668,76 @@ def check_learner_update_against_plain(torch, np, cfg, A):
                                          .astype(np.float32))}
     pns = torch.from_numpy(rng.dirichlet(np.ones(cfg.atoms), (b, A))
                            .astype(np.float32))
-    noise = draw_noise(cfg, A, NoiseStream(17), device="cpu")
-    out = {}
-    for dev in ("cuda", "cpu"):
+    noise = draw_noise(cfg, A, NoiseStream(seed + 1), device="cpu")
+
+    def update(dev, apply=True):
         p = {k: v.to(dev).clone() for k, v in params.items()}
-        agent = ag.AgentState(params=p,
-                              target_params={k: v.clone() for k, v in p.items()},
-                              opt_state=ag.init_adam(p, cfg),
-                              generator=torch.Generator(device=dev))
+        agent = ag.AgentState(
+            params=p, target_params={k: v.clone() for k, v in p.items()},
+            opt_state=ag.init_adam(p, cfg),
+            generator=torch.Generator(device=dev))
         grads, losses = ag.compute_update_pretarget(
             agent, cfg, A, {k: v.to(dev) for k, v in batch.items()},
             pns.to(dev), {k: (x.to(dev), y.to(dev))
                           for k, (x, y) in noise.items()})
-        ag.apply_grads(agent, cfg, grads)
-        out[dev] = (losses.cpu(), {k: v.cpu() for k, v in grads.items()},
-                    {k: v.cpu() for k, v in agent.params.items()})
+        if apply:
+            ag.apply_grads(agent, cfg, grads)
+        return (losses.cpu(), {k: v.cpu() for k, v in grads.items()},
+                {k: v.cpu() for k, v in agent.params.items()})
+
+    out = {dev: update(dev) for dev in ("cuda", "cpu")}
     # Losses of order 4 from 3136-term float32 sums in other orders.
     err_l = check_close("update losses", out["cuda"][0], out["cpu"][0],
-                        1e-4, 1e-4)
+                        *tol["loss"])
     # Gradients: cuDNN and the CPU sum conv products over B·H·W positions
-    # in other orders; each tensor to 1e-4 of its largest value plus 1e-3
-    # relative.
-    err_g = 0.0
-    for k, want in out["cpu"][1].items():
-        scale = float(want.abs().max())
-        check_close(f"update grad {k}", out["cuda"][1][k], want,
-                    1e-4 * scale, 1e-3)
-        err_g = max(err_g, float((out["cuda"][1][k] - want).abs().max())
-                    / max(scale, 1e-30))
+    # in other orders (PLAIN_TOL).
+    grads = grad_errors(tol, out["cuda"][1], out["cpu"][1])
+    for k, (err, within) in grads.items():
+        check(within, f"update grad {k}: {err:.3g} from the plain path's, "
+              f"beyond {tol['grad']}")
+    err_g = max(err for err, _ in grads.values())
     # Adam's first step moves a param by lr·g/(|g| + eps): a grad that
     # differs by Δg moves it by at most lr·Δg/eps, and by far less where
-    # |g| ≫ eps; sound runs read about 4e-9 (PERF.md), so lr/100 has room.
-    # Every tensor must have moved by more than that.
-    p_tol = cfg.learning_rate / 100
+    # |g| ≫ eps; sound float32 runs read about 4e-9 (PERF.md), so lr/100
+    # has room. Every tensor must have moved by more than that.
+    # ("refit": the plain clip + Adam on the CPU applied to the card's own
+    # gradients is the reference.)
+    how, share = tol["params"]
+    if how == "refit":
+        p = {k: v.clone() for k, v in params.items()}
+        agent = ag.AgentState(params=p, target_params=p,
+                              opt_state=ag.init_adam(p, cfg),
+                              generator=torch.Generator())
+        ag.apply_grads(agent, cfg, out["cuda"][1])
+        out["cpu"] = out["cpu"][:2] + (agent.params,)
+    p_tol = cfg.learning_rate * share
     err_p = max(check_close(f"update param {k}", out["cuda"][2][k], want,
                             p_tol, 0)
                 for k, want in out["cpu"][2].items())
     for k, want in out["cpu"][2].items():
         check(float((want - params[k]).abs().max()) > p_tol,
               f"update param {k}: the update did not move it")
-    return err_l, err_g, err_p
+    # The control: a KA backward that drops one input chunk.
+    real = ka.noisy_linear_bwd
+
+    def dropped(w_mu, w_sig, x, g, eps=None, y=None):
+        x = x.clone()
+        x[:, :DROPPED_CHUNK] = 0
+        return real(w_mu, w_sig, x, g, eps, y)
+
+    ka.noisy_linear_bwd = dropped
+    try:
+        bad = update("cuda", apply=False)[1]
+    finally:
+        ka.noisy_linear_bwd = real
+    control = grad_errors(tol, bad, out["cpu"][1])
+    for k in (f"{n}.{w}" for n in NOISY_LAYERS
+              for w in ("weight_mu", "weight_sigma")):
+        check(not control[k][1], f"update grad {k}: the check passed a KA "
+              f"backward that dropped {DROPPED_CHUNK} input features "
+              f"({control[k][0]:.3g})")
+    return (err_l, err_g, err_p, {k: e for k, (e, _) in grads.items()},
+            {k: e for k, (e, _) in control.items()})
 
 
 def check_sequential_update_against_plain(torch, np, cfg, A):
@@ -1594,10 +1878,11 @@ def run_actor(torch, cfg, params, A, noise):
 
 def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
                                    actions, n=32):
-    """One actor iteration through the kernels on the card and through the
-    plain versions on the CPU, on the first ``n`` envs of the live state, with
-    the same injected per-env noise: stack and replay bit-exact, actions
-    equal wherever the top-2 gap of q is clear."""
+    """One actor iteration of ``cfg``'s net through the kernels on the card
+    and through the plain versions on the CPU, on the first ``n`` envs of
+    the live state, with the same injected per-env noise: stack and replay
+    bit-exact, q within PLAIN_TOL of the compute dtype, actions equal
+    wherever the top-2 gap of q is clear of that tolerance."""
     from rainbow_tpu_torch.models.dqn import draw_noise, forward_head
     from rainbow_tpu_torch.models.noisy import NoiseStream
     from rainbow_tpu_torch.ops.preprocess import to_network_input
@@ -1627,11 +1912,95 @@ def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
     check(_same_replay(torch, out["cuda"][2], out["cpu"][2]),
           "actor step: replay differs from the plain path")
     q = out["cpu"][3]
+    tol = PLAIN_TOL[cfg.compute_dtype]
+    err = check_close("actor step q", out["cuda"][3], q, *tol["q"])
     top2 = q.topk(2, dim=1).values
-    clear = top2[:, 0] - top2[:, 1] > 1e-4
+    atol, rtol = tol["gap"]
+    clear = top2[:, 0] - top2[:, 1] > atol + rtol * top2[:, 0].abs()
     check(torch.equal(out["cuda"][0][clear], out["cpu"][0][clear]),
           "actor step: actions differ from the plain path")
-    return max_err(out["cuda"][3], q)
+    return err
+
+
+def live_actor_state(torch, cfg, A, params, envs, iters=6):
+    """A live acting state of ``cfg``'s net on the card: ``envs`` pong envs
+    of the native engine stepped ``iters`` times by actor_step_packed with a
+    small ring (resets happen from the first step: the engine's no-op
+    starts). Returns (stack, the last step's staged inputs, the actions
+    after it), as run_actor does."""
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.models.noisy import NoiseStream
+    from rainbow_tpu_torch.ops.preprocess import (init_framestack,
+                                                  to_network_input)
+    from rainbow_tpu_torch.replay import prioritized as rp
+    from rainbow_tpu_torch.train import (actor_step_packed, make_env_factory,
+                                         stage_step)
+
+    env = make_env_factory(cfg)(num_envs=envs, training=True)
+    stack = init_framestack(envs, cfg.history_length, env.reset_all(),
+                            "cuda")
+    rep = rp.init_replay(envs, 16, cfg.frame_size, "cuda")
+    noise = NoiseStream(SEED + 11)
+    actions = ag.act(params, cfg, A, to_network_input(stack), noise)
+    for _ in range(iters):
+        staged = stage_step(env.step(actions.cpu().numpy()), "cuda")
+        actions = actor_step_packed(params, noise, cfg, A, stack, rep,
+                                    actions, *staged)
+    env.close()
+    return stack, staged, actions
+
+
+# The seeds of the bf16 update's check, whose readings PLAIN_TOL's bf16
+# gradient bounds rest on: one seed's update is one draw of bf16 rounding.
+BF16_UPDATE_SEEDS = (16, 116, 216, 316, 416, 516)
+
+
+def check_preset_against_plain(torch, np, label, cfg, A):
+    """[update <label>] and [actor <label>]: one learner update (in bf16,
+    one at each of BF16_UPDATE_SEEDS) and one actor step of the
+    configuration on the card against the plain path on the CPU
+    (check_learner_update_against_plain, and check_actor_step_against_plain
+    on a live state of min(32, envs) envs), each within PLAIN_TOL of its
+    compute dtype. In bf16 also the largest reading by PLAIN_TOL's prefix
+    and the control's least on a weight."""
+    from rainbow_tpu_torch.models.dqn import init_dqn_params
+
+    bf16 = cfg.compute_dtype == "bfloat16"
+    prefixes = PLAIN_TOL["bfloat16"]["grad"][1] if bf16 else {}
+    worst = {p: 0.0 for p in prefixes}
+    least = {p: float("inf") for p in prefixes if p != "convs."}
+    for seed in BF16_UPDATE_SEEDS if bf16 else (16,):
+        t0 = time.perf_counter()
+        err_l, err_g, err_p, grads, control = (
+            check_learner_update_against_plain(torch, np, cfg, A, seed))
+        log(f"[update {label}] one update (seed {seed}, B = "
+            f"{cfg.batch_size}, {cfg.architecture} torso, hidden "
+            f"{cfg.hidden_size}, {cfg.compute_dtype}, mu "
+            f"{cfg.adam_mu_dtype}) matches the plain path on the CPU in "
+            f"{time.perf_counter() - t0:.1f} s: max |loss diff| "
+            f"{err_l:.3g}, max grad diff {err_g:.3g} of the tensor's "
+            f"{'norm' if bf16 else 'largest'}, max param diff {err_p:.3g}"
+            + (" against the plain Adam on the card's gradients" if bf16
+               else ""))
+        log_grad_readings(f"update {label}", grads, control)
+        for k, e in grads.items():
+            for p in prefixes:
+                if k.startswith(p):
+                    worst[p] = max(worst[p], e)
+                    if p in least and ".weight" in k:
+                        least[p] = min(least[p], control[k])
+    if bf16:
+        log(f"[update {label}] over seeds {BF16_UPDATE_SEEDS}: the largest "
+            f"reading by prefix {json.dumps(worst)} within "
+            f"{json.dumps(prefixes)}; the control's least on a weight "
+            f"{json.dumps(least)}")
+    envs = min(32, cfg.num_envs)
+    params = init_dqn_params(cfg, A, SEED + 12, "cuda")
+    stack, staged, actions = live_actor_state(torch, cfg, A, params, envs)
+    q_err = check_actor_step_against_plain(torch, np, cfg, params, A, stack,
+                                           staged, actions, envs)
+    log(f"[actor {label}] one step on {envs} envs matches the plain path "
+        f"on the CPU (max |q diff| {q_err:.3g})")
 
 
 def profiled(torch, name, fn, units, unit):
@@ -1826,28 +2195,30 @@ MEMORY_ARGS = ["--num-envs", "1024", "--memory-capacity", "65536",
 class _Watch:
     """Wraps train.train_iter_sharded (the Trainer's iteration),
     Trainer.evaluate_now and Trainer.save_checkpoint to time them (each
-    iteration synchronised with ``sync``), Trainer._eval_async_drain to
-    mark the end of each run's
+    iteration synchronised with ``sync``, each learning iteration's loss
+    kept in ``losses``), Trainer._eval_async_drain to mark the end of each
+    run's
     training loop (``loop_ends``: its first call with ``wait``, after the
-    main stream has finished), KA's two wrappers, KB's, KC's and K5's to
-    count their launches by shape (``ka_shapes``, ``kb_shapes``,
-    ``kc_shapes`` by N, K and with or without a replay, with the last
-    1024-env append's K in ``kc_last_k``, ``k5_shapes`` and ``k7_shapes``
-    by B), and the
-    replay's, the noise's and the delta's plain versions to fail if the
-    card's path calls them."""
+    main stream has finished), every kernel's wrapper but K10's to count
+    its launches by shape in ``shapes`` (KA's by B, layer, noise mode and
+    dtype, KB's and K4's by B and the streams' dtype, KC's by N, K and with
+    or without a replay, with each N's last K with a replay in
+    ``kc_last_k_by_n``, K5's and K7's by B and ring, K6's by batches x
+    batch, window and ring, K9's by params and mu's dtype, K2's by floats a
+    draw), and the replay's, the noise's and the delta's plain versions to
+    fail if the card's path calls them."""
 
     def __init__(self, torch, sync=True):
+        from rainbow_tpu_torch import agent as ag
         from rainbow_tpu_torch import train as tm
         from rainbow_tpu_torch.models import noisy
+        from rainbow_tpu_torch.ops import c51 as oc51
         from rainbow_tpu_torch.ops import head
         from rainbow_tpu_torch.ops import preprocess as pp
         from rainbow_tpu_torch.replay import prioritized as rp
 
-        self.iters, self.evals, self.saves = [], [], []
-        self.ka_shapes, self.kb_shapes = {}, {}
-        self.kc_shapes, self.k5_shapes, self.k7_shapes = {}, {}, {}
-        self.kc_last_k = None
+        self.iters, self.evals, self.saves, self.losses = [], [], [], []
+        self.shapes, self.kc_last_k_by_n = {}, {}
         tally_lock = threading.Lock()  # an async evaluation appends too
         self.loop_ends = []
         self._undo = []
@@ -1859,6 +2230,8 @@ class _Watch:
                 if sync:
                     torch.cuda.synchronize()
                 self.iters.append((args[2], t0, time.perf_counter()))
+                if args[2]:
+                    self.losses.append(out[1])
                 return out
             return wrapper
 
@@ -1877,51 +2250,24 @@ class _Watch:
                 return real(*args, **kw)
             return wrapper
 
-        def tally(real, name, x_at, eps_at):
-            def wrapper(*args):
-                out = real(*args)
-                x, eps = args[x_at], args[eps_at]
-                mode = ("mu" if eps is None else
-                        "row" if eps[0].dim() == 2 else "shared")
-                w_mu = args[0]["weight_mu"] if name == "fwd" else args[0]
-                key = (f"noisy_linear_{name} B={x.shape[0]} {x.shape[1]}->"
-                       f"{w_mu.shape[0]} {mode}")
-                self.ka_shapes[key] = self.ka_shapes.get(key, 0) + 1
-                return out
+        def tally(real, key_of):
+            def wrapper(*args, **kw):
+                key = key_of(*args, **kw)
+                with tally_lock:
+                    self.shapes[key] = self.shapes.get(key, 0) + 1
+                return real(*args, **kw)
             return wrapper
 
-        def tally_kb(real):
-            def wrapper(v, a, support, action_space, dist=None):
-                key = f"dueling_head B={v.shape[0]} {dist}"
-                self.kb_shapes[key] = self.kb_shapes.get(key, 0) + 1
-                return real(v, a, support, action_space, dist)
-            return wrapper
+        def ka_key(name, x, eps, w_mu):
+            mode = ("mu" if eps is None else
+                    "row" if eps[0].dim() == 2 else "shared")
+            return (f"noisy_linear_{name} B={x.shape[0]} {x.shape[1]}->"
+                    f"{w_mu.shape[0]} {mode} {_dt(x)}")
 
-        def add(shapes, key):
-            with tally_lock:
-                shapes[key] = shapes.get(key, 0) + 1
-
-        def tally_kc(real):
-            def wrapper(stack, obs, packed, ridx, kinds, rep=None, *a):
-                n, k = stack.shape[0], packed.shape[0]
-                add(self.kc_shapes, f"append_framestack N={n} K={k} "
-                    f"{'replay' if rep is not None else 'stack'}")
-                if rep is not None and n == ENVS:
-                    self.kc_last_k = k
-                return real(stack, obs, packed, ridx, kinds, rep, *a)
-            return wrapper
-
-        def tally_k5(real):
-            def wrapper(state, u, *a):
-                add(self.k5_shapes, f"stratified_sample B={u.shape[0]}")
-                return real(state, u, *a)
-            return wrapper
-
-        def tally_k7(real):
-            def wrapper(state, idxs, *a):
-                add(self.k7_shapes, f"write_priorities B={idxs.numel()}")
-                return real(state, idxs, *a)
-            return wrapper
+        def kc_key(stack, obs, packed, ridx, kinds, rep=None, *a):
+            if rep is not None:
+                self.kc_last_k_by_n[stack.shape[0]] = packed.shape[0]
+            return _kc_key(stack.shape[0], packed.shape[0], rep is not None)
 
         def drain(real):
             def wrapper(trainer, wait=False):
@@ -1932,20 +2278,40 @@ class _Watch:
             return wrapper
 
         self._loops = 0
-        # models/noisy.py calls KA as ka.noisy_linear_fwd(params, x, eps,
-        # relu) and ka.noisy_linear_bwd(w_mu, w_sig, x, g, eps, y).
-        self._patch(noisy.ka, "noisy_linear_fwd",
-                    lambda r: tally(r, "fwd", 1, 2))
-        self._patch(noisy.ka, "noisy_linear_bwd",
-                    lambda r: tally(r, "bwd", 2, 4))
-        # ops/head.py calls KB as kb.dueling_head_fwd(v, a, support, A,
-        # dist).
-        self._patch(head.kb, "dueling_head_fwd", tally_kb)
-        # ops/preprocess.py calls KC as kc.append_framestack(...), and
-        # replay/prioritized.py K5 as k_replay.stratified_sample(...).
-        self._patch(pp.kc, "append_framestack", tally_kc)
-        self._patch(rp.k_replay, "stratified_sample", tally_k5)
-        self._patch(rp.k_replay, "write_priorities", tally_k7)
+        # Each wrapper through the module its callers read it from:
+        # models/noisy.py (KA: ka.noisy_linear_fwd(params, x, eps, relu),
+        # ka.noisy_linear_bwd(w_mu, w_sig, x, g, eps, y); K2), ops/head.py
+        # (KB), ops/preprocess.py (KC), ops/c51.py (K4),
+        # replay/prioritized.py (K5-K7), agent.py (K9).
+        kernels = {
+            (noisy.ka, "noisy_linear_fwd"):
+            lambda prm, x, eps, *a: ka_key("fwd", x, eps, prm["weight_mu"]),
+            (noisy.ka, "noisy_linear_bwd"):
+            lambda w_mu, w_sig, x, g, eps, *a: ka_key("bwd", x, eps, w_mu),
+            (head.kb, "dueling_head_fwd"):
+            lambda v, a, support, n_act, dist=None:
+            f"dueling_head B={v.shape[0]} {dist} {_dt(v)}",
+            (pp.kc, "append_framestack"): kc_key,
+            (rp.k_replay, "stratified_sample"): lambda state, u, *a:
+            f"stratified_sample B={u.shape[0]} on {_ring(state)}",
+            (rp.k_replay, "gather_window"):
+            lambda state, idx, p, total, beta, nb, bs, history, n, *a:
+            f"gather_window {nb}x{bs} window={history + n} on "
+            f"{_ring(state)}",
+            (rp.k_replay, "write_priorities"): lambda state, idxs, *a:
+            f"write_priorities B={idxs.numel()} into {_ring(state)}",
+            (oc51.k4, "c51_target"):
+            lambda pns, *a: f"c51_target B={pns.shape[0]}",
+            (oc51.k4, "head_loss"):
+            lambda v, *a: f"head_loss B={v.shape[0]} {_dt(v)}",
+            (ag.k9, "clip_adam"): lambda params, grads, mu, *a:
+            f"clip_adam {sum(p.numel() for p in params)} params mu "
+            f"{_dt(mu[0])}",
+            (noisy.k2, "scaled_noise"): lambda seed, offset, shapes, *a:
+            f"scaled_noise {sum(math.prod(x) for x in shapes)} floats"}
+        for (owner, name), key_of in kernels.items():
+            self._patch(owner, name, lambda r, key_of=key_of: tally(r,
+                                                                    key_of))
         self._patch(tm, "train_iter_sharded", timed_iter)
         self._patch(tm.Trainer, "_eval_async_drain", drain)
         self._patch(tm.Trainer, "run", lambda r: self._counted(r))
@@ -1986,19 +2352,43 @@ class _Watch:
             setattr(owner, name, real)
 
 
-def _same_state(torch, a, b):
-    """The Trainers' agents, generators, replays, T and metrics are equal."""
+def check_shapes(tag, shapes, counts):
+    """A run's launches by shape (_Watch.shapes) add up to its launch
+    counts, kernel by kernel."""
+    by_kernel = {}
+    for key, n in shapes.items():
+        by_kernel[key.split()[0]] = by_kernel.get(key.split()[0], 0) + n
+    check(by_kernel == {k: v for k, v in counts.items() if v},
+          f"{tag} launches by shape {by_kernel} do not add up to {counts}")
+
+
+def _dt(t):
+    """A tensor's dtype in a launch tally: fp32 or bf16."""
+    return str(t.dtype).replace("torch.float32", "fp32").replace(
+        "torch.bfloat16", "bf16")
+
+
+def _ring(state):
+    """A ring's shape in a launch tally: envs x columns."""
+    e, c = state.priorities.shape
+    return f"{e}x{c}"
+
+
+def _same_state(torch, a, b, replay=True):
+    """The Trainers' agents (Adam's first moment in its own dtype),
+    generators, T, metrics and, with ``replay``, replays are equal."""
     import dataclasses
     pa, pb = a.agent, b.agent
-    same = all(torch.equal(x[k], y[k])
+    same = all(x[k].dtype == y[k].dtype and torch.equal(x[k], y[k])
                for x, y in ((pa.params, pb.params),
                             (pa.target_params, pb.target_params),
                             (pa.opt_state.mu, pb.opt_state.mu),
                             (pa.opt_state.nu, pb.opt_state.nu)) for k in x)
     same &= torch.equal(pa.opt_state.count, pb.opt_state.count)
     same &= pa.step == pb.step and a.T == b.T and a.metrics == b.metrics
-    same &= all(torch.equal(getattr(a.rep, f.name), getattr(b.rep, f.name))
-                for f in dataclasses.fields(a.rep))
+    same &= not replay or all(torch.equal(getattr(a.rep, f.name),
+                                          getattr(b.rep, f.name))
+                              for f in dataclasses.fields(a.rep))
     same &= all(torch.equal(x.get_state(), y.get_state())
                 for x, y in ((pa.generator, pb.generator),
                              (a.eval_generator, b.eval_generator)))
@@ -2026,6 +2416,7 @@ def run_trainer(torch, np):
     watch = _Watch(torch)
     try:
         reset_launches()
+        before_mb = torch.cuda.memory_allocated() / 2 ** 20
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tr = cli.main(TRAINER_ARGS)
@@ -2035,11 +2426,8 @@ def run_trainer(torch, np):
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         iters, evals, saves = (list(watch.iters), list(watch.evals),
                                list(watch.saves))
-        ka_shapes = dict(watch.ka_shapes)
-        kb_shapes = dict(watch.kb_shapes)
-        kc_shapes, k5_shapes = dict(watch.kc_shapes), dict(watch.k5_shapes)
-        k7_shapes = dict(watch.k7_shapes)
-        kc_last_k = watch.kc_last_k
+        shapes = dict(watch.shapes)
+        kc_last_k = watch.kc_last_k_by_n.get(ENVS)
         gross = watch.train_span(iters)
         res = tr.results_dir
         rounds = sum(1 for n, _, _ in iters if n)
@@ -2131,15 +2519,10 @@ def run_trainer(torch, np):
         "replay_save_s": save_s, "replay_restore_s": restore_s,
         "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
         "evaluate_only_s": eval_only_s, "max_memory_allocated_mb": peak_mb,
+        "allocated_before_mb": before_mb,
         "launches": counts,
-        "ka_launches_by_shape": ka_shapes, "kb_launches_by_shape": kb_shapes,
-        "kc_launches_by_shape": kc_shapes, "kc_last_k": kc_last_k,
-        "k5_launches_by_shape": k5_shapes, "k7_launches_by_shape": k7_shapes}
-    check(sum(kc_shapes.values()) == counts["append_framestack"]
-          and sum(k5_shapes.values()) == counts["stratified_sample"]
-          and sum(k7_shapes.values()) == counts["write_priorities"],
-          f"trainer: KC, K5 or K7 launches by shape {kc_shapes} {k5_shapes} "
-          f"{k7_shapes} do not add up to {counts}")
+        "launches_by_shape": shapes, "kc_last_k": kc_last_k}
+    check_shapes("trainer", shapes, counts)
     return stats, counts
 
 
@@ -2205,9 +2588,7 @@ def run_side_trainer(torch, np, args, sync):
              "eval_steps": list(tr.metrics["steps"]),
              "noise_offset": tr.agent.noise.offset,
              "timer_s": dict(tr.timer.totals), "launches": counts,
-             "kc_launches_by_shape": dict(watch.kc_shapes),
-             "k5_launches_by_shape": dict(watch.k5_shapes),
-             "k7_launches_by_shape": dict(watch.k7_shapes)}
+             "launches_by_shape": dict(watch.shapes)}
     if sync:
         stats["median_round_call_ms"] = 1e3 * statistics.median(
             b - a for n, a, b in iters if n)
@@ -2233,6 +2614,288 @@ def run_side_trainer(torch, np, args, sync):
     del tr
     torch.cuda.empty_cache()
     return stats, counts
+
+
+# ----------------------------------------------------- other presets -----
+
+# The JAX package's other configurations (rainbow_tpu/config.py:174-224,
+# BASELINE.json's first two), each through cli.main at the widths its
+# preset publishes; each CUTS line lists what was set beside them.
+# Data-efficient (Atari-100k): 16 envs (docs/results_r1/README.md:10-14),
+# the preset's whole ring (memory_capacity 100,000 = 16 x 6,250 columns,
+# 706 MB of frames), hidden 256, n = 20, replay frequency 1 (16 updates of
+# batch 32 an iteration), target update 2,000, lr 1e-4, from its own learn
+# start: 100 warm-up iterations, then 101 rounds; one evaluation and a
+# checkpoint at T = 3,200 with the replay-bearing save (--memory), which a
+# new Trainer restores bit for bit.
+DATA_EFFICIENT_ARGS = ["--preset", "data-efficient", "--game", "pong",
+                       "--num-envs", "16", "--learn-start", "1600",
+                       "--T-max", "3200", "--evaluation-interval", "3200",
+                       "--checkpoint-interval", "3200", "--memory", "memory",
+                       "--max-episode-length", "4000", "--id",
+                       "chip_trainer_data_efficient", "--seed", "5"]
+# Throughput: 1024 envs, the full 976-column ring (7.05 GB), rounds of 32
+# updates of batch 256, lr 6.25e-5·√8; the schedule of TRAINER_ARGS (31
+# warm-up iterations, 9 rounds), an evaluation and a checkpoint at the end,
+# which a new Trainer restores bit for bit.
+THROUGHPUT_ARGS = ["--preset", "throughput", "--num-envs", "1024",
+                   "--learn-start", "32768", "--T-max", "40960",
+                   "--evaluation-interval", "40960", "--checkpoint-interval",
+                   "40960", "--max-episode-length", "4000", "--id",
+                   "chip_trainer_throughput", "--seed", "6"]
+# The canonical preset in bfloat16 with a bfloat16 Adam first moment
+# (docs/results_r4/README.md:80-95): 4 rounds of 256 updates, an
+# evaluation and a checkpoint at the end, which a new Trainer restores
+# bit for bit (the bf16 mu as its uint16 bits).
+BF16_ARGS = ["--num-envs", "1024", "--compute-dtype", "bfloat16",
+             "--adam-mu-dtype", "bfloat16", "--learn-start", "32768",
+             "--T-max", "35840", "--evaluation-interval", "35840",
+             "--checkpoint-interval", "35840", "--max-episode-length",
+             "4000", "--id", "chip_trainer_bf16", "--seed", "7"]
+PRESET_RUNS = (("data-efficient", DATA_EFFICIENT_ARGS),
+               ("throughput", THROUGHPUT_ARGS), ("bf16", BF16_ARGS))
+CUTS = {
+    "data-efficient": "T-max 100,000 -> 3,200 (101 rounds); evaluation "
+                      "interval 10,000 -> 3,200; max episode length "
+                      "108,000 -> 4,000 frames",
+    "throughput": "T-max 50M -> 40,960 (9 rounds); learn start 20,000 -> "
+                  "32,768 (the ring 32 columns deep); evaluation interval "
+                  "100,000 -> 40,960; max episode length 108,000 -> 4,000",
+    "bf16": "T-max 50M -> 35,840 (4 rounds); learn start 20,000 -> 32,768; "
+            "evaluation interval 100,000 -> 35,840; max episode length "
+            "108,000 -> 4,000",
+}
+
+
+def run_preset_trainer(torch, np, label, args):
+    """One configuration's Trainer through cli.main (PRESET_RUNS): launch
+    counts zeroed just before it and read just after; every iteration
+    synchronised and timed; the training span from the start of the first
+    learning iteration to the end of the loop, less the evaluation and the
+    saves in it. Checks: the schedule, every kernel but K10 launched, K5-K7
+    once per round, every round's loss finite, one evaluation with finite
+    Q, the files, the launches by shape adding up to the counts, in bf16
+    every stream in bf16 and mu in bf16; then the checkpoint (the
+    replay-bearing save where --memory is set) restored bit for bit into a
+    new Trainer. The ring is freed before it returns. Returns (stats, launch
+    counts, launches by shape)."""
+    import shutil
+
+    from rainbow_tpu_torch import cli
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.train import Trainer
+
+    run_id = args[args.index("--id") + 1]
+    shutil.rmtree(os.path.join(ROOT, "results", run_id), ignore_errors=True)
+    torch.cuda.empty_cache()
+    before_mb = torch.cuda.memory_allocated() / 2 ** 20
+    watch = _Watch(torch)
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        watch.close()
+    iters, c = watch.iters, tr.cfg
+    rounds = sum(1 for n, _, _ in iters if n)
+    tag = f"[trainer {label}]"
+    check(tr.T == c.total_steps and len(iters) == c.total_steps // c.num_envs
+          and rounds == (c.total_steps - c.learn_start) // c.num_envs + 1
+          and tr.agent.step == rounds * tr.learns_per_iter,
+          f"{tag} T {tr.T}, {len(iters)} iterations, {rounds} rounds, "
+          f"{tr.agent.step} updates")
+    losses = torch.stack(watch.losses).cpu()
+    check(len(watch.losses) == rounds and bool(torch.isfinite(losses).all()),
+          f"{tag} non-finite losses {losses.tolist()}")
+    check(tr.metrics["steps"] == [c.evaluation_interval]
+          and len(watch.evals) == 1
+          and all(np.isfinite(tr.metrics["Qs"][0])),
+          f"{tag} evaluations {tr.metrics['steps']}")
+    res = tr.results_dir
+    for name in ("metrics.json", "model.npz", "checkpoint.npz"):
+        check(os.path.exists(os.path.join(res, name)),
+              f"{tag} {name} not written")
+    check(all(counts[k] == rounds for k in ("stratified_sample",
+                                            "gather_window",
+                                            "write_priorities")),
+          f"{tag} K5-K7 not once per round: {counts}")
+    check(all(v > 0 for k, v in counts.items() if k != "apply_delta")
+          and counts["apply_delta"] == 0,
+          f"{tag} a kernel never launched, or K10 without delta uploads "
+          f"{counts}")
+    shapes = dict(watch.shapes)
+    check_shapes(tag, shapes, counts)
+    if c.compute_dtype == "bfloat16":
+        streams = [k for k in shapes if k.split()[0] in (
+            "noisy_linear_fwd", "noisy_linear_bwd", "dueling_head",
+            "head_loss")]
+        check(all(k.endswith("bf16") for k in streams)
+              and all(k.endswith("bf16") for k in shapes
+                      if k.startswith("clip_adam")),
+              f"{tag} a stream or mu not in bfloat16: {shapes}")
+    span_with_eval = watch.train_span(iters) - sum(watch.saves)
+    span = span_with_eval - sum(watch.evals)
+    updates = rounds * tr.learns_per_iter
+    stats = {
+        "cuts": CUTS[label], "preset": args[args.index("--preset") + 1]
+        if "--preset" in args else "canonical",
+        "envs": c.num_envs, "T": tr.T, "iterations": len(iters),
+        "rounds": rounds, "updates_per_round": tr.learns_per_iter,
+        "batch_size": c.batch_size, "learning_rate": c.learning_rate,
+        "multi_step": c.multi_step, "hidden_size": c.hidden_size,
+        "compute_dtype": c.compute_dtype, "adam_mu_dtype": c.adam_mu_dtype,
+        "ring": f"{c.num_envs}x{c.capacity_per_env}",
+        "ring_gb": tr.rep.frames.numel() / 1e9, "run_wall_s": wall,
+        "train_span_s": span,
+        "train_env_steps_per_s": rounds * c.num_envs / span,
+        "learner_updates_per_s": updates / span,
+        "train_with_eval_env_steps_per_s": rounds * c.num_envs
+        / span_with_eval,
+        "median_round_call_ms": 1e3 * statistics.median(
+            b - a for n, a, b in iters if n),
+        "eval_s": watch.evals[0], "save_s": list(watch.saves),
+        "max_memory_allocated_mb": peak_mb,
+        "allocated_before_mb": before_mb,
+        "losses": {"n": len(watch.losses), "first": float(losses[0]),
+                   "last": float(losses[-1]), "all_finite": True},
+        "launches": counts, "launches_by_shape": shapes,
+        "kc_last_k_by_n": dict(watch.kc_last_k_by_n)}
+    del losses, watch.losses[:]
+    # The checkpoint a new Trainer restores bit for bit: the replay-bearing
+    # save where --memory is set (its ring too), else checkpoint.npz into a
+    # Trainer of a 64-column ring (the agent alone).
+    path = os.path.join(res, "memory_checkpoint.npz" if c.memory_path
+                        else "checkpoint.npz")
+    tb = Trainer(c if c.memory_path else c.replace(
+        memory_capacity=64 * c.num_envs))
+    t1 = time.perf_counter()
+    tb.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    stats["restore_s"] = time.perf_counter() - t1
+    stats["restored_mb"] = os.path.getsize(path) / 2 ** 20
+    check(_same_state(torch, tr, tb, replay=bool(c.memory_path)),
+          f"{tag} the restored state differs from the saved one ({path})")
+    stats["restored_bit_for_bit"] = os.path.basename(path)
+    tb.env.close()
+    del tr, tb
+    torch.cuda.empty_cache()
+    return stats, counts, shapes
+
+
+# The JAX package's learning smoke (tests/test_train_smoke.py:200-224, with
+# tiny_cfg of :16-26) through the port's Trainer on the card: the fake env
+# (reward 1 when the action is t mod A, readable from the frame's stripe),
+# the data-efficient net at hidden 32, 8 envs, 6,000 steps from learn start
+# 200, lr 1e-3; seeds 7, 3 and 42 in turn until a greedy probe scores more
+# than 1.5 x the random policy's 50 / 4 per episode. A seed starts the
+# port's Trainer from the JAX package's initial params for it
+# (models.dqn.init_dqn_params), so the same seed is the JAX test's
+# experiment but for the later draws (noise and replay uniforms), which
+# are the port's own.
+LEARN_SEEDS = (7, 3, 42)
+LEARN_BAR = 1.5 * 50 / 4
+
+
+def learn_args(seed):
+    return ["--preset", "data-efficient", "--env-backend", "fake",
+            "--num-envs", "8", "--memory-capacity", "4096", "--batch-size",
+            "32", "--T-max", "6000", "--learn-start", "200",
+            "--replay-frequency", "4", "--target-update", "128",
+            "--evaluation-interval", str(10 ** 9), "--evaluation-episodes",
+            "3", "--evaluation-size", "20", "--hidden-size", "32",
+            "--multi-step", "3", "--max-episode-length", "400",
+            "--learning-rate", "1e-3", "--seed", str(seed), "--id",
+            f"chip_learning_{seed}"]
+
+
+def greedy_probe_score(torch, tr):
+    """The JAX test's probe (_greedy_probe_score): the Trainer's params, μ
+    only, greedy on 8 fresh evaluation envs of the fake env (seed 99,
+    50-step episodes) for 50 steps; the reward per env."""
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.envs.fake import FakeAtariEnv
+    from rainbow_tpu_torch.ops.preprocess import (append_framestack,
+                                                  init_framestack,
+                                                  to_network_input)
+    from rainbow_tpu_torch.train import stage_step
+
+    env = FakeAtariEnv(8, seed=99, episode_len=50, training=False)
+    stack = init_framestack(8, tr.cfg.history_length, env.reset_all(),
+                            "cuda")
+    total = 0.0
+    for _ in range(50):
+        acts = ag.act(tr.agent.params, tr.cfg, env.action_space,
+                      to_network_input(stack))
+        out = env.step(acts.cpu().numpy())
+        total += float(out[2].sum())
+        obs, packed, ridx, _, _, kinds = stage_step(out, "cuda")
+        append_framestack(stack, obs, packed, ridx, kinds)
+    return total / 8
+
+
+def learn_seed(torch, np, seed):
+    """One learning smoke run of ``seed`` through cli.main (learn_args):
+    every kernel but K10 launched, the last loss finite. Returns (its
+    score and stats, its launch counts)."""
+    import shutil
+
+    from rainbow_tpu_torch import cli
+    from rainbow_tpu_torch.kernels import launches, reset_launches
+
+    shutil.rmtree(os.path.join(ROOT, "results", f"chip_learning_{seed}"),
+                  ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    tr = cli.main(learn_args(seed))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launches()
+    check(all(v > 0 for k, v in counts.items() if k != "apply_delta"),
+          f"[learning] seed {seed}: a kernel never launched {counts}")
+    check(np.isfinite(float(tr._last_loss)),
+          f"[learning] seed {seed}: loss {tr._last_loss}")
+    score = greedy_probe_score(torch, tr)
+    log(f"[learning] seed {seed}: greedy probe {score} per episode (bar > "
+        f"{LEARN_BAR}), {tr.agent.step} updates in {run_s:.1f} s")
+    return ({"seed": seed, "score": score, "run_s": run_s,
+             "updates": tr.agent.step, "last_loss": float(tr._last_loss)},
+            counts)
+
+
+def run_learning(torch, np):
+    """[learning]: the learning smoke through cli.main on the card, every
+    seed of LEARN_SEEDS, each score printed; it passes on the first seed
+    whose greedy probe scores more than LEARN_BAR and fails the run if none
+    does. cuDNN runs its deterministic algorithms here, so a seed scores
+    the same in every run on one card and software stack. Then the same
+    seeds with cuDNN's default algorithms, which decide nothing: their
+    scores show how far one seed's score moves without the net changing.
+    Every kernel but K10 must launch in each run. Returns (stats, the
+    launch counts of the deterministic runs summed)."""
+    before = torch.backends.cudnn.deterministic
+    scores, default, total = [], [], {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        for seed in LEARN_SEEDS:
+            entry, counts = learn_seed(torch, np, seed)
+            scores.append(entry)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        torch.backends.cudnn.deterministic = False
+        default = [learn_seed(torch, np, seed)[0] for seed in LEARN_SEEDS]
+    finally:
+        torch.backends.cudnn.deterministic = before
+    passed = [e["seed"] for e in scores if e["score"] > LEARN_BAR]
+    check(bool(passed), f"[learning] no seed of {LEARN_SEEDS} cleared "
+          f"{LEARN_BAR}: {scores}")
+    return {"bar": LEARN_BAR, "scores": scores,
+            "passed_on_seed": passed[0],
+            "cudnn_default_scores": default}, total
 
 
 # --------------------------------------------------------- distributed -----
@@ -2669,15 +3332,15 @@ def _kc_args(torch, np, n, k, with_rep, seed=23):
                    1.0)
 
 
-def kc_times(torch, np, k_last):
-    """KC's times at kc_cases(k_last) through the wrapper of the
-    rainbow_tpu_torch that is imported, by graphed_times. Returns
-    {_kc_key(...): {...}}."""
+def kc_times(torch, np, k_last, cases=None):
+    """KC's times at kc_cases(k_last), or at ``cases`` (as kc_cases'),
+    through the wrapper of the rainbow_tpu_torch that is imported, by
+    graphed_times. Returns {_kc_key(...): {...}}."""
     from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 
     flush = l2_flush(torch)
     out = {}
-    for n, k, with_rep, _ in kc_cases(k_last):
+    for n, k, with_rep, _ in cases or kc_cases(k_last):
         args = _kc_args(torch, np, n, k, with_rep)
         out[_kc_key(n, k, with_rep)] = graphed_times(
             torch, lambda: append_framestack(*args), flush)
@@ -2685,10 +3348,110 @@ def kc_times(torch, np, k_last):
     return out
 
 
+def kc_row(torch, np, n, k, with_rep, who, kc_timed):
+    """KC's row at N = n with k reset rows, with or without a replay, from
+    ``kc_timed`` (two kc_times of this run holding its key), with the plain
+    version's time."""
+    import dataclasses
+
+    from rainbow_tpu_torch.kernels.append_framestack import launch_plan
+    from rainbow_tpu_torch.ops import preprocess as pp
+
+    p = 84 * 84
+    key = _kc_key(n, k, with_rep)
+    args = _kc_args(torch, np, n, k, with_rep)
+    # The stack in and out, obs, the reset rows and their indices, the
+    # kinds; with a replay the frames column, the transition in, the ring's
+    # scalars out and t in and out.
+    nbytes = 2 * n * p * 4 + n * p + k * p + 4 * k + n
+    if with_rep:
+        nbytes += n * p + n * (8 + 4 + 1) + n * (4 + 4 + 4 + 1 + 4) + 8 * n
+    return dict(
+        name="append_framestack", route="cuda",
+        source="rainbow_tpu_torch/kernels/csrc/append_framestack.cu",
+        replaces="rainbow_tpu/replay/prioritized.py:73",
+        shape=f"N={n} H=4 K={k} {'with' if with_rep else 'without'} a "
+              f"replay ({who})",
+        plan=dataclasses.asdict(launch_plan(n, p, 4)),
+        tally_key=key,
+        **kc_timed[0][key], again=kc_timed[1][key],
+        plain_ms=time_ms(torch, lambda: pp.append_framestack_plain(*args),
+                         before=l2_flush(torch)),
+        library_ms=None, flops=0, bytes=nbytes)
+
+
+def preset_rows(torch, np, A, presets, de_k_last):
+    """Rows of the shapes that the preset Trainers (PRESET_RUNS) launch and
+    the main path's rows do not hold, each tagged with its ``phase``:
+    data-efficient: KA's fc_h (576 -> 256) forward at the learner's batch
+    (shared noise), the round's target rows and the act's envs (per-row
+    noise) and its backward, KB at the act and the round's target, K9 over
+    its params, K2 at its round's draw, KC at its envs with the Trainer's
+    last K; throughput: KA's fc_h forward and backward at batch 256, KB at
+    the learner's a*, the C51 target and loss at 256, K2 at its round's
+    draw; bf16: KA's KA_ROWS in bf16, KB at its three shapes and the loss
+    in bf16, K9 with a bf16 mu. K5-K7 of the data-efficient ring and K6 of
+    the throughput round come from the compare phase. Timed as the main
+    path's rows."""
+    de, tp, bf = (presets[k] for k in ("data-efficient", "throughput",
+                                        "bf16"))
+    target = lambda c: c.num_envs // c.replay_frequency * c.batch_size
+    fc_h = lambda c: (c.conv_output_size, c.hidden_size)
+    rows = []
+    ka = {"data-efficient": (
+              ("fwd", de.batch_size, *fc_h(de), "shared", "fp32", "learner"),
+              ("fwd", target(de), *fc_h(de), "row", "fp32", "target"),
+              ("fwd", de.num_envs, *fc_h(de), "row", "fp32", "actor"),
+              ("bwd", de.batch_size, *fc_h(de), "shared", "fp32",
+               "learner")),
+          "throughput": (
+              ("fwd", tp.batch_size, *fc_h(tp), "shared", "fp32", "learner"),
+              ("bwd", tp.batch_size, *fc_h(tp), "shared", "fp32",
+               "learner")),
+          "bf16": tuple(c[:5] + ("bf16",) + c[6:] for c in KA_ROWS)}
+    for phase, cases in ka.items():
+        rows += [dict(r, phase=phase) for r in ka_rows(torch, cases)]
+    heads = {"data-efficient": (de, (
+                 ("dueling_head", de.num_envs, None, "act", "fp32"),
+                 ("dueling_head", target(de), "probs", "round target",
+                  "fp32"))),
+             "throughput": (tp, (
+                 ("dueling_head", tp.batch_size, None, "learner a*", "fp32"),
+                 ("c51_target", tp.batch_size, None, "learner target",
+                  "fp32"),
+                 ("head_loss", tp.batch_size, None, "learner loss",
+                  "fp32"))),
+             "bf16": (bf, tuple(
+                 (name, b, dist, who, "bf16")
+                 for name, b, dist, who in head_shapes(bf)
+                 if name != "c51_target"))}
+    for phase, (c, shapes) in heads.items():
+        timed = [head_times(torch, c, A, shapes) for _ in range(2)]
+        log(f"[head times {phase}] " + json.dumps(timed))
+        rows += [dict(r, phase=phase)
+                 for r in head_rows(torch, c, A, timed, shapes)]
+    for phase, c, mdt in (("data-efficient", de, None),
+                          ("bf16", bf, torch.bfloat16)):
+        shapes = param_shapes(c, A)
+        timed = [adam_times(torch, shapes, mdt) for _ in range(2)]
+        log(f"[adam times {phase}] " + json.dumps(timed))
+        rows.append(dict(adam_row(torch, shapes, timed, mdt), phase=phase))
+    for phase, c in (("data-efficient", de), ("throughput", tp)):
+        timed = [noise_times(torch, c, A) for _ in range(2)]
+        log(f"[noise times {phase}] " + json.dumps(timed))
+        rows.append(dict(noise_row(torch, c, A, timed), phase=phase))
+    case = (de.num_envs, de_k_last, True, "data-efficient Trainer append, "
+            "its last K")
+    timed = [kc_times(torch, np, None, [case]) for _ in range(2)]
+    log("[kc times data-efficient] " + json.dumps(timed))
+    rows.append(dict(kc_row(torch, np, *case, timed),
+                     phase="data-efficient"))
+    return rows
+
+
 def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
-                delta_last, delta_timed, adam_timed, ka_shapes, kb_shapes,
-                head_timed, noise_timed, kc_timed, k_last, kc_shapes,
-                replay_shapes):
+                delta_last, delta_timed, adam_timed, head_timed, noise_timed,
+                kc_timed, k_last, extra_rows, phase_shapes):
     """Time each kernel, its plain version and a library call at the main
     path's shapes (B = envs for the actor's kernels, B = 32 for the
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
@@ -2701,54 +3464,32 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
     from head_rows, timed in ``head_timed``, K2's from ``noise_timed``,
     K10's from ``delta_timed`` (two delta_times), K9's from ``adam_timed``
     (two adam_times), KC's at kc_cases(k_last) from ``kc_timed`` (two
-    kc_times); KC's, K5's and K7's rows carry the main Trainer's launches
-    by shape (``kc_shapes``, ``replay_shapes``: K5's and K7's by B)."""
-    import dataclasses
+    kc_times). ``extra_rows`` (preset_rows, and the compare phase's rows of
+    the presets' rings) each name their ``phase``, whose counts their
+    ``launches`` are. Each row's ``launches_at_shape`` is its phase's (the
+    main Trainer's without one) launches at the row's ``tally_key`` in
+    ``phase_shapes`` (launches by shape, _Watch.shapes)."""
+    rows = ka_rows(torch)
 
-    from rainbow_tpu_torch.kernels.append_framestack import launch_plan
-    from rainbow_tpu_torch.ops import preprocess as pp
+    rows += head_rows(torch, cfg, A, head_timed)
 
-    rows = ka_rows(torch, ka_shapes)
-
-    rows += head_rows(torch, cfg, A, head_timed, kb_shapes)
-
-    p = 84 * 84
-    flush = l2_flush(torch)
     for n, k, with_rep, who in kc_cases(k_last):
-        key = _kc_key(n, k, with_rep)
-        args = _kc_args(torch, np, n, k, with_rep)
-        # The stack in and out, obs, the reset rows and their indices, the
-        # kinds; with a replay the frames column, the transition in, the
-        # ring's scalars out and t in and out.
-        nbytes = 2 * n * p * 4 + n * p + k * p + 4 * k + n
-        if with_rep:
-            nbytes += n * p + n * (8 + 4 + 1) + n * (4 + 4 + 4 + 1 + 4) + 8 * n
-        rows.append(dict(
-            name="append_framestack", route="cuda",
-            source="rainbow_tpu_torch/kernels/csrc/append_framestack.cu",
-            replaces="rainbow_tpu/replay/prioritized.py:73",
-            shape=f"N={n} H=4 K={k} {'with' if with_rep else 'without'} a "
-                  f"replay ({who})",
-            plan=dataclasses.asdict(launch_plan(n, p, 4)),
-            launches_at_shape=kc_shapes.get(key, 0),
-            kc_launches_by_shape=kc_shapes,
-            **kc_timed[0][key], again=kc_timed[1][key],
-            plain_ms=time_ms(torch, lambda: pp.append_framestack_plain(
-                *args), before=flush),
-            library_ms=None, flops=0, bytes=nbytes))
-        del args
+        rows.append(kc_row(torch, np, n, k, with_rep, who, kc_timed))
     rows.append(adam_row(torch, shapes, adam_timed))
     rows += replay_rows
     rows += noise_delta_rows(torch, cfg, A, delta_last, delta_timed,
                              noise_timed)
+    rows += extra_rows
     for r in rows:
-        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
-                                  r["flops"] / FP32_FLOP_PER_S)
-        r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                         >= r["flops"] / FP32_FLOP_PER_S else "operations")
+        r.setdefault("flop_dtype", "fp32")
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S
+        t_ops = r["flops"] / FLOP_PER_S[r["flop_dtype"]]
+        r["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["kernel_ms"] = r["ms"]
-        r["launches"] = counts["side" if r["name"] == "apply_delta"
-                               else "trainer"][r["name"]]
+        phase = r.get("phase")
+        r["launches"] = counts[phase or ("side" if r["name"] == "apply_delta"
+                                         else "trainer")][r["name"]]
         r["trainer_launches"] = counts["trainer"][r["name"]]
         r["sequential_launches"] = counts["sequential"][r["name"]]
         r["side_launches"] = counts["side"][r["name"]]
@@ -2756,56 +3497,67 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
         r["actor_launches"] = counts["actor"][r["name"]]
         r["eval_launches"] = counts["evaluate"][r["name"]]
         r["distributed_launches"] = counts["distributed"].get(r["name"], 0)
+        r["learning_launches"] = counts["learning"].get(r["name"], 0)
+        r["preset_launches"] = {label: counts[label][r["name"]]
+                                for label, _ in PRESET_RUNS}
         r["max_abs_err"] = errs[r["name"]]
-        if r["name"] in ("stratified_sample", "write_priorities"):
-            r["launches_at_shape"] = replay_shapes.get(
-                f"{r['name']} B={r['draws']}", 0)
-            r["replay_launches_by_shape"] = replay_shapes
+        if "tally_key" in r:
+            r["launches_at_shape"] = phase_shapes[phase or "trainer"].get(
+                r["tally_key"], 0)
         if r["name"] in ("stratified_sample", "append_framestack"):
             r["one_block_floor_device_ms"] = head_timed[0]["floor"]
     return rows
 
 
-def noise_delta_rows(torch, cfg, A, delta_last, delta_timed, noise_timed):
-    """Rows of K2 at the batched round's launch (8192 target rows and 256
-    online draws: 73.3 M float32) and of K10 at the last real 1024-env pong
-    delta of compare_delta. K2's times come from ``noise_timed`` (two
-    noise_times of this run: CUDA graphs, cold and warm), its library call
-    is torch.randn of the same count timed the same way: the normal draw
-    without the transform. K10's come from ``delta_timed`` (two
-    delta_times, the same way); no PyTorch call computes K10's strided
-    plane copy with its segmented scatter, so its library_ms is null."""
+def noise_row(torch, cfg, A, noise_timed):
+    """The row of K2 at ``cfg``'s batched round's launch (the canonical one:
+    8192 target rows and 256 online draws, 73.3 M float32), from
+    ``noise_timed`` (two noise_times of this run: CUDA graphs, cold and
+    warm); its library call is torch.randn of the same count timed the same
+    way: the normal draw without the transform."""
     from rainbow_tpu_torch.models.noisy import philox_noise_plain
-    from rainbow_tpu_torch.train import _apply_delta_plain
 
-    nb = ENVS // cfg.replay_frequency
+    nb = cfg.num_envs // cfg.replay_frequency
     shapes = noise_shapes(cfg, A, [(nb * cfg.batch_size,), (nb,)])
     n = sum(torch.Size(s).numel() for s in shapes)
+    randn = noise_timed[0]["randn"]
+    return dict(name="scaled_noise", route="cuda",
+                source="rainbow_tpu_torch/kernels/csrc/noise.cu",
+                replaces="rainbow_tpu/models/noisy.py:49",
+                shape=f"{len(shapes)} tensors, {n} float32 (round: "
+                      f"{nb * cfg.batch_size} target rows + {nb} online "
+                      f"draws)",
+                tally_key=f"scaled_noise {n} floats",
+                **noise_timed[0]["scaled_noise"],
+                again=noise_timed[1]["scaled_noise"],
+                plain_ms=time_ms(torch, lambda: philox_noise_plain(
+                    7, 0, shapes, "cuda"), reps=5),
+                library_ms=randn["ms"], library_ms_warm=randn["ms_warm"],
+                library_device_ms=randn["device_ms"],
+                library_device_ms_warm=randn["device_ms_warm"],
+                library_again=noise_timed[1]["randn"],
+                library_call="torch.randn, same count",
+                # Writes only. Philox: 10 rounds of 2 mulhi, 2 mullo and 4
+                # xors plus 9 key bumps per 4 elements (~25 a element);
+                # Box-Muller and the transform ~12 a element, counted at
+                # the float32 peak (int32 runs slower on the H100).
+                flops=37 * n, bytes=4 * n)
+
+
+def noise_delta_rows(torch, cfg, A, delta_last, delta_timed, noise_timed):
+    """Rows of K2 at the batched round's launch (noise_row) and of K10 at
+    the last real 1024-env pong delta of compare_delta. K10's times come
+    from ``delta_timed`` (two delta_times, the same way); no PyTorch call
+    computes K10's strided plane copy with its segmented scatter, so its
+    library_ms is null."""
+    from rainbow_tpu_torch.train import _apply_delta_plain
+
     stack, offsets, pos, val = delta_last
     e, plane, h = stack.shape[0], stack.shape[1] * stack.shape[2], \
         stack.shape[3]
     entries = int(pos.shape[0])
-    randn = noise_timed[0]["randn"]
     return [
-        dict(name="scaled_noise", route="cuda",
-             source="rainbow_tpu_torch/kernels/csrc/noise.cu",
-             replaces="rainbow_tpu/models/noisy.py:49",
-             shape=f"{len(shapes)} tensors, {n} float32 (round: "
-                   f"{nb * cfg.batch_size} target rows + {nb} online draws)",
-             **noise_timed[0]["scaled_noise"],
-             again=noise_timed[1]["scaled_noise"],
-             plain_ms=time_ms(torch, lambda: philox_noise_plain(
-                 7, 0, shapes, "cuda"), reps=5),
-             library_ms=randn["ms"], library_ms_warm=randn["ms_warm"],
-             library_device_ms=randn["device_ms"],
-             library_device_ms_warm=randn["device_ms_warm"],
-             library_again=noise_timed[1]["randn"],
-             library_call="torch.randn, same count",
-             # Writes only. Philox: 10 rounds of 2 mulhi, 2 mullo and 4
-             # xors plus 9 key bumps per 4 elements (~25 a element);
-             # Box-Muller and the transform ~12 a element, counted at the
-             # float32 peak (int32 runs slower on the H100).
-             flops=37 * n, bytes=4 * n),
+        noise_row(torch, cfg, A, noise_timed),
         dict(name="apply_delta", route="cuda",
              source="rainbow_tpu_torch/kernels/csrc/delta.cu",
              replaces="rainbow_tpu/train.py:176",
@@ -2842,10 +3594,16 @@ def head_shapes(cfg):
             ("head_loss", b, None, "learner loss"))
 
 
-def _head_inputs(torch, b, A, atoms):
+def _head_key(name, b, dist, dtn="fp32"):
+    """A head kernel's key in head_times: fp32 keys keep no dtype."""
+    return f"{name} B={b} {dist}" + ("" if dtn == "fp32" else f" {dtn}")
+
+
+def _head_inputs(torch, b, A, atoms, dtn="fp32"):
+    dt = torch.bfloat16 if dtn == "bf16" else torch.float32
     g = torch.Generator(device="cuda").manual_seed(21)
-    v = torch.randn((b, atoms), generator=g, device="cuda")
-    a = torch.randn((b, A * atoms), generator=g, device="cuda")
+    v = torch.randn((b, atoms), generator=g, device="cuda").to(dt)
+    a = torch.randn((b, A * atoms), generator=g, device="cuda").to(dt)
     acts = torch.randint(0, A, (b,), generator=g, device="cuda")
     m = torch.softmax(torch.randn((b, atoms), generator=g, device="cuda"),
                       dim=1)
@@ -2866,14 +3624,15 @@ def _target_args(torch, cfg, b, A):
             cfg.discount ** cfg.multi_step, z, cfg.v_min, cfg.v_max)
 
 
-def head_times(torch, cfg, A):
+def head_times(torch, cfg, A, shapes=None):
     """Times of KB, c51_target and head_loss through the wrappers of the
     rainbow_tpu_torch that is imported, at head_shapes(cfg) with A actions
-    and the configuration's support, fp32: device time per call from CUDA
+    and the configuration's support, fp32, or at ``shapes`` ((name, B, dist,
+    caller, streams' dtype) each): device time per call from CUDA
     graphs, cold (the L2 flushed before each call) and warm, and CUDA event
     time per call, cold and warm. "floor": KB at B = 1 (one block) in a
     graph, warm, the least time one launch of these kernels takes. Returns
-    {"<name> B=<b> <dist>": {...}, "floor": ms}."""
+    {_head_key(...): {...}, "floor": ms}."""
     from rainbow_tpu_torch.kernels import c51 as k4
     from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
     from rainbow_tpu_torch.ops.c51 import support_vector
@@ -2881,8 +3640,8 @@ def head_times(torch, cfg, A):
     z = support_vector(cfg.v_min, cfg.v_max, cfg.atoms, "cuda")
     flush = l2_flush(torch)
     out = {}
-    for name, b, dist, _ in head_shapes(cfg):
-        v, a, acts, m, w = _head_inputs(torch, b, A, cfg.atoms)
+    for name, b, dist, _, *dtn in shapes or head_shapes(cfg):
+        v, a, acts, m, w = _head_inputs(torch, b, A, cfg.atoms, *dtn)
         if name == "dueling_head":
             fn = lambda: dueling_head_fwd(v, a, z, A, dist)
         elif name == "c51_target":
@@ -2890,7 +3649,7 @@ def head_times(torch, cfg, A):
             fn = lambda: k4.c51_target(*args)
         else:
             fn = lambda: k4.head_loss(v, a, acts, m, w)
-        out[f"{name} B={b} {dist}"] = graphed_times(torch, fn, flush)
+        out[_head_key(name, b, dist, *dtn)] = graphed_times(torch, fn, flush)
     v, a = _head_inputs(torch, 1, A, cfg.atoms)[:2]
     out["floor"] = graph_ms(torch, lambda: dueling_head_fwd(v, a, z, A, None),
                             n=40, reps=21)
@@ -2936,28 +3695,29 @@ def delta_times(torch, stack, offsets, pos, val):
 ADAM_HYPER = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)  # lr, b1, b2, eps, clip
 
 
-def _adam_inputs(torch, shapes):
-    """Params, grads, zero moments with a float32 mu and Adam's count for
-    the canonical net's ``shapes``, from a seed."""
+def _adam_inputs(torch, shapes, mu_dtype=None):
+    """Params, grads, zero moments with a float32 mu (or ``mu_dtype``) and
+    Adam's count for a net's ``shapes``, from a seed."""
     gp = torch.Generator(device="cuda").manual_seed(19)
     p = [torch.randn(s, generator=gp, device="cuda") * 0.05 for s in shapes]
     grads = [torch.randn(s, generator=gp, device="cuda") * 1e-3
              for s in shapes]
-    mu = [torch.zeros(s, device="cuda") for s in shapes]
+    mu = [torch.zeros(s, dtype=mu_dtype, device="cuda") for s in shapes]
     nu = [torch.zeros(s, device="cuda") for s in shapes]
     return p, grads, mu, nu, torch.zeros((), dtype=torch.int32,
                                          device="cuda")
 
 
-def adam_times(torch, shapes):
-    """K9's times over the canonical net's ``shapes`` with a float32 mu
-    through the wrapper of the rainbow_tpu_torch that is imported, and the
-    library's (clip_grad_norm_ with foreach, then a fused Adam, capturable
-    so that a CUDA graph holds it), each by graphed_times. Returns
-    {"clip_adam": {...}, "library": {...}}."""
+def adam_times(torch, shapes, mu_dtype=None):
+    """K9's times over a net's ``shapes`` with a float32 mu (or
+    ``mu_dtype``) through the wrapper of the rainbow_tpu_torch that is
+    imported, and the library's (clip_grad_norm_ with foreach, then a fused
+    Adam, capturable so that a CUDA graph holds it; its moments are
+    float32), each by graphed_times. Returns {"clip_adam": {...},
+    "library": {...}}."""
     from rainbow_tpu_torch.kernels.adam import clip_adam
 
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes)
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype)
     leaves = [torch.nn.Parameter(t.clone()) for t in p]
     for t, gr in zip(leaves, grads):
         t.grad = gr.clone()
@@ -2976,14 +3736,14 @@ def adam_times(torch, shapes):
 
 
 def noise_times(torch, cfg, A):
-    """K2's times through the rainbow_tpu_torch that is imported, at the
-    batched round's draw (noise_shapes with 8192 target rows and 256 online
-    draws), by graphed_times, beside torch.randn of the same count timed
-    the same way ("randn"). Returns {"scaled_noise": {...}, "randn":
-    {...}}."""
+    """K2's times through the rainbow_tpu_torch that is imported, at
+    ``cfg``'s batched round's draw (noise_shapes with the round's target
+    rows and its online draws: 8192 and 256 in the canonical one), by
+    graphed_times, beside torch.randn of the same count timed the same way
+    ("randn"). Returns {"scaled_noise": {...}, "randn": {...}}."""
     from rainbow_tpu_torch.kernels.noise import scaled_noise
 
-    nb = ENVS // cfg.replay_frequency
+    nb = cfg.num_envs // cfg.replay_frequency
     shapes = noise_shapes(cfg, A, [(nb * cfg.batch_size,), (nb,)])
     n = sum(torch.Size(s).numel() for s in shapes)
     flush = l2_flush(torch)
@@ -2993,14 +3753,17 @@ def noise_times(torch, cfg, A):
                 torch, lambda: torch.randn(n, device="cuda"), flush)}
 
 
-def head_rows(torch, cfg, A, timed, kb_shapes):
+def head_rows(torch, cfg, A, timed, shapes=None):
     """Rows of KB at its three main-path shapes and of c51_target and
-    head_loss at the learner's batch, from ``timed`` (two head_times of
+    head_loss at the learner's batch, or at ``shapes`` (as head_times'),
+    from ``timed`` (two head_times of
     this run), with the plain version (cold) and KB's library yardstick:
     softmax, the Σ z·p and the argmax (three calls on precombined logits;
     no one PyTorch call computes the head, the projection or the loss).
-    Each row states the one-block floor beside its bound. ``kb_shapes``:
-    the main Trainer's KB launches by shape."""
+    Each row states the one-block floor beside its bound and its key in a
+    Trainer's launches by shape (``tally_key``)."""
+    import torch.nn.functional as F
+
     from rainbow_tpu_torch.ops import c51 as oc51
     from rainbow_tpu_torch.ops.head import dueling_head_plain
 
@@ -3008,15 +3771,22 @@ def head_rows(torch, cfg, A, timed, kb_shapes):
     z = oc51.support_vector(cfg.v_min, cfg.v_max, n, "cuda")
     flush = l2_flush(torch)
     rows = []
-    for name, b, dist, who in head_shapes(cfg):
-        key = f"{name} B={b} {dist}"
-        v, a, acts, m, w = _head_inputs(torch, b, A, n)
+    for name, b, dist, who, *dtn in shapes or head_shapes(cfg):
+        dtn = (dtn or ["fp32"])[0]
+        key = _head_key(name, b, dist, dtn)
+        sb = 2 if dtn == "bf16" else 4  # bytes of a stream element
+        v, a, acts, m, w = _head_inputs(torch, b, A, n, dtn)
         row = dict(name=name, route="cuda",
                    source="rainbow_tpu_torch/kernels/csrc/head.cu",
-                   shape=f"B={b} A={A} atoms={n} {dist or 'no dist'} fp32 "
+                   shape=f"B={b} A={A} atoms={n} {dist or 'no dist'} {dtn} "
                          f"({who})",
                    **timed[0][key], again=timed[1][key],
-                   one_block_floor_device_ms=timed[0]["floor"])
+                   one_block_floor_device_ms=timed[0]["floor"],
+                   flop_dtype=dtn,
+                   tally_key=(f"c51_target B={b}" if name == "c51_target"
+                              else f"head_loss B={b} {dtn}"
+                              if name == "head_loss"
+                              else f"dueling_head B={b} {dist} {dtn}"))
         if name == "c51_target":
             args = _target_args(torch, cfg, b, A)
             row.update(
@@ -3037,7 +3807,6 @@ def head_rows(torch, cfg, A, timed, kb_shapes):
                       - a.view(b, A, n).mean(1, keepdim=True))
             row.update(
                 replaces="rainbow_tpu/models/dqn.py:148",
-                launches_at_shape=kb_shapes.get(key, 0),
                 plain_ms=time_ms(torch, lambda: dueling_head_plain(
                     v, a, z, A, dist), before=flush),
                 library_ms=time_ms(torch, lambda: (
@@ -3047,13 +3816,13 @@ def head_rows(torch, cfg, A, timed, kb_shapes):
                 flops=b * A * n * 10,
                 # Read v, a and z, write q, the action and max q, and the
                 # (B, A, atoms) probabilities when asked for.
-                bytes=4 * (b * n + b * A * n + n + b * A + b) + 8 * b
+                bytes=sb * (b * n + b * A * n) + 4 * (n + b * A + b) + 8 * b
                 + (4 * b * A * n if dist else 0))
         else:
-            import torch.nn.functional as F
             aa = a.view(b, A, n)
             q_a = (v[:, None] + aa - aa.mean(1, keepdim=True))[
                 torch.arange(b, device="cuda"), acts]
+            m_a = m.to(q_a.dtype)
             row.update(
                 replaces="rainbow_tpu/ops/c51.py:57",
                 plain_ms=time_ms(torch, lambda: oc51.head_loss_plain(
@@ -3066,31 +3835,42 @@ def head_rows(torch, cfg, A, timed, kb_shapes):
                 "chosen action's combined logits (the loss alone: no "
                 "dueling combine, IS weights or gradient)",
                 yardstick_ms=time_ms(torch, lambda: F.cross_entropy(
-                    q_a, m, reduction="none"), before=flush),
+                    q_a, m_a, reduction="none"), before=flush),
                 flops=b * A * n * 4 + b * n * 12,
                 # Read v, a, m, w and the actions, write dv, da, the losses
                 # and the loss.
-                bytes=4 * (2 * b * n + 2 * b * A * n + b * n + 2 * b + 1)
-                + 8 * b)
+                bytes=sb * (2 * b * n + 2 * b * A * n)
+                + 4 * (b * n + 2 * b + 1) + 8 * b)
         rows.append(row)
     return rows
 
 
-def ka_rows(torch, ka_shapes):
-    """Rows of KA at fc_h_* (3136 -> 512, ReLU, fp32), the layer that moves
-    the most: its forward at the learner's B = 32 with shared noise, at the
-    round's 8192-row target forward and at the actor's B = 1024 with
-    per-row noise, and its backward at B = 32 with shared noise. Each is
+# KA's rows at the main path's shapes: (direction, B, in, out, noise mode,
+# dtype, caller), fc_h_* with its ReLU, where KA moves the most.
+KA_ROWS = (("fwd", 32, 3136, 512, "shared", "fp32", "learner"),
+           ("fwd", 8192, 3136, 512, "row", "fp32", "target"),
+           ("fwd", 1024, 3136, 512, "row", "fp32", "actor"),
+           ("bwd", 32, 3136, 512, "shared", "fp32", "learner"))
+
+
+def ka_rows(torch, cases=KA_ROWS):
+    """Rows of KA at ``cases`` (KA_ROWS by default: fc_h_*, 3136 -> 512 with
+    its ReLU, fp32, the layer that moves the most: its forward at the
+    learner's B = 32 with shared noise, at the round's 8192-row target
+    forward and at the actor's B = 1024 with per-row noise, and its backward
+    at B = 32 with shared noise). Each is
     timed cold (the L2 flushed ahead of every call: the weights, 25.7 MB,
     would fit in it) and warm, by CUDA events and on the device, beside
     its library yardstick (``addmm`` x 2 for the forward: the two products
-    with their biases, no eps_out; ``mm`` x 4 for the backward) timed the
+    with their biases, no eps_out; ``mm`` x 4 for the backward; in bf16 on
+    bf16 copies of the weights) timed the
     same way: the two device times decide "slower than its library call".
     The plain
-    version is timed cold. ``ka_shapes`` holds the main Trainer's launches
-    by shape (``launches_at_shape``). Device times come from CUDA graphs
-    (graph_ms); the profiler's reading is kept beside them, since late in a
-    long run it has read below what the events allow."""
+    version is timed cold. Each row names its key in a Trainer's launches
+    by shape (``tally_key``). Device times
+    come from CUDA graphs (graph_ms); the profiler's reading is kept beside
+    them, since late in a long run it has read below what the events
+    allow."""
     import dataclasses
 
     from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan, fwd_plan,
@@ -3104,9 +3884,6 @@ def ka_rows(torch, ka_shapes):
 
     g = torch.Generator(device="cuda").manual_seed(18)
     ns = NoiseStream(18)
-    n_in, n_out = 3136, 512
-    prm = init_noisy_params(g, n_in, n_out, 0.1)
-    w = (prm["weight_mu"], prm["weight_sigma"])
     flush = l2_flush(torch)
     source = "rainbow_tpu_torch/kernels/csrc/noisy_linear.cu"
 
@@ -3125,71 +3902,77 @@ def ka_rows(torch, ka_shapes):
             library_device_ms_warm=graph_ms(torch, library),
             library_profiler_device_ms=device_ms(torch, library, **cold))
 
-    rows = []
-    for b, row_eps, who in ((32, False, "learner"), (8192, True, "target"),
-                            (1024, True, "actor")):
-        x = torch.rand((b, n_in), generator=g, device="cuda")
+    rows, layers = [], {}
+    for direction, b, n_in, n_out, mode, dtn, who in cases:
+        if (n_in, n_out) not in layers:
+            layers[(n_in, n_out)] = init_noisy_params(g, n_in, n_out, 0.1)
+        prm = layers[(n_in, n_out)]
+        w = (prm["weight_mu"], prm["weight_sigma"])
+        dt = torch.bfloat16 if dtn == "bf16" else torch.float32
+        xb = 2 if dtn == "bf16" else 4
+        wl = [t.to(dt) for t in w]  # the library's operands
+        bl = [prm["bias_mu"].to(dt), prm["bias_sigma"].to(dt)]
+        x = torch.rand((b, n_in), generator=g, device="cuda").to(dt)
+        row_eps = mode == "row"
         lead = (b,) if row_eps else ()
         eps = (scale_noise(ns, lead + (n_in,), "cuda"),
                scale_noise(ns, lead + (n_out,), "cuda"))
-        xe = x * eps[0]
-        mode = "row" if row_eps else "shared"
-        plan = fwd_plan(b, n_in, n_out, 2 if row_eps else 1)
-        rows.append(dict(
-            name="noisy_linear_fwd", route="cuda", source=source,
+        xe = x * eps[0].to(dt)
+        key = f"noisy_linear_{direction} B={b} {n_in}->{n_out} {mode}"
+        row = dict(
+            name=f"noisy_linear_{direction}", route="cuda", source=source,
             replaces="rainbow_tpu/models/noisy.py:57",
-            shape=f"B={b} {n_in}->{n_out} {mode} eps fp32 relu ({who})",
-            plan=dataclasses.asdict(plan),
-            launches_at_shape=ka_shapes.get(
-                f"noisy_linear_fwd B={b} {n_in}->{n_out} {mode}", 0),
-            **timed(lambda: noisy_linear_fwd(prm, x, eps, True),
-                    lambda: noisy_linear_plain(prm, x, eps, True),
-                    lambda: (torch.addmm(prm["bias_mu"], x, w[0].t()),
-                             torch.addmm(prm["bias_sigma"], xe, w[1].t()))),
-            library_call="addmm x 2",
-            flops=4 * b * n_in * n_out + b * n_in + 6 * b * n_out,
-            bytes=4 * (b * n_in + (b if row_eps else 1) * (n_in + n_out)
-                       + 2 * n_in * n_out + 2 * n_out + b * n_out)))
+            shape=f"B={b} {n_in}->{n_out} {mode} eps {dtn} relu ({who})",
+            tally_key=f"{key} {dtn}", flop_dtype=dtn)
+        if direction == "fwd":
+            row.update(
+                plan=dataclasses.asdict(fwd_plan(b, n_in, n_out,
+                                                 2 if row_eps else 1)),
+                **timed(lambda: noisy_linear_fwd(prm, x, eps, True),
+                        lambda: noisy_linear_plain(prm, x, eps, True),
+                        lambda: (torch.addmm(bl[0], x, wl[0].t()),
+                                 torch.addmm(bl[1], xe, wl[1].t()))),
+                library_call="addmm x 2",
+                flops=4 * b * n_in * n_out + b * n_in + 6 * b * n_out,
+                bytes=xb * b * (n_in + n_out)
+                + 4 * ((b if row_eps else 1) * (n_in + n_out)
+                       + 2 * n_in * n_out + 2 * n_out))
+        else:
+            gy = torch.randn((b, n_out), generator=g, device="cuda").to(dt)
+            y = noisy_linear_fwd(prm, x, eps, True)
+            ge = gy * eps[1].to(dt)
+            row.update(
+                plan=dataclasses.asdict(bwd_plan(b, n_in, n_out,
+                                                 2 if row_eps else 1)),
+                **timed(lambda: noisy_linear_bwd(*w, x, gy, eps, y),
+                        lambda: noisy_linear_bwd_plain(*w, x, gy, eps, y),
+                        lambda: (torch.mm(gy, wl[0]), torch.mm(ge, wl[1]),
+                                 torch.mm(gy.t(), x), torch.mm(ge.t(), xe))),
+                library_call="mm x 4",
+                flops=8 * b * n_in * n_out + 3 * b * n_out + 3 * b * n_in,
+                bytes=xb * 2 * b * (n_in + n_out)
+                + 4 * (4 * n_in * n_out + n_in + 3 * n_out))
+        rows.append(row)
         del x, eps, xe
-
-    b = 32
-    x = torch.rand((b, n_in), generator=g, device="cuda")
-    gy = torch.randn((b, n_out), generator=g, device="cuda")
-    eps = (scale_noise(ns, (n_in,), "cuda"), scale_noise(ns, (n_out,), "cuda"))
-    y = noisy_linear_fwd(prm, x, eps, True)
-    ge, xe = gy * eps[1], x * eps[0]
-    rows.append(dict(
-        name="noisy_linear_bwd", route="cuda", source=source,
-        replaces="rainbow_tpu/models/noisy.py:57",
-        shape=f"B={b} {n_in}->{n_out} shared eps fp32 relu (learner)",
-        plan=dataclasses.asdict(bwd_plan(b, n_in, n_out, 1)),
-        launches_at_shape=ka_shapes.get(
-            f"noisy_linear_bwd B={b} {n_in}->{n_out} shared", 0),
-        **timed(lambda: noisy_linear_bwd(*w, x, gy, eps, y),
-                lambda: noisy_linear_bwd_plain(*w, x, gy, eps, y),
-                lambda: (torch.mm(gy, w[0]), torch.mm(ge, w[1]),
-                         torch.mm(gy.t(), x), torch.mm(ge.t(), xe))),
-        library_call="mm x 4",
-        flops=8 * b * n_in * n_out + 3 * b * n_out + 3 * b * n_in,
-        bytes=4 * (2 * b * n_in + 2 * b * n_out + 4 * n_in * n_out + n_in
-                   + 3 * n_out)))
     return rows
 
 
-def adam_row(torch, shapes, timed):
-    """The row of clip + Adam over the canonical net's ``shapes`` with a
-    float32 mu, from ``timed`` (two adam_times of this run: CUDA graphs,
+def adam_row(torch, shapes, timed, mu_dtype=None):
+    """The row of clip + Adam over a net's ``shapes`` with a float32 mu (or
+    ``mu_dtype``), from ``timed`` (two adam_times of this run: CUDA graphs,
     cold and warm, the library's beside it)."""
     from rainbow_tpu_torch.agent import apply_grads_plain
 
     n = sum(torch.Size(s).numel() for s in shapes)
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes)
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype)
+    mdt = _dt(mu[0])
     lib = timed[0]["library"]
     return dict(
         name="clip_adam", route="cuda",
         source="rainbow_tpu_torch/kernels/csrc/adam.cu",
         replaces="rainbow_tpu/agent.py:212",
-        shape=f"{n} params in {len(shapes)} tensors, fp32 mu",
+        shape=f"{n} params in {len(shapes)} tensors, {mdt} mu",
+        tally_key=f"clip_adam {n} params mu {mdt}",
         **timed[0]["clip_adam"], again=timed[1]["clip_adam"],
         plain_ms=time_ms(torch, lambda: apply_grads_plain(
             p, grads, mu, nu, count, *ADAM_HYPER)),
@@ -3197,10 +3980,11 @@ def adam_row(torch, shapes, timed):
         library_device_ms=lib["device_ms"],
         library_device_ms_warm=lib["device_ms_warm"],
         library_again=timed[1]["library"],
-        library_call="clip_grad_norm_(foreach) + Adam(fused, capturable)",
+        library_call="clip_grad_norm_(foreach) + Adam(fused, capturable), "
+                     "float32 moments",
         # Read p, g, mu and nu once, write p, mu and nu once: the norm's
         # second read of g (27.5 MB) can come from the 50 MB L2.
-        flops=20 * n, bytes=4 * n * 7)
+        flops=20 * n, bytes=4 * n * 5 + 2 * n * mu[0].element_size())
 
 
 # ---------------------------------------------------------------- main -----
@@ -3226,6 +4010,7 @@ def main() -> int:
     os.chdir(ROOT)  # the Trainer writes results/<id>/ relative to here
     from rainbow_tpu_torch import canonical
     from rainbow_tpu_torch import evaluate as ev
+    from rainbow_tpu_torch.cli import parse_config
     from rainbow_tpu_torch.envs import engine
     from rainbow_tpu_torch.kernels import build, launches, reset_launches
     from rainbow_tpu_torch.models.dqn import init_dqn_params
@@ -3281,22 +4066,29 @@ def main() -> int:
     probe.close()
     t0 = time.perf_counter()
     report = []
-    # The learner's batch and its round's rows (the target forward's batch).
-    learner = (cfg.batch_size,
-               ENVS // cfg.replay_frequency * cfg.batch_size)
-    errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, learner,
+    # The other configurations, as cli.main builds them from their flags.
+    presets = {label: parse_config(flags)[0] for label, flags in PRESET_RUNS}
+    cfgs = [cfg] + list(presets.values())
+    errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, cfgs,
                                                      report)}
-    errs["dueling_head"], kb_probs = compare_dueling_head(torch, A, learner,
+    errs["dueling_head"], kb_probs = compare_dueling_head(torch, A, cfgs,
                                                            report)
     errs["append_framestack"] = compare_append_framestack(torch, np, report)
-    errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, report)
-    errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, report)
-    shapes = [tuple(v.shape) for v in init_dqn_params(
-        cfg, A, torch.Generator().manual_seed(0), "cpu").values()]
-    errs["clip_adam"] = compare_adam(torch, shapes, report)
-    replay_errs, replay_rows = compare_replay(torch, np, cfg, report)
-    errs.update(replay_errs)
-    errs["scaled_noise"], moments = compare_noise(torch, cfg, A, report)
+    errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, cfgs,
+                                                        report)
+    errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, cfgs,
+                                                        report)
+    shapes = param_shapes(cfg, A)
+    de_shapes = param_shapes(presets["data-efficient"], A)
+    errs["clip_adam"] = max(compare_adam(torch, shapes, report),
+                            compare_adam(torch, de_shapes, report))
+    replay_errs, replay_rows = compare_replay(torch, np, cfg, report,
+                                              presets["throughput"])
+    de_errs, de_replay_rows = compare_preset_replay(
+        torch, presets["data-efficient"], report)
+    errs.update({k: max(v, de_errs[k]) for k, v in replay_errs.items()})
+    errs["scaled_noise"], moments = compare_noise(torch, cfg, A, report,
+                                                  presets.values())
     delta_last, delta_forms = compare_delta(torch, np, cfg, report)
     errs["apply_delta"] = 0.0
     torch.cuda.synchronize()
@@ -3304,19 +4096,21 @@ def main() -> int:
         json.dump(report, f, indent=0)
     log(f"[compare] {len(report)} cases agree in "
         f"{time.perf_counter() - t0:.1f} s; max |err| {errs}; "
-        f"KB's probabilities at B = {learner[1]}: max |err| {kb_probs:.3g}; "
+        f"KB's probabilities at the round targets' B: max |err| "
+        f"{kb_probs:.3g}; "
         f"K2 moments over "
         f"{moments[2]} draws: mean {moments[0]:.3g}, E[eps^2] "
         f"{moments[1]:.6f}; K10 on real pong steps: {delta_forms}")
 
     # 3. one learner update against the plain path ---------------------------
     t0 = time.perf_counter()
-    err_l, err_g, err_p = check_learner_update_against_plain(torch, np, cfg,
-                                                             A)
+    err_l, err_g, err_p, grads, control = check_learner_update_against_plain(
+        torch, np, cfg, A)
     log(f"[update] one update of the canonical net (B = {cfg.batch_size}) "
         f"matches the plain path on the CPU in {time.perf_counter() - t0:.1f}"
         f" s: max |loss diff| {err_l:.3g}, max grad diff {err_g:.3g} of the "
         f"tensor's largest, max |param diff| {err_p:.3g}")
+    log_grad_readings("update", grads, control)
     t0 = time.perf_counter()
     err_l, err_p, err_pr = check_sequential_update_against_plain(torch, np,
                                                                  cfg, A)
@@ -3327,8 +4121,7 @@ def main() -> int:
 
     # 4. actor ---------------------------------------------------------------
     noise = NoiseStream(SEED)
-    params = init_dqn_params(cfg, A, torch.Generator().manual_seed(SEED),
-                             "cuda")
+    params = init_dqn_params(cfg, A, SEED, "cuda")
     stats, stack, rep, env, staged, actions = run_actor(torch, cfg, params,
                                                         A, noise)
     env.close()
@@ -3339,6 +4132,9 @@ def main() -> int:
         f"(max |q diff| {q_err:.3g})")
     del rep
     torch.cuda.empty_cache()
+    # The other configurations' update and act against the plain path.
+    for label, c in presets.items():
+        check_preset_against_plain(torch, np, label, c, A)
 
     # 5. evaluate ------------------------------------------------------------
     ecfg = cfg.replace(max_episode_length=EVAL_FRAMES,
@@ -3405,6 +4201,17 @@ def main() -> int:
         "side_vs_main_with_eval": rate(side_stats, "train_")
         / rate(trainer_stats, "train_with_eval_")}))
 
+    # 7b. the other configurations' Trainers, and learning ------------------
+    preset_counts, phase_shapes, preset_stats = {}, {}, {}
+    for label, args in PRESET_RUNS:
+        st, preset_counts[label], phase_shapes[label] = run_preset_trainer(
+            torch, np, label, args)
+        log(f"[trainer {label}] cuts: {CUTS[label]}")
+        log(f"[trainer {label}] " + json.dumps(st))
+        preset_stats[label] = st
+    learn_stats, learn_counts = run_learning(torch, np)
+    log("[learning] " + json.dumps(learn_stats))
+
     # 8. distributed -------------------------------------------------------
     torch.cuda.empty_cache()
     dist_stats, dist_counts = run_distributed(torch, np, cfg, A)
@@ -3423,17 +4230,19 @@ def main() -> int:
     log("[delta times] " + json.dumps(delta_timed))
     adam_timed = [adam_times(torch, shapes) for _ in range(2)]
     log("[adam times] " + json.dumps(adam_timed))
+    extra = de_replay_rows + preset_rows(
+        torch, np, A, presets,
+        preset_stats["data-efficient"]["kc_last_k_by_n"][
+            presets["data-efficient"].num_envs])
     rows = kernel_rows(torch, np, cfg, A, errs, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
         "sequential": seq_counts, "side": side_counts,
-        "distributed": dist_counts},
-        shapes, replay_rows, delta_last, delta_timed, adam_timed,
-        trainer_stats["ka_launches_by_shape"],
-        trainer_stats["kb_launches_by_shape"], head_timed, noise_timed,
-        kc_timed, k_last, trainer_stats["kc_launches_by_shape"],
-        {**trainer_stats["k5_launches_by_shape"],
-         **trainer_stats["k7_launches_by_shape"]})
+        "distributed": dist_counts, "learning": learn_counts,
+        **preset_counts},
+        shapes, replay_rows, delta_last, delta_timed, adam_timed, head_timed,
+        noise_timed, kc_timed, k_last, extra,
+        {"trainer": trainer_stats["launches_by_shape"], **phase_shapes})
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": rows}))

@@ -67,12 +67,12 @@ def init_adam(params: dict, cfg: RainbowConfig) -> AdamState:
 
 def init_agent(cfg: RainbowConfig, action_space: int, seed: int = 0,
                device="cuda") -> AgentState:
-    """Random params from ``seed`` (drawn on the CPU, so any device gets the
-    same ones), a target copy, a fresh Adam state, the agent's generator on
-    ``device`` and its noise stream."""
+    """The params the JAX package's Trainer starts from for ``seed``
+    (models.dqn.init_dqn_params, drawn on the host, so any device gets
+    the same ones), a target copy, a fresh Adam state, the agent's generator
+    on ``device`` and its noise stream."""
     dev = resolve_device(device)
-    params = init_dqn_params(cfg, action_space,
-                             torch.Generator().manual_seed(seed), dev)
+    params = init_dqn_params(cfg, action_space, seed, dev)
     return AgentState(
         params=params,
         target_params={k: v.clone() for k, v in params.items()},

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from rainbow_tpu_torch.device import resolve_device
 from rainbow_tpu_torch.models.noisy import (NoiseStream, draw_scaled_noise,
-                                            init_noisy_params, noisy_linear)
+                                            noisy_linear)
 from rainbow_tpu_torch.ops.c51 import support_vector
 from rainbow_tpu_torch.ops.head import HeadOut, dueling_head
 
@@ -58,27 +58,55 @@ def param_shapes(cfg, action_space: int) -> dict:
     return shapes
 
 
-def init_dqn_params(cfg, action_space: int, generator: torch.Generator,
+def init_dqn_params(cfg, action_space: int, seed: int,
                     device="cuda") -> dict:
-    """All network params, float32, on ``device``. Convs take U(±1/√fan_in)
-    for weight and bias (torch's default Conv2d regime, which the reference
-    relies on). Drawn on the generator's device, so a CPU generator gives
-    the same params on any device."""
-    device = resolve_device(device)
-    g = generator
-    params = {}
-    cin = cfg.history_length
-    for i, (cout, k, _s) in enumerate(ARCHS[cfg.architecture]):
+    """All network params, float32 on ``device``: the ones the JAX
+    package's Trainer starts from for ``seed``, bit for bit, in this
+    package's layout (OIHW convs). Convs take U(±1/√fan_in) for weight and
+    bias (torch's default Conv2d regime, which the reference relies on),
+    noisy layers μ ~ U(±1/√in), σ_w = σ₀/√in, σ_b = σ₀/√out (reference
+    model.py:25-30). The JAX Trainer's agent key is the first of
+    split(key(seed)) (rainbow_tpu/train.py:532-534), the params' the first
+    of that key's three (rainbow_tpu/agent.py:63-64), then one key per conv
+    and per noisy layer (rainbow_tpu/models/dqn.py:35-66), each drawn by
+    utils.threefry.uniform on the host, so any device gets the same
+    params."""
+    import numpy as np
+
+    from rainbow_tpu_torch.utils import threefry
+
+    k_agent = threefry.split(threefry.key(seed), 2)[0]
+    k_params = threefry.split(k_agent, 3)[0]
+    arch = ARCHS[cfg.architecture]
+    keys = threefry.split(k_params, len(arch) + 4)
+    params, cin = {}, cfg.history_length
+    for i, (cout, k, _s) in enumerate(arch):
+        k_w, k_b = threefry.split(keys[i], 2)
         bound = 1.0 / (k * k * cin) ** 0.5
-        u = lambda *shape: (torch.rand(shape, generator=g, device=g.device)
-                            * (2 * bound) - bound)
-        params[f"convs.{2 * i}.weight"] = u(cout, cin, k, k)
-        params[f"convs.{2 * i}.bias"] = u(cout)
+        w = threefry.uniform(k_w, (k, k, cin, cout), -bound, bound)  # HWIO
+        params[f"convs.{2 * i}.weight"] = w.transpose(3, 2, 0, 1)
+        params[f"convs.{2 * i}.bias"] = threefry.uniform(k_b, (cout,),
+                                                         -bound, bound)
         cin = cout
-    for name, (din, dout) in _noisy_dims(cfg, action_space).items():
-        lp = init_noisy_params(g, din, dout, cfg.noisy_std)
-        params.update({f"{name}.{k}": v for k, v in lp.items()})
-    return {k: v.to(device) for k, v in params.items()}
+    dims = _noisy_dims(cfg, action_space)
+    for key, name in zip(keys[-4:], NOISY_LAYERS):
+        k_w, k_b = threefry.split(key, 2)
+        din, dout = dims[name]
+        mu_range = np.float32(1.0) / np.sqrt(np.float32(din))
+        params.update({
+            f"{name}.weight_mu": threefry.uniform(k_w, (dout, din),
+                                                  -mu_range, mu_range),
+            f"{name}.weight_sigma": np.full((dout, din),
+                                            cfg.noisy_std / din ** 0.5,
+                                            np.float32),
+            f"{name}.bias_mu": threefry.uniform(k_b, (dout,), -mu_range,
+                                                mu_range),
+            f"{name}.bias_sigma": np.full((dout,),
+                                          cfg.noisy_std / dout ** 0.5,
+                                          np.float32)})
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(params[k])).to(dev)
+            for k in param_shapes(cfg, action_space)}
 
 
 def _torso(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -79,9 +79,14 @@ def cuda():
 
 # (B, in, out): ragged against every tile edge (scalar loads); the learner's
 # fc_h (small-batch path, split); one row; the edges of both splits with
-# scalar loads; the actor's fc_h (large-batch path, split).
+# scalar loads; the actor's fc_h (large-batch path, split); the
+# data-efficient net's fc_h (576 -> 256) at its learner's batch (small
+# path, 18 input chunks), its actor's 16 envs and its round's 512 target
+# rows (small path, three input chunks of at most 256, per-row noise in
+# the "row" mode).
 NOISY_SHAPES = [(37, 301, 70), (32, 3136, 512), (1, 512, 51),
-                (33, 3137, 513), (1024, 3136, 512)]
+                (33, 3137, 513), (1024, 3136, 512), (32, 576, 256),
+                (16, 576, 256), (512, 576, 256)]
 
 
 def _noisy_case(cuda, seed, shape, mode, dt):
@@ -113,7 +118,8 @@ def test_noisy_linear_kernel_matches_plain(cuda, shape, mode, dtype):
 
 
 @pytest.mark.parametrize("shape", [(32, 3136, 512), (33, 3137, 513),
-                                   (1024, 3136, 512)], ids=str)
+                                   (1024, 3136, 512), (512, 576, 256)],
+                         ids=str)
 def test_noisy_linear_kernels_give_the_same_bits_twice(cuda, shape):
     """The splits add their partial sums in a fixed order, without atomics:
     two launches of either kernel give equal bits."""
@@ -320,8 +326,7 @@ def test_actor_steps_on_card_match_cpu(cuda):
     the plain versions, with the same injected noise."""
     cfg = rainbow_tpu_torch.data_efficient(hidden_size=32)
     n, a_space = 8, 4
-    params = init_dqn_params(cfg, a_space, torch.Generator().manual_seed(0),
-                             "cpu")
+    params = init_dqn_params(cfg, a_space, 0, "cpu")
     runs = {}
     for dev in ("cuda", "cpu"):
         env = FakeAtariEnv(n, episode_len=6, life_every=4)
@@ -426,6 +431,42 @@ def test_c51_loss_kernel_matches_plain(cuda, dtype):
                                        rtol=r, msg=tag)
         for x, y in zip(k4.head_loss(v, a, actions, m, w), got):
             assert torch.equal(x, y), tag
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_c51_kernels_at_the_throughput_batch(cuda, dtype):
+    """The throughput preset's learner batch, B = 256 with A = 6 and 51
+    atoms: the loss's cluster of 8 blocks loops over 8 passes of 32 rows
+    with a cluster barrier between them, and the target runs 256 warps.
+    Against the plain versions with chip_smoke.py's tolerances (the target
+    in float32, as the learner calls it; the loss with fp32 and bf16
+    streams), and a second launch of either gives the same bits."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, n_act = 256, 6
+    z = support_vector(-10.0, 10.0, 51, cuda)
+    pns = torch.softmax(torch.randn((b, n_act, 51), generator=g,
+                                    device=cuda) * 2, dim=2)
+    a_star = torch.randint(0, n_act, (b,), generator=g, device=cuda)
+    ret = torch.rand((b,), generator=g, device=cuda) * 24 - 12
+    nt = (torch.rand((b,), generator=g, device=cuda) > 0.3).float()
+    m = k4.c51_target(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
+    torch.testing.assert_close(m, oc51.c51_target_plain(
+        pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0), atol=1e-5, rtol=0)
+    assert torch.equal(k4.c51_target(pns, a_star, ret, nt, 0.99 ** 3, z,
+                                     -10.0, 10.0), m)
+    v, a = _head_streams(g, b, n_act, 51, dt)
+    actions = torch.randint(0, n_act, (b,), generator=g, device=cuda)
+    w = torch.rand((b,), generator=g, device=cuda)
+    got = k4.head_loss(v, a, actions, m, w)
+    want = oc51.head_loss_plain(v, a, actions, m, w)
+    rtol = 2 ** -7 if dt == torch.bfloat16 else 0.0
+    for x, y, atol, r in zip(got, want, (1e-5, 1e-5, 1e-6, 1e-6),
+                             (0, 0, rtol, rtol)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        torch.testing.assert_close(x.float(), y.float(), atol=atol, rtol=r)
+    for x, y in zip(k4.head_loss(v, a, actions, m, w), got):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
@@ -591,7 +632,11 @@ REPLAY_CASES = {
     # level, three stored levels), window_24 11, depth_7 7 (one stored
     # level), n_le_32 5 (none: the leaves alone). ties: priorities of one
     # and u = 0, so that every draw's value is a left sum exactly.
+    # data_efficient: the preset's whole ring, 16 envs x 6,250 columns
+    # (100,000 leaves, depth 17), its round of 16 batches of 32 with a
+    # window of 4 + 20 frames.
     "round": (64, 976, 500, True, 3, 16, 32, 3, False, False),
+    "data_efficient": (16, 6250, 500, True, 20, 16, 32, 3, False, False),
     "throughput": (64, 976, 500, True, 3, 4, 256, 0, False, False),
     "window_24": (16, 128, 70, True, 20, 8, 32, 0, False, False),
     "after_wrap": (32, 61, 0, True, 3, 8, 16, 2, False, False),

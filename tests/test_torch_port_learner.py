@@ -75,6 +75,52 @@ def _configs(**kw):
         **KW, **kw)
 
 
+# The configurations a learner round is held to JAX's in, at narrow widths:
+# (preset, overrides, updates a round, ring columns, the params' update
+# bound (None: each param to lr/100), q's top-2 gap that makes an action
+# clear). The data-efficient preset
+# brings its 5x5 stride-5 torso, n = 20 and replay frequency 1 (one update
+# per env step), the throughput preset batch 256 and lr 6.25e-5·√8; the
+# canonical one also runs with bfloat16 compute and a bfloat16 Adam first
+# moment. The rings are wide enough that a round's stratified draws never
+# repeat a leaf (n = 20 masks 24 columns around the write head; batch 256
+# needs thousands of leaves).
+#
+# Params: in float32 each agrees with JAX's to lr/100 (the module
+# docstring). In bfloat16 the two frameworks round the streams
+# and the gradients at other points, and Adam's first steps g/(|g| + eps)
+# turn a gradient near zero (a sum of many bf16 products that cancel) into
+# a step of up to lr either way: bf16 itself moves JAX's own round's
+# update away from its float32 update by up to 19 % in norm (a conv bias;
+# 10-12 % on the conv weights, 1-4 % on the noisy layers). So each tensor's
+# update p - p0 is held to JAX's in norm, as a share of its norm, with a
+# bound for each kind of tensor (BF16_UPDATE) from its own readings here
+# (the largest over both round tests): the convolutions' up to 0.21, the
+# noisy layers' weights up to 0.027, their biases (few elements, so a few
+# steps of ±lr weigh more) up to 0.17; a KA backward that drops one input
+# chunk moves the noisy weights' update by 0.2 or more
+# (test_bf16_round_check_refuses_a_dropped_chunk). q agrees to BF16, so an
+# action is clear only where q's top-2 gap exceeds BF16's atol.
+BF16_UPDATE = {"convs": 0.3, "weight": 0.06, "bias": 0.25}
+ROUND_CASES = {
+    "canonical": ("canonical", {}, 2, C, None, 1e-4),
+    "data_efficient": ("data_efficient", {}, E, 64, None, 1e-4),
+    "throughput": ("throughput", {"batch_size": 256}, 1, 1024, None, 1e-4),
+    "bfloat16": ("canonical", {"compute_dtype": "bfloat16",
+                               "adam_mu_dtype": "bfloat16"}, 2, C,
+                 BF16_UPDATE, BF16["atol"]),
+}
+
+
+def _round_case(name):
+    """(JAX config, port config, updates a round, ring columns, the params'
+    update bound, q's clear gap) of ROUND_CASES[name]."""
+    preset, kw, nl, c, update_rel, gap = ROUND_CASES[name]
+    kw = dict(KW, memory_capacity=E * c, **kw)
+    return (getattr(rainbow_tpu, preset)(**kw),
+            getattr(rainbow_tpu_torch, preset)(**kw), nl, c, update_rel, gap)
+
+
 def _eps_to_torch(eps):
     return {k: (_t(a), _t(b)) for k, (a, b) in eps.items()}
 
@@ -337,38 +383,40 @@ def test_update_target_copies_online_params():
 
 # -------------------------------------------------------------- replay -----
 
-def _replay(seed=7, index=5, full=True):
+def _replay(seed=7, index=5, full=True, c=C):
     """The same random ring in both packages: random frames and rewards,
-    episode starts about every 6 steps, random priorities with some zeros."""
+    episode starts about every 6 steps, random priorities with some zeros;
+    ``c`` columns an env."""
     rng = np.random.default_rng(seed)
-    ts = np.zeros((E, C), np.int32)
+    ts = np.zeros((E, c), np.int32)
     for e in range(E):
         t = 0
-        for c in range(C):
-            ts[e, c] = t
+        for col in range(c):
+            ts[e, col] = t
             t = 0 if rng.random() < 0.17 else t + 1
-    pr = rng.gamma(2.0, 1.0, (E, C)).astype(np.float32)
-    pr[rng.random((E, C)) < 0.1] = 0.0
+    pr = rng.gamma(2.0, 1.0, (E, c)).astype(np.float32)
+    pr[rng.random((E, c)) < 0.1] = 0.0
     fields = dict(
-        frames=rng.integers(0, 256, (E, C, 84 * 84)).astype(np.uint8),
-        actions=rng.integers(0, A, (E, C)).astype(np.int32),
-        rewards=rng.normal(size=(E, C)).astype(np.float32),
-        timesteps=ts, nonterminal=rng.random((E, C)) > 0.1, priorities=pr,
+        frames=rng.integers(0, 256, (E, c, 84 * 84)).astype(np.uint8),
+        actions=rng.integers(0, A, (E, c)).astype(np.int32),
+        rewards=rng.normal(size=(E, c)).astype(np.float32),
+        timesteps=ts, nonterminal=rng.random((E, c)) > 0.1, priorities=pr,
         index=np.int32(index), full=np.bool_(full),
         t=rng.integers(0, 9, E).astype(np.int32),
         max_priority=np.float32(pr.max()))
-    j = jrp.init_replay(E, C).replace(
+    j = jrp.init_replay(E, c).replace(
         **{k: jnp.asarray(v) for k, v in fields.items()})
     t = trp.ReplayState(**{k: torch.from_numpy(np.array(v))
                            for k, v in fields.items()})
     return j, t
 
 
-def _assert_same_replay(t, j, close=("priorities", "max_priority")):
+def _assert_same_replay(t, j, close=("priorities", "max_priority"),
+                        tol=F32):
     for f in dataclasses.fields(t):
         got, want = getattr(t, f.name).numpy(), np.asarray(getattr(j, f.name))
         if f.name in close:
-            np.testing.assert_allclose(got, want, **F32, err_msg=f.name)
+            np.testing.assert_allclose(got, want, **tol, err_msg=f.name)
         else:
             np.testing.assert_array_equal(got, want, err_msg=f.name)
 
@@ -433,7 +481,7 @@ def test_update_priorities_matches_jax_and_duplicates_keep_a_candidate():
 def _round_draws(jcfg, key, num_learns):
     """The draws JAX's batched round makes from ``key`` (train.py:376-396)."""
     k_sample, k_target, k_noise = jax.random.split(key, 3)
-    nrows = num_learns * BS
+    nrows = num_learns * jcfg.batch_size
     return {"u": _t(jax.random.uniform(k_sample, (nrows,), jnp.float32)),
             "target": _eps_to_torch(jdqn.draw_noise(jcfg, A, k_target,
                                                     lead=(nrows,))),
@@ -454,11 +502,48 @@ def _assert_agent_close(ta, ja, before, num_learns, lr=6.25e-5):
         assert (moved > tol) if num_learns else moved == 0, (k, moved)
 
 
-def test_learner_round_matches_jax():
-    jcfg, tcfg = _configs()
+def _update_errors(got, want, before, update_rel):
+    """Each tensor's update got - before against JAX's want - before:
+    {key: (the difference's norm as a share of JAX's update's norm, the
+    bound update_rel gives its kind: "convs", a noisy layer's "weight" or
+    "bias")}."""
+    out = {}
+    for k, base in before.items():
+        kind = ("convs" if k.startswith("convs.")
+                else "weight" if ".weight_" in k else "bias")
+        dt, dj = got[k] - base, want[k] - base
+        out[k] = (float((dt - dj).norm()) / max(float(dj.norm()), 1e-30),
+                  update_rel[kind])
+    return out
+
+
+def _assert_round_agent_close(ta, ja, before, num_learns, lr, update_rel):
+    """The agent after a round as JAX's, held as ROUND_CASES says: without
+    ``update_rel`` each param to lr/100 (_assert_agent_close), else each
+    param and target tensor's change from ``before`` within its kind's
+    share of JAX's change in norm (_update_errors), every param tensor
+    moved, Adam's count equal."""
+    if update_rel is None:
+        _assert_agent_close(ta, ja, before, num_learns, lr)
+        return
+    assert int(ta.opt_state.count) == int(ja.opt_state[1][0].count)
+    for got, want in ((ta.params, _flat(ja.params)),
+                      (ta.target_params, _flat(ja.target_params))):
+        assert got.keys() == want.keys()
+        for k, (err, bound) in _update_errors(got, want, before,
+                                              update_rel).items():
+            assert err <= bound, (k, err, bound)
+    for k, v in ta.params.items():
+        moved = float((v - before[k]).abs().max())
+        assert (moved > 0) if num_learns else moved == 0, (k, moved)
+
+
+@pytest.mark.parametrize("case", list(ROUND_CASES))
+def test_learner_round_matches_jax(case):
+    jcfg, tcfg, nl, c, update_rel, _ = _round_case(case)
     ja, ta = _agents(jcfg, tcfg)
-    j, t = _replay(index=9)
-    nl, beta, key = 2, 0.55, jax.random.key(21)
+    j, t = _replay(index=9, c=c)
+    beta, key = 0.55, jax.random.key(21)
     draws = _round_draws(jcfg, key, nl)
     j_before = jax.tree.map(np.array, j)
     params0 = {k: v.clone() for k, v in ta.params.items()}
@@ -466,14 +551,47 @@ def test_learner_round_matches_jax():
     loss = ttrain.learner_round(ta, t, tcfg, A, nl, beta, draws)
     flat = trp._masked_flat_priorities(
         trp.ReplayState(**{k: torch.from_numpy(np.array(v)) for k, v in
-                           dataclasses.asdict(j_before).items()}), 4, 3)
-    idx, _, _ = trp._stratified_find(flat, nl * BS, u=draws["u"])
-    assert len(set(idx.tolist())) == nl * BS  # no duplicate write-backs here
-    np.testing.assert_allclose(loss.item(), float(jloss), **F32)
-    _assert_agent_close(ta, ja, params0, nl)
-    _assert_same_replay(t, j2)
+                           dataclasses.asdict(j_before).items()}),
+        tcfg.history_length, tcfg.multi_step)
+    rows = nl * tcfg.batch_size
+    idx, _, _ = trp._stratified_find(flat, rows, u=draws["u"])
+    assert len(set(idx.tolist())) == rows  # no duplicate write-backs here
+    ltol = F32 if tcfg.compute_dtype == "float32" else BF16
+    np.testing.assert_allclose(loss.item(), float(jloss), **ltol)
+    _assert_round_agent_close(ta, ja, params0, nl, tcfg.learning_rate,
+                              update_rel)
+    _assert_same_replay(t, j2, tol=ltol)
     changed = t.priorities.numpy() != j_before.priorities
-    assert changed.sum() == nl * BS
+    assert changed.sum() == rows
+
+
+def test_bf16_round_check_refuses_a_dropped_chunk(monkeypatch):
+    """A control for BF16_UPDATE: test_learner_round_matches_jax's bf16
+    round with the port's noisy-linear backward given x without its first
+    256 input features, as a kernel that dropped one of its input chunks
+    would compute it, puts every noisy layer's weight updates beyond their
+    bound."""
+    jcfg, tcfg, nl, c, update_rel, _ = _round_case("bfloat16")
+    ja, ta = _agents(jcfg, tcfg)
+    j, t = _replay(index=9, c=c)
+    beta, key = 0.55, jax.random.key(21)
+    draws = _round_draws(jcfg, key, nl)
+    params0 = {k: v.clone() for k, v in ta.params.items()}
+    real = tnoisy.noisy_linear_bwd_plain
+
+    def dropped(w_mu, w_sig, x, g, eps=None, y=None):
+        x = x.clone()
+        x[:, :256] = 0
+        return real(w_mu, w_sig, x, g, eps, y)
+
+    monkeypatch.setattr(tnoisy, "noisy_linear_bwd_plain", dropped)
+    ja, _, _ = jtrain.learner_round(ja, j, jcfg, A, nl, beta, key)
+    ttrain.learner_round(ta, t, tcfg, A, nl, beta, draws)
+    errs = _update_errors(ta.params, _flat(ja.params), params0, update_rel)
+    weights = {k: e for k, e in errs.items() if ".weight_" in k}
+    assert len(weights) == 8
+    for k, (err, bound) in weights.items():
+        assert err > bound, (k, err, bound)
 
 
 def test_sequential_per_round_raises_until_ported(monkeypatch):
@@ -507,14 +625,16 @@ def test_sequential_per_round_raises_until_ported(monkeypatch):
     assert ta.step == 3 and int(ta.opt_state.count) == 3
 
 
-def test_train_iter_packed_matches_jax():
+@pytest.mark.parametrize("case", list(ROUND_CASES))
+def test_train_iter_packed_matches_jax(case):
     """A warm-up iteration, then two fused ones: the round reads the
     pre-append replay, the target stays as it was without the sync and
     becomes a copy of the updated params with it, and the act that follows
     uses fresh noise."""
-    jcfg, tcfg = _configs()
+    jcfg, tcfg, n_learns, c, update_rel, gap = _round_case(case)
+    ltol = F32 if tcfg.compute_dtype == "float32" else BF16
     ja, ta = _agents(jcfg, tcfg)
-    j, t = _replay(index=9)
+    j, t = _replay(index=9, c=c)
     rng = np.random.default_rng(8)
     stack = rng.integers(0, 256, (E, 84, 84, 4)).astype(np.uint8)
     js, ts = jnp.asarray(stack), torch.from_numpy(stack.copy())
@@ -522,7 +642,7 @@ def test_train_iter_packed_matches_jax():
     prev = rng.integers(0, A, E)
     jprev, tprev = jnp.asarray(prev), torch.from_numpy(prev)
     target0 = {k: v.clone() for k, v in ta.target_params.items()}
-    for nl, sync in ((0, False), (2, False), (2, True)):
+    for nl, sync in ((0, False), (n_learns, False), (n_learns, True)):
         kinds = np.array([0, 1, 0, 2], np.uint8)
         obs = rng.integers(0, 256, (E, 84, 84)).astype(np.uint8)
         resets = rng.integers(0, 256, (E, 84, 84)).astype(np.uint8)
@@ -546,10 +666,11 @@ def test_train_iter_packed_matches_jax():
         tact, tloss = ttrain.train_iter_packed(
             tcfg, A, nl, ta, ts, t, tprev, *map(torch.from_numpy, step), 0.5,
             sync, draws)
-        np.testing.assert_allclose(tloss.item(), float(jloss), **F32)
+        np.testing.assert_allclose(tloss.item(), float(jloss), **ltol)
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-        _assert_same_replay(t, j)
-        _assert_agent_close(ta, ja, params0, nl)
+        _assert_same_replay(t, j, tol=ltol)
+        _assert_round_agent_close(ta, ja, params0, nl, tcfg.learning_rate,
+                                  update_rel)
         if sync:
             _assert_dicts_close(ta.target_params, ta.params, atol=0, rtol=0)
         else:
@@ -557,7 +678,7 @@ def test_train_iter_packed_matches_jax():
         q = forward_head(ta.params, tcfg, A, to_network_input(ts),
                          noise_eps=draws["act"]).q
         top2 = q.topk(2, dim=1).values
-        clear = top2[:, 0] - top2[:, 1] > 1e-4
+        clear = top2[:, 0] - top2[:, 1] > gap
         assert clear.any()
         np.testing.assert_array_equal(tact[clear].numpy(),
                                       np.asarray(jact)[clear.numpy()])

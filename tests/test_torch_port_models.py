@@ -220,7 +220,7 @@ def test_params_round_trip_and_layout():
 
 def test_init_dqn_params_keys_and_device():
     cfg = rainbow_tpu_torch.data_efficient(hidden_size=8)
-    tp = tdqn.init_dqn_params(cfg, A, torch.Generator().manual_seed(0), "cpu")
+    tp = tdqn.init_dqn_params(cfg, A, 0, "cpu")
     jp = params_from_jax(jax.tree.map(
         np.asarray, jdqn.init_dqn_params(jax.random.key(0), cfg, A)),
         device="cpu")
@@ -229,7 +229,51 @@ def test_init_dqn_params_keys_and_device():
     assert all(v.dtype == torch.float32 for v in tp.values())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
-            tdqn.init_dqn_params(cfg, A, torch.Generator(), "cuda")
+            tdqn.init_dqn_params(cfg, A, 0, "cuda")
+
+
+@pytest.mark.parametrize("seed", [0, 7, 3, 42, 2 ** 31, 2 ** 33 + 5, -1])
+def test_threefry_keys_and_uniforms_match_jax(seed):
+    """utils.threefry against jax.random on its default (partitionable)
+    Threefry: key, split into 2 and 5 keys, and uniforms of odd and large
+    shapes over the bounds the init uses, bit for bit."""
+    from rainbow_tpu_torch.utils import threefry
+
+    k = jax.random.key(seed)
+    assert tuple(np.asarray(jax.random.key_data(k))) == threefry.key(seed)
+    for n in (2, 5):
+        want = np.asarray(jax.random.key_data(jax.random.split(k, n)))
+        assert np.array_equal(np.array(threefry.split(threefry.key(seed), n)),
+                              want)
+    for shape, bound in (((7,), 0.3), ((32, 4, 5, 5), 0.1),
+                         ((256, 576), 1 / 24)):
+        want = np.asarray(jax.random.uniform(k, shape, jnp.float32, -bound,
+                                             bound))
+        got = threefry.uniform(threefry.key(seed), shape, -bound, bound)
+        assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("preset,n_act,seed", [
+    ("canonical", 6, 0), ("canonical", 18, 123), ("data_efficient", 4, 7),
+    ("data_efficient", 4, 3), ("data_efficient", 4, 42)])
+def test_seeded_params_are_the_jax_trainers(preset, n_act, seed):
+    """The port's init_agent starts from the params the JAX package's
+    Trainer starts from for the same seed (its agent key: the first of
+    split(key(seed)), rainbow_tpu/train.py:532-534), bit for bit."""
+    from rainbow_tpu import agent as jag
+    from rainbow_tpu_torch import agent as tag
+
+    jcfg = getattr(rainbow_tpu, preset)(hidden_size=32)
+    tcfg = getattr(rainbow_tpu_torch, preset)(hidden_size=32)
+    k_agent = jax.random.split(jax.random.key(seed))[0]
+    want = params_from_jax(jax.tree.map(
+        np.asarray, jag.init_agent(k_agent, jcfg, n_act).params),
+        device="cpu")
+    got = tag.init_agent(tcfg, n_act, seed, "cpu")
+    assert list(got.params) == list(want)
+    for k, v in want.items():
+        assert torch.equal(got.params[k], v), k
+        assert torch.equal(got.target_params[k], v), k
 
 
 def test_params_and_support_default_to_the_card():
