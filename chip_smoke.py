@@ -13,7 +13,8 @@ exit code:
             native Atari engine.
 2. compare  every kernel against its plain PyTorch version on the card, at
             the shapes the actor and the learner give it, with stated
-            tolerances (KA also at its split and tile edges, KB and the C51
+            tolerances (KA also at its split and tile edges, in float32 on
+            the CUDA cores and bf16 on the tensor cores, KB and the C51
             loss at B = 1, 31, 33, A = 3, 6, 18 and 21, 51, 128 atoms, each
             twice, for equal bits); the append + frame-stack kernel (KC)
             at N = 1, 10, 40 and 1024, H = 4 and 3, no, bucketed and dense
@@ -122,7 +123,11 @@ exit code:
             (``distributed_launches``) among others; then a row for every
             shape the other configurations' Trainers launch that those
             rows do not hold (``phase``: its ``launches`` are that
-            Trainer's, ``launches_at_shape`` at the row's shape).
+            Trainer's, ``launches_at_shape`` at the row's shape). KA's rows
+            name the CUDA kernels a call launches (``kernels``).
+
+--time-ka TREE LABEL times only KA's rows with the package of TREE, for
+an A/B of KA against another commit in one call.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -183,6 +188,12 @@ def parse_args():
                    "iteration of 64 updates with torch.profiler "
                    "into chiprun_out/chip_smoke/")
     # One rank of the [distributed] phase, which starts two of them.
+    p.add_argument("--time-ka", nargs=2, metavar=("TREE", "LABEL"),
+                   help="only time KA's rows (KA_ROWS, float32 and bf16) "
+                   "with the rainbow_tpu_torch of TREE (e.g. an unpacked "
+                   "archive of another commit) into chiprun_out/chip_smoke/"
+                   "ka_times_LABEL.json; run for two trees in turns (A, B, "
+                   "B, A) to compare them on one card")
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--work", default=None, help=argparse.SUPPRESS)
@@ -371,13 +382,13 @@ def compare_noisy_linear(torch, A, cfgs, report):
             eps = None if mode == "mu" else (
                 scale_noise(ns, lead + (n_in,), "cuda"),
                 scale_noise(ns, lead + (n_out,), "cuda"))
-            plan = fwd_plan(b, n_in, n_out, all_modes.index(mode))
             for dt in (torch.float32, torch.bfloat16):
+                plan = fwd_plan(b, n_in, n_out, all_modes.index(mode), dt)
                 xd = x.to(dt)
                 got = noisy_linear_fwd(params, xd, eps, relu)
                 want = noisy_linear_plain(params, xd, eps, relu)
                 tag = (f"noisy_linear_fwd B={b} {n_in}->{n_out} {mode} {dt} "
-                       f"{plan.path} x{plan.splits}")
+                       f"{ka_kernels('fwd', dt, plan)} x{plan.splits}")
                 check(got.dtype == dt and got.shape == (b, n_out),
                       f"{tag}: output {got.dtype} {tuple(got.shape)}")
                 err = check_close(tag, got, want, *tol[dt])
@@ -663,7 +674,7 @@ def compare_noisy_linear_bwd(torch, A, cfgs, report):
                 got = noisy_linear_bwd(*w, xd, gd, eps, y)
                 want = noisy_linear_bwd_plain(*w, xd, gd, eps, y)
                 tag = (f"noisy_linear_bwd B={b} {n_in}->{n_out} {mode} {dt} "
-                       f"x{plan.splits}")
+                       f"{ka_kernels('bwd', dt, plan)} x{plan.splits}")
                 check(got[0].dtype == dt, tag + ": dx dtype")
                 err = max(check_close(f"{tag} {n}", a, c, *tol[dt])
                           for n, a, c in zip(names, got, want))
@@ -3759,8 +3770,10 @@ def head_rows(torch, cfg, A, timed, shapes=None):
     from ``timed`` (two head_times of
     this run), with the plain version (cold) and KB's library yardstick:
     softmax, the Σ z·p and the argmax (three calls on precombined logits;
-    no one PyTorch call computes the head, the projection or the loss).
-    Each row states the one-block floor beside its bound and its key in a
+    no one PyTorch call computes the head, the projection or the loss),
+    timed as the kernel is: device time from CUDA graphs, cold and warm,
+    beside its CUDA event time (head_loss's cross-entropy yardstick the
+    same way). Each row states the one-block floor beside its bound and its key in a
     Trainer's launches by shape (``tally_key``)."""
     import torch.nn.functional as F
 
@@ -3805,13 +3818,17 @@ def head_rows(torch, cfg, A, timed, shapes=None):
         elif name == "dueling_head":
             logits = (v.view(b, 1, n) + a.view(b, A, n)
                       - a.view(b, A, n).mean(1, keepdim=True))
+            library = lambda: (torch.softmax(logits, dim=2) * z).sum(
+                dim=2).argmax(dim=1)
             row.update(
                 replaces="rainbow_tpu/models/dqn.py:148",
                 plain_ms=time_ms(torch, lambda: dueling_head_plain(
                     v, a, z, A, dist), before=flush),
-                library_ms=time_ms(torch, lambda: (
-                    torch.softmax(logits, dim=2) * z).sum(dim=2).argmax(dim=1),
-                    before=flush),
+                library_ms=time_ms(torch, library, before=flush),
+                library_device_ms=graph_ms(torch, library, before=flush,
+                                           n=40, reps=21),
+                library_device_ms_warm=graph_ms(torch, library, n=40,
+                                                reps=21),
                 library_call="softmax, Σ z·p, argmax on combined logits",
                 flops=b * A * n * 10,
                 # Read v, a and z, write q, the action and max q, and the
@@ -3823,6 +3840,7 @@ def head_rows(torch, cfg, A, timed, shapes=None):
             q_a = (v[:, None] + aa - aa.mean(1, keepdim=True))[
                 torch.arange(b, device="cuda"), acts]
             m_a = m.to(q_a.dtype)
+            yardstick = lambda: F.cross_entropy(q_a, m_a, reduction="none")
             row.update(
                 replaces="rainbow_tpu/ops/c51.py:57",
                 plain_ms=time_ms(torch, lambda: oc51.head_loss_plain(
@@ -3834,8 +3852,11 @@ def head_rows(torch, cfg, A, timed, shapes=None):
                 yardstick="F.cross_entropy with probability targets on the "
                 "chosen action's combined logits (the loss alone: no "
                 "dueling combine, IS weights or gradient)",
-                yardstick_ms=time_ms(torch, lambda: F.cross_entropy(
-                    q_a, m_a, reduction="none"), before=flush),
+                yardstick_ms=time_ms(torch, yardstick, before=flush),
+                yardstick_device_ms=graph_ms(torch, yardstick, before=flush,
+                                             n=40, reps=21),
+                yardstick_device_ms_warm=graph_ms(torch, yardstick, n=40,
+                                                  reps=21),
                 flops=b * A * n * 4 + b * n * 12,
                 # Read v, a, m, w and the actions, write dv, da, the losses
                 # and the loss.
@@ -3843,6 +3864,34 @@ def head_rows(torch, cfg, A, timed, shapes=None):
                 + 4 * (b * n + 2 * b + 1) + 8 * b)
         rows.append(row)
     return rows
+
+
+def ka_kernels(direction, dt, plan):
+    """The kernels of csrc/noisy_linear.cu that one KA call launches under
+    ``plan``: float32 on the CUDA cores, bf16 on the tensor cores (mma.sync),
+    each with its ordered reduce when the plan splits."""
+    import torch
+
+    bf16 = dt in (torch.bfloat16, "bf16")
+    if direction == "fwd":
+        main = ("noisy_linear_fwd_mma" if bf16
+                else f"noisy_linear_fwd_{plan.path}")
+        reduce = "noisy_linear_fwd_reduce"
+    else:
+        main = "noisy_linear_bwd_mma" if bf16 else "noisy_linear_bwd_kernel"
+        reduce = "noisy_linear_dx_reduce"
+    return main + (f" + {reduce}" if plan.splits > 1 else "")
+
+
+def _plan(fn, *args):
+    """fn(*args) with the dtype last, or without it for a plan function
+    that takes none (a tree from before bf16 had a plan of its own: for an
+    A/B with --time-ka)."""
+    import inspect
+
+    if "dtype" in inspect.signature(fn).parameters:
+        return fn(*args)
+    return fn(*args[:-1])
 
 
 # KA's rows at the main path's shapes: (direction, B, in, out, noise mode,
@@ -3925,9 +3974,10 @@ def ka_rows(torch, cases=KA_ROWS):
             shape=f"B={b} {n_in}->{n_out} {mode} eps {dtn} relu ({who})",
             tally_key=f"{key} {dtn}", flop_dtype=dtn)
         if direction == "fwd":
+            plan = _plan(fwd_plan, b, n_in, n_out, 2 if row_eps else 1, dt)
             row.update(
-                plan=dataclasses.asdict(fwd_plan(b, n_in, n_out,
-                                                 2 if row_eps else 1)),
+                plan=dataclasses.asdict(plan),
+                kernels=ka_kernels(direction, dt, plan),
                 **timed(lambda: noisy_linear_fwd(prm, x, eps, True),
                         lambda: noisy_linear_plain(prm, x, eps, True),
                         lambda: (torch.addmm(bl[0], x, wl[0].t()),
@@ -3941,9 +3991,10 @@ def ka_rows(torch, cases=KA_ROWS):
             gy = torch.randn((b, n_out), generator=g, device="cuda").to(dt)
             y = noisy_linear_fwd(prm, x, eps, True)
             ge = gy * eps[1].to(dt)
+            plan = bwd_plan(b, n_in, n_out, 2 if row_eps else 1)
             row.update(
-                plan=dataclasses.asdict(bwd_plan(b, n_in, n_out,
-                                                 2 if row_eps else 1)),
+                plan=dataclasses.asdict(plan),
+                kernels=ka_kernels(direction, dt, plan),
                 **timed(lambda: noisy_linear_bwd(*w, x, gy, eps, y),
                         lambda: noisy_linear_bwd_plain(*w, x, gy, eps, y),
                         lambda: (torch.mm(gy, wl[0]), torch.mm(ge, wl[1]),
@@ -3989,10 +4040,45 @@ def adam_row(torch, shapes, timed, mu_dtype=None):
 
 # ---------------------------------------------------------------- main -----
 
+def time_ka(tree, label) -> int:
+    """--time-ka: ka_rows at KA_ROWS in float32 and bf16 with the package
+    of ``tree``, device times from CUDA graphs (cold and warm) beside the
+    library calls', into OUT_DIR/ka_times_<label>.json."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import rainbow_tpu_torch
+    check(rainbow_tpu_torch.__file__.startswith(tree),
+          f"--time-ka: imported {rainbow_tpu_torch.__file__}, not {tree}'s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(OUT_DIR, exist_ok=True)
+    bf16 = tuple(c[:5] + ("bf16",) + c[6:] for c in KA_ROWS)
+    rows = ka_rows(torch, KA_ROWS + bf16)
+    for r in rows:
+        r.pop("kernels")  # this script's names, not necessarily the tree's
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    out = dict(tree=tree, label=label, card=smi, rows=rows)
+    with open(os.path.join(OUT_DIR, f"ka_times_{label}.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    log(f"[ka times {label}] {smi} " + json.dumps(
+        {f'{r["name"]} {r["shape"]}': [r["device_ms"], r["device_ms_warm"],
+                                       r["library_device_ms"]]
+         for r in rows}))
+    return 0
+
+
 def main() -> int:
     args = parse_args()
     if args.rank is not None:
         return distributed_rank(args)
+    if args.time_ka:
+        return time_ka(*args.time_ka)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "

@@ -28,7 +28,12 @@
 // bf16 x and g are rounded where the JAX package rounds (the eps-scaled
 // copies, each product's output); the weight grads are stored as float32.
 //
-// What bounds them on the H100, and the design.
+// float32 runs on the CUDA cores (TF32 is off on the main path); bf16 runs
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators,
+// the section "bf16 on the tensor cores" below), as the JAX package's bf16
+// products run on a TPU's matrix unit.
+//
+// What bounds the float32 kernels on the H100, and their design.
 //
 // Forward, small batch (the learner's B = 32 with shared eps, evaluation at
 // B = 10, the 250-row validation chunks). At fc_h_* (3136 -> 512) the call
@@ -55,10 +60,9 @@
 // operations. A block owns a 128 x 128 tile; each thread an 8 x 8 tile of
 // outputs in each accumulator, split in four 4 x 4 quarters so that the
 // 16-byte shared-memory reads of a warp fall on distinct banks. Tiles of x,
-// eps_in and both weights come in with 16-byte loads (8-byte for bf16 x)
-// into registers while the block computes on the shared-memory stage
-// before; they are rounded and eps_in-scaled as they are written to the
-// other stage (two stages, one barrier a step). Where the tiles alone leave
+// eps_in and both weights come in with 16-byte loads into registers while
+// the block computes on the shared-memory stage before; they are eps_in-
+// scaled as they are written to the other stage (two stages, one barrier a step). Where the tiles alone leave
 // SMs idle (B = 1024: 32 tiles) the inputs are split as above, into as many
 // chunks as whole waves allow (4).
 //
@@ -101,9 +105,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// The first n (at most 4; none if n <= 0) of four consecutive values, as
-// float, the rest zero: one 16-byte load (8-byte for bf16) when vec and all
-// four are wanted, else scalar loads.
+// The first n (at most 4; none if n <= 0) of four consecutive floats, the
+// rest zero: one 16-byte load when vec and all four are wanted, else scalar
+// loads.
 __device__ __forceinline__ float4 load4(const float* p, int n, bool vec) {
   if (vec && n >= 4) return __ldg(reinterpret_cast<const float4*>(p));
   float v[4];
@@ -111,22 +115,6 @@ __device__ __forceinline__ float4 load4(const float* p, int n, bool vec) {
   for (int j = 0; j < 4; ++j) v[j] = j < n ? p[j] : 0.f;
   return make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int n,
-                                        bool vec) {
-  if (vec && n >= 4) {
-    // bf16 -> fp32 is exact: the bf16 bits are the float's upper half.
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xffff0000u));
-  }
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = j < n ? __bfloat162float(p[j]) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
 __device__ __forceinline__ float get(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
@@ -209,7 +197,7 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 // Asynchronous copies into shared memory; the bytes past `bytes` (all, for
 // 0) are written as zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -379,9 +367,9 @@ __global__ void __launch_bounds__(THREADS) noisy_linear_fwd_small(
 // outputs in each accumulator, in four 4 x 4 quarters (rows 4 ty .. and
 // 64 + 4 ty .., outputs likewise from tx), so that the 16-byte reads of a
 // warp fall on distinct banks. Tiles of x, eps_in and both weights come in
-// with 16-byte loads (8-byte for bf16 x) into registers while the block
-// computes on the shared-memory stage before; they are rounded, eps_in-
-// scaled and transposed k-major as they are written to the other stage.
+// with 16-byte loads into registers while the block computes on the
+// shared-memory stage before; they are eps_in-scaled and transposed k-major
+// as they are written to the other stage.
 constexpr int LBM = 128, LBN = 128, LBK = 8;
 
 // A thread's 8 values of one k-row of a shared tile: 4 at 4 t .., 4 at
@@ -525,6 +513,17 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
+// The reduce of a split forward's partials (a.part) into y.
+template <typename T, int EPS>
+cudaError_t launch_fwd_reduce(const FwdArgs& a) {
+  const size_t total = (size_t)a.B * a.OUT;
+  noisy_linear_fwd_reduce<T, EPS>
+      <<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
+          a.part, a.splits, a.b_mu, a.b_sig, a.eps_out, static_cast<T*>(a.y),
+          a.B, a.OUT, a.relu);
+  return cudaGetLastError();
+}
+
 // The main kernel for the batch tile (16 or 32 rows: small path; 128:
 // large), then, with a split, the reduce.
 template <typename T, int EPS>
@@ -567,19 +566,14 @@ cudaError_t launch_fwd(int tile, const FwdArgs& a) {
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !part) return err;
-  const size_t total = (size_t)a.B * a.OUT;
-  noisy_linear_fwd_reduce<T, EPS>
-      <<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
-          part, a.splits, a.b_mu, a.b_sig, a.eps_out, y, a.B, a.OUT, a.relu);
-  return cudaGetLastError();
+  return launch_fwd_reduce<T, EPS>(a);
 }
 
-template <typename T>
-cudaError_t launch_fwd_eps(int eps_mode, int tile, const FwdArgs& a) {
+cudaError_t launch_fwd_fp32(int eps_mode, int tile, const FwdArgs& a) {
   switch (eps_mode) {
-    case 0: return launch_fwd<T, 0>(tile, a);
-    case 1: return launch_fwd<T, 1>(tile, a);
-    default: return launch_fwd<T, 2>(tile, a);
+    case 0: return launch_fwd<float, 0>(tile, a);
+    case 1: return launch_fwd<float, 1>(tile, a);
+    default: return launch_fwd<float, 2>(tile, a);
   }
 }
 
@@ -894,6 +888,16 @@ __global__ void __launch_bounds__(THREADS) noisy_linear_dx_reduce(
   finish_dx<T, EPS>(mu, sig, (int)(i / IN), (int)(i % IN), eps_in, dx, IN);
 }
 
+// The reduce of a split backward's dx partials (a.part) into dx.
+template <typename T, int EPS>
+cudaError_t launch_dx_reduce(const BwdArgs& a) {
+  const size_t total = (size_t)a.B * a.IN;
+  noisy_linear_dx_reduce<T, EPS>
+      <<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
+          a.part, a.splits, a.eps_in, static_cast<T*>(a.dx), a.B, a.IN);
+  return cudaGetLastError();
+}
+
 template <typename T, int EPS>
 cudaError_t launch_bwd(const BwdArgs& a) {
   const int k_tiles = (a.IN + WT - 1) / WT;
@@ -903,19 +907,842 @@ cudaError_t launch_bwd(const BwdArgs& a) {
       <<<n_xblocks + n_wblocks, THREADS, 0, a.stream>>>(a, n_xblocks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  const size_t total = (size_t)a.B * a.IN;
-  noisy_linear_dx_reduce<T, EPS>
-      <<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
-          a.part, a.splits, a.eps_in, static_cast<T*>(a.dx), a.B, a.IN);
-  return cudaGetLastError();
+  return launch_dx_reduce<T, EPS>(a);
 }
 
-template <typename T>
-cudaError_t launch_bwd_eps(int eps_mode, const BwdArgs& a) {
+cudaError_t launch_bwd_fp32(int eps_mode, const BwdArgs& a) {
   switch (eps_mode) {
-    case 0: return launch_bwd<T, 0>(a);
-    case 1: return launch_bwd<T, 1>(a);
-    default: return launch_bwd<T, 2>(a);
+    case 0: return launch_bwd<float, 0>(a);
+    case 1: return launch_bwd<float, 1>(a);
+    default: return launch_bwd<float, 2>(a);
+  }
+}
+
+// ============================================== bf16 on the tensor cores ====
+//
+// Every bf16 call runs here, at every shape: the products on the tensor
+// cores (mma.sync.m16n8k16, bf16 operands, fp32 accumulators), fragments
+// loaded with ldmatrix from bf16 tiles in shared memory. The operands and
+// the rounding are those of the CUDA-core design above, so only the order
+// of the sums differs: the float32 master weights are rounded to bf16 on
+// their way into shared memory; x is bf16 already; x * eps_in is formed as
+// rnd(x * rnd(eps_in)) as it is staged (g * eps_out likewise in the
+// backward); the epilogues do finish_y's and finish_dx's arithmetic.
+//
+// Why mma.sync and not wgmma: every operand passes through registers to be
+// rounded or eps-scaled (the weights are float32, eps is per row at the
+// actor's and the round's batches), so TMA, which copies bytes verbatim,
+// cannot feed wgmma here; and the learner's small-batch launches are bound
+// by bytes, where wgmma buys nothing.
+//
+// One pipeline serves every kernel (pipeline() below): a ring of NRAW raw
+// stages in shared memory, filled by cp.async (16-byte copies; 4-byte copies
+// or plain loads where a row is not 16-byte aligned; zeros past every edge),
+// NRAW - 2 stages ahead of the stage being converted; the conversion of
+// stage t + 1 into one of two bf16 tiles (rounding, eps scaling, the ReLU
+// mask) follows the issue of stage t's MMAs, one barrier a stage. Tile rows
+// are padded (48 or 144 bytes), so the eight 16-byte rows an ldmatrix
+// reads fall on distinct banks.
+//
+// Forward (yT = W xT): the output features fill the MMA's 16-row M and the
+// batch rows its 8-wide N, so tiles stay full at B = 8, 10, 16 and 32. Half
+// the warps accumulate the mu product (A = mu_w, B = x), half the sigma
+// product (A = sigma_w, B = rnd(x * eps_in)); both sums go through shared
+// memory to an epilogue that reads eps_out and writes y (or the partials)
+// a row of outputs at a time. Small batch (the plan's tile 16 or 32): a block owns 64 outputs
+// x 16 or 32 rows x one chunk of the inputs (split-K, so that the weight
+// stream comes from every SM; the partials are added in order by
+// noisy_linear_fwd_reduce). Large batch (tile 128: the actor's 1024 rows,
+// the round's 8192): 128 x 128 block tiles, a 64 x 64 warp tile in each
+// accumulator, a six-stage ring (216 KB of shared memory with per-row eps).
+// At B = 8192, 52.6 GFLOP against 190 MB: bound by bytes at the bf16 peak
+// (57 us); the operations alone would take 0.79 ms on the CUDA cores.
+// Measured, a stage's MMAs, copies and conversion run one after another
+// there (tests/ka_stage_probe.py), and the copies stream 28 KB a stage from
+// L2: the large path is about 8x its bound.
+//
+// Backward: one launch with two kinds of block, as above. A dx block owns 64
+// inputs x 32 rows and one chunk of the outputs: dxT = mu_wT gT (+ sigma_wT
+// (g * eps_out)T), A = the weight tile through ldmatrix.trans, the inputs on
+// M, the batch on N, 16 outputs a stage; the ordered noisy_linear_dx_reduce
+// adds the chunks. A weight block owns a 64 x 64 tile: dmu_w = gT x and
+// dsigma_w = (g * eps_out)T (x * eps_in), K = the batch 16 rows a stage
+// (zero-padded), both operands through ldmatrix.trans; each product's
+// output is rounded to bf16 and stored as float32, and the blocks of the
+// first input tile sum the bias grads.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MK = 16;      // the MMA's k: reduction elements a stage
+constexpr int TP = MK + 8;  // a bf16 tile row of MK, padded to 48 bytes
+constexpr int DP = 64 + 8;  // a bf16 tile row of 64, padded to 144 bytes
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// The two bf16 values of a word, as floats (exact).
+__device__ __forceinline__ float lo_bf16(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// ldmatrix: four (or two) 8 x 8 bf16 matrices, lanes 8i .. 8i + 7 giving
+// the row addresses of matrix i; .trans delivers each transposed.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d 16 x 8 fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four floats (the first n; none if n <= 0) from base + off into shared
+// dst, zeros after them: one 16-byte copy when vec, else 4-byte copies.
+__device__ __forceinline__ void copy4f(float* dst, const float* base,
+                                       size_t off, int n, bool vec) {
+  n = max(0, min(4, n));
+  const float* src = base + (n > 0 ? off : 0);
+  if (vec) {
+    cp_async16(dst, src, 4 * n);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    cp_async4(dst + j, src + (j < n ? j : 0), j < n ? 4 : 0);
+}
+// Eight bf16 values likewise: one 16-byte copy when vec, else plain loads
+// and stores (the barrier that ends the stage makes them visible).
+__device__ __forceinline__ void copy8h(bf16* dst, const bf16* base,
+                                       size_t off, int n, bool vec) {
+  n = max(0, min(8, n));
+  if (vec) {
+    cp_async16(dst, base + (n > 0 ? off : 0), 2 * n);
+    return;
+  }
+  const unsigned short* src =
+      reinterpret_cast<const unsigned short*>(base) + (n > 0 ? off : 0);
+  unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) d[j] = j < n ? src[j] : 0;
+}
+
+// f(j) for j = threadIdx.x, + THREADS, .. below N.
+template <int N, typename F>
+__device__ __forceinline__ void for_threads(F f) {
+#pragma unroll
+  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+    const int j = threadIdx.x + i * THREADS;
+    if (N % THREADS == 0 || j < N) f(j);
+  }
+}
+
+// Runs `steps` stages through a ring of NRAW raw stages (stage s in slot
+// s % NRAW) and two bf16 tiles (stage s in tile s & 1): load(s) starts stage
+// s's copies; convert(s) turns landed stage s into its tile; compute(s)
+// works on converted stage s. After stage t's MMAs are issued, stage
+// t + NRAW - 1's copies start and stage t + 1 is converted while the tensor
+// cores work: one barrier a stage. Ends with every copy landed and a
+// barrier, so the caller may reuse the shared memory.
+template <int NRAW, typename Load, typename Convert, typename Compute>
+__device__ __forceinline__ void pipeline(int steps, Load load, Convert convert,
+                                         Compute compute) {
+  static_assert(NRAW >= 3, "a stage in flight beyond the next");
+#pragma unroll
+  for (int s = 0; s < NRAW - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<NRAW - 2>();
+  __syncthreads();
+  convert(0);
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<NRAW - 3>();
+    __syncthreads();  // stage t + 1 is in; tile t & 1 is converted; raw
+                      // slot t - 1 and tile (t + 1) & 1 are free
+    compute(t);
+    if (t + NRAW - 1 < steps) load(t + NRAW - 1);
+    cp_async_commit();
+    if (t + 1 < steps) convert(t + 1);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Four values of rnd(x * rnd(eps_in)), group f of a [rows][MK] stage: x
+// from xr ([rows][TP] bf16), eps_in from er ([rows][MK], or [MK] shared),
+// into xe ([rows][TP] bf16).
+template <int EPS>
+__device__ __forceinline__ void scale_x4(bf16* xe, const bf16* xr,
+                                         const float* er, int f) {
+  const int row = f / (MK / 4), q = (f % (MK / 4)) * 4;
+  const uint2 u = *reinterpret_cast<const uint2*>(xr + row * TP + q);
+  const float4 e =
+      *reinterpret_cast<const float4*>(er + (EPS == 2 ? row * MK : 0) + q);
+  *reinterpret_cast<uint2*>(xe + row * TP + q) = make_uint2(
+      pack_bf16(lo_bf16(u.x) * rnd<bf16>(e.x), hi_bf16(u.x) * rnd<bf16>(e.y)),
+      pack_bf16(lo_bf16(u.y) * rnd<bf16>(e.z), hi_bf16(u.y) * rnd<bf16>(e.w)));
+}
+
+// A warp's sums into ot ([PL][TB][TO + 4] floats): acc[i][j][c] is output
+// wo + 16 i + lane / 4 (+ 8 for c >= 2), row wb + 8 j + 2 (lane % 4) (+ 1
+// for odd c), of plane p. The padding puts a store's 32 lanes on distinct
+// banks.
+template <int TO, int TB, int MT, int NT>
+__device__ __forceinline__ void store_sums(float* ot,
+                                           const float (&acc)[MT][NT][4],
+                                           int p, int wo, int wb, int lane) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        ot[(p * TB + wb + j * 8 + 2 * (lane % 4) + c % 2) * (TO + 4) + wo +
+           i * 16 + lane / 4 + (c / 2) * 8] = acc[i][j][c];
+}
+
+// The epilogue of a forward block from its two sums in shared memory (ot,
+// [PL][TB][TO + 4] floats), by its first NTH threads: a thread owns an
+// output column and walks the rows, EG rows' eps_out loads in flight, so
+// eps_out is read and y (or the partials of chunk blockIdx.z, with part)
+// written a row of outputs at a time. finish_y's arithmetic.
+template <int EPS, int TO, int TB, int NTH>
+__device__ __forceinline__ void fwd_epilogue(
+    const float* ot, int tid, int n0, int m0, const float* __restrict__ b_mu,
+    const float* __restrict__ b_sig, const float* __restrict__ eps_out,
+    bf16* __restrict__ y, float* __restrict__ part, int B, int OUT,
+    int relu) {
+  constexpr int OP = TO + 4;
+  constexpr int RS = NTH / TO, ROWS = TB / RS, EG = ROWS < 8 ? ROWS : 8;
+  static_assert(NTH % TO == 0 && TB % RS == 0 && ROWS % EG == 0,
+                "whole row groups");
+  const int nc = tid % TO, n = n0 + nc;
+  if (n >= OUT) return;
+  const float bm = rnd<bf16>(b_mu[n]), bs = EPS ? rnd<bf16>(b_sig[n]) : 0.f;
+  const float e1 = EPS == 1 ? rnd<bf16>(eps_out[n]) : 0.f;
+  for (int r0 = tid / TO; r0 < TB; r0 += RS * EG) {
+    float eo[EG];
+#pragma unroll
+    for (int k = 0; k < EG; ++k) {
+      const int m = m0 + r0 + k * RS;
+      eo[k] = EPS == 2 && !part && m < B ? eps_out[(size_t)m * OUT + n] : e1;
+    }
+#pragma unroll
+    for (int k = 0; k < EG; ++k) {
+      const int r = r0 + k * RS, m = m0 + r;
+      if (m >= B) break;
+      const float mu = ot[r * OP + nc];
+      const float sig = EPS ? ot[(TB + r) * OP + nc] : 0.f;
+      if (part) {
+        const size_t o = ((size_t)blockIdx.z * B + m) * OUT + n;
+        part[o] = mu;
+        if (EPS) part[(size_t)gridDim.z * B * OUT + o] = sig;
+      } else {
+        float v = mu + bm;
+        if (EPS) {
+          const float e = EPS == 2 ? rnd<bf16>(eo[k]) : e1;
+          v += sig * e + bs * e;
+        }
+        if (relu) v = fmaxf(v, 0.f);
+        y[(size_t)m * OUT + n] = __float2bfloat16(v);
+      }
+    }
+  }
+}
+
+// A warp's MT x NT fragments of one k16 stage: A = weights [outputs][TP]
+// (outputs on M), B = x or its eps-scaled copy [rows][TP] (rows on N), both
+// k-contiguous, so ldmatrix without .trans; B two n8 tiles at a time.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4],
+                                          const bf16* at, const bf16* bt,
+                                          int lane) {
+  uint32_t af[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    ldsm4(af[i], at + (i * 16 + lane % 16) * TP + (lane / 16) * 8);
+  if constexpr (NT == 1) {
+    uint32_t b2[2];
+    ldsm2(b2, bt + (lane % 8) * TP + ((lane / 8) % 2) * 8);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_bf16(acc[i][0], af[i], b2[0], b2[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b4[4];
+      ldsm4(b4, bt + (j * 8 + (lane / 16) * 8 + lane % 8) * TP +
+                    ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][j], af[i], b4[0], b4[1]);
+        mma_bf16(acc[i][j + 1], af[i], b4[2], b4[3]);
+      }
+    }
+  }
+}
+
+// The forward's shared memory (bytes) for TO outputs x TB rows a block.
+template <int EPS, int TO, int TB>
+struct FwdMma {
+  static constexpr int PL = EPS ? 2 : 1;               // mu, and sigma
+  static constexpr int NRAW = TO == 128 ? 6 : 4;
+  static constexpr int W = TO * MK * 4;                // a weight plane, fp32
+  static constexpr int E = EPS == 2 ? TB * MK * 4 : EPS == 1 ? MK * 4 : 0;
+  static constexpr int X = TB * TP * 2;                // x, bf16, padded
+  static constexpr int RAW = PL * W + E + X;
+  // bf16 weights [PL][TO][TP], then rnd(x * eps_in) [TB][TP]
+  static constexpr int TILE = (PL * TO + (EPS ? TB : 0)) * TP * 2;
+  static constexpr int SUMS = PL * TB * (TO + 4) * 4;  // the epilogue's
+  static constexpr int SMEM = NRAW * RAW + 2 * TILE > SUMS
+                                  ? NRAW * RAW + 2 * TILE : SUMS;
+};
+
+// A block owns TO outputs x TB batch rows x one chunk of the inputs; its 8
+// warps split as PL planes x WMO (along the outputs) x the rest (along the
+// batch). Small path: 64 outputs x 16 or 32 rows, a 4-stage ring; large
+// path: 128 x 128, a 6-stage ring (216 KB with per-row eps), a 64 x 64
+// warp tile in each accumulator.
+template <int EPS, int TO, int TB, int WMO>
+__global__ void __launch_bounds__(THREADS) noisy_linear_fwd_mma(
+    const bf16* __restrict__ x, const float* __restrict__ w_mu,
+    const float* __restrict__ w_sig, const float* __restrict__ b_mu,
+    const float* __restrict__ b_sig, const float* __restrict__ eps_in,
+    const float* __restrict__ eps_out, bf16* __restrict__ y,
+    float* __restrict__ part, int B, int IN, int OUT, int relu, int chunk,
+    int vec) {
+  using L = FwdMma<EPS, TO, TB>;
+  constexpr int PL = L::PL;
+  constexpr int WPP = 8 / PL;              // warps a plane
+  constexpr int WTO = TO / WMO;            // a warp's outputs
+  constexpr int WTB = TB / (WPP / WMO);    // and batch rows
+  constexpr int MT = WTO / 16, NT = WTB / 8;
+  constexpr int NW = PL * TO * MK / 4;     // four-weight groups a stage
+  static_assert(THREADS == 256 && WPP % WMO == 0 && WTO % 16 == 0 &&
+                    WTB % 8 == 0 && (NT == 1 || NT % 2 == 0),
+                "warp tiles of whole fragments");
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int p = EPS ? warp / WPP : 0, wi = warp % WPP;
+  const int wo = (wi % WMO) * WTO, wb = (wi / WMO) * WTB;
+  const int n0 = blockIdx.x * TO, m0 = blockIdx.y * TB;
+  const int k_begin = blockIdx.z * chunk;
+  const int len = min(IN, k_begin + chunk) - k_begin;
+
+  // A raw stage: weights [PL][TO][MK] fp32, eps_in ([TB][MK] or [MK]) fp32,
+  // x [TB][TP] bf16.
+  auto raw = [&](int s) { return dsm + (s % L::NRAW) * L::RAW; };
+  auto raw_x = [&](int s) {
+    return reinterpret_cast<bf16*>(raw(s) + PL * L::W + L::E);
+  };
+  auto tile = [&](int s) {
+    return reinterpret_cast<bf16*>(dsm + L::NRAW * L::RAW + (s & 1) * L::TILE);
+  };
+
+  auto load = [&](int s) {
+    unsigned char* r = raw(s);
+    const int kl = len - s * MK;  // inputs left from this stage
+    const size_t kg = (size_t)k_begin + s * MK;
+    for_threads<NW>([&](int f) {
+      const int row = f / (MK / 4), q = (f % (MK / 4)) * 4;  // row of PL*TO
+      const int o = n0 + row % TO;
+      copy4f(reinterpret_cast<float*>(r) + row * MK + q,
+             row < TO ? w_mu : w_sig, (size_t)o * IN + kg + q,
+             o < OUT ? kl - q : 0, vec);
+    });
+    float* er = reinterpret_cast<float*>(r + PL * L::W);
+    if constexpr (EPS == 2)
+      for_threads<TB * MK / 4>([&](int f) {
+        const int row = f / (MK / 4), q = (f % (MK / 4)) * 4, m = m0 + row;
+        copy4f(er + row * MK + q, eps_in, (size_t)m * IN + kg + q,
+               m < B ? kl - q : 0, vec);
+      });
+    if constexpr (EPS == 1)
+      if (tid < MK / 4) copy4f(er + tid * 4, eps_in, kg + tid * 4,
+                               kl - tid * 4, vec);
+    bf16* xr = raw_x(s);
+    for_threads<TB * MK / 8>([&](int f) {
+      const int row = f / (MK / 8), q = (f % (MK / 8)) * 8, m = m0 + row;
+      copy8h(xr + row * TP + q, x, (size_t)m * IN + kg + q,
+             m < B ? kl - q : 0, vec);
+    });
+  };
+
+  auto convert = [&](int s) {
+    const unsigned char* r = raw(s);
+    bf16* t = tile(s);
+    for_threads<NW>([&](int f) {
+      const int row = f / (MK / 4), q = (f % (MK / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(r) + row * MK + q);
+      *reinterpret_cast<uint2*>(t + row * TP + q) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    });
+    if constexpr (EPS != 0)
+      for_threads<TB * MK / 4>([&](int f) {
+        scale_x4<EPS>(t + PL * TO * TP, raw_x(s),
+                 reinterpret_cast<const float*>(r + PL * L::W), f);
+      });
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  auto compute = [&](int s) {
+    const bf16* t = tile(s);
+    mma_stage(acc, t + (p * TO + wo) * TP,
+              (p ? t + PL * TO * TP : raw_x(s)) + wb * TP, lane);
+  };
+
+  pipeline<L::NRAW>((len + MK - 1) / MK, load, convert, compute);
+
+  float* ot = reinterpret_cast<float*>(dsm);
+  store_sums<TO, TB>(ot, acc, p, wo, wb, lane);
+  __syncthreads();
+  fwd_epilogue<EPS, TO, TB, THREADS>(ot, tid, n0, m0, b_mu, b_sig, eps_out,
+                                     y, part, B, OUT, relu);
+}
+
+template <int EPS, int TO, int TB, int WMO>
+cudaError_t launch_fwd_mma(const FwdArgs& a) {
+  using L = FwdMma<EPS, TO, TB>;
+  auto kernel = noisy_linear_fwd_mma<EPS, TO, TB, WMO>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (set != cudaSuccess) return set;
+  float* part = a.splits > 1 ? a.part : nullptr;
+  const dim3 grid((a.OUT + TO - 1) / TO, (a.B + TB - 1) / TB, a.splits);
+  kernel<<<grid, THREADS, L::SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.x), a.w_mu, a.w_sig, a.b_mu, a.b_sig,
+      a.eps_in, a.eps_out, static_cast<bf16*>(a.y), part, a.B, a.IN, a.OUT,
+      a.relu, a.chunk, a.vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !part) return err;
+  return launch_fwd_reduce<bf16, EPS>(a);
+}
+
+// The bf16 forward for the plan's batch tile: 16 or 32 rows (small path:
+// 64 outputs a block, a warp 16 outputs), 128 (large: 128 x 128).
+template <int EPS>
+cudaError_t launch_fwd_bf16(int tile, const FwdArgs& a) {
+  switch (tile) {
+    case 16: return launch_fwd_mma<EPS, 64, 16, 4>(a);
+    case 32: return launch_fwd_mma<EPS, 64, 32, 4>(a);
+    case 128: return launch_fwd_mma<EPS, 128, 128, 2>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The backward's shared memory (bytes): the larger of its two blocks'.
+template <int EPS>
+struct BwdMma {
+  static constexpr int PL = EPS ? 2 : 1;
+  // dx blocks: WT inputs x XM rows, MK outputs a stage. Raw: weights
+  // [PL][MK][WT] fp32, g and y [XM][MK] bf16, eps_out ([XM][MK] or [MK]).
+  static constexpr int DX_NRAW = 4;
+  static constexpr int DX_W = MK * WT * 4;
+  static constexpr int DX_G = XM * MK * 2;
+  static constexpr int DX_E = EPS == 2 ? XM * MK * 4 : EPS == 1 ? MK * 4 : 0;
+  static constexpr int DX_RAW = PL * DX_W + 2 * DX_G + DX_E;
+  // bf16 weights [PL][MK][DP], then g masked and g * eps_out [PL][XM][TP]
+  static constexpr int DX_TILE = PL * (MK * DP + XM * TP) * 2;
+  static constexpr int DX_SMEM = DX_NRAW * DX_RAW + 2 * DX_TILE;
+  // weight blocks: WT outputs x WT inputs, MK rows a stage. Raw: g, y, x
+  // [MK][WT] bf16, eps_out and eps_in ([MK][WT] or [WT]) fp32.
+  static constexpr int WG_NRAW = 3;
+  static constexpr int WG_G = MK * WT * 2;
+  static constexpr int WG_E = EPS == 2 ? MK * WT * 4 : EPS == 1 ? WT * 4 : 0;
+  static constexpr int WG_RAW = 3 * WG_G + 2 * WG_E;
+  // bf16 [PL][MK][DP] of g masked (and g * eps_out), then of x (x * eps_in)
+  static constexpr int WG_TILE = 2 * PL * MK * DP * 2;
+  static constexpr int WG_SMEM = WG_NRAW * WG_RAW + 2 * WG_TILE;
+  static constexpr int SMEM = DX_SMEM > WG_SMEM ? DX_SMEM : WG_SMEM;
+};
+
+// g masked by y > 0 (when y is given), four bf16 values of raw rows.
+__device__ __forceinline__ void masked_g4(float (&v)[4], const bf16* g,
+                                          const bf16* y) {
+  const uint2 u = *reinterpret_cast<const uint2*>(g);
+  v[0] = lo_bf16(u.x); v[1] = hi_bf16(u.x);
+  v[2] = lo_bf16(u.y); v[3] = hi_bf16(u.y);
+  if (y) {
+    const uint2 m = *reinterpret_cast<const uint2*>(y);
+    const float mv[4] = {lo_bf16(m.x), hi_bf16(m.x), lo_bf16(m.y),
+                         hi_bf16(m.y)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = mv[j] > 0.f ? v[j] : 0.f;
+  }
+}
+// rnd(v * rnd(e)) of four values, packed.
+__device__ __forceinline__ uint2 scaled4(const float (&v)[4], float4 e) {
+  return make_uint2(pack_bf16(v[0] * rnd<bf16>(e.x), v[1] * rnd<bf16>(e.y)),
+                    pack_bf16(v[2] * rnd<bf16>(e.z), v[3] * rnd<bf16>(e.w)));
+}
+__device__ __forceinline__ uint2 pack4(const float (&v)[4]) {
+  return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// One WT-input x XM-row tile (inputs k0.., rows m0..) of dx over the
+// outputs of chunk s, or its partial sums when the outputs are split.
+// Warps: PL planes x 4 (16 inputs each) x the rest (along the rows).
+template <int EPS>
+__device__ void input_grad_mma(unsigned char* sm, const BwdArgs& a, int m0,
+                               int k0, int s) {
+  using L = BwdMma<EPS>;
+  constexpr int PL = L::PL, WPP = 8 / PL;
+  constexpr int WTB = XM / (WPP / 4), NT = WTB / 8;
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const bf16* y = static_cast<const bf16*>(a.y);
+  const int B = a.B, IN = a.IN, OUT = a.OUT;
+  const int o_begin = s * a.chunk, o_end = min(OUT, o_begin + a.chunk);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int p = EPS ? warp / WPP : 0, wi = warp % WPP;
+  const int wk = (wi % 4) * 16, wb = (wi / 4) * WTB;
+
+  auto raw = [&](int s) { return sm + (s % L::DX_NRAW) * L::DX_RAW; };
+  auto tile = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::DX_NRAW * L::DX_RAW +
+                                   (s & 1) * L::DX_TILE);
+  };
+  auto load = [&](int t) {
+    unsigned char* r = raw(t);
+    const int o0 = o_begin + t * MK;
+    for_threads<PL * MK * WT / 4>([&](int f) {
+      const int row = f / (WT / 4), q = (f % (WT / 4)) * 4;  // of PL*MK
+      const int o = o0 + row % MK, k = k0 + q;
+      copy4f(reinterpret_cast<float*>(r) + row * WT + q,
+             row < MK ? a.w_mu : a.w_sig, (size_t)o * IN + k,
+             o < o_end ? IN - k : 0, a.vec_in);
+    });
+    bf16* gr = reinterpret_cast<bf16*>(r + PL * L::DX_W);
+    for_threads<XM * MK / 8>([&](int f) {
+      const int row = f / (MK / 8), q = (f % (MK / 8)) * 8, b = m0 + row;
+      const size_t i = (size_t)b * OUT + o0 + q;
+      const int n = b < B ? o_end - o0 - q : 0;
+      copy8h(gr + row * MK + q, g, i, n, a.vec_out);
+      if (y) copy8h(gr + XM * MK + row * MK + q, y, i, n, a.vec_out);
+    });
+    float* er = reinterpret_cast<float*>(r + PL * L::DX_W + 2 * L::DX_G);
+    if constexpr (EPS == 2)
+      for_threads<XM * MK / 4>([&](int f) {
+        const int row = f / (MK / 4), q = (f % (MK / 4)) * 4, b = m0 + row;
+        copy4f(er + row * MK + q, a.eps_out, (size_t)b * OUT + o0 + q,
+               b < B ? o_end - o0 - q : 0, a.vec_out);
+      });
+    if constexpr (EPS == 1)
+      if (tid < MK / 4) copy4f(er + tid * 4, a.eps_out, o0 + tid * 4,
+                               o_end - o0 - tid * 4, a.vec_out);
+  };
+  auto convert = [&](int st) {
+    const unsigned char* r = raw(st);
+    bf16* t = tile(st);
+    for_threads<PL * MK * WT / 4>([&](int f) {
+      const int row = f / (WT / 4), q = (f % (WT / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(r) + row * WT + q);
+      *reinterpret_cast<uint2*>(t + row * DP + q) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    });
+    const bf16* gr = reinterpret_cast<const bf16*>(r + PL * L::DX_W);
+    const float* er =
+        reinterpret_cast<const float*>(r + PL * L::DX_W + 2 * L::DX_G);
+    bf16* gt = t + PL * MK * DP;
+    for_threads<XM * MK / 4>([&](int f) {
+      const int row = f / (MK / 4), q = (f % (MK / 4)) * 4;
+      float v[4];
+      masked_g4(v, gr + row * MK + q, y ? gr + XM * MK + row * MK + q
+                                        : nullptr);
+      *reinterpret_cast<uint2*>(gt + row * TP + q) = pack4(v);
+      if constexpr (EPS != 0)
+        *reinterpret_cast<uint2*>(gt + (XM + row) * TP + q) = scaled4(
+            v, *reinterpret_cast<const float4*>(
+                   er + (EPS == 2 ? row * MK : 0) + q));
+    });
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  // A = the weight tile [outputs][inputs] transposed (inputs on M), B = g
+  // or g * eps_out [rows][outputs] (rows on N).
+  auto compute = [&](int st) {
+    const bf16* t = tile(st);
+    const bf16* wt = t + p * MK * DP + wk;
+    const bf16* gt = t + PL * MK * DP + (p * XM + wb) * TP;
+    uint32_t af[4];
+    ldsm4t(af, wt + ((lane / 16) * 8 + lane % 8) * DP + ((lane / 8) % 2) * 8);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t r4[4];
+      ldsm4(r4, gt + (j * 8 + (lane / 16) * 8 + lane % 8) * TP +
+                    ((lane / 8) % 2) * 8);
+      mma_bf16(acc[j], af, r4[0], r4[1]);
+      mma_bf16(acc[j + 1], af, r4[2], r4[3]);
+    }
+  };
+
+  pipeline<L::DX_NRAW>((o_end - o_begin + MK - 1) / MK, load, convert,
+                       compute);
+
+  // acc[j][c] is input k0 + wk + lane / 4 (+ 8 for c >= 2), row
+  // m0 + wb + 8 j + 2 (lane % 4) (+ 1 for odd c).
+  float* xch = reinterpret_cast<float*>(sm);  // [WPP][NT][4][32]
+  if (EPS != 0 && a.splits == 1) {
+    if (p == 1)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          xch[((wi * NT + j) * 4 + c) * 32 + lane] = acc[j][c];
+    __syncthreads();
+    if (p == 1) return;
+  }
+  bf16* dx = static_cast<bf16*>(a.dx);
+  const size_t plane = (size_t)a.splits * B * IN;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + wk + lane / 4 + (c / 2) * 8;
+      const int b = m0 + wb + j * 8 + 2 * (lane % 4) + c % 2;
+      if (k >= IN || b >= B) continue;
+      if (a.splits > 1) {
+        a.part[p * plane + ((size_t)s * B + b) * IN + k] = acc[j][c];
+      } else {
+        const float sig = EPS ? xch[((wi * NT + j) * 4 + c) * 32 + lane] : 0.f;
+        finish_dx<bf16, EPS>(acc[j][c], sig, b, k, a.eps_in, dx, IN);
+      }
+    }
+}
+
+// One WT x WT tile (outputs n0.., inputs k0..) of dmu_w and dsigma_w; the
+// blocks with k0 == 0 also write dmu_b and dsigma_b for their outputs.
+// Warps: PL planes x 2 (32 outputs each) x the rest (along the inputs).
+template <int EPS>
+__device__ void weight_grad_mma(unsigned char* sm, const BwdArgs& a, int n0,
+                                int k0) {
+  using L = BwdMma<EPS>;
+  constexpr int PL = L::PL, WPP = 8 / PL;
+  constexpr int WTK = WT / (WPP / 2), NT = WTK / 8, MT = 2;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const bf16* y = static_cast<const bf16*>(a.y);
+  const int B = a.B, IN = a.IN, OUT = a.OUT;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int p = EPS ? warp / WPP : 0, wi = warp % WPP;
+  const int wo = (wi % 2) * 32, wk = (wi / 2) * WTK;
+  const bool bias = k0 == 0;
+
+  auto raw = [&](int s) { return sm + (s % L::WG_NRAW) * L::WG_RAW; };
+  auto tile = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::WG_NRAW * L::WG_RAW +
+                                   (s & 1) * L::WG_TILE);
+  };
+  // Raw: g [MK][WT], y, x (bf16), then eps_out, eps_in.
+  auto load = [&](int t) {
+    unsigned char* r = raw(t);
+    bf16* hr = reinterpret_cast<bf16*>(r);
+    const int b0 = t * MK;
+    for_threads<MK * WT / 8>([&](int f) {
+      const int row = f / (WT / 8), q = (f % (WT / 8)) * 8, b = b0 + row;
+      const size_t gi = (size_t)b * OUT + n0 + q;
+      const int ng = b < B ? OUT - n0 - q : 0;
+      copy8h(hr + row * WT + q, g, gi, ng, a.vec_out);
+      if (y) copy8h(hr + MK * WT + row * WT + q, y, gi, ng, a.vec_out);
+      copy8h(hr + 2 * MK * WT + row * WT + q, x, (size_t)b * IN + k0 + q,
+             b < B ? IN - k0 - q : 0, a.vec_in);
+    });
+    float* eo = reinterpret_cast<float*>(r + 3 * L::WG_G);
+    float* ei = reinterpret_cast<float*>(r + 3 * L::WG_G + L::WG_E);
+    if constexpr (EPS == 2)
+      for_threads<MK * WT / 4>([&](int f) {
+        const int row = f / (WT / 4), q = (f % (WT / 4)) * 4, b = b0 + row;
+        copy4f(eo + row * WT + q, a.eps_out, (size_t)b * OUT + n0 + q,
+               b < B ? OUT - n0 - q : 0, a.vec_out);
+        copy4f(ei + row * WT + q, a.eps_in, (size_t)b * IN + k0 + q,
+               b < B ? IN - k0 - q : 0, a.vec_in);
+      });
+    if constexpr (EPS == 1)
+      if (tid < WT / 4) {
+        copy4f(eo + tid * 4, a.eps_out, n0 + tid * 4, OUT - n0 - tid * 4,
+               a.vec_out);
+        copy4f(ei + tid * 4, a.eps_in, k0 + tid * 4, IN - k0 - tid * 4,
+               a.vec_in);
+      }
+  };
+  auto convert = [&](int st) {
+    const unsigned char* r = raw(st);
+    const bf16* hr = reinterpret_cast<const bf16*>(r);
+    const float* eo = reinterpret_cast<const float*>(r + 3 * L::WG_G);
+    const float* ei = reinterpret_cast<const float*>(r + 3 * L::WG_G +
+                                                     L::WG_E);
+    bf16* t = tile(st);  // [PL][MK][DP] of g, then of x
+    for_threads<MK * WT / 4>([&](int f) {
+      const int row = f / (WT / 4), q = (f % (WT / 4)) * 4;
+      const int e = EPS == 2 ? row * WT + q : q;
+      float v[4];
+      masked_g4(v, hr + row * WT + q, y ? hr + (MK + row) * WT + q : nullptr);
+      *reinterpret_cast<uint2*>(t + row * DP + q) = pack4(v);
+      const uint2 u = *reinterpret_cast<const uint2*>(hr + (2 * MK + row) *
+                                                      WT + q);
+      *reinterpret_cast<uint2*>(t + (PL * MK + row) * DP + q) = u;
+      if constexpr (EPS != 0) {
+        *reinterpret_cast<uint2*>(t + (MK + row) * DP + q) =
+            scaled4(v, *reinterpret_cast<const float4*>(eo + e));
+        const float xv[4] = {lo_bf16(u.x), hi_bf16(u.x), lo_bf16(u.y),
+                             hi_bf16(u.y)};
+        *reinterpret_cast<uint2*>(t + (3 * MK + row) * DP + q) =
+            scaled4(xv, *reinterpret_cast<const float4*>(ei + e));
+      }
+    });
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  float bsum_mu = 0.f, bsum_sig = 0.f;
+  // A = g (or g * eps_out) [rows][outputs] transposed (outputs on M), B = x
+  // (or x * eps_in) [rows][inputs] (inputs on N): both through .trans.
+  auto compute = [&](int st) {
+    const bf16* t = tile(st);
+    const bf16* at = t + p * MK * DP + wo;
+    const bf16* bt = t + (PL + p) * MK * DP + wk;
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm4t(af[i], at + ((lane / 16) * 8 + lane % 8) * DP + i * 16 +
+                        ((lane / 8) % 2) * 8);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t r4[4];
+      ldsm4t(r4, bt + (((lane / 8) % 2) * 8 + lane % 8) * DP +
+                     (j + lane / 16) * 8);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][j], af[i], r4[0], r4[1]);
+        mma_bf16(acc[i][j + 1], af[i], r4[2], r4[3]);
+      }
+    }
+    if (bias && tid < WT) {
+#pragma unroll
+      for (int bb = 0; bb < MK; ++bb) {
+        bsum_mu += __bfloat162float(t[bb * DP + tid]);
+        if constexpr (EPS != 0)
+          bsum_sig += __bfloat162float(t[(MK + bb) * DP + tid]);
+      }
+    }
+  };
+
+  pipeline<L::WG_NRAW>((B + MK - 1) / MK, load, convert, compute);
+
+  // acc[i][j][c] is output n0 + wo + 16 i + lane / 4 (+ 8 for c >= 2),
+  // input k0 + wk + 8 j + 2 (lane % 4) (+ 1 for odd c).
+  float* dw = p ? a.dw_sig : a.dw_mu;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = n0 + wo + i * 16 + lane / 4 + h * 8;
+        const int k = k0 + wk + j * 8 + 2 * (lane % 4);
+        if (o >= OUT || k >= IN) continue;
+        const float v0 = rnd<bf16>(acc[i][j][2 * h]);
+        const float v1 = rnd<bf16>(acc[i][j][2 * h + 1]);
+        float* d = dw + (size_t)o * IN + k;
+        if (a.vec_in && k + 1 < IN) {
+          *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+        } else {
+          d[0] = v0;
+          if (k + 1 < IN) d[1] = v1;
+        }
+      }
+  if (bias && tid < WT && n0 + tid < OUT) {
+    a.db_mu[n0 + tid] = rnd<bf16>(bsum_mu);
+    if constexpr (EPS != 0) a.db_sig[n0 + tid] = rnd<bf16>(bsum_sig);
+  }
+}
+
+// Blocks [0, n_xblocks) are dx blocks (chunk-major), the rest weight blocks.
+template <int EPS>
+__global__ void __launch_bounds__(THREADS)
+    noisy_linear_bwd_mma(const BwdArgs a, int n_xblocks) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int k_tiles = (a.IN + WT - 1) / WT;
+  int blk = blockIdx.x;
+  if (blk < n_xblocks) {
+    const int x_tiles = ((a.B + XM - 1) / XM) * k_tiles;
+    const int s = blk / x_tiles;
+    blk %= x_tiles;
+    input_grad_mma<EPS>(dsm, a, (blk / k_tiles) * XM, (blk % k_tiles) * WT, s);
+  } else {
+    blk -= n_xblocks;
+    weight_grad_mma<EPS>(dsm, a, (blk / k_tiles) * WT, (blk % k_tiles) * WT);
+  }
+}
+
+template <int EPS>
+cudaError_t launch_bwd_bf16(const BwdArgs& a) {
+  constexpr int bytes = BwdMma<EPS>::SMEM;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      noisy_linear_bwd_mma<EPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (set != cudaSuccess) return set;
+  const int k_tiles = (a.IN + WT - 1) / WT;
+  const int n_xblocks = ((a.B + XM - 1) / XM) * k_tiles * a.splits;
+  const int n_wblocks = ((a.OUT + WT - 1) / WT) * k_tiles;
+  noisy_linear_bwd_mma<EPS>
+      <<<n_xblocks + n_wblocks, THREADS, bytes, a.stream>>>(a, n_xblocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return launch_dx_reduce<bf16, EPS>(a);
+}
+
+cudaError_t launch_fwd_mma_eps(int eps_mode, int tile, const FwdArgs& a) {
+  switch (eps_mode) {
+    case 0: return launch_fwd_bf16<0>(tile, a);
+    case 1: return launch_fwd_bf16<1>(tile, a);
+    default: return launch_fwd_bf16<2>(tile, a);
+  }
+}
+
+cudaError_t launch_bwd_mma_eps(int eps_mode, const BwdArgs& a) {
+  switch (eps_mode) {
+    case 0: return launch_bwd_bf16<0>(a);
+    case 1: return launch_bwd_bf16<1>(a);
+    default: return launch_bwd_bf16<2>(a);
   }
 }
 
@@ -943,17 +1770,19 @@ extern "C" int noisy_linear_fwd(const void* x, int x_bf16, const float* w_mu,
                                 int splits, float* scratch) {
   if (B <= 0 || OUT <= 0 || !valid_split(IN, chunk, splits, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int unit = x_bf16 ? 8 : 16;  // bytes of four x values
-  const bool vec = IN % 4 == 0 && chunk % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) % unit) == 0 &&
-                   aligned16(w_mu) && aligned16(w_sig) &&
+  const bool w16 = aligned16(w_mu) && aligned16(w_sig) &&
                    (eps_mode == 0 || aligned16(eps_in));
+  // 16-byte copies: four float32 x values, or eight bf16 (the tensor-core
+  // path copies x whole rows of 16-byte groups).
+  const bool vec = x_bf16 ? IN % 8 == 0 && chunk % 8 == 0 && aligned16(x) &&
+                                w16
+                          : IN % 4 == 0 && chunk % 4 == 0 && aligned16(x) &&
+                                w16;
   FwdArgs a{x, w_mu, w_sig, b_mu, b_sig, eps_in, eps_out, y, scratch,
             B, IN, OUT, relu, chunk, splits, vec,
             static_cast<cudaStream_t>(stream)};
-  const cudaError_t err =
-      x_bf16 ? launch_fwd_eps<__nv_bfloat16>(eps_mode, tile, a)
-             : launch_fwd_eps<float>(eps_mode, tile, a);
+  const cudaError_t err = x_bf16 ? launch_fwd_mma_eps(eps_mode, tile, a)
+                                 : launch_fwd_fp32(eps_mode, tile, a);
   return static_cast<int>(err);
 }
 
@@ -974,20 +1803,19 @@ extern "C" int noisy_linear_bwd(const void* x, const void* g, const void* y,
                                 float* scratch) {
   if (B <= 0 || IN <= 0 || !valid_split(OUT, chunk, splits, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int unit = x_bf16 ? 8 : 16;
-  auto fits = [unit](const void* p) {
-    return p == nullptr || (reinterpret_cast<uintptr_t>(p) % unit) == 0;
-  };
-  const bool vec_in = IN % 4 == 0 && fits(x) && aligned16(w_mu) &&
+  auto fits = [](const void* p) { return p == nullptr || aligned16(p); };
+  // float32: rows of four-value groups; bf16: rows of eight-value groups.
+  const int group = x_bf16 ? 8 : 4;
+  const bool vec_in = IN % group == 0 && fits(x) && aligned16(w_mu) &&
                       aligned16(w_sig) && aligned16(dw_mu) &&
                       aligned16(dw_sig) &&
                       (eps_mode == 0 || aligned16(eps_in));
-  const bool vec_out = OUT % 4 == 0 && chunk % 4 == 0 && fits(g) && fits(y) &&
-                       (eps_mode == 0 || aligned16(eps_out));
+  const bool vec_out = OUT % group == 0 && chunk % group == 0 && fits(g) &&
+                       fits(y) && (eps_mode == 0 || aligned16(eps_out));
   BwdArgs a{x, g, relu ? y : nullptr, w_mu, w_sig, eps_in, eps_out, dx,
             dw_mu, dw_sig, db_mu, db_sig, scratch, B, IN, OUT, relu, chunk,
             splits, vec_in, vec_out, static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = x_bf16 ? launch_bwd_eps<__nv_bfloat16>(eps_mode, a)
-                                 : launch_bwd_eps<float>(eps_mode, a);
+  const cudaError_t err = x_bf16 ? launch_bwd_mma_eps(eps_mode, a)
+                                 : launch_bwd_fp32(eps_mode, a);
   return static_cast<int>(err);
 }

@@ -16,6 +16,14 @@ that its dx blocks fill a wave. With more than one chunk the partial sums go
 to a scratch tensor that the wrapper allocates for each call on the current
 stream, and a second kernel adds them in chunk order: the result has the same
 bits on every launch.
+
+bfloat16 has a plan of its own (``fwd_plan(..., torch.bfloat16)``): the
+same tiles and the same choice of path, for the tensor-core kernels, whose
+chunks are multiples of 16 (the MMA's k) and whose small path streams x
+through its ring as well, so no chunk is capped at CHUNK_MAX. Its backward
+splits dx's reduction as float32's does (``bwd_plan``): 32-row by 64-input
+dx tiles, chunks of whole 16-output stages. A bf16 CUDA tensor always
+launches the tensor-core kernels; there is no CUDA-core bf16 kernel.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 WAVE = 132       # SMs of an H100 SXM
 KT = 16          # the split's granularity along a reduction
-CHUNK_MAX = 256  # the most inputs a small-path block stages in shared memory
+CHUNK_MAX = 256  # the most inputs a float32 small-path block stages at once
 # The forward's block tiles, by batch rows: (rows, outputs).
 FWD_TILES = {16: (16, 64), 32: (32, 64), 128: (128, 128)}
 DX_TILE = (32, 64)  # the backward's dx blocks: (rows, inputs)
@@ -65,13 +73,16 @@ def _split(n: int, wanted: int, most: int = 1 << 30) -> Tuple[int, int]:
     return chunk, math.ceil(n / chunk)
 
 
-def fwd_plan(b: int, n_in: int, n_out: int, eps_mode: int) -> Plan:
-    """The forward's launch plan for x (b, n_in) -> (b, n_out)."""
+def fwd_plan(b: int, n_in: int, n_out: int, eps_mode: int,
+             dtype: torch.dtype = torch.float32) -> Plan:
+    """The forward's launch plan for x (b, n_in) -> (b, n_out) in x's
+    ``dtype``."""
     tile = 16 if b <= 16 else 32
     rows, cols = FWD_TILES[tile]
     tiles = math.ceil(b / rows) * math.ceil(n_out / cols)
     if tiles < WAVE:
-        path, most = "small", CHUNK_MAX
+        path = "small"
+        most = CHUNK_MAX if dtype == torch.float32 else n_in
         wanted = math.ceil(WAVE / tiles)
     else:
         path, tile, most = "large", 128, n_in
@@ -157,7 +168,7 @@ def noisy_linear_fwd(params: dict, x: torch.Tensor,
         check_dtype(NAME, arg, t, torch.float32)
         check_shape(NAME, arg, t, shape)
     eps_mode, e_in, e_out = _eps_mode(NAME, eps, b, n_in, n_out)
-    plan = fwd_plan(b, n_in, n_out, eps_mode)
+    plan = fwd_plan(b, n_in, n_out, eps_mode, x.dtype)
     y = torch.empty((b, n_out), dtype=x.dtype, device=x.device)
     scratch = _scratch(plan, x.device)
     err = _lib().noisy_linear_fwd(

@@ -9,7 +9,8 @@ card every test here skips. On the card, from the repository root
 Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
 bf16 differs by a few bf16 ulps of O(1) values, and the noisy-linear
 kernels, which add their split partial sums in a fixed order, give the same
-bits on a second launch; the head combines in the
+bits on a second launch, float32 and bf16 alike; a bf16 call launches only
+their tensor-core kernels (read from a captured graph's kernel nodes); the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
 integer work is bit-exact: the append + frame-stack kernel (KC) at
 N = 1 to 1024, no, bucketed and dense reset rows, H = 4 (vector path) and
@@ -31,6 +32,7 @@ same bits. After a learner round, params agree to lr/100. The distributed
 round at world size 1 over NCCL gives learner_round's bits, with cuDNN held
 to its deterministic algorithms.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -46,7 +48,8 @@ from rainbow_tpu_torch.kernels.adam import clip_adam
 from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
 from rainbow_tpu_torch.kernels import replay as k_replay
-from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan, fwd_plan,
+                                                    noisy_linear_bwd,
                                                     noisy_linear_fwd)
 from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
 from rainbow_tpu_torch.kernels.delta import apply_delta
@@ -117,14 +120,17 @@ def test_noisy_linear_kernel_matches_plain(cuda, shape, mode, dtype):
                                    rtol=tol[1])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(32, 3136, 512), (33, 3137, 513),
                                    (1024, 3136, 512), (512, 576, 256)],
                          ids=str)
-def test_noisy_linear_kernels_give_the_same_bits_twice(cuda, shape):
+def test_noisy_linear_kernels_give_the_same_bits_twice(cuda, shape, dtype):
     """The splits add their partial sums in a fixed order, without atomics:
-    two launches of either kernel give equal bits."""
+    two launches of either kernel give equal bits, on the CUDA cores
+    (float32) and on the tensor cores (bfloat16)."""
     for mode in ("shared", "row"):
-        prm, x, gy, eps = _noisy_case(cuda, 5, shape, mode, torch.float32)
+        prm, x, gy, eps = _noisy_case(cuda, 5, shape, mode,
+                                      getattr(torch, dtype))
         w = (prm["weight_mu"], prm["weight_sigma"])
         y = noisy_linear_fwd(prm, x, eps, True)
         assert torch.equal(noisy_linear_fwd(prm, x, eps, True), y)
@@ -238,13 +244,38 @@ def test_append_framestack_kernel_matches_plain(cuda, history, n, k_mode,
             assert bool(states["cuda"][1].full) == (step + 1 >= c)
 
 
-def _graph_kernels(fn):
+class _KernelNodeParams(ctypes.Structure):
+    """libcuda's CUDA_KERNEL_NODE_PARAMS_v2."""
+    _fields_ = [("func", ctypes.c_void_p)]
+    _fields_ += [(f, ctypes.c_uint) for f in (
+        "gridDimX", "gridDimY", "gridDimZ", "blockDimX", "blockDimY",
+        "blockDimZ", "sharedMemBytes")]
+    _fields_ += [(f, ctypes.c_void_p) for f in (
+        "kernelParams", "extra", "kern", "ctx")]
+
+
+def _kernel_name(drv, node):
+    """The (mangled) name of a graph kernel node's function."""
+    prm = _KernelNodeParams()
+    assert drv.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                             ctypes.byref(prm)) == 0
+    name = ctypes.c_char_p()
+    if prm.func:
+        assert drv.cuFuncGetName(ctypes.byref(name),
+                                 ctypes.c_void_p(prm.func)) == 0
+    else:
+        assert drv.cuKernelGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(prm.kern)) == 0
+    return name.value.decode()
+
+
+def _graph_kernels(fn, names=None):
     """(kernel nodes, all nodes) of a CUDA graph that captures one call of
     ``fn``, after one call outside the capture on the capturing stream
     (which allocates that stream's kept buffers), counted with libcuda's
-    graph calls (the profiler can miss a short window's first kernel)."""
-    import ctypes
-
+    graph calls (the profiler can miss a short window's first kernel).
+    With a list ``names``, the kernel nodes' function names are appended
+    to it in the graph's node order."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -266,6 +297,8 @@ def _graph_kernels(fn):
         assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
                                       ctypes.byref(kind)) == 0
         kinds.append(kind.value)
+        if names is not None and kind.value == 0:
+            names.append(_kernel_name(drv, node))
     del graph
     return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL is 0
 
@@ -371,6 +404,42 @@ def test_noisy_linear_bwd_kernel_matches_plain(cuda, shape, mode, dtype):
         for a, c in zip(got, want):
             torch.testing.assert_close(a.float(), c.float(), atol=tol[0],
                                        rtol=tol[1])
+
+
+@pytest.mark.parametrize("shape", [(10, 3136, 512), (32, 3136, 512),
+                                   (250, 3136, 512), (1024, 3136, 512),
+                                   (8192, 3136, 512), (33, 3137, 513)],
+                         ids=str)
+def test_bf16_noisy_linear_launches_only_tensor_core_kernels(cuda, shape):
+    """A bf16 forward and backward, captured in a CUDA graph, hold only the
+    tensor-core kernels (mma.sync, noisy_linear_fwd_mma and
+    noisy_linear_bwd_mma) and, where the plan splits, their ordered bf16
+    reduces: no CUDA-core bf16 kernel is left, at the evaluation's,
+    learner's, validation's, actor's and round's batches and at a ragged
+    shape, in each noise mode."""
+    b, n_in, n_out = shape
+    modes = ("mu", "shared", "row")
+    for mode in modes:
+        prm, x, gy, eps = _noisy_case(cuda, 7, shape, mode, torch.bfloat16)
+        w = (prm["weight_mu"], prm["weight_sigma"])
+        y = noisy_linear_fwd(prm, x, eps, True)
+        for call, plan, main, reduce in (
+                (lambda: noisy_linear_fwd(prm, x, eps, True),
+                 fwd_plan(b, n_in, n_out, modes.index(mode), torch.bfloat16),
+                 "noisy_linear_fwd_mma", "noisy_linear_fwd_reduce"),
+                (lambda: noisy_linear_bwd(*w, x, gy, eps, y),
+                 bwd_plan(b, n_in, n_out, modes.index(mode)),
+                 "noisy_linear_bwd_mma", "noisy_linear_dx_reduce")):
+            names = []
+            _graph_kernels(call, names)
+            # Without noise the backward also zero-fills the σ grads.
+            ka = [n for n in names if "noisy_linear" in n]
+            want = [main] + ([reduce] if plan.splits > 1 else [])
+            assert len(ka) == len(want), (mode, names)
+            for name, stem in zip(ka, want):
+                assert stem in name, (mode, name)
+            if plan.splits > 1:
+                assert "__nv_bfloat16" in ka[1], (mode, ka[1])
 
 
 def test_c51_target_kernel_matches_plain(cuda):

@@ -2,8 +2,10 @@
 run only on the card, where chip_smoke.py holds each against its plain
 version): a wrapper takes CUDA tensors only and never falls back, the
 dispatchers take the plain versions for CPU tensors without launching, the
-launch counters, the build's naming, and chip_smoke.py's refusal to run
-without a card or without the package beside it."""
+launch counters, the build's naming, chip_smoke.py's refusal to run
+without a card or without the package beside it, and the bf16 launch plan
+of the noisy-linear tensor-core kernels."""
+import math
 import os
 import re
 import shutil
@@ -24,7 +26,9 @@ from rainbow_tpu_torch.kernels.append_framestack import append_framestack
 from rainbow_tpu_torch.kernels import dueling_head as kb
 from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
 from rainbow_tpu_torch.kernels import noise as k2
-from rainbow_tpu_torch.kernels.noisy_linear import (noisy_linear_bwd,
+from rainbow_tpu_torch.kernels.noisy_linear import (FWD_TILES, KT, WAVE,
+                                                    bwd_plan, fwd_plan,
+                                                    noisy_linear_bwd,
                                                     noisy_linear_fwd)
 from rainbow_tpu_torch.models.noisy import init_noisy_params, noisy_linear
 from rainbow_tpu_torch.ops.c51 import c51_target, head_loss, support_vector
@@ -276,3 +280,65 @@ def test_chip_smoke_refuses_to_run_alone(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+# The bf16 plan of the noisy-linear kernels (tensor cores) at one row,
+# evaluation's 10, the learner's 32, the validation chunks' 250, the
+# throughput preset's learner's 256, the actor's 1024 and the round's 8192
+# target rows; on fc_h, both fc_z of pong, the data-efficient net's fc_h
+# and a layer ragged against every tile edge.
+BF16_LAYERS = [(3136, 512), (512, 51), (512, 306), (576, 256), (3137, 513)]
+# fc_h's (path, tile, chunk, splits) at each batch: the small path until
+# its 64-output tiles fill a wave, split-K to fill one; no chunk is capped,
+# since the small path streams x through its ring too (float32 caps them
+# at CHUNK_MAX = 256: 13 chunks at B = 250).
+BF16_FC_H = {1: ("small", 16, 192, 17), 10: ("small", 16, 192, 17),
+             32: ("small", 32, 192, 17), 250: ("small", 32, 1056, 3),
+             256: ("small", 32, 1056, 3), 1024: ("large", 128, 784, 4),
+             8192: ("large", 128, 3136, 1)}
+
+
+def _k16_chunks(chunks, n, splits):
+    """The chunks cover [0, n) once, in order, none empty, all but the last
+    a whole number of the MMA's k (16)."""
+    assert len(chunks) == splits
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(e > s for s, e in chunks)
+    assert all((e - s) % 16 == 0 for s, e in chunks[:-1])
+
+
+@pytest.mark.parametrize("b", sorted(BF16_FC_H))
+def test_bf16_noisy_linear_plan(b):
+    """Path and tile as intended, tiles covering ragged B and OUT, chunks of
+    whole k16 steps covering IN (forward) and OUT (backward's dx), blocks
+    and the partials' scratch (one plane per accumulator and chunk) from
+    them."""
+    assert KT == 16
+    path, tile, chunk, splits = BF16_FC_H[b]
+    plan = fwd_plan(b, 3136, 512, 1, torch.bfloat16)
+    assert (plan.path, plan.tile, plan.chunk, plan.splits) == (
+        path, tile, chunk, splits)
+    for n_in, n_out in BF16_LAYERS:
+        for mode in (0, 1, 2):
+            planes = 2 if mode else 1
+            plan = fwd_plan(b, n_in, n_out, mode, torch.bfloat16)
+            rows, cols = FWD_TILES[plan.tile]
+            small = (math.ceil(b / (16 if b <= 16 else 32))
+                     * math.ceil(n_out / 64) < WAVE)
+            assert plan.path == ("small" if small else "large")
+            assert plan.tile == (128 if not small else 16 if b <= 16 else 32)
+            assert (rows, cols) == ((plan.tile, 64) if small else (128, 128))
+            grid = (math.ceil(b / rows), math.ceil(n_out / cols))
+            assert (grid[0] - 1) * rows < b <= grid[0] * rows
+            assert (grid[1] - 1) * cols < n_out <= grid[1] * cols
+            assert plan.blocks == grid[0] * grid[1] * plan.splits
+            _k16_chunks(plan.chunks(n_in), n_in, plan.splits)
+            assert plan.scratch == (planes * plan.splits * b * n_out
+                                    if plan.splits > 1 else 0)
+            if plan.path == "large":  # whole waves: a block an SM
+                assert plan.blocks <= WAVE or plan.splits == 1
+            bwd = bwd_plan(b, n_in, n_out, mode)
+            _k16_chunks(bwd.chunks(n_out), n_out, bwd.splits)
+            assert bwd.scratch == (planes * bwd.splits * b * n_in
+                                   if bwd.splits > 1 else 0)

@@ -7,7 +7,11 @@ noisy_linear_plain / noisy_linear_bwd_plain and the JAX package's
 noisy_linear and its gradient, on the same numpy inputs.
 
 Tolerance: float32 on every side, differing only in the order of sums of
-up to a few hundred O(1) terms, so 1e-5 absolute and relative.
+up to a few hundred O(1) terms, so 1e-5 absolute and relative. The bf16
+plan's split, with the tensor-core kernels' rounding (operands rounded as
+the JAX package casts them, fp32 sums, one rounding at the end), against
+the plain version and the JAX package in bf16, which round after every op:
+a few bf16 ulps of O(1) values, the card tests' (6e-2, 3e-2).
 """
 import jax
 import jax.numpy as jnp
@@ -181,3 +185,50 @@ def test_split_dx_matches_plain_and_jax(mode):
         want = np.array(vjp(jnp.asarray(g))[0])
         torch.testing.assert_close(got, plain[0], **F32)
         torch.testing.assert_close(got, torch.from_numpy(want), **F32)
+
+
+def _bf16_split_fwd(w, x, eps, plan):
+    """The bf16 forward as the tensor-core kernels compute it: the weights,
+    eps and biases rounded to bf16, x * eps_in rounded once; per chunk fp32
+    partial sums of the exact bf16 products, added in chunk order; the
+    epilogue in fp32 and one rounding to bf16."""
+    r = lambda t: t.to(torch.bfloat16).float()
+    xf = x.float()
+    wm, ws = r(w["weight_mu"]), r(w["weight_sigma"])
+    xe = None if eps is None else r(xf * r(eps[0]))
+    mu = sig = 0.0
+    for s, e in plan.chunks(x.shape[1]):
+        mu = mu + xf[:, s:e] @ wm[:, s:e].T
+        if eps is not None:
+            sig = sig + xe[:, s:e] @ ws[:, s:e].T
+    y = mu + r(w["bias_mu"])
+    if eps is not None:
+        eo = r(eps[1])
+        y = y + sig * eo + r(w["bias_sigma"]) * eo
+    return y.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bf16_split_forward_matches_plain_and_jax(mode):
+    """The bf16 plan splits these shapes on its small path (tiles 16 and
+    32) and its large path; its chunk-ordered sums match
+    noisy_linear_plain and the JAX package's noisy_linear in bf16."""
+    rng = np.random.default_rng(20 + mode)
+    bf16 = dict(atol=6e-2, rtol=3e-2)
+    for b, n_in, n_out in SPLIT_SHAPES:
+        plan = fwd_plan(b, n_in, n_out, mode, torch.bfloat16)
+        assert plan.splits > 1
+        j, x, eps = _inputs(rng, b, n_in, n_out, mode)
+        w = {"weight_mu": j["w_mu"], "weight_sigma": j["w_sigma"],
+             "bias_mu": j["b_mu"], "bias_sigma": j["b_sigma"]}
+        w = {k: torch.from_numpy(v) for k, v in w.items()}
+        teps = None if eps is None else tuple(map(torch.from_numpy, eps))
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        got = _bf16_split_fwd(w, xb, teps, plan).float()
+        plain = noisy_linear_plain(w, xb, teps).float()
+        want = jnoisy.noisy_linear(
+            {k: jnp.asarray(v) for k, v in j.items()},
+            jnp.asarray(x).astype(jnp.bfloat16), None, eps=eps)
+        torch.testing.assert_close(got, plain, **bf16)
+        torch.testing.assert_close(
+            got, torch.from_numpy(np.array(want.astype(jnp.float32))), **bf16)
