@@ -40,7 +40,8 @@ exit code:
             net's 576 -> 256 -> 6·51 layers and its batches (16 envs, 32,
             512 target rows, 10 and 250), KA and the C51 kernels at the
             throughput preset's batch 256, K9 over the data-efficient
-            params, K2 at their rounds' draws, KC at N = 16, and K5-K7 on the
+            params (at either net each tensor of its own and every kind
+            as views of one flat buffer), K2 at their rounds' draws, KC at N = 16, and K5-K7 on the
             data-efficient preset's whole 16 x 6,250 ring at its round
             (16 x 32, n = 20), bit-exact, a second launch equal.
 3. update   one learner update (compute_update_pretarget + apply_grads) and
@@ -117,7 +118,8 @@ exit code:
             B = 1; KC at N = 1024 with the Trainer's last K, and at
             N = 10 without a replay, K5 and K7 at B = 8192 and 32, K6 at
             the round, K10 at the last real delta beside its sector floor,
-            K9 beside clip_grad_norm_ + fused Adam, the same way); one
+            K9 beside clip_grad_norm_ + fused Adam with its two launches
+            apart, the same way); one
             JSON line, with each kernel's launches in the main Trainer
             (``launches``) and in the distributed phase
             (``distributed_launches``) among others; then a row for every
@@ -126,8 +128,10 @@ exit code:
             Trainer's, ``launches_at_shape`` at the row's shape). KA's rows
             name the CUDA kernels a call launches (``kernels``).
 
---time-ka TREE LABEL times only KA's rows with the package of TREE, for
-an A/B of KA against another commit in one call.
+--time-rows {ka,adam,gather} TREE LABEL times only one kernel's rows (KA's,
+K9's at its three nets, K6's at its three rounds) with the package of
+TREE, for an A/B of the kernel against another commit in one call; K9's
+and K6's rows carry the SHA-256 of their outputs on inputs from a seed.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
 beside it, the script exits nonzero and prints no result. Every log line
@@ -136,6 +140,7 @@ is also kept in chiprun_out/chip_smoke/log.txt, with the longer logs.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -148,6 +153,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 GAME, ENVS, SEED = "pong", 1024, 0
+PONG_ACTIONS = 6  # the native engine's pong; --time-rows builds no engine
 ACTOR_ITERS = 200
 EVAL_FRAMES = 4000  # max_episode_length of the evaluation episodes
 WARMUP_ITERS = 32   # train phase: actor iterations that fill the ring
@@ -188,12 +194,19 @@ def parse_args():
                    "iteration of 64 updates with torch.profiler "
                    "into chiprun_out/chip_smoke/")
     # One rank of the [distributed] phase, which starts two of them.
-    p.add_argument("--time-ka", nargs=2, metavar=("TREE", "LABEL"),
-                   help="only time KA's rows (KA_ROWS, float32 and bf16) "
-                   "with the rainbow_tpu_torch of TREE (e.g. an unpacked "
-                   "archive of another commit) into chiprun_out/chip_smoke/"
-                   "ka_times_LABEL.json; run for two trees in turns (A, B, "
-                   "B, A) to compare them on one card")
+    p.add_argument("--time-rows", nargs=3,
+                   metavar=("{" + ",".join(TIME_ROWS) + "}", "TREE", "LABEL"),
+                   help="only time one kernel's rows (ka: KA_ROWS in "
+                   "float32 and bf16; adam: K9 at the canonical net with a "
+                   "float32 and a bf16 mu, at the data-efficient net and at "
+                   "the canonical net with its grads as views of one flat "
+                   "buffer; "
+                   "gather: K6 at windows of 7 (256 x 32 and 32 x 256) and "
+                   "24 (16 x 32)) with the rainbow_tpu_torch of TREE (e.g. "
+                   "an unpacked archive of another commit) into chiprun_out/"
+                   "chip_smoke/KIND_times_LABEL.json, K9's and K6's with the "
+                   "SHA-256 of their outputs; run for two trees in turns (A, "
+                   "B, B, A) to compare them on one card")
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--work", default=None, help=argparse.SUPPRESS)
@@ -779,68 +792,89 @@ def compare_c51(torch, A, cfgs, report):
     return err_t, err_l
 
 
+def _views(torch, shapes, dtype, layout):
+    """Zero tensors of ``shapes``: one each, or (``layout`` "flat") views
+    of one flat buffer at the running offsets, as the data-parallel round
+    hands K9 its gradients."""
+    if layout != "flat":
+        return [torch.zeros(s, dtype=dtype, device="cuda") for s in shapes]
+    flat = torch.zeros(sum(math.prod(s) for s in shapes), dtype=dtype,
+                       device="cuda")
+    out, at = [], 0
+    for s in shapes:
+        out.append(flat[at:at + math.prod(s)].view(s))
+        at += math.prod(s)
+    return out
+
+
 def compare_adam(torch, shapes, report):
     """K9 against apply_grads_plain over a net's tensors (``shapes``), 3
-    steps from zero moments, with the global norm below and above the clip
-    and with float32 and bfloat16 mu; a second kernel run must give the same
-    bits. Returns the largest param error."""
+    steps from zero moments, with the global norm below and above the clip,
+    with float32 and bfloat16 mu, each tensor of its own and every kind as
+    views of one flat buffer (offsets that are not multiples of four, where
+    the kernel takes scalar accesses); a second kernel run must give the
+    same bits. Returns the largest param error."""
     from rainbow_tpu_torch.agent import apply_grads_plain
     from rainbow_tpu_torch.kernels.adam import clip_adam
 
     g = torch.Generator(device="cuda").manual_seed(13)
     worst = 0.0
     n = sum(math.prod(x) for x in shapes)
-    for mdt in (torch.float32, torch.bfloat16):
-        # Gradients of a global norm about 0.26 and 26 (the clip is 10),
-        # whatever the count of params.
-        for clip, scale in (("below", 0.26 / math.sqrt(n)),
-                            ("above", 26 / math.sqrt(n))):
-            runs = {}
-            for run in ("kernel", "plain", "again"):
-                gp = torch.Generator(device="cuda").manual_seed(14)
-                runs[run] = (
-                    [torch.randn(s, generator=gp, device="cuda") * 0.05
-                     for s in shapes],
-                    [torch.zeros(s, dtype=mdt, device="cuda") for s in shapes],
-                    [torch.zeros(s, device="cuda") for s in shapes],
-                    torch.zeros((), dtype=torch.int32, device="cuda"))
-            for _ in range(3):
-                grads = [torch.randn(s, generator=g, device="cuda") * scale
-                         for s in shapes]
-                norm = float(torch.sqrt(sum((x * x).sum() for x in grads)))
-                check((norm < 10) == (clip == "below"),
-                      f"clip_adam: norm {norm} not {clip} the clip")
-                for run, fn in (("kernel", clip_adam),
-                                ("plain", apply_grads_plain),
-                                ("again", clip_adam)):
-                    params, mu, nu, count = runs[run]
-                    fn(params, grads, mu, nu, count, 6.25e-5, 0.9, 0.999,
-                       1.5e-4, 10.0)
-            tag = f"clip_adam {n} params {clip} mu {mdt}"
-            kp, kmu, knu, kc = runs["kernel"]
-            pp_, pmu, pnu, pc = runs["plain"]
-            check(int(kc) == int(pc) == 3, tag + ": count")
-            # The same float32 ops but for the global norm's sum order: a
-            # few ulps in the clip scale. Params of order 0.05 move by lr
-            # per step: 1e-7. nu to 1e-5 relative. mu crosses zero: 1e-6
-            # of its tensor's largest value, or one bf16 ulp of it. A bf16
-            # mu that rounds one ulp apart moves that step's update by up
-            # to 2^-7 of lr, and carries into the later steps: 3·lr·2^-7.
-            p_tol = 1e-7 if mdt == torch.float32 else 3 * 6.25e-5 * 2 ** -7
-            err = max(check_close(tag + " param", x, y, p_tol, 0)
-                      for x, y in zip(kp, pp_))
-            for x, y in zip(knu, pnu):
-                check_close(tag + " nu", x, y, 0, 1e-5)
-            share = 1e-6 if mdt == torch.float32 else 2 ** -8
-            for x, y in zip(kmu, pmu):
-                check(x.dtype == mdt, tag + ": mu dtype")
-                check_close(tag + " mu", x.float(), y.float(),
-                            float(y.float().abs().max()) * share, 0)
-            for a, b in zip(runs["kernel"][:3], runs["again"][:3]):
-                check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                      tag + ": two runs differ")
-            report.append(("clip_adam", n, clip, str(mdt), err))
-            worst = max(worst, err)
+    # Gradients of a global norm about 0.26 and 26 (the clip is 10),
+    # whatever the count of params.
+    for mdt, layout, (clip, scale) in itertools.product(
+            (torch.float32, torch.bfloat16), ("separate", "flat"),
+            (("below", 0.26 / math.sqrt(n)), ("above", 26 / math.sqrt(n)))):
+        runs = {}
+        for run in ("kernel", "plain", "again"):
+            gp = torch.Generator(device="cuda").manual_seed(14)
+            params = _views(torch, shapes, torch.float32, layout)
+            for t in params:
+                t.copy_(torch.randn(t.shape, generator=gp,
+                                    device="cuda") * 0.05)
+            runs[run] = (
+                params, _views(torch, shapes, mdt, layout),
+                _views(torch, shapes, torch.float32, layout),
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+        for _ in range(3):
+            grads = _views(torch, shapes, torch.float32, layout)
+            for t in grads:
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                        * scale)
+            norm = float(torch.sqrt(sum((x * x).sum() for x in grads)))
+            check((norm < 10) == (clip == "below"),
+                  f"clip_adam: norm {norm} not {clip} the clip")
+            for run, fn in (("kernel", clip_adam),
+                            ("plain", apply_grads_plain),
+                            ("again", clip_adam)):
+                params, mu, nu, count = runs[run]
+                fn(params, grads, mu, nu, count, 6.25e-5, 0.9, 0.999,
+                   1.5e-4, 10.0)
+        tag = f"clip_adam {n} params {clip} mu {mdt} {layout}"
+        kp, kmu, knu, kc = runs["kernel"]
+        pp_, pmu, pnu, pc = runs["plain"]
+        check(int(kc) == int(pc) == 3, tag + ": count")
+        # The same float32 ops but for the global norm's sum order: a
+        # few ulps in the clip scale. Params of order 0.05 move by lr
+        # per step: 1e-7. nu to 1e-5 relative. mu crosses zero: 1e-6
+        # of its tensor's largest value, or one bf16 ulp of it. A bf16
+        # mu that rounds one ulp apart moves that step's update by up
+        # to 2^-7 of lr, and carries into the later steps: 3·lr·2^-7.
+        p_tol = 1e-7 if mdt == torch.float32 else 3 * 6.25e-5 * 2 ** -7
+        err = max(check_close(tag + " param", x, y, p_tol, 0)
+                  for x, y in zip(kp, pp_))
+        for x, y in zip(knu, pnu):
+            check_close(tag + " nu", x, y, 0, 1e-5)
+        share = 1e-6 if mdt == torch.float32 else 2 ** -8
+        for x, y in zip(kmu, pmu):
+            check(x.dtype == mdt, tag + ": mu dtype")
+            check_close(tag + " mu", x.float(), y.float(),
+                        float(y.float().abs().max()) * share, 0)
+        for a, b in zip(runs["kernel"][:3], runs["again"][:3]):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  tag + ": two runs differ")
+        report.append(("clip_adam", n, clip, str(mdt), layout, err))
+        worst = max(worst, err)
     return worst
 
 
@@ -3706,20 +3740,23 @@ def delta_times(torch, stack, offsets, pos, val):
 ADAM_HYPER = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)  # lr, b1, b2, eps, clip
 
 
-def _adam_inputs(torch, shapes, mu_dtype=None):
+def _adam_inputs(torch, shapes, mu_dtype=None, layout="separate"):
     """Params, grads, zero moments with a float32 mu (or ``mu_dtype``) and
-    Adam's count for a net's ``shapes``, from a seed."""
+    Adam's count for a net's ``shapes``, from a seed; with ``layout``
+    "flat" the grads are views of one flat buffer, as the data-parallel
+    round hands them to K9."""
     gp = torch.Generator(device="cuda").manual_seed(19)
     p = [torch.randn(s, generator=gp, device="cuda") * 0.05 for s in shapes]
-    grads = [torch.randn(s, generator=gp, device="cuda") * 1e-3
-             for s in shapes]
+    grads = _views(torch, shapes, torch.float32, layout)
+    for t in grads:
+        t.copy_(torch.randn(t.shape, generator=gp, device="cuda") * 1e-3)
     mu = [torch.zeros(s, dtype=mu_dtype, device="cuda") for s in shapes]
     nu = [torch.zeros(s, device="cuda") for s in shapes]
     return p, grads, mu, nu, torch.zeros((), dtype=torch.int32,
                                          device="cuda")
 
 
-def adam_times(torch, shapes, mu_dtype=None):
+def adam_times(torch, shapes, mu_dtype=None, layout="separate"):
     """K9's times over a net's ``shapes`` with a float32 mu (or
     ``mu_dtype``) through the wrapper of the rainbow_tpu_torch that is
     imported, and the library's (clip_grad_norm_ with foreach, then a fused
@@ -3728,7 +3765,7 @@ def adam_times(torch, shapes, mu_dtype=None):
     "library": {...}}."""
     from rainbow_tpu_torch.kernels.adam import clip_adam
 
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype)
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype, layout)
     leaves = [torch.nn.Parameter(t.clone()) for t in p]
     for t, gr in zip(leaves, grads):
         t.grad = gr.clone()
@@ -3886,7 +3923,7 @@ def ka_kernels(direction, dt, plan):
 def _plan(fn, *args):
     """fn(*args) with the dtype last, or without it for a plan function
     that takes none (a tree from before bf16 had a plan of its own: for an
-    A/B with --time-ka)."""
+    A/B with --time-rows ka)."""
     import inspect
 
     if "dtype" in inspect.signature(fn).parameters:
@@ -4008,23 +4045,36 @@ def ka_rows(torch, cases=KA_ROWS):
     return rows
 
 
-def adam_row(torch, shapes, timed, mu_dtype=None):
+def adam_row(torch, shapes, timed, mu_dtype=None, layout="separate"):
     """The row of clip + Adam over a net's ``shapes`` with a float32 mu (or
     ``mu_dtype``), from ``timed`` (two adam_times of this run: CUDA graphs,
     cold and warm, the library's beside it)."""
     from rainbow_tpu_torch.agent import apply_grads_plain
+    from rainbow_tpu_torch.kernels.adam import clip_adam
 
     n = sum(torch.Size(s).numel() for s in shapes)
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype)
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype, layout)
     mdt = _dt(mu[0])
     lib = timed[0]["library"]
+    # The profiler's device time of each of the call's two launches (the
+    # norm's pass and the update's; adam_kernel before the update pass had
+    # its name), per call, cold.
+    split = {}
+    for name, us in _kernel_us(torch, lambda: clip_adam(
+            p, grads, mu, nu, count, *ADAM_HYPER), 20,
+            l2_flush(torch)).items():
+        for kernel in ("sumsq_kernel", "update_kernel", "adam_kernel"):
+            if kernel in name:
+                split[kernel] = split.get(kernel, 0.0) + us / 20 / 1e3
     return dict(
         name="clip_adam", route="cuda",
         source="rainbow_tpu_torch/kernels/csrc/adam.cu",
         replaces="rainbow_tpu/agent.py:212",
-        shape=f"{n} params in {len(shapes)} tensors, {mdt} mu",
+        shape=f"{n} params in {len(shapes)} tensors, {mdt} mu"
+        + (", grads as views of one flat buffer" if layout == "flat" else ""),
         tally_key=f"clip_adam {n} params mu {mdt}",
         **timed[0]["clip_adam"], again=timed[1]["clip_adam"],
+        profiler_device_ms_by_launch=split,
         plain_ms=time_ms(torch, lambda: apply_grads_plain(
             p, grads, mu, nu, count, *ADAM_HYPER)),
         library_ms=lib["ms"], library_ms_warm=lib["ms_warm"],
@@ -4040,35 +4090,151 @@ def adam_row(torch, shapes, timed, mu_dtype=None):
 
 # ---------------------------------------------------------------- main -----
 
-def time_ka(tree, label) -> int:
-    """--time-ka: ka_rows at KA_ROWS in float32 and bf16 with the package
-    of ``tree``, device times from CUDA graphs (cold and warm) beside the
-    library calls', into OUT_DIR/ka_times_<label>.json."""
+def _sha256(torch, tensors):
+    """The SHA-256 of the bits of ``tensors``, one after another."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).cpu().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def adam_digests(torch, shapes, mu_dtype=None, layout="separate"):
+    """SHA-256 of what K9 leaves (params, mu and nu, each list's tensors in
+    order, and count) after three steps through the imported wrapper from
+    _adam_inputs, with gradients from a seed of global norm about 0.26, 26
+    and 0.26: below, above and below the clip."""
+    from rainbow_tpu_torch.kernels.adam import clip_adam
+
+    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype, layout)
+    n = sum(math.prod(s) for s in shapes)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    for norm in (0.26, 26.0, 0.26):
+        for t in grads:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                    * (norm / math.sqrt(n)))
+        clip_adam(p, grads, mu, nu, count, *ADAM_HYPER)
+    torch.cuda.synchronize()
+    return {name: _sha256(torch, ts)
+            for name, ts in (("params", p), ("mu", mu), ("nu", nu),
+                             ("count", [count]))}
+
+
+def gather_digests(torch, rep, nb, bs, n, seed):
+    """SHA-256 of every output of K6 (each field and the whole window) for
+    ``nb`` batches of ``bs`` draws with n-step ``n`` on the ring ``rep``,
+    through the imported wrappers, from uniforms of ``seed`` (K5 draws
+    them, bit for bit its plain version)."""
+    from rainbow_tpu_torch.kernels import replay as k_replay
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand(nb * bs, generator=g, device="cuda")
+    idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
+    out = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)
+    torch.cuda.synchronize()
+    digests = {k: _sha256(torch, [v]) for k, v in sorted(out.items())
+               if k not in ("states", "next_states")}
+    digests["window"] = _sha256(torch, [out["states"]._base])
+    return digests
+
+
+def adam_ab_rows(torch, cfg, presets, A):
+    """K9's rows (adam_row, timed twice by adam_times) at the canonical net
+    with a float32 and a bf16 mu, at the data-efficient net, and at the
+    canonical net with its grads as views of one flat buffer (the
+    data-parallel round's), each with adam_digests."""
+    rows = []
+    for phase, c, mdt, layout in (
+            (None, cfg, None, "separate"),
+            ("bf16", presets["bf16"], torch.bfloat16, "separate"),
+            ("data-efficient", presets["data-efficient"], None, "separate"),
+            ("data-parallel", cfg, None, "flat")):
+        shapes = param_shapes(c, A)
+        timed = [adam_times(torch, shapes, mdt, layout) for _ in range(2)]
+        rows.append(dict(adam_row(torch, shapes, timed, mdt, layout),
+                         phase=phase,
+                         digests=adam_digests(torch, shapes, mdt, layout)))
+    return rows
+
+
+def gather_ab_rows(torch, cfg, presets):
+    """K6's rows (replay_kernel_rows, timed twice by replay_times) at the
+    canonical round (256 x 32, window 7) and the throughput preset's (32 x
+    256) on the canonical ring, and at the data-efficient preset's (16 x
+    32, window 24) on its whole ring, random rings as compare_replay and
+    compare_preset_replay make them, each with gather_digests."""
+    rows = []
+    de, tp = presets["data-efficient"], presets["throughput"]
+    for ring_cfg, e, seed, runs in (
+            (cfg, ENVS, 20, ((None, cfg), ("throughput", tp))),
+            (de, de.num_envs, 24, (("data-efficient", de),))):
+        rep, g = _replay_on_card(torch, e, ring_cfg.capacity_per_env, seed)
+        rep.index.fill_(500)
+        rep.full.fill_(True)
+        for phase, c in runs:
+            nb, bs = e // c.replay_frequency, c.batch_size
+            timed = [replay_times(torch, c, rep, g, ("gather_window",),
+                                  seq=False) for _ in range(2)]
+            row, = replay_kernel_rows(torch, rep, g, nb, bs, c.multi_step,
+                                      timed, ("gather_window",), seq=False)
+            rows.append(dict(row, phase=phase, digests=gather_digests(
+                torch, rep, nb, bs, c.multi_step, seed + 1)))
+        del rep
+        torch.cuda.empty_cache()
+    return rows
+
+
+TIME_ROWS = ("ka", "adam", "gather")
+
+
+def time_rows(kind, tree, label) -> int:
+    """--time-rows: one kernel's rows with the package of ``tree``, into
+    OUT_DIR/<kind>_times_<label>.json: ``ka`` ka_rows at KA_ROWS in float32
+    and bf16; ``adam`` adam_ab_rows; ``gather`` gather_ab_rows. Device
+    times from CUDA graphs (cold and warm) beside the library calls', where
+    there are any; K9's and K6's rows also hold the SHA-256 of their
+    outputs on inputs from a seed."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    check(kind in TIME_ROWS, f"--time-rows: {kind} is not one of {TIME_ROWS}")
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import rainbow_tpu_torch
     check(rainbow_tpu_torch.__file__.startswith(tree),
-          f"--time-ka: imported {rainbow_tpu_torch.__file__}, not {tree}'s")
+          f"--time-rows: imported {rainbow_tpu_torch.__file__}, not {tree}'s")
+    from rainbow_tpu_torch import canonical
+    from rainbow_tpu_torch.cli import parse_config
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
-    bf16 = tuple(c[:5] + ("bf16",) + c[6:] for c in KA_ROWS)
-    rows = ka_rows(torch, KA_ROWS + bf16)
+    cfg = canonical(game=GAME, num_envs=ENVS, seed=SEED)
+    presets = {lbl: parse_config(flags)[0] for lbl, flags in PRESET_RUNS}
+    if kind == "ka":
+        bf16 = tuple(c[:5] + ("bf16",) + c[6:] for c in KA_ROWS)
+        rows = ka_rows(torch, KA_ROWS + bf16)
+        for r in rows:
+            r.pop("kernels")  # this script's names, not necessarily the tree's
+    elif kind == "adam":
+        rows = adam_ab_rows(torch, cfg, presets, PONG_ACTIONS)
+    else:
+        rows = gather_ab_rows(torch, cfg, presets)
     for r in rows:
-        r.pop("kernels")  # this script's names, not necessarily the tree's
+        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
+                                  r["flops"] / FLOP_PER_S[
+                                      r.get("flop_dtype", "fp32")])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    out = dict(tree=tree, label=label, card=smi, rows=rows)
-    with open(os.path.join(OUT_DIR, f"ka_times_{label}.json"), "w") as f:
+    out = dict(tree=tree, label=label, kind=kind, card=smi, rows=rows)
+    with open(os.path.join(OUT_DIR, f"{kind}_times_{label}.json"), "w") as f:
         json.dump(out, f, indent=1)
-    log(f"[ka times {label}] {smi} " + json.dumps(
+    log(f"[{kind} times {label}] {smi} " + json.dumps(
         {f'{r["name"]} {r["shape"]}': [r["device_ms"], r["device_ms_warm"],
-                                       r["library_device_ms"]]
+                                       r.get("library_device_ms")]
          for r in rows}))
     return 0
 
@@ -4077,8 +4243,8 @@ def main() -> int:
     args = parse_args()
     if args.rank is not None:
         return distributed_rank(args)
-    if args.time_ka:
-        return time_ka(*args.time_ka)
+    if args.time_rows:
+        return time_rows(*args.time_rows)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "

@@ -21,7 +21,13 @@
 // history 4 + n-step 3 = a window of 7 frames of 7056 bytes):
 //   K5 reads the priorities once (4 MB): 1.2 us at 3.35 TB/s, below the
 //      floor of its two launches (about 2.5 us each).
-//   K6 reads and writes 8192 x 7 frames: 2 x 405 MB, 0.24 ms. Bound by bytes.
+//   K6 writes 8192 x 7 frames (405 MB) and reads each distinct frame the
+//      round's windows show unblanked once (about 302 MB for 42,742 frames
+//      in a random ring), with a few scalars a draw: 0.21 ms. At the
+//      data-efficient round (16 x 6,250 columns, 16 batches x 32 draws, n-step
+//      20: a window of 24 frames) it writes 512 x 24 frames (86.7 MB) and
+//      reads about 29 MB of distinct unblanked frames: 0.035 ms. Bound by
+//      bytes; chip_smoke.py counts the frames of each run's own draws.
 //   K7 moves about 130 KB at the round (0.04 us): bound by launch latency
 //      and one dependent round trip.
 //
@@ -60,15 +66,23 @@
 //       D = 20. Each step rebuilds the four levels in between by the same
 //       shuffles and descends them with broadcasts of the left sums. The
 //       first step's sum is the total.
-//   K6: two launches. (1) One block per batch: its threads take the batch's
-//       rows, find each row's window and episode-blanking mask from
-//       `timesteps == 0`, write the row's scalar fields and unnormalised IS
-//       weight, reduce the batch max in shared memory and normalise. (2) One
-//       warp per frame of the window copies 7056 bytes as 441 16-byte
-//       vectors, or writes zeros where the frame is blanked. The frame copy
-//       is split by frame, not by batch: a block per batch would leave 32
-//       blocks on 132 SMs for the throughput preset (32 batches of 256).
-//       Draw j goes to batch j % nb, row j / nb (prioritized.py:270-273).
+//   K6: one launch of two kinds of block, 8 warps each. (1) Blocks 0 ..
+//       nb-1, one a batch, a warp a row: lane t loads the timestep of the
+//       window's frame t (and t + 32), a ballot gives the row's episode
+//       starts and so its blanking mask; the lanes load the n rewards at
+//       once and every lane sums the n-step return in the order s = 0 ..
+//       n-1 from shuffles, with the fmaf and powf a loop in one thread
+//       would use; lane 0 writes the row's scalar fields and unnormalised
+//       IS weight; the block reduces the batch max in shared memory and
+//       normalises. (2) The other blocks copy: one warp a frame of the
+//       window derives its row's window column and blanking mask itself
+//       (a load of idx, one of timesteps a lane, a ballot), so the copy
+//       waits for no field block, and copies 7056 bytes as 441 16-byte
+//       vectors, 4 loads a lane in flight before their stores, or writes
+//       zeros where the frame is blanked. The frame copy is split by frame,
+//       not by batch: a block per batch would leave 32 blocks on 132 SMs
+//       for the throughput preset (32 batches of 256). Draw j goes to
+//       batch j % nb, row j / nb (prioritized.py:270-273).
 //   K7: a grid over the draws, one thread a draw, WRITE_THREADS a block.
 //       Thread q takes element q of the (nb, bs) batch-order inputs, so a
 //       warp's loads of idxs and losses are contiguous, and derives its
@@ -98,8 +112,8 @@ constexpr int MAX_STORED = 4;        // heights 5, 10, 15, 20
 constexpr int TOP_NODES = 16;        // height-15 nodes a warp of the build's
                                      // last block sums: 8 x 16 = 2^22 >> 15
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int FIELD_THREADS = 128;
-constexpr int COPY_WARPS = 8;
+constexpr int GATHER_WARPS = 8;     // K6: warps a block, of either kind
+constexpr int COPY_UNROLL = 4;      // K6: 16-byte loads a lane in flight
 constexpr int WRITE_THREADS = 256;  // K7: one draw a thread
 constexpr int NAN_WORD = 0x7fc00000;  // the positive quiet NaN
 
@@ -299,75 +313,115 @@ __global__ void __launch_bounds__(DESCEND_WARPS * 32) descend_kernel(
 
 // ---------------------------------------------------------------- K6 -----
 
-__global__ void __launch_bounds__(FIELD_THREADS) gather_fields_kernel(
+// The episode-blanking mask of a row's window (prioritized.py::_blank_masks)
+// from its `timesteps == 0` bits: frames before an episode start, then
+// frames after a terminal. Warp-uniform.
+__device__ __forceinline__ uint64_t blank_mask(uint64_t firsts, int history,
+                                               int w) {
+  uint64_t blank = 0;
+  for (int t = history - 2; t >= 0; --t)
+    if (((blank | firsts) >> (t + 1)) & 1ull) blank |= 1ull << t;
+  for (int t = history; t < w; ++t)
+    if (((blank >> (t - 1)) | (firsts >> t)) & 1ull) blank |= 1ull << t;
+  return blank;
+}
+
+// The blanking mask of the window of ring position i in the row at `row`,
+// by the whole warp: lane t loads the timestep of frame t (and t + 32), a
+// ballot gathers `timesteps == 0`.
+__device__ __forceinline__ uint64_t window_blank(
+    const int32_t* __restrict__ timesteps, size_t row, int i, int C,
+    int history, int w, int lane) {
+  uint64_t firsts = 0;
+  for (int half = 0; half < w; half += 32) {
+    const int t = half + lane;
+    bool first = false;
+    if (t < w) {
+      const int col = wrap(static_cast<long long>(i) + t - history + 1, C);
+      first = timesteps[row + col] == 0;
+    }
+    firsts |= static_cast<uint64_t>(__ballot_sync(FULL, first)) << half;
+  }
+  return blank_mask(firsts, history, w);
+}
+
+// Block k < nb of the launch: batch k's scalar fields, one warp a row (rows
+// warp, warp + GATHER_WARPS, ...). The n-step return is summed by every
+// lane in the order s = 0 .. n-1 from shuffles of the lanes' rewards and
+// discount powers, with the same fmaf and powf as a loop over s in one
+// thread; the batch max of the IS weights goes through shared memory, then
+// the block normalises its rows.
+__device__ void gather_fields(
     const int64_t* __restrict__ idx, const float* __restrict__ p,
     const float* __restrict__ total_ptr, const int32_t* __restrict__ actions,
     const float* __restrict__ rewards, const int32_t* __restrict__ timesteps,
     const uint8_t* __restrict__ nonterminal, const int32_t* __restrict__ index,
     const uint8_t* __restrict__ full, int E, int C, int history, int n_step,
-    float discount, float beta, int nb, int bs, int64_t* __restrict__ o_idx,
-    int32_t* __restrict__ o_actions, float* __restrict__ o_returns,
-    float* __restrict__ o_nonterminals, float* __restrict__ o_weights,
-    float* __restrict__ o_wmax, uint64_t* __restrict__ o_blank) {
-  __shared__ float s_max[FIELD_THREADS];
-  const int k = blockIdx.x;  // batch
+    float discount, float beta, int nb, int bs, int k,
+    int64_t* __restrict__ o_idx, int32_t* __restrict__ o_actions,
+    float* __restrict__ o_returns, float* __restrict__ o_nonterminals,
+    float* __restrict__ o_weights, float* __restrict__ o_wmax) {
+  __shared__ float s_max[GATHER_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int w = history + n_step;
   const float total = *total_ptr;
   const long long stored =
       static_cast<long long>(*full ? C : *index) * static_cast<long long>(E);
   const float stored_f = static_cast<float>(stored);
   float local_max = 0.f;
-  for (int r = threadIdx.x; r < bs; r += blockDim.x) {
+  for (int r = warp; r < bs; r += GATHER_WARPS) {
     const int j = r * nb + k;  // draw j -> batch j % nb, row j / nb
     const long long q = static_cast<long long>(k) * bs + r;
     const long long flat = idx[j];
+    const float pj = p[j];
     const int e = static_cast<int>(flat / C);
     const int i = static_cast<int>(flat % C);
     const size_t row = static_cast<size_t>(e) * C;
-    uint64_t firsts = 0;
-    for (int t = 0; t < w; ++t) {
-      const int col = wrap(static_cast<long long>(i) + t - history + 1, C);
-      if (timesteps[row + col] == 0) firsts |= 1ull << t;
-    }
-    // prioritized.py::_blank_masks: frames before an episode start, then
-    // frames after a terminal.
-    uint64_t blank = 0;
-    for (int t = history - 2; t >= 0; --t)
-      if (((blank | firsts) >> (t + 1)) & 1ull) blank |= 1ull << t;
-    for (int t = history; t < w; ++t)
-      if (((blank >> (t - 1)) | (firsts >> t)) & 1ull) blank |= 1ull << t;
-    float ret = 0.f;
-    for (int s = 0; s < n_step; ++s) {
-      const int t = history - 1 + s;
-      if ((blank >> t) & 1ull) continue;
-      const int col = wrap(static_cast<long long>(i) + s, C);
-      ret = fmaf(powf(discount, static_cast<float>(s)), rewards[row + col],
-                 ret);
-    }
-    const int t_last = w - 1;
     const int col_last = wrap(static_cast<long long>(i) + n_step, C);
-    const bool nt =
-        nonterminal[row + col_last] != 0 && !((blank >> t_last) & 1ull);
-    const float pj = p[j];
-    const float probs = __fdiv_rn(pj, fmaxf(total, 1e-12f));
-    float wt = pow_scalar(__fmul_rn(stored_f, probs), -beta);
-    if (!(pj > 0.f && total > 0.f)) wt = 0.f;
-    o_idx[q] = flat;
-    o_actions[q] = actions[row + i];
-    o_returns[q] = ret;
-    o_nonterminals[q] = nt ? 1.f : 0.f;
-    o_weights[q] = wt;
-    o_blank[q] = blank;
-    local_max = fmaxf(local_max, wt);
+    int32_t action = 0;
+    uint8_t nt_stored = 0;
+    if (lane == 0) {
+      action = actions[row + i];
+      nt_stored = nonterminal[row + col_last];
+    }
+    const uint64_t blank = window_blank(timesteps, row, i, C, history, w,
+                                        lane);
+    float ret = 0.f;
+    for (int half = 0; half < n_step; half += 32) {
+      const int s_lane = half + lane;
+      float rw = 0.f, pw = 0.f;
+      if (s_lane < n_step) {
+        rw = rewards[row + wrap(static_cast<long long>(i) + s_lane, C)];
+        pw = powf(discount, static_cast<float>(s_lane));
+      }
+      const int steps = min(32, n_step - half);
+      for (int s = 0; s < steps; ++s) {
+        const float r_s = __shfl_sync(FULL, rw, s);
+        const float p_s = __shfl_sync(FULL, pw, s);
+        if (!((blank >> (history - 1 + half + s)) & 1ull))
+          ret = fmaf(p_s, r_s, ret);
+      }
+    }
+    if (lane == 0) {
+      const bool nt = nt_stored != 0 && !((blank >> (w - 1)) & 1ull);
+      const float probs = __fdiv_rn(pj, fmaxf(total, 1e-12f));
+      float wt = pow_scalar(__fmul_rn(stored_f, probs), -beta);
+      if (!(pj > 0.f && total > 0.f)) wt = 0.f;
+      o_idx[q] = flat;
+      o_actions[q] = action;
+      o_returns[q] = ret;
+      o_nonterminals[q] = nt ? 1.f : 0.f;
+      o_weights[q] = wt;
+      local_max = fmaxf(local_max, wt);
+    }
   }
-  s_max[threadIdx.x] = local_max;
-  __syncthreads();
-  for (int h = blockDim.x / 2; h >= 1; h /= 2) {
-    if (threadIdx.x < h)
-      s_max[threadIdx.x] = fmaxf(s_max[threadIdx.x], s_max[threadIdx.x + h]);
-    __syncthreads();
-  }
-  const float wmax = fmaxf(s_max[0], 1e-12f);
+  if (lane == 0) s_max[warp] = local_max;
+  __syncthreads();  // also makes the rows' o_weights visible to the block
+  float m = s_max[0];
+#pragma unroll
+  for (int v = 1; v < GATHER_WARPS; ++v) m = fmaxf(m, s_max[v]);
+  const float wmax = fmaxf(m, 1e-12f);
   for (int r = threadIdx.x; r < bs; r += blockDim.x) {
     const long long q = static_cast<long long>(k) * bs + r;
     o_weights[q] = __fdiv_rn(o_weights[q], wmax);
@@ -375,31 +429,82 @@ __global__ void __launch_bounds__(FIELD_THREADS) gather_fields_kernel(
   if (threadIdx.x == 0) o_wmax[k] = wmax;
 }
 
-__global__ void __launch_bounds__(COPY_WARPS * 32) gather_frames_kernel(
-    const uint8_t* __restrict__ frames, const int64_t* __restrict__ o_idx,
-    const uint64_t* __restrict__ o_blank, int C, int P, int history, int w,
-    long long count, int vec, uint8_t* __restrict__ window) {
+// Warp f of the copy blocks: frame t = f % w of output row q = f / w. It
+// finds the row's draw, window column and blanking bit itself (one load of
+// idx, one of the window's timesteps a lane and a ballot), so it needs
+// nothing from the field blocks, then copies the frame's P bytes or writes
+// zeros where it is blanked: 16-byte vectors, COPY_UNROLL loads a lane in
+// flight before their stores.
+__device__ void gather_frame(const uint8_t* __restrict__ frames,
+                             const int64_t* __restrict__ idx,
+                             const int32_t* __restrict__ timesteps, int C,
+                             int P, int history, int w, int nb, int bs,
+                             long long f, bool vec,
+                             uint8_t* __restrict__ window) {
   const int lane = threadIdx.x & 31;
-  const long long f =
-      static_cast<long long>(blockIdx.x) * COPY_WARPS + (threadIdx.x >> 5);
-  if (f >= count) return;
   const long long q = f / w;
   const int t = static_cast<int>(f % w);
-  const long long flat = o_idx[q];
-  const long long e = flat / C;
+  const int k = static_cast<int>(q / bs);
+  const int r = static_cast<int>(q % bs);
+  const long long flat = idx[static_cast<long long>(r) * nb + k];
+  const int e = static_cast<int>(flat / C);
   const int i = static_cast<int>(flat % C);
+  const size_t row = static_cast<size_t>(e) * C;
+  const bool blanked =
+      (window_blank(timesteps, row, i, C, history, w, lane) >> t) & 1ull;
   const int col = wrap(static_cast<long long>(i) + t - history + 1, C);
-  const uint8_t* src = frames + (e * C + col) * static_cast<long long>(P);
+  const uint8_t* src = frames + (row + col) * static_cast<size_t>(P);
   uint8_t* dst = window + f * static_cast<long long>(P);
-  const bool blanked = (o_blank[q] >> t) & 1ull;
   if (vec) {
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
     uint4* d4 = reinterpret_cast<uint4*>(dst);
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int v = lane; v < P / 16; v += 32) d4[v] = blanked ? zero : s4[v];
+    const int n16 = P / 16;
+    for (int base = 0; base < n16; base += 32 * COPY_UNROLL) {
+      uint4 v[COPY_UNROLL];
+#pragma unroll
+      for (int u = 0; u < COPY_UNROLL; ++u) {
+        const int x = base + u * 32 + lane;
+        v[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (!blanked && x < n16) v[u] = s4[x];
+      }
+#pragma unroll
+      for (int u = 0; u < COPY_UNROLL; ++u) {
+        const int x = base + u * 32 + lane;
+        if (x < n16) d4[x] = v[u];
+      }
+    }
   } else {
     for (int b = lane; b < P; b += 32) dst[b] = blanked ? 0 : src[b];
   }
+}
+
+// One launch: field blocks 0 .. nb-1 first, then copy blocks of GATHER_WARPS
+// frame warps each.
+__global__ void __launch_bounds__(GATHER_WARPS * 32) gather_window_kernel(
+    const uint8_t* __restrict__ frames, const int64_t* __restrict__ idx,
+    const float* __restrict__ p, const float* __restrict__ total_ptr,
+    const int32_t* __restrict__ actions, const float* __restrict__ rewards,
+    const int32_t* __restrict__ timesteps,
+    const uint8_t* __restrict__ nonterminal, const int32_t* __restrict__ index,
+    const uint8_t* __restrict__ full, int E, int C, int P, int history,
+    int n_step, float discount, float beta, int nb, int bs, long long frames_n,
+    int vec, int64_t* __restrict__ o_idx, int32_t* __restrict__ o_actions,
+    float* __restrict__ o_returns, float* __restrict__ o_nonterminals,
+    float* __restrict__ o_weights, float* __restrict__ o_wmax,
+    uint8_t* __restrict__ window) {
+  if (static_cast<int>(blockIdx.x) < nb) {
+    gather_fields(idx, p, total_ptr, actions, rewards, timesteps, nonterminal,
+                  index, full, E, C, history, n_step, discount, beta, nb, bs,
+                  blockIdx.x, o_idx, o_actions, o_returns, o_nonterminals,
+                  o_weights, o_wmax);
+    return;
+  }
+  const long long f =
+      static_cast<long long>(blockIdx.x - nb) * GATHER_WARPS +
+      (threadIdx.x >> 5);
+  if (f >= frames_n) return;  // the whole warp
+  gather_frame(frames, idx, timesteps, C, P, history, history + n_step, nb,
+               bs, f, vec != 0, window);
 }
 
 // ---------------------------------------------------------------- K7 -----
@@ -500,45 +605,41 @@ extern "C" int stratified_sample(const void* priorities, const void* index,
 // K6. The ring's fields (E, C[, P]) and the draws (idx, p in draw order,
 // total); outputs in (nb, bs) order: o_idx int64, o_actions int32, o_returns,
 // o_nonterminals, o_weights (normalised per batch) float32, o_wmax (nb,)
-// float32, o_blank (nb*bs,) uint64 scratch, window (nb, bs, w, P) uint8.
-// history + n_step <= 64. Returns a CUDA error code.
+// float32, window (nb, bs, w, P) uint8. history + n_step <= 64. blocks is
+// the wrapper's plan (kernels/replay.py::gather_plan): nb field blocks and
+// one copy warp a window frame, GATHER_WARPS a block; a plan that does not
+// match is refused. Returns a CUDA error code.
 extern "C" int gather_window(
     const void* frames, const void* actions, const void* rewards,
     const void* timesteps, const void* nonterminal, const void* index,
     const void* full, int E, int C, int P, const void* idx, const void* p,
     const void* total, int history, int n_step, float discount, float beta,
-    int nb, int bs, void* o_idx, void* o_actions, void* o_returns,
-    void* o_nonterminals, void* o_weights, void* o_wmax, void* o_blank,
-    void* window, void* stream) {
+    int nb, int bs, int blocks, void* o_idx, void* o_actions, void* o_returns,
+    void* o_nonterminals, void* o_weights, void* o_wmax, void* window,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = history + n_step;
   if (w > 64 || nb < 1 || bs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  gather_fields_kernel<<<nb, FIELD_THREADS, 0, s>>>(
-      static_cast<const int64_t*>(idx), static_cast<const float*>(p),
-      static_cast<const float*>(total), static_cast<const int32_t*>(actions),
-      static_cast<const float*>(rewards),
-      static_cast<const int32_t*>(timesteps),
-      static_cast<const uint8_t*>(nonterminal),
-      static_cast<const int32_t*>(index), static_cast<const uint8_t*>(full), E,
-      C, history, n_step, discount, beta, nb, bs,
-      static_cast<int64_t*>(o_idx), static_cast<int32_t*>(o_actions),
-      static_cast<float*>(o_returns), static_cast<float*>(o_nonterminals),
-      static_cast<float*>(o_weights), static_cast<float*>(o_wmax),
-      static_cast<uint64_t*>(o_blank));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long count = static_cast<long long>(nb) * bs * w;
+  const long long frames_n = static_cast<long long>(nb) * bs * w;
+  if (blocks != nb + (frames_n + GATHER_WARPS - 1) / GATHER_WARPS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int vec = (P % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(frames) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(window) % 16 == 0)
                       ? 1
                       : 0;
-  const long long blocks = (count + COPY_WARPS - 1) / COPY_WARPS;
-  gather_frames_kernel<<<static_cast<unsigned>(blocks), COPY_WARPS * 32, 0,
-                         s>>>(
-      static_cast<const uint8_t*>(frames), static_cast<const int64_t*>(o_idx),
-      static_cast<const uint64_t*>(o_blank), C, P, history, w, count, vec,
+  gather_window_kernel<<<blocks, GATHER_WARPS * 32, 0, s>>>(
+      static_cast<const uint8_t*>(frames), static_cast<const int64_t*>(idx),
+      static_cast<const float*>(p), static_cast<const float*>(total),
+      static_cast<const int32_t*>(actions), static_cast<const float*>(rewards),
+      static_cast<const int32_t*>(timesteps),
+      static_cast<const uint8_t*>(nonterminal),
+      static_cast<const int32_t*>(index), static_cast<const uint8_t*>(full), E,
+      C, P, history, n_step, discount, beta, nb, bs, frames_n, vec,
+      static_cast<int64_t*>(o_idx), static_cast<int32_t*>(o_actions),
+      static_cast<float*>(o_returns), static_cast<float*>(o_nonterminals),
+      static_cast<float*>(o_weights), static_cast<float*>(o_wmax),
       static_cast<uint8_t*>(window));
   return static_cast<int>(cudaGetLastError());
 }

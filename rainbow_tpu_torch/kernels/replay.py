@@ -23,6 +23,7 @@ MAX_LEAVES = 1 << 22  # K5's scratch is sized for it (heights 5 to 20)
 MAX_STORED = 4        # stored heights at MAX_LEAVES
 MAX_WINDOW = 64       # csrc/replay.cu: the blanking mask is one uint64
 WRITE_THREADS = 256   # csrc/replay.cu: K7's threads a block, one a draw
+GATHER_WARPS = 8      # csrc/replay.cu: K6's warps a block, of either kind
 
 
 @functools.cache
@@ -31,7 +32,7 @@ def _lib():
     lib.stratified_sample.argtypes = [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
                                       ctypes.POINTER(_I)] + [_P] * 6
     lib.gather_window.argtypes = ([_P] * 7 + [_I, _I, _I] + [_P] * 3
-                                  + [_I, _I, _F, _F, _I, _I] + [_P] * 9)
+                                  + [_I, _I, _F, _F, _I, _I, _I] + [_P] * 8)
     lib.write_priorities.argtypes = [_P, _P, _I, _I, _F, _I, _P, _P, _P]
     for fn in (lib.stratified_sample, lib.gather_window,
                lib.write_priorities):
@@ -134,6 +135,31 @@ def stratified_sample(state, u: torch.Tensor, history: int, n_step: int):
     return idx, p, total
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """K6's one launch for nb batches of bs rows and a window of w frames:
+    ``field_blocks`` (one a batch, first in the grid), each with a warp a
+    row and ``rows_a_warp`` rows for its busiest warp; ``copy_warps``, one
+    a window frame, in ``copy_blocks`` of GATHER_WARPS; ``blocks`` in all,
+    of GATHER_WARPS warps each."""
+    field_blocks: int
+    rows_a_warp: int
+    copy_warps: int
+    copy_blocks: int
+    blocks: int
+
+
+def gather_plan(num_batches: int, batch_size: int, window: int) -> GatherPlan:
+    """K6's launch plan (csrc/replay.cu::gather_window checks its block
+    count)."""
+    copy_warps = num_batches * batch_size * window
+    copy_blocks = -(-copy_warps // GATHER_WARPS)
+    return GatherPlan(field_blocks=num_batches,
+                      rows_a_warp=-(-batch_size // GATHER_WARPS),
+                      copy_warps=copy_warps, copy_blocks=copy_blocks,
+                      blocks=num_batches + copy_blocks)
+
+
 def gather_window(state, idx: torch.Tensor, p: torch.Tensor,
                   total: torch.Tensor, beta: float, num_batches: int,
                   batch_size: int, history: int, n_step: int,
@@ -144,7 +170,7 @@ def gather_window(state, idx: torch.Tensor, p: torch.Tensor,
     (``idxs``, uint8 ``states`` and ``next_states`` as permuted views of one
     (nb, bs, history + n_step, F·F) window, ``actions``, ``returns``,
     ``nonterminals``, ``weights`` normalised per batch, ``weights_max``).
-    Two launches on the current stream."""
+    One launch on the current stream under gather_plan."""
     name = "gather_window"
     e, c = _check_ring(name, state)
     nb, bs = num_batches, batch_size
@@ -174,7 +200,6 @@ def gather_window(state, idx: torch.Tensor, p: torch.Tensor,
     nonterminals = torch.empty((nb, bs), **f32)
     weights = torch.empty((nb, bs), **f32)
     wmax = torch.empty((nb,), **f32)
-    blank = torch.empty((b,), dtype=torch.int64, device=dev)  # uint64 bits
     window = torch.empty((nb, bs, w, fp), dtype=torch.uint8, device=dev)
     _raise_on(name, _lib().gather_window(
         state.frames.data_ptr(), state.actions.data_ptr(),
@@ -182,9 +207,9 @@ def gather_window(state, idx: torch.Tensor, p: torch.Tensor,
         state.nonterminal.data_ptr(), state.index.data_ptr(),
         state.full.data_ptr(), e, c, fp, idx.data_ptr(), p.data_ptr(),
         total.data_ptr(), history, n_step, float(discount), float(beta), nb,
-        bs, out_idx.data_ptr(), actions.data_ptr(), returns.data_ptr(),
-        nonterminals.data_ptr(), weights.data_ptr(), wmax.data_ptr(),
-        blank.data_ptr(), window.data_ptr(), _stream(idx)))
+        bs, gather_plan(nb, bs, w).blocks, out_idx.data_ptr(),
+        actions.data_ptr(), returns.data_ptr(), nonterminals.data_ptr(),
+        weights.data_ptr(), wmax.data_ptr(), window.data_ptr(), _stream(idx)))
     count_launch(name)
     return window_fields(window, history, n_step, {
         "idxs": out_idx, "actions": actions, "returns": returns,

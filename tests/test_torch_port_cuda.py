@@ -20,20 +20,24 @@ float32, its plain version in float64 with one rounding: they agree to
 the delta kernel (K10) is bit-exact, in one kernel node. The replay's sampler (K5) is
 bit-exact, on ties and on trees of depth 5 to 22, in at most two launches
 and with no allocation but its outputs; its
-gather (K6) copies frames, actions and nonterminals exactly and its returns
-and IS weights agree to 1e-6 relative; its write-back (K7) writes the last
+gather (K6), one kernel node a call, copies frames, actions and
+nonterminals exactly and its returns and IS weights agree to 1e-6
+relative, at windows of 7 and 24; its write-back (K7) writes the last
 of consecutive draws of a leaf, exactly, at B = 1 to 8192, with runs
 across its blocks' edges, and makes max_priority NaN on a NaN loss as
 torch.maximum does, in one kernel node. Adam's kernel does the plain version's float32
 ops in the same order except the global norm's sum, so params agree to
 1e-7 after three steps (3·lr·2^-7 with a bf16 mu, where a rounding that
 falls the other way moves an update by 2^-7 of lr), and two runs give the
-same bits. After a learner round, params agree to lr/100. The distributed
+same bits, on small ragged tensors and on the canonical and data-efficient
+nets, each tensor of its own or every kind as views of one flat buffer;
+it is two kernel nodes, and its C entry refuses a plan that disagrees. After a learner round, params agree to lr/100. The distributed
 round at world size 1 over NCCL gives learner_round's bits, with cuDNN held
 to its deterministic algorithms.
 """
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -538,25 +542,73 @@ def test_c51_kernels_at_the_throughput_batch(cuda, dtype):
         assert torch.equal(x, y)
 
 
+# K9's tensor lists: ragged small shapes, and the canonical and the
+# data-efficient nets' params (pong's 6 actions).
+ADAM_SHAPES = {
+    "small": [(70, 301), (70,), (5000,), (3, 4, 5), (1,), (9000,)],
+    "canonical": None, "data_efficient": None}
+
+
+def _adam_shapes(name):
+    if ADAM_SHAPES[name] is not None:
+        return ADAM_SHAPES[name]
+    from rainbow_tpu_torch import canonical
+    from rainbow_tpu_torch.cli import parse_config
+    from rainbow_tpu_torch.models import dqn
+    cfg = (canonical(game="pong", num_envs=1024, seed=0)
+           if name == "canonical"
+           else parse_config(["--preset", "data-efficient"])[0])
+    return [tuple(s) for s in dqn.param_shapes(cfg, 6).values()]
+
+
+def _adam_tensors(shapes, layout, dtype, dev, fill=None):
+    """One tensor a shape, or views of one flat buffer at the running
+    offsets (the data-parallel round's gradients; the small and canonical
+    lists put later views at offsets that are not multiples of four)."""
+    if layout == "separate":
+        ts = [torch.zeros(s, dtype=dtype, device=dev) for s in shapes]
+    else:
+        numels = [math.prod(s) for s in shapes]
+        flat = torch.zeros(sum(numels), dtype=dtype, device=dev)
+        ts, at = [], 0
+        for s, n in zip(shapes, numels):
+            ts.append(flat[at:at + n].view(s))
+            at += n
+    if fill is not None:
+        for i, t in enumerate(ts):
+            t.copy_(fill(i, t.shape))
+    return ts
+
+
+@pytest.mark.parametrize("layout", ["separate", "flat_views"])
+@pytest.mark.parametrize("shapes", list(ADAM_SHAPES))
 @pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("clip", ["below", "above"])
-def test_clip_adam_kernel_matches_plain(cuda, clip, mu_dtype):
+def test_clip_adam_kernel_matches_plain(cuda, clip, mu_dtype, shapes,
+                                        layout):
+    # The nets' params at their scale, as chip_smoke.py's compare_adam draws
+    # them: a rounding of the update that the norm's sum order flips moves
+    # a param by one ulp, below 1e-7 there.
+    p_scale = 1.0 if shapes == "small" else 0.05
+    shapes = _adam_shapes(shapes)
     g = torch.Generator(device=cuda).manual_seed(6)
-    shapes = [(70, 301), (70,), (5000,), (3, 4, 5), (1,), (9000,)]
     scale = 1e-3 if clip == "below" else 1.0
     mdt = getattr(torch, mu_dtype)
     states = {}
     for run in ("kernel", "plain", "again"):
-        p = [torch.randn(s, generator=torch.Generator(device=cuda)
-                         .manual_seed(i), device=cuda) for i, s in
-             enumerate(shapes)]
-        states[run] = (p, [torch.zeros(s, dtype=mdt, device=cuda)
-                           for s in shapes],
-                       [torch.zeros(s, device=cuda) for s in shapes],
+        p = _adam_tensors(shapes, layout, torch.float32, cuda, lambda i, s:
+                          torch.randn(s, generator=torch.Generator(
+                              device=cuda).manual_seed(i), device=cuda)
+                          * p_scale)
+        states[run] = (p, _adam_tensors(shapes, layout, mdt, cuda),
+                       _adam_tensors(shapes, layout, torch.float32, cuda),
                        torch.zeros((), dtype=torch.int32, device=cuda))
+    if layout == "flat_views" and len(shapes) > 6:
+        assert any(t.data_ptr() % 16 for t in states["kernel"][0])
     for _ in range(3):
-        grads = [torch.randn(s, generator=g, device=cuda) * scale
-                 for s in shapes]
+        grads = _adam_tensors(shapes, layout, torch.float32, cuda,
+                              lambda i, s: torch.randn(
+                                  s, generator=g, device=cuda) * scale)
         norm = float(torch.sqrt(sum((x * x).sum() for x in grads)))
         assert (norm < 10) == (clip == "below")
         for run, fn in (("kernel", clip_adam), ("plain", ag.apply_grads_plain),
@@ -580,6 +632,75 @@ def test_clip_adam_kernel_matches_plain(cuda, clip, mu_dtype):
     # Deterministic: a second run gives the same bits.
     for a, b in zip(states["kernel"][:3], states["again"][:3]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_clip_adam_launches_two_kernels_and_checks_its_plan(cuda):
+    """K9 is two kernel nodes in a captured CUDA graph (its ticket is the
+    stream's, so the capture allocates nothing but the call's partials),
+    the graph's replays step as the calls do, and its C entry refuses a
+    plan that disagrees with the tensors: either chunk table off by one, a
+    vec bit on a misaligned pointer (cudaErrorInvalidValue, before any
+    launch)."""
+    from rainbow_tpu_torch.kernels import adam as k9
+
+    shapes = [(70, 301), (51,), (306,), (9000,)]
+    mk = lambda: (_adam_tensors(shapes, "flat_views", torch.float32, cuda,
+                                lambda i, s: torch.rand(s, device=cuda)))
+    p, g, mu, nu = mk(), mk(), mk(), mk()
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    args = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)
+    assert _graph_kernels(lambda: clip_adam(p, g, mu, nu, count, *args)) \
+        == (2, 2)
+    assert int(count) == 1  # the call outside the capture
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        clip_adam(p, g, mu, nu, count, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph, stream=side):
+        clip_adam(p, g, mu, nu, count, *args)
+    torch.cuda.synchronize()
+    clones = [[t.clone() for t in ts] for ts in (p, mu, nu)] + [count.clone()]
+    for _ in range(2):
+        graph.replay()
+        clip_adam(clones[0], g, clones[1], clones[2], clones[3], *args)
+    torch.cuda.synchronize()
+    for got, want in zip((p, mu, nu), clones):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert int(count) == int(clones[3]) == 4
+    numels = [math.prod(s) for s in shapes]
+    pointers = [tuple(t.data_ptr() for t in ts) for ts in zip(p, g, mu, nu)]
+    plan = k9.adam_plan(numels, pointers, 4)
+    scratch = torch.empty(plan.sum_start[-1] + 1, device=cuda)
+    ticket = torch.zeros(1, dtype=torch.int32, device=cuda)
+
+    def call(sum_start, update_start, vec):
+        t = k9._Table()
+        for i, ptrs in enumerate(pointers):
+            t.p[i], t.g[i], t.mu[i], t.nu[i] = ptrs
+            t.n[i], t.vec[i] = numels[i], vec[i]
+        for i in range(len(shapes) + 1):
+            t.sum_start[i], t.update_start[i] = sum_start[i], update_start[i]
+        t.count = len(shapes)
+        return k9._lib()(ctypes.byref(t), scratch.data_ptr(),
+                         ticket.data_ptr(), count.data_ptr(), 0, 1,
+                         *args[:3],
+                         1 - args[1], 1 - args[2], *args[3:],
+                         torch.cuda.current_stream().cuda_stream)
+
+    good = (plan.sum_start, plan.update_start, plan.vec)
+    assert call(*good) == 0
+    for table in (0, 1):
+        bumped = list(good[table])
+        bumped[1] += 1
+        assert call(*good[:table], bumped, *good[table + 1:]) == 1
+    misaligned = list(plan.vec)
+    assert misaligned[1] == 0
+    misaligned[1] = k9.VEC_BITS[0]
+    assert call(*good[:2], misaligned) == 1
+    torch.cuda.synchronize()
+    assert int(count) == 5 and int(ticket) == 0
 
 
 def test_learner_round_on_card_matches_cpu(cuda):
@@ -717,6 +838,10 @@ REPLAY_CASES = {
     "b1": (64, 976, 500, True, 3, 1, 1, 0, False, False),
     "b32": (64, 976, 500, True, 3, 1, 32, 0, False, False),
     "ties": (64, 16, 8, True, 3, 18, 32, 0, False, True),
+    # K6 at the data-efficient round's window of 24 (16 x 32) and the
+    # throughput round's window of 7 (32 x 256).
+    "window_24_nb16": (16, 300, 120, True, 20, 16, 32, 0, False, False),
+    "window_7_nb32_bs256": (64, 976, 500, True, 3, 32, 256, 0, False, False),
 }
 
 
@@ -853,6 +978,34 @@ def test_write_priorities_kernel_matches_plain_bit_for_bit(cuda, case):
     assert same_bits(got[once], plain.priorities.view(-1)[once])
     if special == "-0":  # sqrt(-0.0) is -0.0, as torch.pow gives
         assert int(got[draw[7]].view(torch.int32)) == -2 ** 31
+
+
+def test_gather_window_launches_one_kernel_and_checks_its_plan(cuda):
+    """K6 is one kernel node in a captured CUDA graph, at windows of 7 and
+    24, and its C entry refuses a grid that is not gather_plan's before any
+    launch."""
+    rep = _card_ring(cuda, 16, 300, 120, True)
+    for nb, bs, n in ((16, 32, 20), (32, 256, 3)):
+        u = torch.rand(nb * bs, device=cuda)
+        idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
+        assert _graph_kernels(lambda: k_replay.gather_window(
+            rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)) == (1, 1)
+        outs = [torch.empty(nb * bs, dtype=dt, device=cuda) for dt in (
+            torch.int64, torch.int32, torch.float32, torch.float32,
+            torch.float32)] + [torch.empty(nb, device=cuda),
+                               torch.empty(nb * bs * (4 + n) * 7056,
+                                           dtype=torch.uint8, device=cuda)]
+        blocks = k_replay.gather_plan(nb, bs, 4 + n).blocks
+        for grid, rc in ((blocks - 1, 1), (blocks + 1, 1), (blocks, 0)):
+            assert k_replay._lib().gather_window(
+                rep.frames.data_ptr(), rep.actions.data_ptr(),
+                rep.rewards.data_ptr(), rep.timesteps.data_ptr(),
+                rep.nonterminal.data_ptr(), rep.index.data_ptr(),
+                rep.full.data_ptr(), 16, 300, 7056, idx.data_ptr(),
+                p.data_ptr(), total.data_ptr(), 4, n, 0.99, 0.6, nb, bs,
+                grid, *(t.data_ptr() for t in outs),
+                torch.cuda.current_stream().cuda_stream) == rc, grid
+    torch.cuda.synchronize()
 
 
 def test_write_priorities_launches_one_kernel_and_checks_its_plan(cuda):

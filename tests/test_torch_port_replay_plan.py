@@ -410,3 +410,115 @@ def test_k7_rendering_matches_plain(case):
     assert _same_bits(prio.view(-1)[once], plain.priorities.view(-1)[once])
     if special == "-0":  # torch.pow keeps the sign: the leaf holds -0.0
         assert int(prio.view(-1)[draw[7]].view(torch.int32)) == -2 ** 31
+
+
+# ------------------------------------------------------------------ K6 ----
+
+# (num_batches, batch_size, window): the data-efficient round (window 24),
+# the canonical one and the throughput preset's (window 7), one sequential
+# batch, the widest window.
+GATHER_PLANS = [(16, 32, 24), (256, 32, 7), (32, 256, 7), (1, 32, 7),
+                (3, 5, 64)]
+
+
+@pytest.mark.parametrize("nb, bs, w", GATHER_PLANS)
+def test_gather_plan_covers_every_row_and_frame_once(nb, bs, w):
+    """K6's one launch: a field block a batch whose warps take rows v,
+    v + 8, ...; then one copy warp a window frame, 8 a block. Copy warp f
+    takes frame f % w of output row q = f // w, which is draw (q % bs)·nb +
+    q // bs: gather_window_plain's batch order, every (draw, frame) once."""
+    warps = k_replay.GATHER_WARPS
+    plan = k_replay.gather_plan(nb, bs, w)
+    assert plan.field_blocks == nb
+    assert plan.copy_warps == nb * bs * w
+    assert plan.copy_blocks == -(-plan.copy_warps // warps)
+    assert plan.blocks == nb + plan.copy_blocks
+    rows = [(k, r) for k in range(nb) for v in range(warps)
+            for r in range(v, bs, warps)]
+    assert sorted(rows) == [(k, r) for k in range(nb) for r in range(bs)]
+    assert plan.rows_a_warp == len(range(0, bs, warps))
+    f = torch.arange(plan.copy_blocks * warps)
+    f = f[f < plan.copy_warps]
+    q, t = f // w, f % w
+    j = (q % bs) * nb + q // bs
+    assert torch.equal(torch.sort(j * w + t).values,
+                       torch.arange(nb * bs * w))
+    order = torch.arange(nb * bs).view(bs, nb).T.reshape(-1)
+    assert torch.equal(j[t == 0], order)
+
+
+def _render_k6(rep, idx, nb, bs, history, n_step):
+    """A rendering of K6's warps on the CPU: each copy warp's window frame
+    (its row's draw, the ballot of `timesteps == 0` over the window, the
+    blanking mask, the frame or zeros) and each field warp's action and
+    nonterminal."""
+    e_, c = rep.priorities.shape
+    w = history + n_step
+    plan = k_replay.gather_plan(nb, bs, w)
+    ts = rep.timesteps
+
+    def blank_of(flat):
+        e, i = divmod(int(flat), c)
+        firsts = sum(1 << t for t in range(w)
+                     if int(ts[e, (i + t - history + 1) % c]) == 0)
+        blank = 0
+        for t in range(history - 2, -1, -1):
+            if ((blank | firsts) >> (t + 1)) & 1:
+                blank |= 1 << t
+        for t in range(history, w):
+            if ((blank >> (t - 1)) | (firsts >> t)) & 1:
+                blank |= 1 << t
+        return e, i, blank
+
+    window = torch.empty((plan.copy_warps, rep.frames.shape[2]),
+                         dtype=torch.uint8)
+    for f in range(plan.copy_warps):
+        q, t = divmod(f, w)
+        e, i, blank = blank_of(idx[(q % bs) * nb + q // bs])
+        window[f] = 0 if (blank >> t) & 1 else \
+            rep.frames[e, (i + t - history + 1) % c]
+    actions = torch.empty((nb, bs), dtype=torch.int32)
+    nonterminals = torch.empty((nb, bs))
+    for k in range(nb):
+        for r in range(bs):
+            e, i, blank = blank_of(idx[r * nb + k])
+            actions[k, r] = rep.actions[e, i]
+            nonterminals[k, r] = float(bool(rep.nonterminal[e, (i + n_step)
+                                                            % c])
+                                       and not (blank >> (w - 1)) & 1)
+    return window.view(nb, bs, w, -1), actions, nonterminals
+
+
+@pytest.mark.parametrize("nb, bs, n_step", [(16, 32, 20), (4, 64, 3),
+                                            (2, 256, 3), (1, 8, 60)])
+def test_k6_rendering_matches_plain(nb, bs, n_step):
+    """The copy warps' frames, blanked where an episode starts or ends
+    inside the window, and the field warps' actions and nonterminals are
+    gather_window_plain's, exactly (frames of 4 x 4 bytes)."""
+    rng = np.random.default_rng(7)
+    e, c, history = 8, 96, 4
+    rep = trp.init_replay(e, c, 4, "cpu")
+    rep.frames.copy_(torch.from_numpy(rng.integers(0, 256, rep.frames.shape,
+                                                   np.uint8)))
+    rep.actions.copy_(torch.from_numpy(rng.integers(0, 6, (e, c), np.int32)))
+    rep.timesteps.copy_(torch.from_numpy(rng.integers(0, 6, (e, c),
+                                                      np.int32)))
+    rep.nonterminal.copy_(torch.from_numpy(rng.random((e, c)) > 0.1))
+    rep.priorities.copy_(torch.from_numpy(rng.exponential(size=(e, c))
+                                          .astype(np.float32)))
+    rep.index.fill_(40)
+    rep.full.fill_(True)
+    u = torch.from_numpy(rng.random(nb * bs).astype(np.float32))
+    idx, p, total = trp.stratified_sample_plain(rep, u, history, n_step)
+    want = trp.gather_window_plain(rep, idx, p, total, 0.6, nb, bs, history,
+                                   n_step, 0.99)
+    window, actions, nonterminals = _render_k6(rep, idx, nb, bs, history,
+                                               n_step)
+    plain_window = want["states"]._base.reshape(window.shape)
+    assert torch.equal(window, plain_window)
+    assert bool((window == 0).all(-1).any())  # some frames are blanked
+    assert torch.equal(actions, want["actions"])
+    assert torch.equal(nonterminals, want["nonterminals"])
+    # Episodes last 6 steps on average: past n = 32 every row is blanked
+    # at its end.
+    assert 0 < float(nonterminals.mean()) < 1 or n_step > 32
