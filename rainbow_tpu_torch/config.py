@@ -143,7 +143,7 @@ class RainbowConfig:
     # Observability
     render: bool = False               # save eval-episode frames as PNGs
     # (headless analogue of reference env.py:90-92 cv2.imshow)
-    profile: bool = False              # capture a jax.profiler trace of the
+    profile: bool = False              # capture a torch.profiler trace of the
     # steady-state training loop into results/<id>/trace (SURVEY.md §5)
 
     # Persistence

@@ -63,6 +63,7 @@ from rainbow_tpu_torch.models.dqn import (draw_noise, draw_noise_sets,
 from rainbow_tpu_torch.models.noisy import NoiseStream
 from rainbow_tpu_torch.parallel.mesh import world
 from rainbow_tpu_torch.replay import prioritized as rp
+from rainbow_tpu_torch.utils.logging import span
 
 _M64 = (1 << 64) - 1
 UNIFORMS, TARGET_NOISE = 0, 1  # the per-shard streams of shard_seed
@@ -277,62 +278,69 @@ def _round_batched(agents, reps, cfg, action_space, nl, beta, shards,
     per-update max, one target forward per shard over its round's rows
     with per-row noise, then per update the gradient on every shard, their
     mean, and the same clip + Adam on every replica; one write-back per
-    shard at the end."""
+    shard at the end. Under a profiler its phases are the ranges
+    ``rainbow.sample``, ``.target``, ``.update`` (one an update) and
+    ``.write_back``."""
     bs, a = shards.batch, action_space
     bigs, wmaxs = [], []
-    for s, (rep, dev, d) in enumerate(zip(reps, shards.devices, draws)):
-        u = d.get("u")
-        if u is None:
-            u = torch.rand((nl * bs,), generator=source.generator(s),
-                           device=dev)
-        big = rp.sample_many(rep, beta, num_batches=nl, batch_size=bs,
-                             history=cfg.history_length,
-                             n_step=cfg.multi_step, discount=cfg.discount,
-                             u=u)
-        wmaxs.append(big.pop("weights_max"))
-        bigs.append(big)
-    _renormalise(bigs, wmaxs, shards, (slice(None), None))
+    with span("sample"):
+        for s, (rep, dev, d) in enumerate(zip(reps, shards.devices, draws)):
+            u = d.get("u")
+            if u is None:
+                u = torch.rand((nl * bs,), generator=source.generator(s),
+                               device=dev)
+            big = rp.sample_many(rep, beta, num_batches=nl, batch_size=bs,
+                                 history=cfg.history_length,
+                                 n_step=cfg.multi_step,
+                                 discount=cfg.discount, u=u)
+            wmaxs.append(big.pop("weights_max"))
+            bigs.append(big)
+        _renormalise(bigs, wmaxs, shards, (slice(None), None))
     need = any(d.get(k) is None for d in draws for k in ("online", "target"))
     targets, online = [None] * len(agents), None
     pns, eps = [], []
-    for s, (agent, dev, d, big) in enumerate(zip(agents, shards.devices,
-                                                 draws, bigs)):
-        ns = rp.states_to_float(big["next_states"].reshape(
-            (nl * bs,) + big["next_states"].shape[2:]))
-        if need and s == 0:
-            # Drawn after the conversion: its temporary and the noise alive
-            # together would raise the peak of allocated memory.
-            targets, online = source.batched_noise(nl, bs)
-        target = (d["target"] if d.get("target") is not None
-                  else targets[s])
-        with torch.no_grad():
-            pns.append(forward_head(agent.target_params, cfg, a, ns,
-                                    dist="probs", noise_eps=target)
-                       .dist.view(nl, bs, a, cfg.atoms))
-        del ns
-        eps.append(d["online"] if d.get("online") is not None
-                   else _to(online, dev))
+    with span("target"):
+        for s, (agent, dev, d, big) in enumerate(zip(agents, shards.devices,
+                                                     draws, bigs)):
+            ns = rp.states_to_float(big["next_states"].reshape(
+                (nl * bs,) + big["next_states"].shape[2:]))
+            if need and s == 0:
+                # Drawn after the conversion: its temporary and the noise
+                # alive together would raise the peak of allocated memory.
+                targets, online = source.batched_noise(nl, bs)
+            target = (d["target"] if d.get("target") is not None
+                      else targets[s])
+            with torch.no_grad():
+                pns.append(forward_head(agent.target_params, cfg, a, ns,
+                                        dist="probs", noise_eps=target)
+                           .dist.view(nl, bs, a, cfg.atoms))
+            del ns
+            eps.append(d["online"] if d.get("online") is not None
+                       else _to(online, dev))
     losses = [[] for _ in agents]
     for i in range(nl):
-        grads = []
-        for s, (agent, big) in enumerate(zip(agents, bigs)):
-            batch = {k: big[k][i] for k in ("actions", "returns",
-                                            "nonterminals", "weights")}
-            batch["states"] = rp.states_to_float(big["states"][i])
-            batch["next_states"] = rp.states_to_float(big["next_states"][i])
-            e = {k: (e_in[i], e_out[i]) for k, (e_in, e_out) in
-                 eps[s].items()}
-            g, l = ag.compute_update_pretarget(agent, cfg, a, batch,
-                                               pns[s][i], e)
-            grads.append(g)
-            losses[s].append(l)
-        _apply_mean(agents, cfg, shards, grads)
+        with span("update"):
+            grads = []
+            for s, (agent, big) in enumerate(zip(agents, bigs)):
+                batch = {k: big[k][i] for k in ("actions", "returns",
+                                                "nonterminals", "weights")}
+                batch["states"] = rp.states_to_float(big["states"][i])
+                batch["next_states"] = rp.states_to_float(
+                    big["next_states"][i])
+                e = {k: (e_in[i], e_out[i]) for k, (e_in, e_out) in
+                     eps[s].items()}
+                g, l = ag.compute_update_pretarget(agent, cfg, a, batch,
+                                                   pns[s][i], e)
+                grads.append(g)
+                losses[s].append(l)
+            _apply_mean(agents, cfg, shards, grads)
     local = []
-    for rep, big, ls in zip(reps, bigs, losses):
-        ls = torch.stack(ls)
-        rp.update_priorities(rep, big["idxs"], ls, cfg.priority_exponent)
-        local.append(ls.mean())
-    _sync_max_priority(reps, shards)
+    with span("write_back"):
+        for rep, big, ls in zip(reps, bigs, losses):
+            ls = torch.stack(ls)
+            rp.update_priorities(rep, big["idxs"], ls, cfg.priority_exponent)
+            local.append(ls.mean())
+        _sync_max_priority(reps, shards)
     return shards.mean(local)
 
 
@@ -342,45 +350,51 @@ def _round_sequential(agents, reps, cfg, action_space, nl, beta, shards,
     reference agent.py:61-100 per update): per update, every shard samples
     against the priorities its previous update wrote, the IS weights are
     renormalised by the global max, the online and target noise are one
-    shared draw, the gradients' mean updates every replica, and every
-    shard writes back its priorities."""
+    shard writes back its priorities. Under a profiler each update's
+    phases are the ranges ``rainbow.sample``, ``.update`` (its target
+    forward inside) and ``.write_back``."""
     bs, a = shards.batch, action_space
     gens = [None] * len(agents)
     losses = [[] for _ in agents]
     for i in range(nl):
         batches = []
-        for s, (rep, dev, d) in enumerate(zip(reps, shards.devices, draws)):
-            if "u" in d:
-                u = d["u"][i]
-            else:
-                if gens[s] is None:
-                    gens[s] = source.generator(s)
-                u = torch.rand((bs,), generator=gens[s], device=dev)
-            batches.append(rp.sample(rep, beta, batch_size=bs,
-                                     history=cfg.history_length,
-                                     n_step=cfg.multi_step,
-                                     discount=cfg.discount, u=u))
-        _renormalise(batches, [b["weights_max"] for b in batches], shards,
-                     ())
+        with span("sample"):
+            for s, (rep, dev, d) in enumerate(zip(reps, shards.devices,
+                                                  draws)):
+                if "u" in d:
+                    u = d["u"][i]
+                else:
+                    if gens[s] is None:
+                        gens[s] = source.generator(s)
+                    u = torch.rand((bs,), generator=gens[s], device=dev)
+                batches.append(rp.sample(rep, beta, batch_size=bs,
+                                         history=cfg.history_length,
+                                         n_step=cfg.multi_step,
+                                         discount=cfg.discount, u=u))
+            _renormalise(batches, [b["weights_max"] for b in batches],
+                         shards, ())
         shared, grads, per = None, [], []
-        for agent, dev, d, batch in zip(agents, shards.devices, draws,
-                                        batches):
-            if "online" in d:
-                nz = {k: {n: (x[i], y[i]) for n, (x, y) in d[k].items()}
-                      for k in ("online", "target")}
-            else:
-                if shared is None:
-                    shared = draw_noise_sets(cfg, a, agents[0].noise,
-                                             [(), ()], shards.devices[0])
-                nz = {"online": _to(shared[0], dev),
-                      "target": _to(shared[1], dev)}
-            g, l = ag.compute_update(agent, cfg, a, batch, nz)
-            grads.append(g)
-            per.append(l)
-        _apply_mean(agents, cfg, shards, grads)
-        for rep, batch, l, ls in zip(reps, batches, per, losses):
-            rp.update_priorities(rep, batch["idxs"], l,
-                                 cfg.priority_exponent)
-            ls.append(l.mean())
-    _sync_max_priority(reps, shards)
+        with span("update"):
+            for agent, dev, d, batch in zip(agents, shards.devices, draws,
+                                            batches):
+                if "online" in d:
+                    nz = {k: {n: (x[i], y[i]) for n, (x, y) in d[k].items()}
+                          for k in ("online", "target")}
+                else:
+                    if shared is None:
+                        shared = draw_noise_sets(cfg, a, agents[0].noise,
+                                                 [(), ()], shards.devices[0])
+                    nz = {"online": _to(shared[0], dev),
+                          "target": _to(shared[1], dev)}
+                g, l = ag.compute_update(agent, cfg, a, batch, nz)
+                grads.append(g)
+                per.append(l)
+            _apply_mean(agents, cfg, shards, grads)
+        with span("write_back"):
+            for rep, batch, l, ls in zip(reps, batches, per, losses):
+                rp.update_priorities(rep, batch["idxs"], l,
+                                     cfg.priority_exponent)
+                ls.append(l.mean())
+    with span("write_back"):
+        _sync_max_priority(reps, shards)
     return shards.mean([torch.stack(ls).mean() for ls in losses])

@@ -52,7 +52,7 @@ from rainbow_tpu_torch.parallel.learner import (Shards, distributed_round,
 from rainbow_tpu_torch.parallel.mesh import indexed, make_mesh, world
 from rainbow_tpu_torch.parallel.multihost import broadcast_floats
 from rainbow_tpu_torch.replay import prioritized as rp
-from rainbow_tpu_torch.utils.logging import Timer, log
+from rainbow_tpu_torch.utils.logging import Timer, log, span
 from rainbow_tpu_torch.utils.plotting import plot_line
 
 
@@ -286,23 +286,24 @@ def act_sharded(agents: list, cfg: RainbowConfig, action_space: int,
     rows of ``act_noise`` (models.dqn.draw_noise over all envs of the
     process group with cfg.per_env_noise, else one shared draw; a fresh
     draw of the shared noise stream when None)."""
-    if act_noise is None:
-        lead = ((shards.count * stacks[0].shape[0],) if cfg.per_env_noise
-                else ())
-        act_noise = draw_noise(cfg, action_space, agents[0].noise, lead,
-                               shards.devices[0])
-    out = []
-    for s, (agent, stack, dev) in enumerate(zip(agents, stacks,
-                                                shards.devices)):
-        n = stack.shape[0]
-        rows = slice(shards.index(s) * n, (shards.index(s) + 1) * n)
-        eps = {k: ((a[rows], b[rows]) if cfg.per_env_noise else (a, b))
-               for k, (a, b) in act_noise.items()}
-        eps = {k: (a.to(dev), b.to(dev)) for k, (a, b) in eps.items()}
-        out.append(ag.act(agent.params, cfg, action_space,
-                          to_network_input(stack), None, eps)
-                   .to(shards.devices[0]))
-    return out[0] if len(out) == 1 else torch.cat(out)
+    with span("act"):
+        if act_noise is None:
+            lead = ((shards.count * stacks[0].shape[0],)
+                    if cfg.per_env_noise else ())
+            act_noise = draw_noise(cfg, action_space, agents[0].noise, lead,
+                                   shards.devices[0])
+        out = []
+        for s, (agent, stack, dev) in enumerate(zip(agents, stacks,
+                                                    shards.devices)):
+            n = stack.shape[0]
+            rows = slice(shards.index(s) * n, (shards.index(s) + 1) * n)
+            eps = {k: ((a[rows], b[rows]) if cfg.per_env_noise else (a, b))
+                   for k, (a, b) in act_noise.items()}
+            eps = {k: (a.to(dev), b.to(dev)) for k, (a, b) in eps.items()}
+            out.append(ag.act(agent.params, cfg, action_space,
+                              to_network_input(stack), None, eps)
+                       .to(shards.devices[0]))
+        return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def train_iter_sharded(cfg: RainbowConfig, action_space: int,
@@ -331,11 +332,13 @@ def train_iter_sharded(cfg: RainbowConfig, action_space: int,
             for agent in agents:
                 ag.update_target(agent)
     at = 0
-    for stack, rep, dev, tail in zip(stacks, reps, shards.devices, tails):
-        n = stack.shape[0]
-        _update_core(cfg, stack, rep, prev_actions[at:at + n].to(dev),
-                     *tail)
-        at += n
+    with span("append"):
+        for stack, rep, dev, tail in zip(stacks, reps, shards.devices,
+                                         tails):
+            n = stack.shape[0]
+            _update_core(cfg, stack, rep, prev_actions[at:at + n].to(dev),
+                         *tail)
+            at += n
     return act_sharded(agents, cfg, action_space, stacks, shards,
                        act_noise), loss
 
@@ -348,6 +351,18 @@ class Trainer:
     after the delta kernel for a delta upload). Host-side scheduling only;
     every iteration's device work is queued, and the waits are the fetch
     of the actions and, pipelined, the settle window.
+
+    ``timer`` (utils.logging.Timer) sums the seconds of each span of the
+    loop: ``env`` (the engine step and its upload, ``_stage``; pipelined,
+    the wait for the worker that stages it), ``actor`` (the iteration's
+    launch and, in the default loop, the fetch of its actions), and,
+    pipelined, ``fetch`` and ``settle``. Inside them: ``engine`` (the
+    engine's step alone) and ``upload`` (the packing and the copies to the
+    device), both on the worker's thread when pipelined; ``launch`` (the
+    enqueue of one iteration, ``_launch``); ``device_wait`` (every place
+    this thread blocks on device work: the actions' copy in the default
+    loop, the fetch and the settle window pipelined). Under a
+    torch.profiler each span is also a ``rainbow.<key>`` range.
 
     Shards: one on ``device``, or, with cfg.data_parallel or as a rank of a
     torch.distributed process group of more than one process, one per
@@ -692,56 +707,59 @@ class Trainer:
         stream without blocking, and ``event`` marks its end; else it is a
         plain copy on the current stream and ``event`` is None. Shards off
         the stream's device take plain copies."""
-        if self._use_delta:
-            counts, dpos, dval, *rest = self.env.step_delta(acts_np)
-            obs_form = ((dpos,) if counts is None
-                        else (delta_offsets(counts), dpos, dval))
-        else:
-            obs, *rest = self.env.step(acts_np)
-            obs_form = (obs,)
-        n = self.envs_per_shard
-        hosts = ([_host_step(obs_form, *rest)] if len(self.devices) == 1
-                 else [_host_step((obs[s * n:(s + 1) * n],),
-                                  *(x[s * n:(s + 1) * n] for x in rest))
-                       for s in range(len(self.devices))])
-        tails = []
-        for host, dev in zip(hosts, self.devices):
-            if stream is None or dev != stream.device:
-                tails.append(tuple(torch.from_numpy(a).to(dev)
-                                   for a in host))
-                continue
-            with torch.cuda.stream(stream):
-                # The engine's buffers are rewritten two steps on: the
-                # copies into pinned memory finish here, on this thread.
-                tails.append(tuple(torch.from_numpy(a).pin_memory().to(
-                    dev, non_blocking=True) for a in host))
-        done = None
-        if stream is not None:
-            done = torch.cuda.Event()
-            done.record(stream)
+        with self.timer.span("engine"):
+            if self._use_delta:
+                counts, dpos, dval, *rest = self.env.step_delta(acts_np)
+                obs_form = ((dpos,) if counts is None
+                            else (delta_offsets(counts), dpos, dval))
+            else:
+                obs, *rest = self.env.step(acts_np)
+                obs_form = (obs,)
+        with self.timer.span("upload"):
+            n = self.envs_per_shard
+            hosts = ([_host_step(obs_form, *rest)] if len(self.devices) == 1
+                     else [_host_step((obs[s * n:(s + 1) * n],),
+                                      *(x[s * n:(s + 1) * n] for x in rest))
+                           for s in range(len(self.devices))])
+            tails = []
+            for host, dev in zip(hosts, self.devices):
+                if stream is None or dev != stream.device:
+                    tails.append(tuple(torch.from_numpy(a).to(dev)
+                                       for a in host))
+                    continue
+                with torch.cuda.stream(stream):
+                    # The engine's buffers are rewritten two steps on: the
+                    # copies into pinned memory finish here, on this thread.
+                    tails.append(tuple(torch.from_numpy(a).pin_memory().to(
+                        dev, non_blocking=True) for a in host))
+            done = None
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
         return len(obs_form) == 3, tails, done
 
     def _launch(self, staged, stacks, prev_actions, num_learns, beta,
                 sync_target, act_noise):
         """Launch one training iteration on the staged step over the shards'
         stacks; returns the actions (N_local,) int64 on the first device."""
-        is_delta, tails, done = staged
-        if done is not None:  # the upload ran on the worker's stream
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(done)
-            for t in sum(tails, ()):
-                if t.device == self.device:
-                    t.record_stream(cur)
-        self.upload_forms["delta" if is_delta else "dense"] += 1
-        if is_delta:  # one shard: the delta kernel rebuilds its observations
-            (offsets, pos, val, *rest), = tails
-            tails = [(apply_delta(stacks[0], offsets, pos, val), *rest)]
-        actions, loss = train_iter_sharded(
-            self.cfg, self.action_space, num_learns, self.agents, stacks,
-            self.reps, self.shards, prev_actions, tails, np.float32(beta),
-            bool(sync_target), act_noise)
-        if num_learns:  # a device scalar, fetched by the heartbeat
-            self._last_loss = loss
+        with self.timer.span("launch"):
+            is_delta, tails, done = staged
+            if done is not None:  # the upload ran on the worker's stream
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(done)
+                for t in sum(tails, ()):
+                    if t.device == self.device:
+                        t.record_stream(cur)
+            self.upload_forms["delta" if is_delta else "dense"] += 1
+            if is_delta:  # one shard: the delta kernel rebuilds its frames
+                (offsets, pos, val, *rest), = tails
+                tails = [(apply_delta(stacks[0], offsets, pos, val), *rest)]
+            actions, loss = train_iter_sharded(
+                self.cfg, self.action_space, num_learns, self.agents, stacks,
+                self.reps, self.shards, prev_actions, tails, np.float32(beta),
+                bool(sync_target), act_noise)
+            if num_learns:  # a device scalar, fetched by the heartbeat
+                self._last_loss = loss
         return actions
 
     def _fetch(self, pool, actions):
@@ -769,7 +787,8 @@ class Trainer:
         if len(self._settle_q) > max(self.cfg.settle_window, 0):
             oldest = self._settle_q.popleft()
             if oldest is not None:
-                oldest.synchronize()
+                with self.timer.span("device_wait"):
+                    oldest.synchronize()
 
     # ---- main loop ------------------------------------------------------
     def _draw_act_noise(self) -> dict:
@@ -825,7 +844,7 @@ class Trainer:
         # main.py:172-174) or on their own interval.
         next_memsave = nxt(cfg.memory_save_interval) \
             if cfg.memory_path is not None else float("inf")
-        prof = None
+        prof, timer = None, self.timer
         last_log_t, last_log_T = time.time(), self.T
         while self.T < cfg.total_steps:
             now = time.time()
@@ -858,33 +877,29 @@ class Trainer:
                 act_noise = self._draw_act_noise()
 
             if pipelined:
-                self.timer.start("env")
-                staged = fut.result()  # step t, staged by the worker
-                self.timer.stop("env")
+                with timer.span("env"):
+                    staged = fut.result()  # step t, staged by the worker
                 a_exec = pending_a  # the actions step t executed
                 pending_a = action_queue.popleft()
-                self.timer.start("fetch")
-                pa_np = fetch_q.popleft().result()  # fetched D iters ago
-                self.timer.stop("fetch")
+                with timer.span("fetch"), timer.span("device_wait"):
+                    pa_np = fetch_q.popleft().result()  # fetched D iters ago
                 fut = pool.submit(self._stage, pa_np, stage_stream)  # t+1
-                self.timer.start("actor")
-                a_new = self._launch(staged, stacks, a_exec, num_learns, beta,
-                                     sync_target, act_noise)
-                action_queue.append(a_new)
-                fetch_q.append(self._fetch(fetch_pool, a_new))
-                self.timer.stop("actor")
-                self.timer.start("settle")
-                self._settle()
-                self.timer.stop("settle")
+                with timer.span("actor"):
+                    a_new = self._launch(staged, stacks, a_exec, num_learns,
+                                         beta, sync_target, act_noise)
+                    action_queue.append(a_new)
+                    fetch_q.append(self._fetch(fetch_pool, a_new))
+                with timer.span("settle"):
+                    self._settle()
             else:
-                self.timer.start("env")
-                staged = self._stage(acts_np)
-                self.timer.stop("env")
-                self.timer.start("actor")
-                actions = self._launch(staged, stacks, actions, num_learns,
-                                       beta, sync_target, act_noise)
-                acts_np = actions.cpu().numpy()
-                self.timer.stop("actor")
+                with timer.span("env"):
+                    staged = self._stage(acts_np)
+                with timer.span("actor"):
+                    actions = self._launch(staged, stacks, actions,
+                                           num_learns, beta, sync_target,
+                                           act_noise)
+                    with timer.span("device_wait"):
+                        acts_np = actions.cpu().numpy()
             if learning:
                 if self.T >= next_target_sync:  # main.py:177-178
                     if not sync_target:  # else synced inside the iteration
@@ -933,11 +948,14 @@ class Trainer:
         return self.metrics
 
     def _start_profile(self):
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        # Every thread's ranges: the pipelined worker's spans too.
+        prof = profile(activities=acts, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True)))
         prof.__enter__()
         return prof
 
