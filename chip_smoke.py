@@ -644,12 +644,20 @@ def compare_append_framestack(torch, np, report):
     return 0.0
 
 
+# The learner batch of each of BENCHMARK.json's cells in its compute dtype,
+# both on the canonical net: canonical-b1024 and bf16-b2048.
+BENCH_LEARNER_BATCHES = (("float32", 1024), ("bfloat16", 2048))
+
+
 def compare_noisy_linear_bwd(torch, A, cfgs, report):
     """KA's backward against noisy_linear_bwd_plain at each configuration's
     learner shapes (its batch, fc_h_* with its ReLU and both fc_z_*) and at
     shapes that cross the split and tile edges (B = 1 and 33, IN = 3137,
-    OUT = 513), in the three noise modes, fp32 and bf16. A second launch
-    must give the same bits. Returns the largest fp32 error."""
+    OUT = 513), fp32 and bf16, and at the benchmark cells' learner batches
+    on the first configuration's layers in the cell's dtype
+    (BENCH_LEARNER_BATCHES; in float32 the large path's split and unsplit
+    plans), in the three noise modes. A second launch must give the same
+    bits. Returns the largest fp32 error."""
     from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan,
                                                         noisy_linear_bwd,
                                                         noisy_linear_fwd)
@@ -660,17 +668,22 @@ def compare_noisy_linear_bwd(torch, A, cfgs, report):
 
     g = torch.Generator(device="cuda").manual_seed(11)
     ns = NoiseStream(11)
-    # fp32: sums of up to 513 products of O(1) terms in other orders. bf16:
+    # fp32: sums of up to 1,024 products of O(1) terms in other orders. bf16:
     # both sides round each product's output to bf16 once, and the plain
     # version rounds after every op, so a few bf16 ulps of O(1) values.
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
     names = ("dx", "dw_mu", "dw_sigma", "db_mu", "db_sigma")
     modes = ("mu", "shared", "row")
     worst32 = 0.0
-    cases = [(b, i, o, r) for b, _, i, o, r in
+    both = (torch.float32, torch.bfloat16)
+    cases = [(b, i, o, r, both) for b, _, i, o, r in
              noisy_layer_batches(cfgs, A, fwd=False)]
-    for b, n_in, n_out, relu in cases + [(1, 3136, 512, True),
-                                         (33, 3137, 513, True)]:
+    cases += [(1, 3136, 512, True, both), (33, 3137, 513, True, both)]
+    for dtn, bb in BENCH_LEARNER_BATCHES:
+        cases += [(b, i, o, r, (getattr(torch, dtn),)) for b, _, i, o, r in
+                  noisy_layer_batches([cfgs[0].replace(batch_size=bb)], A,
+                                      fwd=False)]
+    for b, n_in, n_out, relu, dtypes in cases:
         prm = init_noisy_params(g, n_in, n_out, 0.5)
         w = (prm["weight_mu"], prm["weight_sigma"])
         x = torch.rand((b, n_in), generator=g, device="cuda") * 2
@@ -680,8 +693,8 @@ def compare_noisy_linear_bwd(torch, A, cfgs, report):
             eps = None if mode == "mu" else (
                 scale_noise(ns, lead + (n_in,), "cuda"),
                 scale_noise(ns, lead + (n_out,), "cuda"))
-            plan = bwd_plan(b, n_in, n_out, modes.index(mode))
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dtypes:
+                plan = bwd_plan(b, n_in, n_out, modes.index(mode), dt)
                 xd, gd = x.to(dt), gy.to(dt)
                 y = noisy_linear_fwd(prm, xd, eps, True) if relu else None
                 got = noisy_linear_bwd(*w, xd, gd, eps, y)
@@ -2126,6 +2139,7 @@ def run_train(torch, np, cfg, A, profile=False):
     launch counts)."""
     from rainbow_tpu_torch import agent as ag
     from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.kernels.noisy_linear import bwd_plan
     from rainbow_tpu_torch.ops.preprocess import (init_framestack,
                                                   to_network_input)
     from rainbow_tpu_torch.replay import prioritized as rp
@@ -2193,7 +2207,9 @@ def run_train(torch, np, cfg, A, profile=False):
     u, it = TRAIN_ITERS * num_learns, TRAIN_ITERS
     # K2: the round's target and online noise in one launch, the act's in
     # another.
+    large = bwd_plan(cfg.batch_size, 3136, 512, 1).path == "large"
     want = {"noisy_linear_fwd": 8 * u + 8 * it, "noisy_linear_bwd": 4 * u,
+            "noisy_linear_bwd_large": 4 * u if large else 0,
             "dueling_head": u + 2 * it, "c51_target": u, "head_loss": u,
             "append_framestack": it, "clip_adam": u, "stratified_sample": it,
             "gather_window": it, "write_priorities": it,
@@ -2399,12 +2415,29 @@ class _Watch:
 
 def check_shapes(tag, shapes, counts):
     """A run's launches by shape (_Watch.shapes) add up to its launch
-    counts, kernel by kernel."""
-    by_kernel = {}
+    counts, kernel by kernel, and KA's large backward ran exactly at the
+    backward's shapes whose bwd_plan takes that path."""
+    import torch
+
+    from rainbow_tpu_torch.kernels.noisy_linear import bwd_plan
+
+    by_kernel, large = {}, 0
     for key, n in shapes.items():
-        by_kernel[key.split()[0]] = by_kernel.get(key.split()[0], 0) + n
-    check(by_kernel == {k: v for k, v in counts.items() if v},
+        name = key.split()[0]
+        by_kernel[name] = by_kernel.get(name, 0) + n
+        if name == "noisy_linear_bwd":
+            _, b, dims, mode, dt = key.split()
+            n_in, n_out = map(int, dims.split("->"))
+            plan = bwd_plan(int(b[2:]), n_in, n_out,
+                            ("mu", "shared", "row").index(mode),
+                            torch.bfloat16 if dt == "bf16" else torch.float32)
+            large += n if plan.path == "large" else 0
+    check(by_kernel == {k: v for k, v in counts.items()
+                        if v and k != "noisy_linear_bwd_large"},
           f"{tag} launches by shape {by_kernel} do not add up to {counts}")
+    check(counts.get("noisy_linear_bwd_large", 0) == large,
+          f"{tag} {counts.get('noisy_linear_bwd_large', 0)} large KA "
+          f"backward launches, where bwd_plan takes that path at {large}")
 
 
 def _dt(t):
@@ -2495,7 +2528,7 @@ def run_trainer(torch, np):
                                                 "gather_window",
                                                 "write_priorities")),
               f"trainer: K5-K7 not once per round: {counts}")
-        check(all(v > 0 for k, v in counts.items() if k != "apply_delta")
+        check(all(v > 0 for k, v in counts.items() if k not in MAYBE_ZERO)
               and counts["apply_delta"] == 0,
               f"trainer: a kernel never launched, or K10 without delta "
               f"uploads {counts}")
@@ -2653,7 +2686,8 @@ def run_side_trainer(torch, np, args, sync):
               f"{run_id}: K10 launches {counts['apply_delta']}, upload forms "
               f"{tr.upload_forms}")
     check(all(v > 0 for k, v in counts.items()
-              if k != "apply_delta" or c.delta_uploads),
+              if k != "noisy_linear_bwd_large"
+              and (k != "apply_delta" or c.delta_uploads)),
           f"{run_id}: a kernel never launched {counts}")
     tr.env.close()
     del tr
@@ -2769,7 +2803,7 @@ def run_preset_trainer(torch, np, label, args):
                                             "gather_window",
                                             "write_priorities")),
           f"{tag} K5-K7 not once per round: {counts}")
-    check(all(v > 0 for k, v in counts.items() if k != "apply_delta")
+    check(all(v > 0 for k, v in counts.items() if k not in MAYBE_ZERO)
           and counts["apply_delta"] == 0,
           f"{tag} a kernel never launched, or K10 without delta uploads "
           f"{counts}")
@@ -2900,7 +2934,7 @@ def learn_seed(torch, np, seed):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = launches()
-    check(all(v > 0 for k, v in counts.items() if k != "apply_delta"),
+    check(all(v > 0 for k, v in counts.items() if k not in MAYBE_ZERO),
           f"[learning] seed {seed}: a kernel never launched {counts}")
     check(np.isfinite(float(tr._last_loss)),
           f"[learning] seed {seed}: loss {tr._last_loss}")
@@ -2959,6 +2993,10 @@ RANK_TRAINER_ARGS = ["--num-envs", "1024", "--learn-start", "5120",
                      "--max-episode-length", "4000", "--pipeline-actor",
                      "--pipeline-depth", "2", "--id", "chip_distributed",
                      "--seed", "0", "--process-count", "2"]
+# Launch counts that may read 0 in a Trainer run: K10's without delta
+# uploads, and KA's large backward (a share of noisy_linear_bwd's) below
+# BWD_LARGE_ROWS rows or in bf16.
+MAYBE_ZERO = ("apply_delta", "noisy_linear_bwd_large")
 ROUND_KERNELS = ("noisy_linear_fwd", "noisy_linear_bwd", "dueling_head",
                  "c51_target", "head_loss", "clip_adam", "stratified_sample",
                  "gather_window", "write_priorities", "scaled_noise")
@@ -3276,7 +3314,7 @@ def distributed_rank(args) -> int:
               f"rank {rank}: T {tr.T}, step {tr.agent.step}, evaluations "
               f"{tr.metrics['steps']}")
         check(all(v > 0 for k, v in out["trainer_launches"].items()
-                  if k != "apply_delta"), f"rank {rank}: a kernel never "
+                  if k not in MAYBE_ZERO), f"rank {rank}: a kernel never "
               f"launched {out['trainer_launches']}")
         check(tensors_agree(agent_tensors(tr.agent)),
               f"rank {rank}: the Trainers' replicas differ")
@@ -3531,6 +3569,7 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
         t_ops = r["flops"] / FLOP_PER_S[r["flop_dtype"]]
         r["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        _four_product_bound(r)
         r["kernel_ms"] = r["ms"]
         phase = r.get("phase")
         r["launches"] = counts[phase or ("side" if r["name"] == "apply_delta"
@@ -3914,6 +3953,10 @@ def ka_kernels(direction, dt, plan):
         main = ("noisy_linear_fwd_mma" if bf16
                 else f"noisy_linear_fwd_{plan.path}")
         reduce = "noisy_linear_fwd_reduce"
+    elif plan.path == "large":
+        main, reduce = "noisy_linear_bwd_large", "noisy_linear_bwd_large_reduce"
+        return main + (f" + {reduce}" if max(plan.splits, plan.w_splits) > 1
+                       else "")
     else:
         main = "noisy_linear_bwd_mma" if bf16 else "noisy_linear_bwd_kernel"
         reduce = "noisy_linear_dx_reduce"
@@ -3936,7 +3979,9 @@ def _plan(fn, *args):
 KA_ROWS = (("fwd", 32, 3136, 512, "shared", "fp32", "learner"),
            ("fwd", 8192, 3136, 512, "row", "fp32", "target"),
            ("fwd", 1024, 3136, 512, "row", "fp32", "actor"),
-           ("bwd", 32, 3136, 512, "shared", "fp32", "learner"))
+           ("bwd", 32, 3136, 512, "shared", "fp32", "learner"),
+           ("bwd", 256, 3136, 512, "shared", "fp32", "throughput learner"),
+           ("bwd", 1024, 3136, 512, "shared", "fp32", "batch-1024 learner"))
 
 
 def ka_rows(torch, cases=KA_ROWS):
@@ -3944,7 +3989,9 @@ def ka_rows(torch, cases=KA_ROWS):
     its ReLU, fp32, the layer that moves the most: its forward at the
     learner's B = 32 with shared noise, at the round's 8192-row target
     forward and at the actor's B = 1024 with per-row noise, and its backward
-    at B = 32 with shared noise). Each is
+    at B = 32, 256 and 1024 with shared noise; a backward row with no or
+    shared noise is bounded by the two products the function needs,
+    ``bound_ms_four_products`` by the four-product count beside it). Each is
     timed cold (the L2 flushed ahead of every call: the weights, 25.7 MB,
     would fit in it) and warm, by CUDA events and on the device, beside
     its library yardstick (``addmm`` x 2 for the forward: the two products
@@ -4028,7 +4075,7 @@ def ka_rows(torch, cases=KA_ROWS):
             gy = torch.randn((b, n_out), generator=g, device="cuda").to(dt)
             y = noisy_linear_fwd(prm, x, eps, True)
             ge = gy * eps[1].to(dt)
-            plan = bwd_plan(b, n_in, n_out, 2 if row_eps else 1)
+            plan = _plan(bwd_plan, b, n_in, n_out, 2 if row_eps else 1, dt)
             row.update(
                 plan=dataclasses.asdict(plan),
                 kernels=ka_kernels(direction, dt, plan),
@@ -4037,7 +4084,15 @@ def ka_rows(torch, cases=KA_ROWS):
                         lambda: (torch.mm(gy, wl[0]), torch.mm(ge, wl[1]),
                                  torch.mm(gy.t(), x), torch.mm(ge.t(), xe))),
                 library_call="mm x 4",
-                flops=8 * b * n_in * n_out + 3 * b * n_out + 3 * b * n_in,
+                # Per-row noise takes four products; no or shared noise two
+                # (dx over W_eff and dmu_w; dsigma_w is dmu_w scaled by
+                # eps_out eps_in^T), whatever path runs them. The
+                # four-product count stays beside it.
+                flops=(4 if row_eps else 2) * 2 * b * n_in * n_out
+                + 3 * b * n_out + 3 * b * n_in,
+                **({} if row_eps else dict(
+                    flops_four_products=8 * b * n_in * n_out + 3 * b * n_out
+                    + 3 * b * n_in)),
                 bytes=xb * 2 * b * (n_in + n_out)
                 + 4 * (4 * n_in * n_out + n_in + 3 * n_out))
         rows.append(row)
@@ -4185,6 +4240,17 @@ def gather_ab_rows(torch, cfg, presets):
     return rows
 
 
+def _four_product_bound(row):
+    """A shared-noise KA backward row's bound by the four-product count
+    (8·B·IN·OUT operations), beside ``bound_ms`` by the two products the
+    function needs."""
+    if "flops_four_products" in row:
+        row["bound_ms_four_products"] = 1e3 * max(
+            row["bytes"] / HBM_BYTES_PER_S,
+            row["flops_four_products"] / FLOP_PER_S[
+                row.get("flop_dtype", "fp32")])
+
+
 TIME_ROWS = ("ka", "adam", "gather")
 
 
@@ -4226,6 +4292,7 @@ def time_rows(kind, tree, label) -> int:
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / FLOP_PER_S[
                                       r.get("flop_dtype", "fp32")])
+        _four_product_bound(r)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -4309,9 +4376,14 @@ def main() -> int:
     # Full fp32 matrix products and convolutions for the whole run: the
     # comparisons then measure the kernels and not TF32 rounding (about
     # three decimal digits), and the timed phases compute at the precision
-    # the configuration states (compute_dtype float32).
+    # the configuration states (compute_dtype float32). The plain versions'
+    # bf16 products sum in fp32 and round once, as KA's do: cuBLAS's split-K
+    # otherwise rounds each partial sum to bf16, which at 1024 and 2048 rows
+    # over 306 x 512 outputs took the plain backward's dw_mu 0.82 from the
+    # float64 sum, where KA's is within 0.50, and the two 1.0 apart.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = canonical(game=GAME, num_envs=ENVS, seed=SEED)
     probe = engine.BatchedEnv(GAME, 1, 0)
     A = probe.action_space

@@ -30,7 +30,10 @@ import threading
 
 import torch
 
-LAUNCHES = {"noisy_linear_fwd": 0, "noisy_linear_bwd": 0, "dueling_head": 0,
+# noisy_linear_bwd_large counts the noisy_linear_bwd launches that took the
+# large-batch path; every other name counts its wrapper's launches.
+LAUNCHES = {"noisy_linear_fwd": 0, "noisy_linear_bwd": 0,
+            "noisy_linear_bwd_large": 0, "dueling_head": 0,
             "c51_target": 0, "head_loss": 0, "append_framestack": 0,
             "clip_adam": 0, "stratified_sample": 0, "gather_window": 0,
             "write_priorities": 0, "scaled_noise": 0, "apply_delta": 0}

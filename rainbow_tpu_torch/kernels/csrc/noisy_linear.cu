@@ -84,6 +84,11 @@
 // time, loading g and x with their eps-scaled copies into shared memory;
 // it stores its grads with float4 stores, and the blocks of the first input
 // tile also sum the bias grads. With eps_mode 0 dsigma is not written.
+//
+// A float32 backward with no or shared eps at a large batch is two
+// operation-bound products: it has a path of its own
+// (noisy_linear_bwd_large, the section "float32 backward, large batch"),
+// which the plan takes from BWD_LARGE_ROWS batch rows up.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -916,6 +921,487 @@ cudaError_t launch_bwd_fp32(int eps_mode, const BwdArgs& a) {
     case 1: return launch_bwd<float, 1>(a);
     default: return launch_bwd<float, 2>(a);
   }
+}
+
+// ===================== float32 backward, large batch, no or shared eps ====
+//
+// With shared noise the perturbation sigma_w * (eps_out eps_in^T) is a
+// rank-one scaling, so the backward is two products, not four; with g
+// masked by y > 0:
+//
+//   dx    = g @ W_eff,  W_eff = mu_w + sigma_w * (eps_out eps_in^T)
+//   dmu_w = g^T x       dsigma_w = dmu_w * (eps_out eps_in^T)
+//   dmu_b = sum_B g     dsigma_b = eps_out * dmu_b
+//
+// (without eps, W_eff = mu_w and the sigma grads are not written). These
+// are the gradients above; only the order of the float32 roundings
+// differs. It replaces no TPU kernel: it is a second path of the backward
+// above (XLA's derived backward of rainbow_tpu/models/noisy.py:57-94), for
+// the float32 learner at large batches.
+//
+// Bound. At the learner's fc_h with a large batch (B = 1024, 3136 -> 512)
+// that is 4 * B * IN * OUT = 6.6 GFLOP of FFMA on the CUDA cores (TF32
+// stays off): 0.098 ms at 67 TFLOP/s, against 13 MB of inputs and grads
+// (4 us at 3.35 TB/s). Bound by operations.
+//
+// Design. One launch of 128 x 128 output tiles of two kinds: weight
+// tiles (outputs x inputs of dmu_w, reduced over the batch) and dx tiles
+// (rows x inputs, reduced over the outputs), the kind with the longer
+// reduction first; at fc_h, B = 1024, 100 weight tiles of K 1,024, then
+// 200 dx tiles of K 512. A tile whose inputs end within its first half
+// (3136 = 24.5 tiles) computes that half alone, which evens the SMs'
+// shares out (96 stages of 16 steps each where 128 would be the longest).
+// A thread owns an 8 x 8 register tile in four 4 x 4 quarters, as in
+// noisy_linear_fwd_large, so that a warp's 16-byte shared-memory reads
+// fall on distinct banks; two such reads feed 64 FFMA, so shared memory
+// and the FMA pipes run near par (on the H100 about 55 % of the FP32 peak
+// where the work divides evenly). Each stage's 16 steps are summed into a fresh
+// partial, added to the total: blocked sums, whose rounding over a batch
+// of 1,024 stays near that of the plain version's products (a single chain
+// of fmaf rounds about 3x worse, and dsigma_w, scaled from dmu_w, would
+// carry it), for 64 more registers, so a block has an SM to itself.
+// Operands are staged k-major, rows padded to GP floats, in a ring of
+// three stages. x comes by cp.async, two stages ahead. Operands that
+// change on their way in come through registers one stage ahead: 16-byte
+// loads issued before the stage before is computed, transformed and
+// stored after it, so their latency hides behind it: g masked by y > 0;
+// in dx tiles g transposed (a dx tile reduces over g's columns) and W_eff
+// formed in float32 from the mu_w and sigma_w rows, eps_in (held in
+// registers) and eps_out, so W_eff is never written to device memory.
+// Rows or pointers that do not allow 16-byte accesses take 4-byte ones.
+// dsigma_w and the bias grads are formed in the epilogue.
+//
+// The plan (kernels/noisy_linear.py::bwd_plan) takes this path for float32
+// with no or shared noise from BWD_LARGE_ROWS batch rows up. Where the
+// tiles alone would leave SMs idle it splits the longer reduction (the
+// weight tiles' batch or the dx tiles' outputs) into chunks; each chunk
+// writes its partial sums to the call's scratch and
+// noisy_linear_bwd_large_reduce adds them in chunk order and applies the
+// epilogue. No float atomics: every launch gives the same bits.
+constexpr int GT = 128;      // a tile's edge
+constexpr int GK = 16;       // reduction steps a stage
+constexpr int GP = GT + 4;   // a staged row, padded: a warp's transposed
+                             // stores of g fall on two banks at most
+constexpr int GS = GK * GP;  // floats of one staged operand
+constexpr int GOPS = 2;      // staged operands: g and x (weight tiles), g
+                             // and W_eff (dx tiles)
+constexpr int GST = 3;       // stages in the ring
+constexpr int LARGE_SMEM = (int)sizeof(float) * GST * GOPS * GS;
+
+struct BwdLargeArgs {
+  const float *x, *g, *y, *w_mu, *w_sig, *eps_in, *eps_out;
+  float *dx, *dw_mu, *dw_sig, *db_mu, *db_sig, *part;
+  int B, IN, OUT, relu, chunk, splits, w_chunk, w_splits, vec_in, vec_out;
+  cudaStream_t stream;
+};
+
+// The scratch: with the batch split, w_splits planes of OUT x IN weight
+// partials and then w_splits rows of OUT bias partials, rounded up to a
+// multiple of 4 floats; then, with the outputs split, splits planes of B x
+// IN dx partials.
+__host__ __device__ inline size_t w_part_floats(const BwdLargeArgs& a) {
+  if (a.w_splits == 1) return 0;
+  const size_t n = (size_t)a.w_splits * ((size_t)a.OUT * a.IN + a.OUT);
+  return (n + 3) / 4 * 4;
+}
+
+constexpr int GL = GK * GT / 4 / THREADS;  // 16-byte groups a thread stages
+
+// Rows r0 .. r0 + GK (those below r_end) by columns c0 .. c0 + GT (those
+// below c_end) of a row-major matrix with rows of ld floats, into a staged
+// operand by cp.async, zeros elsewhere. Copy l of thread t is group f = t +
+// l * THREADS: row f / 32, columns 4 (f % 32) ..
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int ld, int r0, int r_end, int c0,
+                                           int c_end, int vec) {
+#pragma unroll
+  for (int l = 0; l < GL; ++l) {
+    const int f = threadIdx.x + l * THREADS;
+    const int r = f / (GT / 4), c = (f % (GT / 4)) * 4;
+    const int cnt = r0 + r < r_end ? max(0, min(4, c_end - c0 - c)) : 0;
+    const float* p = src + (cnt > 0 ? (size_t)(r0 + r) * ld + c0 + c : 0);
+    float* d = dst + r * GP + c;
+    if (vec) {
+      cp_async16(d, p, 4 * cnt);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        cp_async4(d + j, p + (j < cnt ? j : 0), j < cnt ? 4 : 0);
+    }
+  }
+}
+
+// Loads this thread's groups of a stage (rows r0 .. r0 + GK below r_end,
+// columns c0 .. c0 + GT below c_end, of a row-major matrix with rows of ld
+// floats), group l at row (t + l * THREADS) / 32, columns 4 (t % 32) ..;
+// zeros past the ends.
+__device__ __forceinline__ void fetch_rows(float4 (&v)[GL], const float* src,
+                                           int ld, int r0, int r_end, int c0,
+                                           int c_end, int vec) {
+#pragma unroll
+  for (int l = 0; l < GL; ++l) {
+    const int f = threadIdx.x + l * THREADS;
+    const int r = r0 + f / (GT / 4), c = c0 + (f % (GT / 4)) * 4;
+    const int cnt = r < r_end ? min(4, c_end - c) : 0;
+    v[l] = load4(src + (cnt > 0 ? (size_t)r * ld + c : 0), cnt, vec);
+  }
+}
+
+// g masked by y > 0, in place: the values are loaded a stage ahead and
+// masked only as they are stored, so the loads are waited for then.
+__device__ __forceinline__ void mask4(float4& g, const float4& y) {
+  g.x = y.x > 0.f ? g.x : 0.f;
+  g.y = y.y > 0.f ? g.y : 0.f;
+  g.z = y.z > 0.f ? g.z : 0.f;
+  g.w = y.w > 0.f ? g.w : 0.f;
+}
+
+// Stores fetched groups into a staged operand, at their own places.
+__device__ __forceinline__ void stash_rows(float* dst, const float4 (&v)[GL]) {
+#pragma unroll
+  for (int l = 0; l < GL; ++l) {
+    const int f = threadIdx.x + l * THREADS;
+    *reinterpret_cast<float4*>(dst + (f / (GT / 4)) * GP + (f % (GT / 4)) * 4) =
+        v[l];
+  }
+}
+
+// acc += the stage's A^T B, summed in a partial of its own first: A and B
+// staged k-major, a thread's rows from ty and columns from tx (frag8).
+// With NB = 1 only the columns 4 tx .. of each thread, the tile's first
+// half, are computed: a tile whose second half lies past the inputs' end
+// (3136 = 24.5 tiles) takes half the time of a whole one.
+template <int NB>
+__device__ __forceinline__ void fma_stage(float (&acc)[8][8], const float* a_st,
+                                          const float* b_st, int tx, int ty) {
+  float part[8][4 * NB];
+#pragma unroll
+  for (int kk = 0; kk < GK; ++kk) {
+    float a[8], b[8];
+    frag8(a, a_st + kk * GP, ty);
+    if constexpr (NB == 2) {
+      frag8(b, b_st + kk * GP, tx);
+    } else {
+      const float4 v = *reinterpret_cast<const float4*>(b_st + kk * GP +
+                                                        4 * tx);
+      b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * NB; ++j)
+        part[i][j] = kk ? fmaf(a[i], b[j], part[i][j]) : a[i] * b[j];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NB; ++j) acc[i][j] += part[i][j];
+}
+
+// Four consecutive values of a row at column k (those below n) into p:
+// one 16-byte store when vec and all four are in.
+__device__ __forceinline__ void put4(float* p, int k, int n, const float* v,
+                                     int vec) {
+  if (vec && k + 4 <= n) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (k + j < n) p[j] = v[j];
+  }
+}
+
+// The 128 x 128 tile (outputs n0.., inputs k0..) of dmu_w and dsigma_w
+// over the batch rows of chunk s; the tiles with k0 == 0 also sum the bias
+// grads of their outputs. Staged per stage: g (masked by y > 0 in
+// registers, one stage ahead) and x (by cp.async, two stages ahead).
+template <int EPS, int NB>
+__device__ void large_weight_tile(float* sm, const BwdLargeArgs& a, int n0,
+                                  int k0, int s) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int b_begin = s * a.w_chunk, b_end = min(a.B, b_begin + a.w_chunk);
+  const int steps = (b_end - b_begin + GK - 1) / GK;
+  const bool bias = k0 == 0;
+  auto issue = [&](int t) {  // stage t's x, if any; a group either way
+    if (t < steps)
+      stage_rows(sm + (t % GST) * GOPS * GS + GS, a.x, a.IN,
+                 b_begin + t * GK, b_end, k0, a.IN, a.vec_in);
+    cp_async_commit();
+  };
+  float4 rg[GL], ry[GL];
+  auto fetch = [&](int t) {
+    fetch_rows(rg, a.g, a.OUT, b_begin + t * GK, b_end, n0, a.OUT,
+               a.vec_out);
+    if (a.relu)
+      fetch_rows(ry, a.y, a.OUT, b_begin + t * GK, b_end, n0, a.OUT,
+                 a.vec_out);
+  };
+  auto stash = [&](int t) {  // the fetched g, masked, into slot t % GST
+    if (a.relu) {
+#pragma unroll
+      for (int l = 0; l < GL; ++l) mask4(rg[l], ry[l]);
+    }
+    stash_rows(sm + (t % GST) * GOPS * GS, rg);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float bsum = 0.f;
+
+  for (int t = 0; t < GST - 1; ++t) issue(t);
+  fetch(0);
+  stash(0);
+  for (int t = 0; t < steps; ++t) {
+    float* st = sm + (t % GST) * GOPS * GS;
+    cp_async_wait<GST - 2>();
+    __syncthreads();  // stage t is in; stage t - 1 is done with
+    issue(t + GST - 1);
+    const bool more = t + 1 < steps;
+    if (more) fetch(t + 1);
+    fma_stage<NB>(acc, st, st + GS, tx, ty);
+    if (bias && tid < GT) {
+#pragma unroll
+      for (int kk = 0; kk < GK; ++kk) bsum += st[kk * GP + tid];
+    }
+    if (more) stash(t + 1);
+  }
+
+  const bool split = a.w_splits > 1;
+  float4 ei[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = k0 + 64 * h + 4 * tx;
+    ei[h] = EPS && !split ? load4(a.eps_in + k, min(4, a.IN - k), a.vec_in)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = n0 + frag8_row(i, ty);
+    if (n >= a.OUT) continue;
+    const float eo = EPS && !split ? a.eps_out[n] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * h + 4 * tx;
+      if (k >= a.IN) continue;
+      const float* v = &acc[i][4 * h];
+      if (split) {
+        put4(a.part + ((size_t)s * a.OUT + n) * a.IN + k, k, a.IN, v,
+             a.vec_in);
+        continue;
+      }
+      const size_t o = (size_t)n * a.IN + k;
+      put4(a.dw_mu + o, k, a.IN, v, a.vec_in);
+      if constexpr (EPS != 0) {
+        const float sg[4] = {v[0] * (eo * ei[h].x), v[1] * (eo * ei[h].y),
+                             v[2] * (eo * ei[h].z), v[3] * (eo * ei[h].w)};
+        put4(a.dw_sig + o, k, a.IN, sg, a.vec_in);
+      }
+    }
+  }
+  if (bias && tid < GT && n0 + tid < a.OUT) {
+    const int n = n0 + tid;
+    if (split) {
+      a.part[(size_t)a.w_splits * a.OUT * a.IN + (size_t)s * a.OUT + n] =
+          bsum;
+    } else {
+      a.db_mu[n] = bsum;
+      if constexpr (EPS != 0) a.db_sig[n] = a.eps_out[n] * bsum;
+    }
+  }
+}
+
+// The 128 x 128 tile (rows m0.., inputs k0..) of dx over the outputs of
+// chunk s. Staged per stage, both through registers one stage ahead: g,
+// masked by y > 0 and stored transposed, and W_eff, formed from the mu_w
+// and sigma_w rows as they are stored.
+template <int EPS, int NB>
+__device__ void large_input_tile(float* sm, const BwdLargeArgs& a, int m0,
+                                 int k0, int s) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int o_begin = s * a.chunk, o_end = min(a.OUT, o_begin + a.chunk);
+  const int steps = (o_end - o_begin + GK - 1) / GK;
+  // eps_in at this thread's columns of fetch_rows (the same for every
+  // group of a thread: THREADS is a multiple of GT / 4).
+  const int kc = k0 + (tid % (GT / 4)) * 4;
+  const float4 ei = EPS ? load4(a.eps_in + kc, min(4, a.IN - kc), a.vec_in)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  // This thread's g: rows gr and gr + 64 of the tile, outputs gc .. gc + 3
+  // of a stage, loaded as rows and stored transposed.
+  constexpr int GQ = GK / 4;
+  const int gr = tid / GQ, gc = (tid % GQ) * 4;
+  static_assert(THREADS / GQ * 2 == GT, "two g loads a thread");
+  float4 rg[2], ry[2], rw[GL], rs[GL];
+  float eo[GL];
+  auto fetch = [&](int t) {  // stage t's g, mu_w and sigma_w, eps_out
+    const int r0 = o_begin + t * GK;
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      const int m = m0 + gr + 64 * l;
+      const int cnt = m < a.B ? min(4, o_end - r0 - gc) : 0;
+      const size_t o = (size_t)(m < a.B ? m : 0) * a.OUT + r0 + gc;
+      rg[l] = load4(a.g + o, cnt, a.vec_out);
+      if (a.relu) ry[l] = load4(a.y + o, cnt, a.vec_out);
+    }
+    fetch_rows(rw, a.w_mu, a.IN, r0, o_end, k0, a.IN, a.vec_in);
+    if constexpr (EPS != 0) {
+      fetch_rows(rs, a.w_sig, a.IN, r0, o_end, k0, a.IN, a.vec_in);
+#pragma unroll
+      for (int l = 0; l < GL; ++l) {
+        const int n = r0 + (tid + l * THREADS) / (GT / 4);
+        eo[l] = n < o_end ? __ldg(a.eps_out + n) : 0.f;
+      }
+    }
+  };
+  auto stash = [&](int t) {  // the fetched stage into slot t % GST
+    float* st = sm + (t % GST) * GOPS * GS;
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      if (a.relu) mask4(rg[l], ry[l]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        st[(gc + j) * GP + gr + 64 * l] = get(rg[l], j);
+    }
+    if constexpr (EPS != 0) {
+#pragma unroll
+      for (int l = 0; l < GL; ++l) {
+        rw[l].x = fmaf(rs[l].x, eo[l] * ei.x, rw[l].x);
+        rw[l].y = fmaf(rs[l].y, eo[l] * ei.y, rw[l].y);
+        rw[l].z = fmaf(rs[l].z, eo[l] * ei.z, rw[l].z);
+        rw[l].w = fmaf(rs[l].w, eo[l] * ei.w, rw[l].w);
+      }
+    }
+    stash_rows(st + GS, rw);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  stash(0);
+  for (int t = 0; t < steps; ++t) {
+    __syncthreads();  // stage t is in; stage t - 1 is done with
+    const bool more = t + 1 < steps;
+    if (more) fetch(t + 1);
+    fma_stage<NB>(acc, sm + (t % GST) * GOPS * GS,
+                  sm + (t % GST) * GOPS * GS + GS, tx, ty);
+    if (more) stash(t + 1);
+  }
+
+  float* out = a.splits > 1
+                   ? a.part + w_part_floats(a) + (size_t)s * a.B * a.IN
+                   : a.dx;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + frag8_row(i, ty);
+    if (m >= a.B) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * h + 4 * tx;
+      if (k < a.IN)
+        put4(out + (size_t)m * a.IN + k, k, a.IN, &acc[i][4 * h], a.vec_in);
+    }
+  }
+}
+
+// The weight tiles' blocks and the dx tiles' (each kind chunk-major), the
+// kind whose chunks are the longer first: the weight tiles from block 0
+// when w_first, else from block n_xblocks. A tile whose inputs end before
+// its second half computes its first half alone.
+template <int EPS>
+__global__ void __launch_bounds__(THREADS, 1)
+    noisy_linear_bwd_large(const BwdLargeArgs a, int n_wblocks,
+                           int n_xblocks, int w_first) {
+  extern __shared__ __align__(16) float lsm[];
+  const int k_tiles = (a.IN + GT - 1) / GT;
+  int blk = blockIdx.x;
+  if (w_first ? blk < n_wblocks : blk >= n_xblocks) {
+    if (!w_first) blk -= n_xblocks;
+    const int w_tiles = ((a.OUT + GT - 1) / GT) * k_tiles;
+    const int s = blk / w_tiles;
+    blk %= w_tiles;
+    const int n0 = (blk / k_tiles) * GT, k0 = (blk % k_tiles) * GT;
+    if (k0 + GT / 2 >= a.IN)
+      large_weight_tile<EPS, 1>(lsm, a, n0, k0, s);
+    else
+      large_weight_tile<EPS, 2>(lsm, a, n0, k0, s);
+  } else {
+    if (w_first) blk -= n_wblocks;
+    const int x_tiles = ((a.B + GT - 1) / GT) * k_tiles;
+    const int s = blk / x_tiles;
+    blk %= x_tiles;
+    const int m0 = (blk / k_tiles) * GT, k0 = (blk % k_tiles) * GT;
+    if (k0 + GT / 2 >= a.IN)
+      large_input_tile<EPS, 1>(lsm, a, m0, k0, s);
+    else
+      large_input_tile<EPS, 2>(lsm, a, m0, k0, s);
+  }
+}
+
+// Adds the partial sums of a split call in chunk order, s = 0 .. S-1, and
+// applies the epilogue: the weight grads and the bias grads when the batch
+// was split, then dx when the outputs were.
+template <int EPS>
+__global__ void __launch_bounds__(THREADS)
+    noisy_linear_bwd_large_reduce(const BwdLargeArgs a) {
+  size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  const bool w_split = a.w_splits > 1;
+  const size_t nw = w_split ? (size_t)a.OUT * a.IN : 0;
+  const size_t nb = w_split ? (size_t)a.OUT : 0;
+  const size_t nx = a.splits > 1 ? (size_t)a.B * a.IN : 0;
+  if (i < nw) {
+    float v = 0.f;
+    for (int s = 0; s < a.w_splits; ++s) v += a.part[s * nw + i];
+    a.dw_mu[i] = v;
+    if constexpr (EPS != 0)
+      a.dw_sig[i] = v * (a.eps_out[i / a.IN] * a.eps_in[i % a.IN]);
+    return;
+  }
+  i -= nw;
+  if (i < nb) {
+    const float* pb = a.part + a.w_splits * nw;
+    float v = 0.f;
+    for (int s = 0; s < a.w_splits; ++s) v += pb[s * nb + i];
+    a.db_mu[i] = v;
+    if constexpr (EPS != 0) a.db_sig[i] = a.eps_out[i] * v;
+    return;
+  }
+  i -= nb;
+  if (i < nx) {
+    const float* px = a.part + w_part_floats(a);
+    float v = 0.f;
+    for (int s = 0; s < a.splits; ++s) v += px[s * nx + i];
+    a.dx[i] = v;
+  }
+}
+
+template <int EPS>
+cudaError_t launch_bwd_large(const BwdLargeArgs& a) {
+  // Above 48 KB a block's shared memory must be asked for: once.
+  static const cudaError_t set = cudaFuncSetAttribute(
+      noisy_linear_bwd_large<EPS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LARGE_SMEM);
+  if (set != cudaSuccess) return set;
+  const int k_tiles = (a.IN + GT - 1) / GT;
+  const int n_wblocks = ((a.OUT + GT - 1) / GT) * k_tiles * a.w_splits;
+  const int n_xblocks = ((a.B + GT - 1) / GT) * k_tiles * a.splits;
+  const int w_first = a.w_chunk >= a.chunk;
+  noisy_linear_bwd_large<EPS>
+      <<<n_wblocks + n_xblocks, THREADS, LARGE_SMEM, a.stream>>>(
+          a, n_wblocks, n_xblocks, w_first);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || (a.splits == 1 && a.w_splits == 1)) return err;
+  size_t total = a.splits > 1 ? (size_t)a.B * a.IN : 0;
+  if (a.w_splits > 1) total += (size_t)a.OUT * a.IN + a.OUT;
+  noisy_linear_bwd_large_reduce<EPS>
+      <<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0,
+         a.stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ============================================== bf16 on the tensor cores ====
@@ -1817,5 +2303,39 @@ extern "C" int noisy_linear_bwd(const void* x, const void* g, const void* y,
             splits, vec_in, vec_out, static_cast<cudaStream_t>(stream)};
   const cudaError_t err = x_bf16 ? launch_bwd_mma_eps(eps_mode, a)
                                  : launch_bwd_fp32(eps_mode, a);
+  return static_cast<int>(err);
+}
+
+// Backward of a float32 layer with no (eps_mode 0) or shared (1) noise on
+// the large-batch path: x (B, IN), g, y (B, OUT; y read only when relu = 1)
+// and dx float32, as noisy_linear_bwd. The plan
+// (kernels/noisy_linear.py::bwd_plan, path "large") splits the dx tiles'
+// reduction over the outputs into `splits` chunks of `chunk` and the weight
+// tiles' reduction over the batch into `w_splits` chunks of `w_chunk`; with
+// either above one the partial sums go to `scratch` (w_part_floats floats
+// for the weights, then splits * B * IN for dx). With eps_mode 0 dsigma_w
+// and dsigma_b are not written. Returns cudaGetLastError().
+extern "C" int noisy_linear_bwd_large(
+    const float* x, const float* g, const float* y, const float* w_mu,
+    const float* w_sig, const float* eps_in, const float* eps_out,
+    int eps_mode, float* dx, float* dw_mu, float* dw_sig, float* db_mu,
+    float* db_sig, int B, int IN, int OUT, int relu, void* stream, int chunk,
+    int splits, int w_chunk, int w_splits, float* scratch) {
+  if (IN <= 0 || (eps_mode != 0 && eps_mode != 1) ||
+      !valid_split(OUT, chunk, splits, scratch) ||
+      !valid_split(B, w_chunk, w_splits, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_in = IN % 4 == 0 && aligned16(x) && aligned16(dx) &&
+                      aligned16(w_mu) && aligned16(w_sig) &&
+                      aligned16(dw_mu) && aligned16(dw_sig) &&
+                      (eps_mode == 0 || aligned16(eps_in));
+  const bool vec_out =
+      OUT % 4 == 0 && aligned16(g) && (!relu || aligned16(y));
+  BwdLargeArgs a{x, g, relu ? y : nullptr, w_mu, w_sig, eps_in, eps_out,
+                 dx, dw_mu, dw_sig, db_mu, db_sig, scratch, B, IN, OUT,
+                 relu, chunk, splits, w_chunk, w_splits, vec_in, vec_out,
+                 static_cast<cudaStream_t>(stream)};
+  const cudaError_t err = eps_mode ? launch_bwd_large<1>(a)
+                                   : launch_bwd_large<0>(a);
   return static_cast<int>(err);
 }

@@ -17,6 +17,16 @@ to a scratch tensor that the wrapper allocates for each call on the current
 stream, and a second kernel adds them in chunk order: the result has the same
 bits on every launch.
 
+A float32 backward with no or shared noise from BWD_LARGE_ROWS batch rows
+up takes the large-batch path (``noisy_linear_bwd_large``): two products,
+dx = g @ W_eff and dμ_W = gᵀ x, the shared noise folded into W_eff and
+into dσ_W = dμ_W ⊙ ε_out ε_inᵀ, on 128 x 128 tiles of both kinds in one
+launch. Where those tiles alone leave SMs idle, its plan splits the longer
+of the two reductions (the weight tiles' batch, or the dx tiles' outputs)
+until they fill a wave or no chunk is longer than BWD_CHUNK_MIN; a second
+kernel adds the partial sums in chunk order. BWD_LARGE_ROWS is where the
+two backward kernels cross on the H100 (PERF.md).
+
 bfloat16 has a plan of its own (``fwd_plan(..., torch.bfloat16)``): the
 same tiles and the same choice of path, for the tensor-core kernels, whose
 chunks are multiples of 16 (the MMA's k) and whose small path streams x
@@ -40,6 +50,7 @@ from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
 
 NAME = "noisy_linear_fwd"
 BWD = "noisy_linear_bwd"
+BWD_LARGE = "noisy_linear_bwd_large"  # the large path's share of BWD's count
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 WAVE = 132       # SMs of an H100 SXM
@@ -48,6 +59,10 @@ CHUNK_MAX = 256  # the most inputs a float32 small-path block stages at once
 # The forward's block tiles, by batch rows: (rows, outputs).
 FWD_TILES = {16: (16, 64), 32: (32, 64), 128: (128, 128)}
 DX_TILE = (32, 64)  # the backward's dx blocks: (rows, inputs)
+BWD_TILE = 128      # the large backward's tiles: 128 x 128, both kinds
+BWD_LARGE_ROWS = 128  # float32, no or shared noise: the large backward from
+                      # this many batch rows up
+BWD_CHUNK_MIN = 128   # the large backward splits no reduction below this
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +73,24 @@ class Plan:
     splits: int
     blocks: int   # blocks of the main kernel that the split covers
     scratch: int  # float32 elements of the partial sums; 0 without a split
+    # The backward's weight grads reduce over the batch: its rows per split
+    # and the splits (the large backward's; the small one walks the whole
+    # batch in each weight block). The forward has no such reduction.
+    w_chunk: int = 0
+    w_splits: int = 1
 
     def chunks(self, n: int) -> List[Tuple[int, int]]:
         """The [start, end) of each chunk of a reduction of length n, in
         the order the partial sums are added."""
-        return [(s * self.chunk, min(n, (s + 1) * self.chunk))
-                for s in range(self.splits)]
+        return _chunks(n, self.chunk, self.splits)
+
+    def batch_chunks(self, b: int) -> List[Tuple[int, int]]:
+        """The backward's chunks of the batch for the weight grads."""
+        return _chunks(b, self.w_chunk, self.w_splits)
+
+
+def _chunks(n: int, chunk: int, splits: int) -> List[Tuple[int, int]]:
+    return [(s * chunk, min(n, (s + 1) * chunk)) for s in range(splits)]
 
 
 def _split(n: int, wanted: int, most: int = 1 << 30) -> Tuple[int, int]:
@@ -95,15 +122,46 @@ def fwd_plan(b: int, n_in: int, n_out: int, eps_mode: int,
                 planes * splits * b * n_out if splits > 1 else 0)
 
 
-def bwd_plan(b: int, n_in: int, n_out: int, eps_mode: int) -> Plan:
-    """The backward's launch plan: the split of dx's reduction over the
-    outputs (the weight grads reduce over the batch, unsplit)."""
+def bwd_plan(b: int, n_in: int, n_out: int, eps_mode: int,
+             dtype: torch.dtype = torch.float32) -> Plan:
+    """The backward's launch plan for x (b, n_in), g (b, n_out) in x's
+    ``dtype``: the large path for float32 with no or shared noise from
+    BWD_LARGE_ROWS rows up, else the small path, which splits dx's
+    reduction over the outputs (its weight grads reduce over the whole
+    batch)."""
+    if dtype == torch.float32 and eps_mode < 2 and b >= BWD_LARGE_ROWS:
+        return _bwd_large_plan(b, n_in, n_out)
     rows, cols = DX_TILE
     tiles = math.ceil(b / rows) * math.ceil(n_in / cols)
     chunk, splits = _split(n_out, math.ceil(WAVE / tiles))
     planes = 2 if eps_mode else 1
     return Plan("small", rows, chunk, splits, tiles * splits,
-                planes * splits * b * n_in if splits > 1 else 0)
+                planes * splits * b * n_in if splits > 1 else 0, b, 1)
+
+
+def _bwd_large_plan(b: int, n_in: int, n_out: int) -> Plan:
+    """128 x 128 weight tiles over the batch and dx tiles over the outputs.
+    While the pieces fill less than a wave, the reduction whose chunks are
+    the longest is cut into one more chunk, down to BWD_CHUNK_MIN."""
+    k_tiles = math.ceil(n_in / BWD_TILE)
+    w_tiles = math.ceil(n_out / BWD_TILE) * k_tiles
+    x_tiles = math.ceil(b / BWD_TILE) * k_tiles
+    want_x = want_w = 1
+    chunk, splits = _split(n_out, want_x)
+    w_chunk, w_splits = _split(b, want_w)
+    while (x_tiles * splits + w_tiles * w_splits < WAVE
+           and max(chunk, w_chunk) > BWD_CHUNK_MIN):
+        if w_chunk >= chunk:
+            want_w += 1
+            w_chunk, w_splits = _split(b, want_w)
+        else:
+            want_x += 1
+            chunk, splits = _split(n_out, want_x)
+    w_part = w_splits * (n_out * n_in + n_out) if w_splits > 1 else 0
+    x_part = splits * b * n_in if splits > 1 else 0
+    return Plan("large", BWD_TILE, chunk, splits,
+                w_tiles * w_splits + x_tiles * splits,
+                -(-w_part // 4) * 4 + x_part, w_chunk, w_splits)
 
 
 @functools.cache
@@ -117,6 +175,10 @@ def _lib():
     bwd.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _P, _I, _I, _P]
     bwd.restype = _I
+    large = lib.noisy_linear_bwd_large
+    large.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _P, _I, _I, _I, _I, _P]
+    large.restype = _I
     return lib
 
 
@@ -208,7 +270,7 @@ def noisy_linear_bwd(w_mu: torch.Tensor, w_sig: torch.Tensor,
         check_dtype(BWD, "y", y, x.dtype)
         check_shape(BWD, "y", y, (b, n_out))
     eps_mode, e_in, e_out = _eps_mode(BWD, eps, b, n_in, n_out)
-    plan = bwd_plan(b, n_in, n_out, eps_mode)
+    plan = bwd_plan(b, n_in, n_out, eps_mode, x.dtype)
     dev = x.device
     dx = torch.empty_like(x)
     dw_mu = torch.empty((n_out, n_in), dtype=torch.float32, device=dev)
@@ -217,14 +279,24 @@ def noisy_linear_bwd(w_mu: torch.Tensor, w_sig: torch.Tensor,
     dw_sig = new((n_out, n_in), dtype=torch.float32, device=dev)
     db_sig = new((n_out,), dtype=torch.float32, device=dev)
     scratch = _scratch(plan, dev)
-    err = _lib().noisy_linear_bwd(
-        x.data_ptr(), g.data_ptr(), _ptr(y), int(x.dtype == torch.bfloat16),
-        w_mu.data_ptr(), w_sig.data_ptr(), _ptr(e_in), _ptr(e_out), eps_mode,
-        dx.data_ptr(), dw_mu.data_ptr(), dw_sig.data_ptr(), db_mu.data_ptr(),
-        db_sig.data_ptr(), b, n_in, n_out, int(y is not None),
-        torch.cuda.current_stream(dev).cuda_stream, plan.chunk, plan.splits,
-        _ptr(scratch))
+    grads = (dx.data_ptr(), dw_mu.data_ptr(), dw_sig.data_ptr(),
+             db_mu.data_ptr(), db_sig.data_ptr(), b, n_in, n_out,
+             int(y is not None), torch.cuda.current_stream(dev).cuda_stream,
+             plan.chunk, plan.splits)
+    if plan.path == "large":
+        err = _lib().noisy_linear_bwd_large(
+            x.data_ptr(), g.data_ptr(), _ptr(y), w_mu.data_ptr(),
+            w_sig.data_ptr(), _ptr(e_in), _ptr(e_out), eps_mode, *grads,
+            plan.w_chunk, plan.w_splits, _ptr(scratch))
+    else:
+        err = _lib().noisy_linear_bwd(
+            x.data_ptr(), g.data_ptr(), _ptr(y),
+            int(x.dtype == torch.bfloat16), w_mu.data_ptr(),
+            w_sig.data_ptr(), _ptr(e_in), _ptr(e_out), eps_mode, *grads,
+            _ptr(scratch))
     if err:
         raise RuntimeError(f"{BWD}: launch failed with CUDA error {err}")
     count_launch(BWD)
+    if plan.path == "large":
+        count_launch(BWD_LARGE)
     return dx, dw_mu, dw_sig, db_mu, db_sig

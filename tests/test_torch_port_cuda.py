@@ -10,7 +10,10 @@ Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
 bf16 differs by a few bf16 ulps of O(1) values, and the noisy-linear
 kernels, which add their split partial sums in a fixed order, give the same
 bits on a second launch, float32 and bf16 alike; a bf16 call launches only
-their tensor-core kernels (read from a captured graph's kernel nodes); the head combines in the
+their tensor-core kernels (read from a captured graph's kernel nodes); the
+float32 backward's large path is held to the plain version in float64 at
+the cells' and presets' batches, ragged and through unaligned views, and
+only its calls count as noisy_linear_bwd_large launches; the head combines in the
 streams' dtype on both sides and its float32 softmax agrees to 1e-5;
 integer work is bit-exact: the append + frame-stack kernel (KC) at
 N = 1 to 1024, no, bucketed and dense reset rows, H = 4 (vector path) and
@@ -432,7 +435,7 @@ def test_bf16_noisy_linear_launches_only_tensor_core_kernels(cuda, shape):
                  fwd_plan(b, n_in, n_out, modes.index(mode), torch.bfloat16),
                  "noisy_linear_fwd_mma", "noisy_linear_fwd_reduce"),
                 (lambda: noisy_linear_bwd(*w, x, gy, eps, y),
-                 bwd_plan(b, n_in, n_out, modes.index(mode)),
+                 bwd_plan(b, n_in, n_out, modes.index(mode), torch.bfloat16),
                  "noisy_linear_bwd_mma", "noisy_linear_dx_reduce")):
             names = []
             _graph_kernels(call, names)
@@ -444,6 +447,119 @@ def test_bf16_noisy_linear_launches_only_tensor_core_kernels(cuda, shape):
                 assert stem in name, (mode, name)
             if plan.splits > 1:
                 assert "__nv_bfloat16" in ka[1], (mode, ka[1])
+
+
+# The float32 backward's large path (noisy_linear_bwd_large, from
+# BWD_LARGE_ROWS rows with no or shared noise): fc_h at the batches of the
+# cells and presets that reach it and twice the canonical cell's, pong's
+# fc_z layers at the canonical cell's batch (their batch split into
+# chunks), and a shape ragged against every tile edge (split dx and
+# weights).
+LARGE_BWD_SHAPES = [(128, 3136, 512), (256, 3136, 512), (1024, 3136, 512),
+                    (2048, 3136, 512), (1024, 512, 51), (1024, 512, 306),
+                    (200, 301, 70)]
+
+
+def _offset_view(t, offset):
+    """t's values in a contiguous view that starts ``offset`` floats into a
+    larger buffer: an offset of 1 makes it unaligned for 16-byte loads."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("mode", ["mu", "shared"])
+@pytest.mark.parametrize("shape", LARGE_BWD_SHAPES, ids=str)
+def test_large_noisy_linear_bwd_matches_plain(cuda, shape, mode, offset):
+    """The large path against noisy_linear_bwd_plain in float64, with and
+    without the ReLU's mask; with offset 1 every input is a view one float
+    into its buffer, so each copy and store takes the 4-byte path.
+    Tolerance: float32 sums of up to 2,048 O(1) products, each a chain of
+    fmaf in another order than the reference's; their rounding is a few
+    ulps of the sums' scale, K·2^-24 ≈ 1.2e-4 of it at K = 2,048, so 1e-5
+    of the largest |reference| (at least 1) plus 1e-4 relative."""
+    b, n_in, n_out = shape
+    plan = bwd_plan(b, n_in, n_out, 1 if mode == "shared" else 0)
+    assert plan.path == "large"
+    prm, x, gy, eps = _noisy_case(cuda, 13, shape, mode, torch.float32)
+    w = tuple(_offset_view(prm[k], offset)
+              for k in ("weight_mu", "weight_sigma"))
+    x, gy = _offset_view(x, offset), _offset_view(gy, offset)
+    if eps is not None:
+        eps = tuple(_offset_view(e, offset) for e in eps)
+    d = lambda t: None if t is None else t.double()
+    for relu in (False, True):
+        y = (_offset_view(noisy_linear_fwd(prm, x, eps, True), offset)
+             if relu else None)
+        got = noisy_linear_bwd(*w, x, gy, eps, y)
+        want = noisy_linear_bwd_plain(
+            *map(d, w), d(x), d(gy),
+            None if eps is None else tuple(map(d, eps)), d(y))
+        for a, c in zip(got, want):
+            assert a.dtype == torch.float32
+            scale = max(1.0, float(c.abs().max()))
+            torch.testing.assert_close(a.double(), c.double(),
+                                       atol=1e-5 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1024, 3136, 512), (1024, 512, 306),
+                                   (200, 301, 70)], ids=str)
+def test_large_noisy_linear_bwd_gives_the_same_bits_twice(cuda, shape):
+    """No float atomics: the split shapes' partials are added in chunk
+    order, so two launches of the large path give equal bits."""
+    b, n_in, n_out = shape
+    for mode in ("mu", "shared"):
+        prm, x, gy, eps = _noisy_case(cuda, 17, shape, mode, torch.float32)
+        w = (prm["weight_mu"], prm["weight_sigma"])
+        y = noisy_linear_fwd(prm, x, eps, True)
+        first = noisy_linear_bwd(*w, x, gy, eps, y)
+        for a, c in zip(noisy_linear_bwd(*w, x, gy, eps, y), first):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shape", [(32, 3136, 512), (1024, 3136, 512),
+                                   (1024, 512, 51)], ids=str)
+def test_noisy_linear_bwd_paths_kernels_and_launch_counts(cuda, shape):
+    """Every call counts one noisy_linear_bwd launch; the calls that take
+    the large path also count one noisy_linear_bwd_large and hold only its
+    kernel (and, split, its ordered reduce); the others (B = 32, per-row
+    noise, bf16) count none and launch none of it, so B = 32 runs the small
+    path's kernels."""
+    b, n_in, n_out = shape
+    for mode, dt in (("shared", torch.float32), ("mu", torch.float32),
+                     ("row", torch.float32), ("shared", torch.bfloat16)):
+        prm, x, gy, eps = _noisy_case(cuda, 19, shape, mode, dt)
+        w = (prm["weight_mu"], prm["weight_sigma"])
+        y = noisy_linear_fwd(prm, x, eps, True)
+        plan = bwd_plan(b, n_in, n_out, ("mu", "shared", "row").index(mode),
+                        dt)
+        large = plan.path == "large"
+        assert large == (b >= 1024 and mode != "row"
+                         and dt == torch.float32), (mode, dt)
+        reset_launches()
+        noisy_linear_bwd(*w, x, gy, eps, y)
+        assert launches() == dict(dict.fromkeys(LAUNCHES, 0),
+                                  noisy_linear_bwd=1,
+                                  noisy_linear_bwd_large=int(large))
+        names = []
+        _graph_kernels(lambda: noisy_linear_bwd(*w, x, gy, eps, y), names)
+        ka = [n for n in names if "noisy_linear" in n]
+        if large:
+            want = ["noisy_linear_bwd_large"] + (
+                ["noisy_linear_bwd_large_reduce"]
+                if max(plan.splits, plan.w_splits) > 1 else [])
+        else:
+            want = [("noisy_linear_bwd_kernel" if dt == torch.float32
+                     else "noisy_linear_bwd_mma")] + (
+                ["noisy_linear_dx_reduce"] if plan.splits > 1 else [])
+        assert len(ka) == len(want), (mode, dt, names)
+        for name, stem in zip(ka, want):
+            assert stem in name and (large or "large" not in name), (
+                mode, dt, name)
 
 
 def test_c51_target_kernel_matches_plain(cuda):

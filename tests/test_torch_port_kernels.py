@@ -338,7 +338,8 @@ def test_bf16_noisy_linear_plan(b):
                                     if plan.splits > 1 else 0)
             if plan.path == "large":  # whole waves: a block an SM
                 assert plan.blocks <= WAVE or plan.splits == 1
-            bwd = bwd_plan(b, n_in, n_out, mode)
+            bwd = bwd_plan(b, n_in, n_out, mode, torch.bfloat16)
+            assert bwd.path == "small"
             _k16_chunks(bwd.chunks(n_out), n_out, bwd.splits)
             assert bwd.scratch == (planes * bwd.splits * b * n_in
                                    if bwd.splits > 1 else 0)
