@@ -1,21 +1,18 @@
-"""The network's operations: a forward pass of the Nature torso and the
-noisy dueling C51 head (Kaixhin/Rainbow model.py's shapes), each noisy
-layer a μ and a σ product, two operations a multiply-add; an update 5
+"""The network's operations: a forward pass of the torso (its multiply-adds
+from its file, port_bench/reference/torsos/<architecture>.py) and the noisy
+dueling C51 head (Kaixhin/Rainbow model.py's shapes), each noisy layer a μ
+and a σ product, two operations a multiply-add; an update 5
 forward-equivalents per sampled transition (the online forward, the
 double-Q selection forward, the target forward, and a backward of about
 two forwards); an act one forward per env-step."""
-CONVS = {"canonical": ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
-         "data-efficient": ((32, 5, 5), (64, 5, 5))}
+from port_bench.reference.rainbow import torso
 
 
 def forward_flops(architecture: str, history: int, frame: int, hidden: int,
                   atoms: int, actions: int) -> int:
-    macs, s, cin = 0, frame, history
-    for cout, k, st in CONVS[architecture]:
-        s = (s - k) // st + 1
-        macs += s * s * cout * k * k * cin
-        cin = cout
-    flat = s * s * cin
+    t = torso(architecture)
+    macs = t.macs(history, frame)
+    flat = t.flat(history, frame)
     macs += 2 * (flat * hidden) * 2           # fc_h_v + fc_h_a, μ and σ
     macs += 2 * (hidden * atoms) + 2 * (hidden * actions * atoms)
     return 2 * macs

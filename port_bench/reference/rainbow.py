@@ -12,6 +12,17 @@ test: the benchmark hands this module the same inputs it hands the program
 (weights, uniforms, noise, the engine's steps) and the program's state at
 the start of a call, and this module works the call out again.
 
+The torso, the convolutional network in front of the noisy head, is the
+configuration's ``architecture``: ``torsos/<architecture>.py`` beside this
+file, found by name (names may hold ``-``). Each torso file gives, in plain
+PyTorch and importing nothing of the program:
+
+    param_shapes(history)   {name: shape}, in the order the weights are drawn
+    init_bounds(history)    {name: b} of the U(±b) draw of each of them
+    forward(p, x, prec)     NCHW input in the compute dtype -> (B, flat)
+    flat(history, frame)    the width of forward's output
+    macs(history, frame)    forward's multiply-adds, counted from the shapes
+
 ``Precision`` says how to compute: the compute dtype of the network
 (float32 or bfloat16) and, for a control, the rounding of every
 convolution's and matrix product's operands, forward and backward, to a
@@ -21,14 +32,16 @@ with one scale per tensor).
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+import sys
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-CONVS = {"canonical": ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
-         "data-efficient": ((32, 5, 5), (64, 5, 5))}
+TORSOS = Path(__file__).resolve().parent / "torsos"
 NOISY = ("fc_h_v", "fc_h_a", "fc_z_v", "fc_z_a")
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 
@@ -65,10 +78,7 @@ class Hyper:
 
     @property
     def flat(self) -> int:
-        s, c = self.frame, self.history
-        for c, k, st in CONVS[self.architecture]:
-            s = (s - k) // st + 1
-        return s * s * c
+        return torso(self.architecture).flat(self.history, self.frame)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,13 +87,28 @@ class Precision:
     rounding: Optional[str] = None  # None, "tf32" or "fp8"
 
 
+def torso(architecture: str, directory: Path = TORSOS):
+    """The torso file of ``architecture`` (``directory/<architecture>.py``),
+    loaded from its path once."""
+    path = Path(directory) / f"{architecture}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no torso for architecture "
+                                f"{architecture!r}: {path} is missing")
+    name = "port_bench_torso_" + architecture.replace("-", "_").replace(
+        ".", "_")
+    mod = sys.modules.get(name)
+    if mod is None or Path(mod.__file__) != path:
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+    return mod
+
+
 def param_shapes(h: Hyper, actions: int) -> Dict[str, tuple]:
-    """Every parameter's shape, in Kaixhin/Rainbow's state-dict names."""
-    out, cin = {}, h.history
-    for i, (cout, k, _s) in enumerate(CONVS[h.architecture]):
-        out[f"convs.{2 * i}.weight"] = (cout, cin, k, k)
-        out[f"convs.{2 * i}.bias"] = (cout,)
-        cin = cout
+    """Every parameter's shape, in Kaixhin/Rainbow's state-dict names: the
+    torso's, then the noisy layers'."""
+    out = dict(torso(h.architecture).param_shapes(h.history))
     dims = {"fc_h_v": (h.flat, h.hidden), "fc_h_a": (h.flat, h.hidden),
             "fc_z_v": (h.hidden, h.atoms),
             "fc_z_a": (h.hidden, actions * h.atoms)}
@@ -133,19 +158,20 @@ class _RoundedMatmul(torch.autograd.Function):
 
 class _RoundedConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, fmt):
+    def forward(ctx, x, w, stride, padding, fmt):
         xr, wr = round_to(x, fmt), round_to(w, fmt)
         ctx.save_for_backward(xr, wr)
-        ctx.stride, ctx.fmt = stride, fmt
-        return F.conv2d(xr, wr, None, stride=stride)
+        ctx.stride, ctx.padding, ctx.fmt = stride, padding, fmt
+        return F.conv2d(xr, wr, None, stride=stride, padding=padding)
 
     @staticmethod
     def backward(ctx, g):
         xr, wr = ctx.saved_tensors
         gr = round_to(g, ctx.fmt)
-        dx = torch.nn.grad.conv2d_input(xr.shape, wr, gr, stride=ctx.stride)
-        dw = torch.nn.grad.conv2d_weight(xr, wr.shape, gr, stride=ctx.stride)
-        return dx, dw, None, None
+        kw = {"stride": ctx.stride, "padding": ctx.padding}
+        dx = torch.nn.grad.conv2d_input(xr.shape, wr, gr, **kw)
+        dw = torch.nn.grad.conv2d_weight(xr, wr.shape, gr, **kw)
+        return dx, dw, None, None, None
 
 
 def _matmul(x, w, prec: Precision):
@@ -155,10 +181,13 @@ def _matmul(x, w, prec: Precision):
     return _RoundedMatmul.apply(x, w, prec.rounding)
 
 
-def _conv(x, w, b, stride, prec: Precision):
+def conv(x, w, b, stride, prec: Precision, padding=0):
+    """A convolution with bias, its operands rounded as ``prec`` says; the
+    torsos' one convolution."""
     if prec.rounding is None:
-        return F.conv2d(x, w, b, stride=stride)
-    return _RoundedConv.apply(x, w, stride, prec.rounding) + b[:, None, None]
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+    return _RoundedConv.apply(x, w, stride, padding,
+                              prec.rounding) + b[:, None, None]
 
 
 # ---------------------------------------------------------------- network --
@@ -182,11 +211,7 @@ def streams(p: dict, h: Hyper, x_u8: torch.Tensor, eps: dict,
     """Value and advantage streams of uint8 NHWC stacks (B, F, F, H):
     (B, atoms) and (B, A·atoms) in the compute dtype."""
     x = (x_u8.float() / 255.0).to(prec.dtype).permute(0, 3, 1, 2)
-    for i, (_c, _k, stride) in enumerate(CONVS[h.architecture]):
-        w = p[f"convs.{2 * i}.weight"].to(prec.dtype)
-        b = p[f"convs.{2 * i}.bias"].to(prec.dtype)
-        x = torch.relu(_conv(x, w, b, stride, prec))
-    feat = x.reshape(x.shape[0], -1)
+    feat = torso(h.architecture).forward(p, x, prec)
     out = []
     for hid, z in (("fc_h_v", "fc_z_v"), ("fc_h_a", "fc_z_a")):
         y = noisy_linear(p, hid, feat, eps[hid], prec, relu=True)
@@ -491,17 +516,13 @@ def follow_call(state: dict, inputs: dict, h: Hyper, actions: int,
 
 def init_params(h: Hyper, actions: int, generator: torch.Generator,
                 device) -> Dict[str, torch.Tensor]:
-    """Weights as the published network draws them, float32: convolutions
-    U(±1/√fan_in) for weight and bias (PyTorch's Conv2d default), noisy μ
-    U(±1/√in), σ_W = σ₀/√in, σ_b = σ₀/√out (Kaixhin model.py:25-30). One
-    uniform draw on ``device`` for all of them."""
+    """Weights as the published network draws them, float32: the torso's
+    by its ``init_bounds`` (the convolutions U(±1/√fan_in) for weight and
+    bias, PyTorch's Conv2d default), noisy μ U(±1/√in), σ_W = σ₀/√in, σ_b =
+    σ₀/√out (Kaixhin model.py:25-30). One uniform draw on ``device`` for
+    all of them, the torso's first in its order, then the noisy layers'."""
     shapes = param_shapes(h, actions)
-    bounds, cin = {}, h.history
-    for i, (cout, k, _s) in enumerate(CONVS[h.architecture]):
-        fan = cin * k * k
-        bounds[f"convs.{2 * i}.weight"] = bounds[f"convs.{2 * i}.bias"] = \
-            1.0 / math.sqrt(fan)
-        cin = cout
+    bounds = dict(torso(h.architecture).init_bounds(h.history))
     for name, (din, dout) in noisy_dims(h, actions).items():
         bounds[f"{name}.weight_mu"] = bounds[f"{name}.bias_mu"] = \
             1.0 / math.sqrt(din)

@@ -12,13 +12,21 @@ BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 
 
-def add_tiny_cell(root: Path, limits_of: str = "canonical-b1024") -> Path:
-    """Copy BENCHMARK.json and port_bench/ under ``root`` and add the cell
-    ``tiny`` as new files and entries; returns the copy's port_bench."""
+def copy_bench(root: Path) -> Path:
+    """Copy BENCHMARK.json and port_bench/ (without its tests) under
+    ``root``; returns the copy's port_bench."""
     bench = root / "port_bench"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns(
         "__pycache__", ".cache", "tests"))
-    m = json.loads((ROOT / "BENCHMARK.json").read_text())
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    return bench
+
+
+def add_tiny_cell(root: Path, limits_of: str = "canonical-b1024") -> Path:
+    """Copy BENCHMARK.json and port_bench/ under ``root`` and add the cell
+    ``tiny`` as new files and entries; returns the copy's port_bench."""
+    bench = copy_bench(root)
+    m = json.loads((root / "BENCHMARK.json").read_text())
     c = json.loads((bench / "configs" / "rainbow-canonical.json").read_text())
     c["name"] = "tiny"
     c["settings"].update(hidden_size=32, memory_capacity=512, learn_start=96,

@@ -18,6 +18,8 @@ from port_bench.harness import cell, manifest, settings, trace
 from port_bench.reference import check, rainbow
 for m in manifest.load_manifest()["per_layer"]:
     manifest.load_metric(m["name"])
+for t in rainbow.TORSOS.glob("*.py"):
+    rainbow.torso(t.stem)
 import port_bench.readings
 try:
     runpy.run_path({run!r}, run_name="__main__")
@@ -53,14 +55,18 @@ def test_no_jax_and_no_result_without_a_card():
 
 def test_reference_imports_nothing_of_the_program():
     code = ("import sys, json; sys.path.insert(0, %r); "
-            "import port_bench.reference.rainbow, port_bench.reference.check;"
-            " print(json.dumps(sorted({m.split('.')[0] for m in "
-            "sys.modules})))" % str(ROOT))
+            "import port_bench.reference.rainbow as r, "
+            "port_bench.reference.check; "
+            "torsos = sorted(t.stem for t in r.TORSOS.glob('*.py')); "
+            "[r.torso(t) for t in torsos]; "
+            "print(json.dumps([torsos, sorted({m.split('.')[0] for m in "
+            "sys.modules})]))" % str(ROOT))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=_clean_env(), timeout=120)
-    top = set(__import__("json").loads(p.stdout.strip().splitlines()[-1]))
-    assert "rainbow_tpu_torch" not in top and "rainbow_tpu" not in top
-    for path in (BENCH / "reference").glob("*.py"):
+    torsos, top = __import__("json").loads(p.stdout.strip().splitlines()[-1])
+    assert {"canonical", "data-efficient"} <= set(torsos)
+    assert not {"rainbow_tpu_torch", "rainbow_tpu", "jax"} & set(top)
+    for path in (BENCH / "reference").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else
