@@ -43,7 +43,12 @@ exit code:
             params (at either net each tensor of its own and every kind
             as views of one flat buffer), K2 at their rounds' draws, KC at N = 16, and K5-K7 on the
             data-efficient preset's whole 16 x 6,250 ring at its round
-            (16 x 32, n = 20), bit-exact, a second launch equal.
+            (16 x 32, n = 20), bit-exact, a second launch equal. KA and K9
+            also at each cell of BENCHMARK.json, as the cell's files build
+            it (bench_cells), in its compute dtype: KA's forward and
+            backward at its act, validation, learner and round rows (the
+            IMPALA torso's 15,488 features among them), K9 over its net
+            (the IMPALA net's 46 tensors).
 3. update   one learner update (compute_update_pretarget + apply_grads) and
             one sequential learn_step of the canonical net on the card
             against the same through the plain versions on the CPU; one
@@ -359,14 +364,16 @@ def noisy_layer_batches(cfgs, A, fwd):
     return [(b, modes, i, o, r) for (b, i, o, r), modes in out.items()]
 
 
-def compare_noisy_linear(torch, A, cfgs, report):
+def compare_noisy_linear(torch, A, cfgs, report, cells=()):
     """KA against noisy_linear_plain: fp32 and bf16, at the layer shapes and
     batches of each configuration in ``cfgs`` (noisy_layer_batches: the
     acting path in the three noise modes, the learner's shared noise and
     its round's per-row target forward), and at shapes that cross both
     paths' split and tile edges (B = 1 and 33, IN = 3137, OUT = 513: the
-    scalar-load path). A second launch must give the same bits. Returns
-    the largest fp32 error."""
+    scalar-load path); and at each benchmark cell's shapes and modes
+    (``cells``, bench_cells) in its own dtype where ``cfgs`` leave one
+    out. A second launch must give the same bits. Returns the largest fp32
+    error."""
     from rainbow_tpu_torch.models.noisy import (NoiseStream,
                                                 init_noisy_params,
                                                 noisy_linear_plain,
@@ -377,17 +384,27 @@ def compare_noisy_linear(torch, A, cfgs, report):
     g = torch.Generator(device="cuda").manual_seed(1)
     ns = NoiseStream(1)
     all_modes = ("mu", "shared", "row")
+    both = (torch.float32, torch.bfloat16)
     shapes = noisy_layer_batches(cfgs, A, fwd=True)
     shapes += [(1, all_modes, 3136, 512, True),
                (33, all_modes, 3137, 513, True),
                (1024, ("row",), 3137, 513, True)]
+    have = {(b, i, o, r): modes for b, modes, i, o, r in shapes}
+    shapes = [(b, modes, i, o, r, both) for b, modes, i, o, r in shapes]
+    for _, c in cells:
+        dt = getattr(torch, c.compute_dtype)
+        for b, modes, i, o, r in noisy_layer_batches([c], A, fwd=True):
+            new = tuple(m for m in modes if m not in have.get((b, i, o, r),
+                                                              ()))
+            if new:
+                shapes.append((b, new, i, o, r, (dt,)))
     # fp32: both sides sum in fp32 in other orders over up to 3137 terms of
     # O(1) outputs. bf16: the plain version rounds to bf16 after every op
     # (as the JAX package does), the kernel only once at the end, so they
     # differ by a few bf16 ulps (2^-8 relative) of O(1) values.
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
     worst32 = 0.0
-    for b, modes, n_in, n_out, relu in shapes:
+    for b, modes, n_in, n_out, relu, dtypes in shapes:
         params = init_noisy_params(g, n_in, n_out, 0.5)
         x = torch.rand((b, n_in), generator=g, device="cuda") * 2
         for mode in modes:
@@ -395,7 +412,7 @@ def compare_noisy_linear(torch, A, cfgs, report):
             eps = None if mode == "mu" else (
                 scale_noise(ns, lead + (n_in,), "cuda"),
                 scale_noise(ns, lead + (n_out,), "cuda"))
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dtypes:
                 plan = fwd_plan(b, n_in, n_out, all_modes.index(mode), dt)
                 xd = x.to(dt)
                 got = noisy_linear_fwd(params, xd, eps, relu)
@@ -644,20 +661,33 @@ def compare_append_framestack(torch, np, report):
     return 0.0
 
 
-# The learner batch of each of BENCHMARK.json's cells in its compute dtype,
-# both on the canonical net: canonical-b1024 and bf16-b2048.
-BENCH_LEARNER_BATCHES = (("float32", 1024), ("bfloat16", 2048))
+def bench_cells():
+    """Each cell of BENCHMARK.json as (name, configuration), the
+    configuration as cli.main builds it from the cell's files, through the
+    benchmark's own reading of them (port_bench/harness): its architecture,
+    envs, batch and round, its compute dtype and its Adam first moment."""
+    from port_bench.harness.manifest import load_manifest, resolve
+    from port_bench.harness.settings import cli_args
+    from rainbow_tpu_torch.cli import parse_config
+
+    manifest = load_manifest()
+    out = []
+    for w in manifest["workloads"]:
+        r = resolve(manifest, w["name"])
+        argv = cli_args(r["config"], r["traffic"], SEED, "chip_smoke")
+        out.append((w["name"], parse_config(argv)[0]))
+    return out
 
 
-def compare_noisy_linear_bwd(torch, A, cfgs, report):
+def compare_noisy_linear_bwd(torch, A, cfgs, report, cells=()):
     """KA's backward against noisy_linear_bwd_plain at each configuration's
     learner shapes (its batch, fc_h_* with its ReLU and both fc_z_*) and at
     shapes that cross the split and tile edges (B = 1 and 33, IN = 3137,
-    OUT = 513), fp32 and bf16, and at the benchmark cells' learner batches
-    on the first configuration's layers in the cell's dtype
-    (BENCH_LEARNER_BATCHES; in float32 the large path's split and unsplit
-    plans), in the three noise modes. A second launch must give the same
-    bits. Returns the largest fp32 error."""
+    OUT = 513), fp32 and bf16, and at each benchmark cell's learner batch
+    on its own net in its own dtype (``cells``, bench_cells: in float32
+    the large path's split and unsplit plans, in bf16 the IMPALA torso's
+    15,488 features), in the three noise modes. A second launch must give
+    the same bits. Returns the largest fp32 error."""
     from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan,
                                                         noisy_linear_bwd,
                                                         noisy_linear_fwd)
@@ -679,10 +709,9 @@ def compare_noisy_linear_bwd(torch, A, cfgs, report):
     cases = [(b, i, o, r, both) for b, _, i, o, r in
              noisy_layer_batches(cfgs, A, fwd=False)]
     cases += [(1, 3136, 512, True, both), (33, 3137, 513, True, both)]
-    for dtn, bb in BENCH_LEARNER_BATCHES:
-        cases += [(b, i, o, r, (getattr(torch, dtn),)) for b, _, i, o, r in
-                  noisy_layer_batches([cfgs[0].replace(batch_size=bb)], A,
-                                      fwd=False)]
+    for _, c in cells:
+        cases += [(b, i, o, r, (getattr(torch, c.compute_dtype),))
+                  for b, _, i, o, r in noisy_layer_batches([c], A, fwd=False)]
     for b, n_in, n_out, relu, dtypes in cases:
         prm = init_noisy_params(g, n_in, n_out, 0.5)
         w = (prm["weight_mu"], prm["weight_sigma"])
@@ -4393,19 +4422,22 @@ def main() -> int:
     # The other configurations, as cli.main builds them from their flags.
     presets = {label: parse_config(flags)[0] for label, flags in PRESET_RUNS}
     cfgs = [cfg] + list(presets.values())
+    cells = bench_cells()
     errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, cfgs,
-                                                     report)}
+                                                     report, cells)}
     errs["dueling_head"], kb_probs = compare_dueling_head(torch, A, cfgs,
                                                            report)
     errs["append_framestack"] = compare_append_framestack(torch, np, report)
     errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, cfgs,
-                                                        report)
+                                                        report, cells)
     errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, cfgs,
                                                         report)
     shapes = param_shapes(cfg, A)
-    de_shapes = param_shapes(presets["data-efficient"], A)
-    errs["clip_adam"] = max(compare_adam(torch, shapes, report),
-                            compare_adam(torch, de_shapes, report))
+    nets = [shapes, param_shapes(presets["data-efficient"], A)]
+    for _, c in cells:  # the benchmark's other nets: the IMPALA's 46 tensors
+        if param_shapes(c, A) not in nets:
+            nets.append(param_shapes(c, A))
+    errs["clip_adam"] = max(compare_adam(torch, s, report) for s in nets)
     replay_errs, replay_rows = compare_replay(torch, np, cfg, report,
                                               presets["throughput"])
     de_errs, de_replay_rows = compare_preset_replay(

@@ -38,8 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="STEPS")
     p.add_argument("--max-episode-length", type=int, default=None)
     p.add_argument("--history-length", type=int, default=None)
-    p.add_argument("--architecture", default=None,
-                   choices=["canonical", "data-efficient"])
+    from rainbow_tpu_torch.models.dqn import TORSOS
+    p.add_argument("--architecture", default=None, choices=sorted(TORSOS))
     p.add_argument("--hidden-size", type=int, default=None)
     p.add_argument("--noisy-std", type=float, default=None)
     p.add_argument("--atoms", type=int, default=None)

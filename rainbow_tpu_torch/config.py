@@ -34,7 +34,7 @@ class RainbowConfig:
     frame_size: int = 84               # implied, reference env.py:28
 
     # Network
-    architecture: str = "canonical"    # reference main.py:29 ('canonical' | 'data-efficient')
+    architecture: str = "canonical"    # reference main.py:29; or 'impala-x4'
     hidden_size: int = 512             # reference main.py:30
     noisy_std: float = 0.1             # reference main.py:31 --noisy-std (σ₀)
     atoms: int = 51                    # reference main.py:32
@@ -159,8 +159,12 @@ class RainbowConfig:
 
     @property
     def conv_output_size(self) -> int:
-        # reference model.py:58/63: 3136 (canonical) or 576 (data-efficient)
-        return {"canonical": 3136, "data-efficient": 576}[self.architecture]
+        # The torso's output width, from its shapes (reference
+        # model.py:58/63: 3136 canonical, 576 data-efficient; 15,488
+        # impala-x4).
+        from rainbow_tpu_torch.models.dqn import flat_size
+        return flat_size(self.architecture, self.history_length,
+                         self.frame_size)
 
     @property
     def capacity_per_env(self) -> int:

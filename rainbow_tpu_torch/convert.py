@@ -6,9 +6,11 @@ flat dict keyed like the reference's state dict (tests/test_torch_import.py:
 18-39): ``convs.{0,2,4}.weight`` OIHW (nn.Sequential indices skip the
 ReLUs), ``fc_h_v.weight_mu`` and so on; noisy weights are (out, in) in both.
 Both directions work on numpy arrays or anything ``np.asarray`` takes, so no
-JAX import is needed here. ``opt_state_from_jax`` carries optax's Adam state
-across the same way, and ``replay_from_jax`` a replay ring, whose layout is
-the same in both packages.
+JAX import is needed here. ``opt_state_from_jax`` carries optax's Adam
+state across the same way, and ``replay_from_jax`` a replay ring, whose
+layout is the same in both packages. Only the two conv stacks have a JAX
+layout (NO_SOURCE): the JAX package has no IMPALA ResNet, and
+``params_to_jax`` refuses one.
 """
 from __future__ import annotations
 
@@ -19,12 +21,29 @@ import torch
 
 from rainbow_tpu_torch.agent import AdamState
 from rainbow_tpu_torch.device import resolve_device
-from rainbow_tpu_torch.models.dqn import NOISY_LAYERS
+from rainbow_tpu_torch.models.dqn import CONV_STACKS, NOISY_LAYERS, TORSOS
 from rainbow_tpu_torch.replay.prioritized import ReplayState
 
 # A noisy layer's (JAX key, port key) pairs.
 JAX_NOISY_KEYS = (("w_mu", "weight_mu"), ("w_sigma", "weight_sigma"),
                   ("b_mu", "bias_mu"), ("b_sigma", "bias_sigma"))
+
+
+# Only the conv stacks (their params ``convs.*``) have a source to import
+# or convert: neither the JAX package nor Kaixhin/Rainbow has another torso.
+NO_SOURCE = (f"neither the JAX package nor Kaixhin/Rainbow has the "
+             f"{', '.join(sorted(set(TORSOS) - set(CONV_STACKS)))} torso, "
+             f"only the conv stacks {', '.join(CONV_STACKS)}")
+
+
+def require_source(architecture: str) -> None:
+    if architecture not in CONV_STACKS:
+        raise ValueError(f"{architecture}: {NO_SOURCE}")
+
+
+def require_conv_stack(names) -> None:
+    if not any(k.startswith("convs.") for k in names):
+        raise ValueError(f"no conv stack (convs.*) in the params: {NO_SOURCE}")
 
 
 def _flat_from_jax(tree: dict, device, dtype=torch.float32) -> dict:
@@ -77,7 +96,9 @@ def replay_from_jax(rep, device="cuda") -> ReplayState:
 
 
 def params_to_jax(params: dict) -> dict:
-    """The port's flat dict → the JAX package's nested dict of numpy arrays."""
+    """The port's flat dict → the JAX package's nested dict of numpy arrays;
+    another torso than the conv stacks raises (NO_SOURCE)."""
+    require_conv_stack(params)
     sd = {k: v.detach().cpu().numpy() for k, v in params.items()}
     conv_ids = sorted({int(k.split(".")[1]) for k in sd
                        if k.startswith("convs.")})

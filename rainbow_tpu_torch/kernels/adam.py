@@ -17,7 +17,8 @@ from rainbow_tpu_torch.kernels import (build, check_cuda, check_dtype,
 
 NAME = "clip_adam"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-MAX_TENSORS = 32  # csrc/adam.cu's MAX_TENSORS; checked against the library
+MAX_TENSORS = 64  # csrc/adam.cu's MAX_TENSORS (the IMPALA ResNet x4 has
+                  # 46 tensors); checked against the library
 THREADS = 256     # csrc/adam.cu: threads a block of either pass
 SUM_CHUNK = 4096  # csrc/adam.cu: pass 1's elements a block (16 a thread)
 UPDATE_CHUNK = 1024  # csrc/adam.cu: pass 2's (4 a thread)

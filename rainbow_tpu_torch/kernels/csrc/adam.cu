@@ -31,7 +31,11 @@
 // Design. The tensors are described by a pointer table passed by value as
 // a kernel argument (a multi-tensor launch, no flat copy of the grads),
 // with the wrapper's plan (kernels/adam.py::adam_plan), which the entry
-// checks. Two launches on one stream:
+// checks. The table holds up to MAX_TENSORS = 64 tensors, so that one call
+// takes the whole of the largest net, the IMPALA ResNet x4 (46 tensors),
+// under one global norm; at 3,152 bytes it stays inside the 4 KB of kernel
+// arguments. A call reads only the first `count` entries, so the bits of a
+// call do not depend on the table's size. Two launches on one stream:
 //   Pass 1 (sumsq_kernel): each block sums g^2 over its 4096-element chunk
 //   of one tensor, thread t its elements t + 256 i (i = 0..15) in that
 //   order with fmaf, then a fixed warp and block reduction, into its own
@@ -64,7 +68,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_TENSORS 32
+#define MAX_TENSORS 64
 
 // Bits of AdamTable::vec: which arrays of a tensor are aligned for access
 // four elements at a time (16 bytes; 8 for a bf16 mu).

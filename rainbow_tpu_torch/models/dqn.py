@@ -1,16 +1,22 @@
 """C51 dueling DQN with noisy heads (rainbow_tpu/models/dqn.py; reference
-model.py:49-85).
+model.py:49-85), in front of one of three torsos: the Nature net
+(``canonical``), the data-efficient net, and the IMPALA ResNet at four
+times its width (``impala-x4``).
 
-Params are a flat dict keyed like the reference's state dict:
-``convs.{0,2,4}.weight`` (OIHW) and ``.bias``, then ``fc_h_v.weight_mu``,
-``fc_h_v.weight_sigma``, ``fc_h_v.bias_mu``, ``fc_h_v.bias_sigma`` and the
-same for ``fc_h_a``, ``fc_z_v``, ``fc_z_a``. The input stays NHWC float as in
-the JAX package; the torso hands cuDNN a permuted view, which for H=4 is a
-channels-last tensor with no copy, and flattens channel-major (dqn.py:77-80).
+Params are a flat dict keyed like the reference's state dict: the torso's
+convolutions (OIHW) and biases first, ``convs.{0,2,4}.weight`` and
+``.bias`` for the two conv stacks, ``torso.<stage>.conv.*`` and
+``torso.<stage>.<block>.conv{1,2}.*`` for the IMPALA ResNet; then
+``fc_h_v.weight_mu``, ``fc_h_v.weight_sigma``, ``fc_h_v.bias_mu``,
+``fc_h_v.bias_sigma`` and the same for ``fc_h_a``, ``fc_z_v``, ``fc_z_a``.
+The input stays NHWC float as in the JAX package; the torso hands cuDNN a
+permuted view, which for H=4 is a channels-last tensor with no copy, and
+flattens channel-major (dqn.py:77-80).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,12 +26,106 @@ from rainbow_tpu_torch.models.noisy import (NoiseStream, draw_scaled_noise,
                                             noisy_linear)
 from rainbow_tpu_torch.ops.c51 import support_vector
 from rainbow_tpu_torch.ops.head import HeadOut, dueling_head
+from rainbow_tpu_torch.utils.logging import span
 
-# (out_channels, kernel, stride) per torso — reference model.py:55-63.
-ARCHS = {
+
+class ConvStack:
+    """Unpadded convolutions, each followed by a ReLU (reference
+    model.py:55-63), named ``convs.{0,2,4}`` as its nn.Sequential indexes
+    them; ``layers`` holds (out channels, kernel, stride)."""
+
+    def __init__(self, layers: Tuple[Tuple[int, int, int], ...]):
+        self.layers = layers
+
+    def convs(self, history: int) -> List[Tuple[str, int, int, int]]:
+        """(name, out channels, in channels, kernel) of every convolution,
+        in the order the weights are drawn."""
+        out, cin = [], history
+        for i, (cout, k, _s) in enumerate(self.layers):
+            out.append((f"convs.{2 * i}", cout, cin, k))
+            cin = cout
+        return out
+
+    def flat(self, history: int, frame: int) -> int:
+        s = frame
+        for _c, k, stride in self.layers:
+            s = (s - k) // stride + 1
+        return s * s * self.layers[-1][0]
+
+    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        for i, (_c, _k, stride) in enumerate(self.layers):
+            w = params[f"convs.{2 * i}.weight"].to(x.dtype)
+            b = params[f"convs.{2 * i}.bias"].to(x.dtype)
+            x = F.relu(F.conv2d(x, w, b, stride=stride))
+        return x
+
+
+class ImpalaResNet:
+    """The IMPALA ResNet (Espeholt et al. 2018, Fig. 3, the "large"
+    network): per stage of ``channels`` a 3x3 convolution (stride 1,
+    padding 1), a 3x3 max pool (stride 2, padding 1 on both sides, as
+    PyTorch ports of it pad; TensorFlow's "SAME" pads 84 and 42 on the far
+    side only), then two residual blocks x + conv2(relu(conv1(relu(x))));
+    a ReLU at the end. Every convolution has a bias."""
+
+    BLOCKS = 2
+
+    def __init__(self, channels: Tuple[int, ...]):
+        self.channels = channels
+
+    def convs(self, history: int) -> List[Tuple[str, int, int, int]]:
+        out, cin = [], history
+        for s, c in enumerate(self.channels):
+            out.append((f"torso.{s}.conv", c, cin, 3))
+            out += [(f"torso.{s}.{blk}.conv{j}", c, c, 3)
+                    for blk in range(self.BLOCKS) for j in (1, 2)]
+            cin = c
+        return out
+
+    def flat(self, history: int, frame: int) -> int:
+        s = frame
+        for _c in self.channels:
+            s = (s - 1) // 2 + 1  # (s + 2·1 − 3) // 2 + 1
+        return s * s * self.channels[-1]
+
+    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        def conv(x, name):
+            return F.conv2d(x, params[f"{name}.weight"].to(x.dtype),
+                            params[f"{name}.bias"].to(x.dtype), padding=1)
+
+        for s in range(len(self.channels)):
+            x = F.max_pool2d(conv(x, f"torso.{s}.conv"), 3, stride=2,
+                             padding=1)
+            for blk in range(self.BLOCKS):
+                y = conv(F.relu(x), f"torso.{s}.{blk}.conv1")
+                x = x + conv(F.relu(y), f"torso.{s}.{blk}.conv2")
+        return F.relu(x)
+
+
+# The two conv stacks of the reference (model.py:55-63), which the JAX
+# package and Kaixhin/Rainbow also have; the IMPALA ResNet at the x4 width
+# of BBF (Schwarzer et al. 2023), which neither has.
+CONV_STACKS = {
     "canonical": ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
     "data-efficient": ((32, 5, 5), (64, 5, 5)),
 }
+TORSOS = {**{name: ConvStack(layers) for name, layers in CONV_STACKS.items()},
+          "impala-x4": ImpalaResNet((64, 128, 128))}
+
+
+def torso_of(architecture: str):
+    if architecture not in TORSOS:
+        raise ValueError(f"unknown architecture {architecture!r}; have "
+                         f"{sorted(TORSOS)}")
+    return TORSOS[architecture]
+
+
+@functools.cache
+def flat_size(architecture: str, history: int, frame: int) -> int:
+    """The width of the torso's output for a (frame, frame, history)
+    input."""
+    return torso_of(architecture).flat(history, frame)
+
 
 NOISY_LAYERS = ("fc_h_v", "fc_h_a", "fc_z_v", "fc_z_a")
 NOISY_KEYS = ("weight_mu", "weight_sigma", "bias_mu", "bias_sigma")
@@ -45,11 +145,11 @@ def _noisy_dims(cfg, action_space: int) -> dict:
 def param_shapes(cfg, action_space: int) -> dict:
     """The shape of every network param, in init_dqn_params' keys and
     order."""
-    shapes, cin = {}, cfg.history_length
-    for i, (cout, k, _s) in enumerate(ARCHS[cfg.architecture]):
-        shapes[f"convs.{2 * i}.weight"] = (cout, cin, k, k)
-        shapes[f"convs.{2 * i}.bias"] = (cout,)
-        cin = cout
+    shapes = {}
+    for name, cout, cin, k in torso_of(cfg.architecture).convs(
+            cfg.history_length):
+        shapes[f"{name}.weight"] = (cout, cin, k, k)
+        shapes[f"{name}.bias"] = (cout,)
     for name, (din, dout) in _noisy_dims(cfg, action_space).items():
         shapes.update({f"{name}.weight_mu": (dout, din),
                        f"{name}.weight_sigma": (dout, din),
@@ -77,17 +177,16 @@ def init_dqn_params(cfg, action_space: int, seed: int,
 
     k_agent = threefry.split(threefry.key(seed), 2)[0]
     k_params = threefry.split(k_agent, 3)[0]
-    arch = ARCHS[cfg.architecture]
-    keys = threefry.split(k_params, len(arch) + 4)
-    params, cin = {}, cfg.history_length
-    for i, (cout, k, _s) in enumerate(arch):
-        k_w, k_b = threefry.split(keys[i], 2)
+    convs = torso_of(cfg.architecture).convs(cfg.history_length)
+    keys = threefry.split(k_params, len(convs) + 4)
+    params = {}
+    for key, (name, cout, cin, k) in zip(keys, convs):
+        k_w, k_b = threefry.split(key, 2)
         bound = 1.0 / (k * k * cin) ** 0.5
         w = threefry.uniform(k_w, (k, k, cin, cout), -bound, bound)  # HWIO
-        params[f"convs.{2 * i}.weight"] = w.transpose(3, 2, 0, 1)
-        params[f"convs.{2 * i}.bias"] = threefry.uniform(k_b, (cout,),
-                                                         -bound, bound)
-        cin = cout
+        params[f"{name}.weight"] = w.transpose(3, 2, 0, 1)
+        params[f"{name}.bias"] = threefry.uniform(k_b, (cout,), -bound,
+                                                  bound)
     dims = _noisy_dims(cfg, action_space)
     for key, name in zip(keys[-4:], NOISY_LAYERS):
         k_w, k_b = threefry.split(key, 2)
@@ -109,17 +208,18 @@ def init_dqn_params(cfg, action_space: int, seed: int,
             for k in param_shapes(cfg, action_space)}
 
 
-def _torso(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Conv stack over NHWC input (B, 84, 84, H) → (B, flat), channel-major.
-    cuDNN runs float32 convolutions in TF32 while
-    ``torch.backends.cudnn.allow_tf32`` is set (PyTorch's default); clear it
-    for full float32, as chip_smoke.py does."""
-    x = x.permute(0, 3, 1, 2)
-    for i, (_c, _k, stride) in enumerate(ARCHS[cfg.architecture]):
-        w = params[f"convs.{2 * i}.weight"].to(x.dtype)
-        b = params[f"convs.{2 * i}.bias"].to(x.dtype)
-        x = F.relu(F.conv2d(x, w, b, stride=stride))
-    return x.reshape(x.shape[0], -1)
+def torso(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The architecture's torso over NHWC input (B, 84, 84, H) in the
+    compute dtype → (B, flat), channel-major: every forward of the network
+    (the act, the learner's forwards, the round's target forward,
+    evaluation) runs through this function, looked up at call time, and
+    under a profiler is its range ``rainbow.torso``. cuDNN runs float32
+    convolutions in TF32 while ``torch.backends.cudnn.allow_tf32`` is set
+    (PyTorch's default); clear it for full float32, as chip_smoke.py
+    does."""
+    with span("torso"):
+        x = torso_of(cfg.architecture).forward(params, x.permute(0, 3, 1, 2))
+        return x.reshape(x.shape[0], -1)
 
 
 def draw_noise(cfg, action_space: int, noise: NoiseStream, lead=(),
@@ -154,7 +254,7 @@ def _streams(params: dict, cfg, action_space: int, x: torch.Tensor,
     """Value and advantage streams, (B, atoms) and (B, A·atoms), in the
     compute dtype."""
     x = x.to(_compute_dtype(cfg))
-    feat = _torso(params, cfg, x)
+    feat = torso(params, cfg, x)
     if noise_eps is None and noise is not None:
         lead = (x.shape[0],) if per_sample_noise else ()
         noise_eps = draw_noise(cfg, action_space, noise, lead, x.device)

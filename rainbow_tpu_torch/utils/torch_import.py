@@ -22,7 +22,8 @@ the convs in list order, each ``b`` before ``w``; a noisy layer's
 (stored as their uint16 bits) into float32, checks every shape against the
 architecture, and rebuilds the JAX params dict, which
 convert.params_from_jax turns into the port's. A file that does not fit
-the architecture raises.
+the architecture raises. Neither source has the IMPALA ResNet: its
+params raise, naming it (convert.NO_SOURCE).
 """
 from __future__ import annotations
 
@@ -34,9 +35,10 @@ import numpy as np
 import torch
 
 from rainbow_tpu_torch import checkpoint as ckpt
-from rainbow_tpu_torch.convert import JAX_NOISY_KEYS, params_from_jax
-from rainbow_tpu_torch.models.dqn import (ARCHS, NOISY_KEYS, NOISY_LAYERS,
-                                          param_shapes)
+from rainbow_tpu_torch.convert import (JAX_NOISY_KEYS, params_from_jax,
+                                       require_conv_stack, require_source)
+from rainbow_tpu_torch.models.dqn import (CONV_STACKS, NOISY_KEYS,
+                                          NOISY_LAYERS, param_shapes)
 
 _LEGACY_CONV_REMAP = {  # reference agent.py:29-32
     "conv1.weight": "convs.0.weight", "conv1.bias": "convs.0.bias",
@@ -56,6 +58,7 @@ def convert_state_dict(state: Dict[str, object]) -> dict:
         if k.endswith("_epsilon"):
             continue
         sd[k] = torch.as_tensor(np.asarray(v)).to(torch.float32).contiguous()
+    require_conv_stack(sd)
     conv_ids = sorted({int(k.split(".")[1]) for k in sd
                        if k.startswith("convs.")})
     want = [f"convs.{i}.{p}" for i in conv_ids for p in ("weight", "bias")]
@@ -63,7 +66,7 @@ def convert_state_dict(state: Dict[str, object]) -> dict:
     missing = [k for k in want if k not in sd]
     extra = sorted(set(sd) - set(want))
     if missing or extra or len(conv_ids) not in {len(a) for a in
-                                                  ARCHS.values()}:
+                                                  CONV_STACKS.values()}:
         raise ValueError(f"not a reference DQN state dict: missing {missing}, "
                          f"unexpected {extra}, conv layers {conv_ids}")
     return {k: sd[k] for k in want}
@@ -83,10 +86,12 @@ def jax_leaf_order(cfg, action_space: int) -> List[Tuple[tuple, str,
     """(path in the JAX params dict, the port's key, shape as the JAX
     package stores it) of every params leaf, in the order jax.tree_util's
     flatten gives that dict: keys sorted, the convs in list order. Conv
-    weights are HWIO there."""
+    weights are HWIO there. The JAX package has only the conv stacks;
+    another architecture raises."""
+    require_source(cfg.architecture)
     shapes = param_shapes(cfg, action_space)
     order = []
-    for i in range(len(ARCHS[cfg.architecture])):
+    for i in range(len(CONV_STACKS[cfg.architecture])):
         o, ci, kh, kw = shapes[f"convs.{2 * i}.weight"]
         order += [(("convs", i, "b"), f"convs.{2 * i}.bias", (o,)),
                   (("convs", i, "w"), f"convs.{2 * i}.weight",
@@ -127,7 +132,7 @@ def load_jax_params(path: str, cfg, action_space: int,
             raise ValueError(f"{path}: not a params file (PRNG-key leaves, "
                              "or no is_key member)")
         bf16 = flags.get("is_bf16", np.zeros(len(order), bool))
-        tree = {"convs": [{} for _ in ARCHS[cfg.architecture]],
+        tree = {"convs": [{} for _ in CONV_STACKS[cfg.architecture]],
                 **{name: {} for name in NOISY_LAYERS}}
         for i, (where, key, shape) in enumerate(order):
             a = z[f"arr_{i}"]

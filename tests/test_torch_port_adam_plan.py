@@ -118,6 +118,33 @@ def test_chunk_tables_at_the_presets(preset):
     assert plan.keep_g == (preset == "data-efficient")
 
 
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_one_call_takes_the_impala_net(mu_dtype):
+    """The IMPALA ResNet x4 net's 46 tensors (33,639,946 parameters at
+    pong's 6 actions) fit one table, under one global norm: 8,238 chunks of
+    pass 1 and 32,872 of pass 2, every tensor aligned; its 134.6 MB of
+    grads are past L2's keep. The table of 64 entries stays inside the
+    4 KB of a kernel's arguments; a 65th tensor is refused."""
+    cfg = canonical(game="pong", num_envs=1024, seed=0,
+                    architecture="impala-x4")
+    numels = [math.prod(s) for s in dqn.param_shapes(cfg, 6).values()]
+    assert len(numels) == 46 <= k9.MAX_TENSORS == 64
+    plan = _plan(numels, _tensors(numels, "separate", mu_dtype))
+    for starts, size in ((plan.sum_start, SUM_CHUNK),
+                         (plan.update_start, UPDATE_CHUNK)):
+        assert [b - a for a, b in zip(starts, starts[1:])] == \
+            [-(-n // size) for n in numels]
+    assert sum(numels) == 33_639_946
+    assert (plan.sum_start[-1], plan.update_start[-1]) == (8_238, 32_872)
+    assert plan.vec == (P_BIT | G_BIT | MU_BIT | NU_BIT,) * 46
+    assert not plan.keep_g
+    assert ctypes.sizeof(k9._Table) + 8 + 8 + 7 * 4 <= 4096
+    t = [torch.zeros(1)] * (k9.MAX_TENSORS + 1)
+    with pytest.raises(ValueError, match="needs 1 to 64 tensors"):
+        k9.clip_adam(t, t, t, t, torch.zeros((), dtype=torch.int32), 1e-3,
+                     0.9, 0.999, 1e-8, 10.0)
+
+
 def _pass1_elements(plan, numels):
     """(tensor, element) of each (block, thread, i) of pass 1, in the
     order thread t of a block sums them."""

@@ -34,7 +34,11 @@ ops in the same order except the global norm's sum, so params agree to
 falls the other way moves an update by 2^-7 of lr), and two runs give the
 same bits, on small ragged tensors and on the canonical and data-efficient
 nets, each tensor of its own or every kind as views of one flat buffer;
-it is two kernel nodes, and its C entry refuses a plan that disagrees. After a learner round, params agree to lr/100. The distributed
+it is two kernel nodes, and its C entry refuses a plan that disagrees;
+over the IMPALA ResNet x4 net's 46 tensors it is one call, and on the
+canonical net it gives the digests read before its table grew from 32
+entries to 64. KA runs the IMPALA cell's bf16 calls at n_in 15,488 within
+the bf16 tolerances. After a learner round, params agree to lr/100. The distributed
 round at world size 1 over NCCL gives learner_round's bits, with cuDNN held
 to its deterministic algorithms.
 """
@@ -413,6 +417,37 @@ def test_noisy_linear_bwd_kernel_matches_plain(cuda, shape, mode, dtype):
                                        rtol=tol[1])
 
 
+# The impala-x4-bf16-b1024 cell's calls of KA at fc_h (15,488 -> 512), in
+# bf16, as (rows, noise): the learner's online and double-Q forwards and
+# its backward, the actor, the round's target forward, the validation
+# chunks.
+IMPALA_CALLS = [(1024, "shared"), (1024, "row"), (8192, "row"), (250, "mu")]
+
+
+@pytest.mark.parametrize("rows,mode", IMPALA_CALLS, ids=str)
+def test_noisy_linear_at_the_impala_cells_shapes(cuda, rows, mode):
+    """KA's bf16 forward (and, at the learner's 1,024 rows with shared
+    noise, its backward) at n_in 15,488 through the existing plans, against
+    the plain versions at the other bf16 tests' tolerances."""
+    dt = torch.bfloat16
+    prm, x, gy, eps = _noisy_case(cuda, 5, (rows, 15488, 512), mode, dt)
+    for relu in (False, True):
+        got = noisy_linear_fwd(prm, x, eps, relu)
+        want = noisy_linear_plain(prm, x, eps, relu)
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), want.float(), atol=6e-2,
+                                   rtol=3e-2)
+    if (rows, mode) != (1024, "shared"):
+        return
+    w = (prm["weight_mu"], prm["weight_sigma"])
+    y = noisy_linear_fwd(prm, x, eps, True)
+    got = noisy_linear_bwd(*w, x, gy, eps, y)
+    want = noisy_linear_bwd_plain(*w, x, gy, eps, y)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a.float(), c.float(), atol=6e-2,
+                                   rtol=3e-2)
+
+
 @pytest.mark.parametrize("shape", [(10, 3136, 512), (32, 3136, 512),
                                    (250, 3136, 512), (1024, 3136, 512),
                                    (8192, 3136, 512), (33, 3137, 513)],
@@ -658,11 +693,12 @@ def test_c51_kernels_at_the_throughput_batch(cuda, dtype):
         assert torch.equal(x, y)
 
 
-# K9's tensor lists: ragged small shapes, and the canonical and the
-# data-efficient nets' params (pong's 6 actions).
+# K9's tensor lists: ragged small shapes, and the canonical, the
+# data-efficient and the IMPALA ResNet x4 nets' params (pong's 6 actions;
+# the last is 46 tensors in one call).
 ADAM_SHAPES = {
     "small": [(70, 301), (70,), (5000,), (3, 4, 5), (1,), (9000,)],
-    "canonical": None, "data_efficient": None}
+    "canonical": None, "data_efficient": None, "impala": None}
 
 
 def _adam_shapes(name):
@@ -673,6 +709,8 @@ def _adam_shapes(name):
     from rainbow_tpu_torch.models import dqn
     cfg = (canonical(game="pong", num_envs=1024, seed=0)
            if name == "canonical"
+           else canonical(game="pong", architecture="impala-x4")
+           if name == "impala"
            else parse_config(["--preset", "data-efficient"])[0])
     return [tuple(s) for s in dqn.param_shapes(cfg, 6).values()]
 
@@ -748,6 +786,37 @@ def test_clip_adam_kernel_matches_plain(cuda, clip, mu_dtype, shapes,
     # Deterministic: a second run gives the same bits.
     for a, b in zip(states["kernel"][:3], states["again"][:3]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# SHA-256 of what K9 leaves (params, mu, nu, count) after chip_smoke.py's
+# adam_digests: three steps at the canonical net's 22 tensors, gradients
+# from a seed below, above and below the clip. Read on an H100 with the
+# table of 32 entries that K9 had before it took 64 (the IMPALA net's 46
+# tensors): a 22-tensor call keeps its bits.
+K9_CANONICAL_DIGESTS = {
+    "float32": {
+        "params": "0bb7c08757420367c42e204438dd1cd314d7a71777dd9b170f37c7f6d006b277",
+        "mu": "c287b55db298b11db6f58f0059dc043db10c16c50ceaf40fad5aa90bfb7dd41e",
+        "nu": "66fd0e0c32d573847fb29160cc3af84aa5aa6b64c08870d42b8585ad961f3cac",
+        "count": "9d9f290527a6be626a8f5985b26e19b237b44872b03631811df4416fc1713178"},
+    "bfloat16": {
+        "params": "c4f48e6f51f7414e857f7b06e17e806444953b4c2d37f990b014a70423ac7182",
+        "mu": "76241200dca1896799db6e7e35d9ede0c9d5e2139d7d1161b5de84de3f719343",
+        "nu": "66fd0e0c32d573847fb29160cc3af84aa5aa6b64c08870d42b8585ad961f3cac",
+        "count": "9d9f290527a6be626a8f5985b26e19b237b44872b03631811df4416fc1713178"}}
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+def test_clip_adam_canonical_call_keeps_its_bits(cuda, mu_dtype):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_k9", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    mu = None if mu_dtype == "float32" else torch.bfloat16
+    assert smoke.adam_digests(torch, _adam_shapes("canonical"), mu) == \
+        K9_CANONICAL_DIGESTS[mu_dtype]
 
 
 def test_clip_adam_launches_two_kernels_and_checks_its_plan(cuda):

@@ -1,0 +1,458 @@
+"""The port's IMPALA ResNet x4 torso (``--architecture impala-x4``) on the
+CPU: its shapes, key order and draws; its forward, the learner's loss and
+every gradient against a plain PyTorch network written from the papers
+(tests/impala_plain.py, which imports nothing of the port); the two conv
+stacks, bit for bit what they were before the torso became one forward per
+architecture; the CLI, a CPU Trainer, a checkpoint of its 46 tensors, and
+both importers, which have no source for it; and the benchmark's torso
+file (port_bench/reference/torsos/impala-x4.py), bit for bit the plain
+network's.
+
+Tolerances: float32 on both sides runs the same convolutions and products
+in the same dtype, so the streams and the loss agree to 1e-5 and each
+gradient tensor to 1e-4 of its largest element (sums in another order). In
+bfloat16 both sides round at the same points (the operands cast to
+bfloat16, float32 sums inside each product, the softmax in float32): the
+streams agree to a few bfloat16 ulps of O(1) values (3e-2, as the port's
+other bfloat16 tests), and each gradient tensor to 2e-2 of its norm.
+"""
+import importlib.util
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
+
+import impala_plain as plain
+import rainbow_tpu_torch
+from rainbow_tpu_torch import checkpoint as ckpt
+from rainbow_tpu_torch import cli
+from rainbow_tpu_torch import convert
+from rainbow_tpu_torch.models import dqn
+from rainbow_tpu_torch.ops.c51 import head_loss
+from rainbow_tpu_torch.utils import threefry
+from rainbow_tpu_torch.utils import torch_import as tim
+
+ROOT = Path(__file__).resolve().parents[1]
+A, HIDDEN, ATOMS = 6, 32, 51
+FLAT = 128 * 11 * 11
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the CPU's convolution sums do not depend on
+    them here, and several test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfg(arch="impala-x4", dtype="float32", **kw):
+    return rainbow_tpu_torch.canonical(architecture=arch, hidden_size=HIDDEN,
+                                       compute_dtype=dtype, **kw)
+
+
+def _plain_params(seed=0):
+    return plain.init_params(torch.Generator().manual_seed(seed), 4, 84,
+                             HIDDEN, ATOMS, A)
+
+
+def _inputs(cfg, b, seed=1):
+    """Frames, shared noise of every noisy layer, taken actions, target
+    distributions and IS weights, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((b, 84, 84, 4), generator=g)
+    dims = dqn._noisy_dims(cfg, A)
+    eps = {k: (torch.randn(din, generator=g), torch.randn(dout, generator=g))
+           for k, (din, dout) in dims.items()}
+    actions = torch.randint(0, A, (b,), generator=g)
+    m = torch.softmax(torch.randn((b, ATOMS), generator=g), 1)
+    w = torch.rand((b,), generator=g) + 0.5
+    return x, eps, actions, m, w
+
+
+# ------------------------------------------------------------ the torso --
+
+def test_torso_shapes_key_order_and_flat():
+    cfg = _cfg()
+    shapes = dqn.param_shapes(cfg, A)
+    assert len(shapes) == 46
+    names = list(shapes)
+    assert names[:6] == ["torso.0.conv.weight", "torso.0.conv.bias",
+                         "torso.0.0.conv1.weight", "torso.0.0.conv1.bias",
+                         "torso.0.0.conv2.weight", "torso.0.0.conv2.bias"]
+    assert names[28:30] == ["torso.2.1.conv2.weight", "torso.2.1.conv2.bias"]
+    assert names[30:] == [f"{n}.{k}" for n in dqn.NOISY_LAYERS
+                          for k in dqn.NOISY_KEYS]
+    assert shapes["torso.0.conv.weight"] == (64, 4, 3, 3)
+    assert shapes["torso.1.conv.weight"] == (128, 64, 3, 3)
+    assert shapes["torso.2.0.conv1.weight"] == (128, 128, 3, 3)
+    assert cfg.conv_output_size == FLAT == plain.flat(84) == 15_488
+    assert shapes["fc_h_v.weight_mu"] == (HIDDEN, FLAT)
+    assert shapes == plain.param_shapes(4, 84, HIDDEN, ATOMS, A)
+    torso_params = sum(math.prod(s) for k, s in shapes.items()
+                       if k.startswith("torso."))
+    assert torso_params == 1_552_192
+    full = dqn.param_shapes(rainbow_tpu_torch.canonical(
+        architecture="impala-x4"), A)
+    assert sum(math.prod(s) for s in full.values()) == 33_639_946
+    p = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    feat = dqn.torso(p, cfg, torch.rand(2, 84, 84, 4))
+    assert feat.shape == (2, FLAT)
+
+
+def test_init_draws_one_threefry_key_per_convolution_in_order():
+    """The JAX Trainer's key path (agent key, params key), then one key per
+    convolution in param_shapes' order and one per noisy layer; each
+    convolution's weight (drawn HWIO) and bias U(±1/√(9·cin))."""
+    cfg = _cfg()
+    p = dqn.init_dqn_params(cfg, A, 5, "cpu")
+    assert list(p) == list(dqn.param_shapes(cfg, A))
+    k_params = threefry.split(threefry.split(threefry.key(5), 2)[0], 3)[0]
+    keys = threefry.split(k_params, 15 + 4)
+    for i, (name, cin) in enumerate([("torso.0.conv", 4),
+                                     ("torso.0.0.conv1", 64),
+                                     ("torso.1.conv", 64),
+                                     ("torso.2.1.conv2", 128)]):
+        at = [c[0] for c in dqn.torso_of("impala-x4").convs(4)].index(name)
+        k_w, k_b = threefry.split(keys[at], 2)
+        cout = p[f"{name}.weight"].shape[0]
+        bound = 1.0 / (9 * cin) ** 0.5
+        w = threefry.uniform(k_w, (3, 3, cin, cout), -bound, bound)
+        assert np.array_equal(p[f"{name}.weight"].numpy(),
+                              w.transpose(3, 2, 0, 1)), name
+        assert np.array_equal(p[f"{name}.bias"].numpy(), threefry.uniform(
+            k_b, (cout,), -bound, bound)), name
+        assert float(p[f"{name}.weight"].abs().max()) <= bound
+    k_w, _ = threefry.split(keys[15], 2)
+    mu = 1.0 / np.sqrt(np.float32(FLAT))
+    assert np.array_equal(p["fc_h_v.weight_mu"].numpy(), threefry.uniform(
+        k_w, (HIDDEN, FLAT), -mu, mu))
+
+
+def _port_loss(params, cfg, x, eps, actions, m, w):
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    v, a = dqn.loss_streams(leaves, cfg, A, x, eps)
+    per, loss = head_loss(v, a, actions, m, w)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (v.detach(), a.detach()), per, loss.detach(), dict(
+        zip(leaves, grads))
+
+
+def _plain_loss(params, dtype, x, eps, actions, m, w):
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    v, a = plain.streams(leaves, x, eps, dtype)
+    per, loss = plain.loss(v, a, actions, m, w)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (v.detach(), a.detach()), per.detach(), loss.detach(), dict(
+        zip(leaves, grads))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_loss_and_gradients_match_plain(dtype):
+    cfg = _cfg(dtype=dtype)
+    params = _plain_params()
+    x, eps, actions, m, w = _inputs(cfg, 3)
+    got = _port_loss(params, cfg, x, eps, actions, m, w)
+    want = _plain_loss(params, getattr(torch, dtype), x, eps, actions, m, w)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else \
+        dict(atol=3e-2, rtol=3e-2)
+    for g, wv in zip(got[0], want[0]):
+        assert g.dtype == getattr(torch, dtype)
+        torch.testing.assert_close(g.float(), wv.float(), **tol)
+    torch.testing.assert_close(got[1], want[1], **tol)
+    torch.testing.assert_close(got[2], want[2], **tol)
+    assert list(got[3]) == list(want[3])
+    for k, gk in got[3].items():
+        wk = want[3][k].float()
+        assert gk.dtype == torch.float32 and gk.shape == wk.shape, k
+        scale = float(wk.abs().max())
+        assert scale > 0, k
+        if dtype == "float32":
+            torch.testing.assert_close(gk, wk, atol=1e-4 * scale, rtol=0,
+                                       msg=k)
+        else:
+            assert float((gk - wk).norm()) <= 2e-2 * float(wk.norm()), k
+    # the act's forward, μ only, agrees too
+    q = dqn.q_values(params, cfg, A, torch.linspace(-10, 10, ATOMS), x)
+    v, a = plain.streams(params, x, None, getattr(torch, dtype))
+    b = x.shape[0]
+    z = (v.reshape(b, 1, ATOMS) + a.reshape(b, A, ATOMS)
+         - a.reshape(b, A, ATOMS).mean(1, keepdim=True)).float()
+    want_q = (torch.softmax(z, 2) * torch.linspace(-10, 10, ATOMS)).sum(2)
+    torch.testing.assert_close(q, want_q, **tol)
+
+
+# -------------------------------------------- the conv stacks, unchanged --
+
+OLD_ARCHS = {"canonical": ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
+             "data-efficient": ((32, 5, 5), (64, 5, 5))}
+
+
+def old_torso(params, cfg, x):
+    """models/dqn.py's torso before it became one forward per
+    architecture: the table of (out channels, kernel, stride)."""
+    x = x.permute(0, 3, 1, 2)
+    for i, (_c, _k, stride) in enumerate(OLD_ARCHS[cfg.architecture]):
+        w = params[f"convs.{2 * i}.weight"].to(x.dtype)
+        b = params[f"convs.{2 * i}.bias"].to(x.dtype)
+        x = F.relu(F.conv2d(x, w, b, stride=stride))
+    return x.reshape(x.shape[0], -1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", sorted(OLD_ARCHS))
+def test_conv_stacks_are_the_pre_refactor_bits(arch, dtype):
+    """Shapes, draws, the torso's features and their gradients, and the
+    whole loss and its gradients, torch.equal to the table's path."""
+    cfg = _cfg(arch, dtype)
+    shapes = dqn.param_shapes(cfg, A)
+    old_shapes, cin = {}, 4
+    for i, (cout, k, _s) in enumerate(OLD_ARCHS[arch]):
+        old_shapes[f"convs.{2 * i}.weight"] = (cout, cin, k, k)
+        old_shapes[f"convs.{2 * i}.bias"] = (cout,)
+        cin = cout
+    assert list(shapes.items())[:len(old_shapes)] == list(old_shapes.items())
+    assert cfg.conv_output_size == {"canonical": 3136,
+                                    "data-efficient": 576}[arch]
+    params = dqn.init_dqn_params(cfg, A, 3, "cpu")
+    x = torch.rand((3, 84, 84, 4), generator=torch.Generator().manual_seed(2))
+    x = x.to(dqn._compute_dtype(cfg))
+    feats, grads = [], []
+    for fn in (dqn.torso, old_torso):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()
+                  if k.startswith("convs.")}
+        f = fn(leaves, cfg, x)
+        feats.append(f.detach())
+        grads.append(torch.autograd.grad(f.float().square().sum(),
+                                         list(leaves.values())))
+    assert torch.equal(*feats)
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    # the whole loss through loss_streams, with the old torso in its place
+    _x, eps, actions, m, w = _inputs(cfg, 3)
+    got = _port_loss(params, cfg, _x, eps, actions, m, w)
+    real = dqn.torso
+    try:
+        dqn.torso = old_torso
+        want = _port_loss(params, cfg, _x, eps, actions, m, w)
+    finally:
+        dqn.torso = real
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[2], want[2])
+    assert all(torch.equal(got[3][k], want[3][k]) for k in got[3])
+
+
+def test_torso_is_looked_up_at_call_time_and_is_a_profiler_range(tmp_path):
+    """Every forward calls models.dqn.torso by its module name (so that a
+    wrapper put there sees each call and its rows), and under a profiler
+    each call is the range rainbow.torso."""
+    cfg = _cfg()
+    params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    x = torch.rand(2, 84, 84, 4)
+    calls, real = [], dqn.torso
+
+    def counting(p, c, xx):
+        calls.append((c.architecture, xx.shape[0], xx.dtype,
+                      torch.is_grad_enabled()))
+        return real(p, c, xx)
+
+    dqn.torso = counting
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            dqn.apply_dqn(params, cfg, A, x)
+            with torch.no_grad():
+                dqn.q_values(params, cfg, A, torch.linspace(-10, 10, ATOMS),
+                             x[:1])
+    finally:
+        dqn.torso = real
+    assert calls == [("impala-x4", 2, torch.float32, True),
+                     ("impala-x4", 1, torch.float32, False)]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    import json
+    with open(path) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"]
+    assert names.count("rainbow.torso") == 2
+
+
+# ------------------------------------------------- CLI, Trainer, files --
+
+TINY = ["--num-envs", "4", "--memory-capacity", "128", "--batch-size", "4",
+        "--learn-start", "64", "--replay-frequency", "4", "--target-update",
+        "64", "--evaluation-interval", "68", "--evaluation-episodes", "1",
+        "--evaluation-size", "4", "--hidden-size", "32", "--multi-step", "3",
+        "--env-backend", "fake", "--max-episode-length", "40",
+        "--architecture", "impala-x4", "--T-max", "68"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cli_trains_impala_through_the_trainer(dtype, tmp_path, monkeypatch):
+    """--architecture impala-x4 parses, and two learning iterations of the
+    CPU Trainer (T = 64, learn start, and 68, with an evaluation) finish
+    with a finite loss and moved params."""
+    monkeypatch.chdir(tmp_path)
+    argv = TINY + ["--compute-dtype", dtype, "--adam-mu-dtype", dtype,
+                   "--id", "impala"]
+    cfg, _ = cli.parse_config(argv)
+    assert cfg.architecture == "impala-x4" and cfg.compute_dtype == dtype
+    before = dqn.init_dqn_params(cfg, 6, cfg.seed, "cpu")
+    tr = cli.main(argv, device="cpu")
+    assert tr.T == 68 and tr.agent.step == 2
+    assert math.isfinite(float(tr._last_loss))
+    assert len(tr.agent.params) == 46
+    moved = [k for k, v in tr.agent.params.items()
+             if not torch.equal(v, before[k])]
+    assert "torso.0.conv.weight" in moved and "fc_h_v.weight_mu" in moved
+    assert tr.metrics["steps"], tr.metrics
+
+
+def test_checkpoint_of_the_46_tensors_round_trips(tmp_path):
+    cfg = _cfg()
+    params = dqn.init_dqn_params(cfg, A, 9, "cpu")
+    path = str(tmp_path / "model.npz")
+    ckpt.save_params(path, params)
+    back = ckpt.load_params(path, "cpu")
+    assert list(back) == list(params) and len(back) == 46
+    assert all(torch.equal(back[k], params[k]) for k in params)
+
+
+def test_both_importers_refuse_impala(tmp_path):
+    """Neither Kaixhin/Rainbow nor the JAX package has this torso: the
+    JAX-checkpoint import, the JAX conversion and the state-dict import
+    each raise, naming it."""
+    cfg = _cfg()
+    params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    with pytest.raises(ValueError, match="impala-x4"):
+        tim.jax_leaf_order(cfg, A)
+    path = str(tmp_path / "model.npz")
+    np.savez(path, arr_0=np.zeros(1, np.float32))
+    with pytest.raises(ValueError, match="impala-x4"):
+        tim.load_jax_params(path, cfg, A, "cpu")
+    with pytest.raises(ValueError, match="impala-x4"):
+        convert.params_to_jax(params)
+    with pytest.raises(ValueError, match="impala-x4"):
+        tim.convert_state_dict({k: v.numpy() for k, v in params.items()})
+    # the conv stacks still convert both ways
+    stack = dqn.init_dqn_params(_cfg("canonical"), A, 0, "cpu")
+    assert set(tim.convert_state_dict(stack)) == set(stack)
+    assert len(convert.params_to_jax(stack)["convs"]) == 3
+
+
+# ------------------------------------------------ the benchmark's copy --
+
+def _bench_torso():
+    import sys
+    sys.path.insert(0, str(ROOT))
+    path = ROOT / "port_bench" / "reference" / "torsos" / "impala-x4.py"
+    spec = importlib.util.spec_from_file_location("bench_impala_x4", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_network_and_the_benchmarks_torso_file_agree(dtype):
+    """The same shapes in the same order, the same U(±b) bounds, the same
+    features bit for bit, and the multiply-adds the benchmark counts:
+    802,934,784 a frame at history 4, frame 84."""
+    from port_bench.reference.rainbow import Precision
+    bench = _bench_torso()
+    torso_shapes = {k: v for k, v in plain.param_shapes(
+        4, 84, HIDDEN, ATOMS, A).items() if k.startswith("torso.")}
+    assert list(bench.param_shapes(4).items()) == list(torso_shapes.items())
+    assert bench.init_bounds(4) == {
+        k: 1 / math.sqrt(9 * torso_shapes[k.rsplit(".", 1)[0] + ".weight"][1])
+        for k in torso_shapes}
+    assert bench.flat(4, 84) == plain.flat(84) == FLAT
+    assert bench.macs(4, 84) == 802_934_784
+    dt = getattr(torch, dtype)
+    p = _plain_params(4)
+    x = torch.rand((2, 4, 84, 84), generator=torch.Generator().manual_seed(8))
+    x = x.to(dt)
+    assert torch.equal(bench.forward(p, x, Precision(dt)), plain.torso(p, x))
+
+
+def test_the_benchmarks_torso_roofline_reads_the_tallied_forwards():
+    """port_bench/metrics/roofline_pct.torso.py: its tally key at the
+    port's torso (architecture, rows, dtype, whether autograd records the
+    call), and its reading: 2·macs·rows operations a forward, three times
+    that for a recorded one, at the dtype's peak, over the device time of
+    the kernels its pattern names (cuDNN's, the layout conversions, the max
+    pools), none where it finds nothing."""
+    import sys
+    from types import SimpleNamespace
+    sys.path.insert(0, str(ROOT))
+    path = ROOT / "port_bench" / "metrics" / "roofline_pct.torso.py"
+    spec = importlib.util.spec_from_file_location("torso_roofline", path)
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    (module, name, key), = metric.TALLY
+    assert (module, name) == ("rainbow_tpu_torch.models.dqn", "torso")
+    cfg = _cfg(dtype="bfloat16")
+    params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    x = torch.rand(2, 84, 84, 4).to(torch.bfloat16)
+    assert key(params, cfg, x) == ("impala-x4", 2, "bfloat16", False)
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    assert key(leaves, cfg, x) == ("impala-x4", 2, "bfloat16", True)
+    with torch.no_grad():
+        assert key(leaves, cfg, x)[3] is False
+    macs = 802_934_784
+    ops = [("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc",
+             0.0, 0.25),
+           ("sm90_xmma_wgrad_indexed_implicit_gemm_bf16bf16", 0.0, 0.1),
+           ("void cudnn::engines_precompiled::nchwToNhwcKernel<bf16>", 0.0,
+            0.05),
+           ("void at::native::max_pool_backward_nchw<bf16>", 0.0, 0.1),
+           ("void at::native::elementwise_kernel<CUDAFunctor_add<bf16>>",
+            0.0, 1.0),
+           ("noisy_linear_fwd_mma<1, 128, 128, 2>", 0.0, 1.0)]
+    run = SimpleNamespace(
+        hyper=SimpleNamespace(history=4, frame=84),
+        trace={"ops": ops},
+        tallies={"roofline_pct.torso": {
+            ("impala-x4", 1024, "bfloat16", True): 8,
+            ("impala-x4", 8192, "bfloat16", False): 1}})
+    flops = 8 * 3 * 2 * macs * 1024 + 2 * macs * 8192
+    assert metric.read(run) == pytest.approx(
+        100 * flops / 989e12 / 0.5, rel=1e-12)
+    assert metric.read(SimpleNamespace(hyper=run.hyper, trace=run.trace,
+                                       tallies={})) is None
+    run.trace = {"ops": ops[4:]}
+    assert metric.read(run) is None
+
+
+def test_chip_smoke_holds_ka_and_k9_to_the_impala_cell():
+    """chip_smoke.py builds each of BENCHMARK.json's cells from its files
+    as cli.main does (bench_cells), and its KA and K9 comparisons take the
+    IMPALA cell's calls in bfloat16: KA's forward at the act's 1,024 rows
+    (per-row noise), validation's 250 (mu), the learner's 1,024 (shared)
+    and the round's 8,192 (per-row), its backward at the learner's 1,024,
+    all at 15,488 features; K9 over the net's 46 tensors."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    spec = importlib.util.spec_from_file_location("chip_smoke_cells",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import json
+    with open(ROOT / "BENCHMARK.json") as f:
+        names = [w["name"] for w in json.load(f)["workloads"]]
+    cells = dict(smoke.bench_cells())
+    assert list(cells) == names
+    c = cells["impala-x4-bf16-b1024"]
+    assert (c.architecture, c.compute_dtype, c.adam_mu_dtype) == (
+        "impala-x4", "bfloat16", "bfloat16")
+    fwd = {(b, i): m for b, m, i, _o, _r in
+           smoke.noisy_layer_batches([c], A, fwd=True)}
+    for rows, mode in ((1024, "row"), (250, "mu"), (1024, "shared"),
+                       (8192, "row")):
+        assert mode in fwd[(rows, FLAT)], (rows, mode)
+    bwd = {(b, i): m for b, m, i, _o, _r in
+           smoke.noisy_layer_batches([c], A, fwd=False)}
+    assert "shared" in bwd[(1024, FLAT)]
+    assert len(smoke.param_shapes(c, A)) == 46

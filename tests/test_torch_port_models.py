@@ -167,7 +167,7 @@ def test_canonical_forward_flatten_order():
     got = tdqn.apply_dqn(tp, cfg, A, torch.from_numpy(x), log=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
     feat_j = jdqn._torso(jp, cfg, jnp.asarray(x))
-    feat_t = tdqn._torso(tp, cfg, torch.from_numpy(x))
+    feat_t = tdqn.torso(tp, cfg, torch.from_numpy(x))
     assert feat_t.shape == (2, 3136)
     np.testing.assert_allclose(feat_t.numpy(), np.asarray(feat_j), **F32)
 

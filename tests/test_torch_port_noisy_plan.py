@@ -426,3 +426,70 @@ def test_large_split_matches_plain_and_jax(mode):
             torch.testing.assert_close(a, c, atol=1e-5 * scale, rtol=1e-5)
             torch.testing.assert_close(a, torch.from_numpy(np.array(w)),
                                        atol=1e-5 * scale, rtol=1e-5)
+
+
+# ------------------------------------- the IMPALA ResNet x4 net's fc_h ----
+
+IMPALA_IN = 15_488  # 128 channels x 11 x 11
+# Each (rows, noise mode) with which the impala-x4-bf16-b1024 cell calls
+# KA's bf16 forward at fc_h (15,488 -> 512): the learner's online and
+# double-Q forwards (1,024, shared), the actor (1,024, per row), the
+# round's target forward (8,192, per row), the validation chunks (250, mu)
+# and an evaluation's 10 envs (mu); and (path, tile, chunk, splits,
+# blocks) of its plan.
+IMPALA_FWD = {(1024, 1): ("large", 128, 3872, 4, 128),
+              (1024, 2): ("large", 128, 3872, 4, 128),
+              (8192, 2): ("large", 128, IMPALA_IN, 1, 256),
+              (250, 0): ("small", 32, 5168, 3, 192),
+              (10, 0): ("small", 16, 912, 17, 136)}
+
+
+def test_plans_at_the_impala_cells_shapes():
+    """At n_in 15,488 the existing plans cut the inputs in whole KT steps,
+    the small path into a wave or more, the large one into whole waves;
+    the bf16 small path takes chunks past CHUNK_MAX (it streams
+    x through its ring); the learner's bf16 backward (1,024 rows, shared
+    noise) keeps the small path, unsplit, 32 x 242 dx tiles. The layers
+    after fc_h are the canonical net's."""
+    bf16 = torch.bfloat16
+    for (b, mode), want in IMPALA_FWD.items():
+        p = fwd_plan(b, IMPALA_IN, 512, mode, bf16)
+        assert (p.path, p.tile, p.chunk, p.splits, p.blocks) == want, (b, mode)
+        _tiles_once(p.chunks(IMPALA_IN), IMPALA_IN, p.splits)
+        # the small path fills a wave; the large one splits in whole waves
+        assert (p.blocks >= WAVE if p.path == "small"
+                else p.blocks <= WAVE or p.splits == 1)
+        planes = 2 if mode else 1
+        assert p.scratch == (planes * p.splits * b * 512
+                             if p.splits > 1 else 0)
+        assert fwd_plan(b, IMPALA_IN, 512, mode, bf16) == p
+    assert IMPALA_FWD[250, 0][2] > CHUNK_MAX
+    bwd = bwd_plan(1024, IMPALA_IN, 512, 1, bf16)
+    assert (bwd.path, bwd.tile, bwd.chunk, bwd.splits, bwd.blocks,
+            bwd.scratch) == ("small", 32, 512, 1, 32 * 242, 0)
+    _tiles_once(bwd.chunks(512), 512, bwd.splits)
+    # The same net in float32 would take the large backward, unsplit.
+    f32 = bwd_plan(1024, IMPALA_IN, 512, 1)
+    assert (f32.path, f32.splits, f32.w_splits, f32.blocks) == (
+        "large", 1, 1, 4 * 121 + 8 * 121)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bf16_split_at_the_impala_fc_h_matches_plain(mode):
+    """The chunks of the cell's split plans at n_in 15,488 (4 of 3,872 for
+    the learner and the actor, 3 of 5,168 for validation), their partial
+    sums added in chunk order, match noisy_linear_plain in bf16 on a few
+    rows and outputs."""
+    rng = np.random.default_rng(40 + mode)
+    rows = {0: 250, 1: 1024, 2: 1024}[mode]
+    plan = fwd_plan(rows, IMPALA_IN, 512, mode, torch.bfloat16)
+    assert plan.splits > 1
+    j, x, eps = _inputs(rng, 4, IMPALA_IN, 24, mode)
+    w = {"weight_mu": j["w_mu"], "weight_sigma": j["w_sigma"],
+         "bias_mu": j["b_mu"], "bias_sigma": j["b_sigma"]}
+    w = {k: torch.from_numpy(v) for k, v in w.items()}
+    teps = None if eps is None else tuple(map(torch.from_numpy, eps))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = _bf16_split_fwd(w, xb, teps, plan).float()
+    plain = noisy_linear_plain(w, xb, teps).float()
+    torch.testing.assert_close(got, plain, atol=6e-2, rtol=3e-2)
