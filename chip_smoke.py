@@ -57,7 +57,11 @@ exit code:
             seeds, each gradient tensor's reading printed), within
             PLAIN_TOL of its compute dtype; each update also with a KA
             backward that drops 256 input features, which the gradient
-            check must refuse.
+            check must refuse. Each benchmark cell of the IMPALA net, whose
+            torso runs NHWC: one update at its batch on the card from
+            frame-major batches, its gradients float32, contiguous and
+            OIHW, KA on its features and K9 on its gradients against their
+            plain versions.
 4. actor    the canonical preset on the native engine (pong, 1024 envs, the
             full 976-column replay ring on the device, per-env noise):
             actor_step_packed iterations, env-steps/s, launch counts.
@@ -71,7 +75,9 @@ exit code:
             (31 warm-up iterations, 9 of 256 updates, an evaluation and a
             checkpoint, the best model, metrics and plots); a replay-bearing
             save on a 64-column ring restored exactly into a new Trainer;
-            --evaluate of the best model. Launch counts (K5-K7 once per
+            --evaluate of the best model. Launch counts, and beside them
+            the torso forwards by the layout their input came in (the
+            act's channels-last, the learner's NCHW; K5-K7 once per
             round), KA's launches by shape, env-steps/s, updates/s, eval,
             save and restore times, the peak of allocated device memory,
             KC's launches by N, K and mode, K5's by B.
@@ -2090,6 +2096,82 @@ def check_preset_against_plain(torch, np, label, cfg, A):
         f"on the CPU (max |q diff| {q_err:.3g})")
 
 
+def check_nhwc_cell_update(torch, label, cfg, A):
+    """[update <label>] for a benchmark cell of the IMPALA net, whose torso
+    runs NHWC: one learner update on the card at the cell's batch as the
+    round runs it (the target forward, the double-Q selection, the loss
+    forward and backward), on frame-major batches as K6 gathers them, so
+    that each of the three torso forwards takes an NCHW input and makes
+    it channels-last. The gradients that reach K9 are float32, contiguous
+    and OIHW; KA's fc_h forward on the torso's features within the bf16
+    tolerances of noisy_linear_plain; K9 on the gradients within
+    compare_adam's one-step tolerance of apply_grads_plain on them."""
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
+    from rainbow_tpu_torch.kernels.replay import window_fields
+    from rainbow_tpu_torch.models import dqn
+    from rainbow_tpu_torch.models.noisy import (NoiseStream,
+                                                noisy_linear_plain)
+    from rainbow_tpu_torch.replay import prioritized as rp
+
+    b, h, n = cfg.batch_size, cfg.history_length, cfg.multi_step
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    win = torch.randint(0, 256, (1, b, h + n, 84 * 84), generator=g,
+                        device="cuda", dtype=torch.uint8)
+    fields = window_fields(win, h, n, {})
+    batch = {"states": rp.states_to_float(fields["states"][0]),
+             "next_states": rp.states_to_float(fields["next_states"][0]),
+             "actions": torch.randint(0, A, (b,), generator=g, device="cuda",
+                                      dtype=torch.int32),
+             "returns": torch.randn((b,), generator=g, device="cuda"),
+             "nonterminals": torch.ones((b,), device="cuda"),
+             "weights": torch.rand((b,), generator=g, device="cuda") + 0.5}
+    eps = dqn.draw_noise(cfg, A, NoiseStream(SEED + 23), device="cuda")
+    params = dqn.init_dqn_params(cfg, A, SEED + 23, "cuda")
+    agent = ag.AgentState(params={k: v.clone() for k, v in params.items()},
+                          target_params=params,
+                          opt_state=ag.init_adam(params, cfg),
+                          generator=torch.Generator(device="cuda"))
+    dqn.reset_torso_inputs()
+    with torch.no_grad():
+        pns = dqn.forward_head(params, cfg, A, batch["next_states"],
+                               dist="probs", noise_eps=eps).dist
+    grads, _ = ag.compute_update_pretarget(agent, cfg, A, batch, pns, eps)
+    counts = torso_input_counts(torch, cfg, f"[update {label}]")
+    check(counts == {f"{cfg.architecture}.nchw": 3},
+          f"[update {label}] torso inputs {counts}, not 3 NCHW batches")
+    shapes = dqn.param_shapes(cfg, A)
+    check(list(grads) == list(shapes) and all(
+        grads[k].dtype == torch.float32 and grads[k].is_contiguous()
+        and tuple(grads[k].shape) == s for k, s in shapes.items()),
+        f"[update {label}] gradients not float32, contiguous, OIHW")
+    with torch.no_grad():
+        feat = dqn.torso(params, cfg, batch["states"].to(torch.bfloat16))
+    fc_h = dqn.layer(params, "fc_h_v")
+    ka_err = check_close(f"[update {label}] KA fc_h on NHWC features",
+                         noisy_linear_fwd(fc_h, feat, eps["fc_h_v"], True),
+                         noisy_linear_plain(fc_h, feat, eps["fc_h_v"], True),
+                         6e-2, 3e-2)
+    opt = ag.init_adam(params, cfg)
+    plain_params = {k: v.clone() for k, v in params.items()}
+    keys = list(shapes)
+    ag.apply_grads_plain([plain_params[k] for k in keys],
+                         [grads[k] for k in keys], [opt.mu[k] for k in keys],
+                         [opt.nu[k] for k in keys], opt.count,
+                         cfg.learning_rate, ag.ADAM_B1, ag.ADAM_B2,
+                         cfg.adam_eps, cfg.norm_clip)
+    ag.apply_grads(agent, cfg, grads)
+    p_tol = (1e-7 if cfg.adam_mu_dtype == "float32"
+             else cfg.learning_rate * 2 ** -7)
+    k9_err = max(check_close(f"[update {label}] K9 param {k}",
+                             agent.params[k], plain_params[k], p_tol, 0)
+                 for k in keys)
+    log(f"[update {label}] one update (B = {b}, {cfg.architecture} torso, "
+        f"{cfg.compute_dtype}, mu {cfg.adam_mu_dtype}) with the torso NHWC: "
+        f"torso inputs {counts}; KA fc_h max |err| {ka_err:.3g}; K9 max "
+        f"|param diff| {k9_err:.3g} (within {p_tol:.3g})")
+
+
 def profiled(torch, name, fn, units, unit):
     """Run ``fn`` under torch.profiler: device time by kernel into
     chiprun_out/chip_smoke/<name>_profile.txt (and a chrome trace), headed
@@ -2503,6 +2585,19 @@ def _same_state(torch, a, b, replay=True):
     return bool(same)
 
 
+def torso_input_counts(torch, cfg, tag):
+    """The torso forwards since the last reset_torso_inputs (models.dqn: by
+    architecture and whether the input came channels-last), printed beside
+    the launch counts; every one must be of ``cfg``'s torso."""
+    from rainbow_tpu_torch.models import dqn
+
+    counts = {k: v for k, v in dqn.torso_inputs().items() if v}
+    check(counts and all(k.split(".")[0] == cfg.architecture
+                         for k in counts),
+          f"{tag}: torso forwards {counts}, not all of {cfg.architecture}")
+    return counts
+
+
 def run_trainer(torch, np):
     """The Trainer through the command line, at canonical width on the
     native engine: TRAINER_ARGS (31 warm-up iterations, then 9 of 256
@@ -2516,6 +2611,7 @@ def run_trainer(torch, np):
     from rainbow_tpu_torch import cli
     from rainbow_tpu_torch import checkpoint as ckpt
     from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.models.dqn import reset_torso_inputs
     from rainbow_tpu_torch.train import Trainer
 
     for run in ("chip_trainer", "chip_trainer_memory", "chip_trainer_eval"):
@@ -2523,6 +2619,7 @@ def run_trainer(torch, np):
     watch = _Watch(torch)
     try:
         reset_launches()
+        reset_torso_inputs()
         before_mb = torch.cuda.memory_allocated() / 2 ** 20
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2530,6 +2627,7 @@ def run_trainer(torch, np):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches()
+        forwards = torso_input_counts(torch, tr.cfg, "trainer")
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         iters, evals, saves = (list(watch.iters), list(watch.evals),
                                list(watch.saves))
@@ -2627,7 +2725,7 @@ def run_trainer(torch, np):
         "replay_checkpoint_mb": mem_mb, "replay_frames_mb": ring_mb,
         "evaluate_only_s": eval_only_s, "max_memory_allocated_mb": peak_mb,
         "allocated_before_mb": before_mb,
-        "launches": counts,
+        "launches": counts, "torso_inputs": forwards,
         "launches_by_shape": shapes, "kc_last_k": kc_last_k}
     check_shapes("trainer", shapes, counts)
     return stats, counts
@@ -2791,6 +2889,7 @@ def run_preset_trainer(torch, np, label, args):
 
     from rainbow_tpu_torch import cli
     from rainbow_tpu_torch.kernels import launches, reset_launches
+    from rainbow_tpu_torch.models.dqn import reset_torso_inputs
     from rainbow_tpu_torch.train import Trainer
 
     run_id = args[args.index("--id") + 1]
@@ -2800,12 +2899,14 @@ def run_preset_trainer(torch, np, label, args):
     watch = _Watch(torch)
     try:
         reset_launches()
+        reset_torso_inputs()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tr = cli.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches()
+        forwards = torso_input_counts(torch, tr.cfg, f"[trainer {label}]")
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     finally:
         watch.close()
@@ -2871,7 +2972,8 @@ def run_preset_trainer(torch, np, label, args):
         "allocated_before_mb": before_mb,
         "losses": {"n": len(watch.losses), "first": float(losses[0]),
                    "last": float(losses[-1]), "all_finite": True},
-        "launches": counts, "launches_by_shape": shapes,
+        "launches": counts, "torso_inputs": forwards,
+        "launches_by_shape": shapes,
         "kc_last_k_by_n": dict(watch.kc_last_k_by_n)}
     del losses, watch.losses[:]
     # The checkpoint a new Trainer restores bit for bit: the replay-bearing
@@ -4361,6 +4463,7 @@ def main() -> int:
     from rainbow_tpu_torch.cli import parse_config
     from rainbow_tpu_torch.envs import engine
     from rainbow_tpu_torch.kernels import build, launches, reset_launches
+    from rainbow_tpu_torch.models import dqn
     from rainbow_tpu_torch.models.dqn import init_dqn_params
     from rainbow_tpu_torch.models.noisy import NoiseStream
     from rainbow_tpu_torch.train import make_env_factory
@@ -4491,6 +4594,10 @@ def main() -> int:
     # The other configurations' update and act against the plain path.
     for label, c in presets.items():
         check_preset_against_plain(torch, np, label, c, A)
+    for label, c in cells:
+        if isinstance(dqn.torso_of(c.architecture), dqn.ImpalaResNet):
+            check_nhwc_cell_update(torch, label, c, A)
+            torch.cuda.empty_cache()
 
     # 5. evaluate ------------------------------------------------------------
     ecfg = cfg.replace(max_episode_length=EVAL_FRAMES,

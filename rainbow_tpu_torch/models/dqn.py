@@ -10,12 +10,17 @@ convolutions (OIHW) and biases first, ``convs.{0,2,4}.weight`` and
 ``fc_h_v.weight_mu``, ``fc_h_v.weight_sigma``, ``fc_h_v.bias_mu``,
 ``fc_h_v.bias_sigma`` and the same for ``fc_h_a``, ``fc_z_v``, ``fc_z_a``.
 The input stays NHWC float as in the JAX package; the torso hands cuDNN a
-permuted view, which for H=4 is a channels-last tensor with no copy, and
-flattens channel-major (dqn.py:77-80).
+permuted view and flattens channel-major (dqn.py:77-80). That view is
+channels-last for the actor's frame stacks, but NCHW for the learner's
+batches, whose K6 windows hold each frame's 84x84 plane whole;
+``torso_inputs()`` counts the forwards by architecture and by which of the
+two came. The IMPALA ResNet makes its input channels-last and keeps every
+tensor so.
 """
 from __future__ import annotations
 
 import functools
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -89,17 +94,53 @@ class ImpalaResNet:
         return s * s * self.channels[-1]
 
     def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Every tensor and gradient channels-last, from the input to the
+        flatten, so that cuDNN runs its NHWC engines without converting
+        around each convolution and the max pools run their NHWC kernels;
+        the output channel-major, as the conv stacks give it."""
         def conv(x, name):
-            return F.conv2d(x, params[f"{name}.weight"].to(x.dtype),
-                            params[f"{name}.bias"].to(x.dtype), padding=1)
+            w = _ChannelsLastCast.apply(params[f"{name}.weight"], x.dtype)
+            return F.conv2d(x, w, params[f"{name}.bias"].to(x.dtype),
+                            padding=1)
 
+        x = x.contiguous(memory_format=torch.channels_last)
         for s in range(len(self.channels)):
             x = F.max_pool2d(conv(x, f"torso.{s}.conv"), 3, stride=2,
                              padding=1)
             for blk in range(self.BLOCKS):
                 y = conv(F.relu(x), f"torso.{s}.{blk}.conv1")
                 x = x + conv(F.relu(y), f"torso.{s}.{blk}.conv2")
-        return F.relu(x)
+        return _ChannelMajor.apply(F.relu(x))
+
+
+class _ChannelsLastCast(torch.autograd.Function):
+    """An OIHW weight cast to ``dtype`` and laid out channels-last in one
+    copy; its gradient comes back in the weight's dtype and OIHW layout,
+    also in one copy (autograd's own cast would keep cuDNN's channels-last
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.dtype = w.dtype
+        return w.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
+class _ChannelMajor(torch.autograd.Function):
+    """A channels-last tensor copied to NCHW order, for the channel-major
+    flatten; its gradient goes back channels-last. One transposing copy
+    each way."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous(memory_format=torch.channels_last)
 
 
 # The two conv stacks of the reference (model.py:55-63), which the JAX
@@ -111,6 +152,15 @@ CONV_STACKS = {
 }
 TORSOS = {**{name: ConvStack(layers) for name, layers in CONV_STACKS.items()},
           "impala-x4": ImpalaResNet((64, 128, 128))}
+
+
+# Torso forwards by "<architecture>.<nhwc|nchw>": whether the permuted input
+# came channels-last or not, as ``torso`` finds it. Counted under a lock as
+# kernels.LAUNCHES are: an asynchronous evaluation runs forwards from a
+# second thread.
+TORSO_INPUTS = {f"{arch}.{layout}": 0 for arch in TORSOS
+                for layout in ("nchw", "nhwc")}
+_LOCK = threading.Lock()
 
 
 def torso_of(architecture: str):
@@ -212,14 +262,30 @@ def torso(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """The architecture's torso over NHWC input (B, 84, 84, H) in the
     compute dtype → (B, flat), channel-major: every forward of the network
     (the act, the learner's forwards, the round's target forward,
-    evaluation) runs through this function, looked up at call time, and
-    under a profiler is its range ``rainbow.torso``. cuDNN runs float32
+    evaluation) runs through this function, looked up at call time, counts
+    one in TORSO_INPUTS by architecture and the layout its input came in,
+    and under a profiler is its range ``rainbow.torso``. cuDNN runs float32
     convolutions in TF32 while ``torch.backends.cudnn.allow_tf32`` is set
     (PyTorch's default); clear it for full float32, as chip_smoke.py
     does."""
+    net, x = torso_of(cfg.architecture), x.permute(0, 3, 1, 2)
+    nhwc = x.is_contiguous(memory_format=torch.channels_last)
+    with _LOCK:
+        TORSO_INPUTS[f"{cfg.architecture}.{'nhwc' if nhwc else 'nchw'}"] += 1
     with span("torso"):
-        x = torso_of(cfg.architecture).forward(params, x.permute(0, 3, 1, 2))
+        x = net.forward(params, x)
         return x.reshape(x.shape[0], -1)
+
+
+def torso_inputs() -> dict:
+    with _LOCK:
+        return dict(TORSO_INPUTS)
+
+
+def reset_torso_inputs() -> None:
+    with _LOCK:
+        for k in TORSO_INPUTS:
+            TORSO_INPUTS[k] = 0
 
 
 def draw_noise(cfg, action_space: int, noise: NoiseStream, lead=(),

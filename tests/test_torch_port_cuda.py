@@ -38,7 +38,9 @@ it is two kernel nodes, and its C entry refuses a plan that disagrees;
 over the IMPALA ResNet x4 net's 46 tensors it is one call, and on the
 canonical net it gives the digests read before its table grew from 32
 entries to 64. KA runs the IMPALA cell's bf16 calls at n_in 15,488 within
-the bf16 tolerances. After a learner round, params agree to lr/100. The distributed
+the bf16 tolerances, and one learner update of its net in bf16, like one of
+the float32 Nature net, launches no NCHW <-> NHWC conversion and no NCHW
+max pool. After a learner round, params agree to lr/100. The distributed
 round at world size 1 over NCCL gives learner_round's bits, with cuDNN held
 to its deterministic algorithms.
 """
@@ -1617,3 +1619,64 @@ def test_data_parallel_trainer_on_one_card(cuda, tmp_path):
     # (the validation states' appends come on top)
     assert counts["append_framestack"] >= 2 * tr.T // cfg.num_envs
     assert counts["clip_adam"] == 2 * tr.agent.step
+
+
+# Kernels that convert between NCHW and NHWC around a convolution (cuDNN's
+# own transposes) or pool NCHW activations.
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "max_pool_forward_nchw",
+                  "max_pool_backward_nchw")
+
+
+@pytest.mark.parametrize("arch,dtype", [("impala-x4", "bfloat16"),
+                                        ("canonical", "float32")])
+def test_learner_update_launches_no_layout_conversion(cuda, arch, dtype):
+    """One learner update at 1,024 rows as the round runs it (the target
+    forward, the double-Q selection, the loss forward and backward, clip +
+    Adam), on frame-major batches as K6 gathers them, under torch.profiler
+    after a warm-up: no kernel converts between NCHW and NHWC or pools
+    NCHW. Each of the three torso forwards takes an NCHW input: the IMPALA
+    net makes it channels-last and runs NHWC throughout, the float32
+    Nature net runs as it did, NCHW."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rainbow_tpu_torch.models import dqn
+    from rainbow_tpu_torch.kernels.replay import window_fields
+    cfg = rainbow_tpu_torch.canonical(architecture=arch, compute_dtype=dtype,
+                                      adam_mu_dtype=dtype, batch_size=1024)
+    n_act, b = 6, 1024
+    g = torch.Generator(device=cuda).manual_seed(3)
+    win = torch.randint(0, 256, (1, b, 7, 84 * 84), generator=g,
+                        device=cuda, dtype=torch.uint8)
+    fields = window_fields(win, 4, 3, {})
+    batch = {"states": rp.states_to_float(fields["states"][0]),
+             "next_states": rp.states_to_float(fields["next_states"][0]),
+             "actions": torch.randint(0, n_act, (b,), generator=g,
+                                      device=cuda, dtype=torch.int32),
+             "returns": torch.randn((b,), generator=g, device=cuda),
+             "nonterminals": torch.ones((b,), device=cuda),
+             "weights": torch.rand((b,), generator=g, device=cuda) + 0.5}
+    agent = ag.init_agent(cfg, n_act, 0, cuda)
+    eps = draw_noise(cfg, n_act, NoiseStream(4), device=cuda)
+
+    def update():
+        with torch.no_grad():
+            pns = dqn.forward_head(agent.target_params, cfg, n_act,
+                                   batch["next_states"], dist="probs",
+                                   noise_eps=eps).dist
+        grads, _ = ag.compute_update_pretarget(agent, cfg, n_act, batch,
+                                               pns, eps)
+        ag.apply_grads(agent, cfg, grads)
+
+    update()
+    torch.cuda.synchronize()
+    dqn.reset_torso_inputs()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        update()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("noisy_linear" in n for n in names), names
+    assert [n for n in names if any(k in n for k in LAYOUT_KERNELS)] == []
+    assert {k: v for k, v in dqn.torso_inputs().items() if v} == {
+        f"{arch}.nchw": 3}
+    dqn.reset_torso_inputs()

@@ -1,7 +1,12 @@
 """The port's IMPALA ResNet x4 torso (``--architecture impala-x4``) on the
 CPU: its shapes, key order and draws; its forward, the learner's loss and
 every gradient against a plain PyTorch network written from the papers
-(tests/impala_plain.py, which imports nothing of the port); the two conv
+(tests/impala_plain.py, which imports nothing of the port); its layout:
+channels-last in every dtype from the input through every convolution,
+pool, ReLU, add and gradient, the forwards counted by the layout their
+input came in, the features and bfloat16 gradients those of the plain
+network computed NCHW, the gradients that reach Adam contiguous and OIHW;
+the two conv
 stacks, bit for bit what they were before the torso became one forward per
 architecture; the CLI, a CPU Trainer, a checkpoint of its 46 tensors, and
 both importers, which have no source for it; and the benchmark's torso
@@ -185,6 +190,176 @@ def test_forward_loss_and_gradients_match_plain(dtype):
          - a.reshape(b, A, ATOMS).mean(1, keepdim=True)).float()
     want_q = (torch.softmax(z, 2) * torch.linspace(-10, 10, ATOMS)).sum(2)
     torch.testing.assert_close(q, want_q, **tol)
+
+
+# ------------------------------------------------ the layout: channels-last --
+
+def _window_states(b, seed=3):
+    """Frames as the learner's batches hold them: K6's frame-major windows
+    (history + n-step frames of 84 x 84 a row) permuted to (B, 84, 84, H),
+    so that the torso's permuted view is NCHW in memory."""
+    from rainbow_tpu_torch.kernels.replay import window_fields
+    g = torch.Generator().manual_seed(seed)
+    win = torch.randint(0, 256, (1, b, 7, 84 * 84), generator=g,
+                        dtype=torch.uint8)
+    return window_fields(win, 4, 3, {})["states"][0].float() / 255
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_torso_forward_counts_its_layout(dtype):
+    """Every IMPALA forward, with and without autograd, counts the layout
+    its input came in: the act's NHWC frame stack "nhwc", the learner's
+    frame-major batch "nchw". Both give the same channel-major (B, 15,488)
+    features, those of the plain network."""
+    cfg = _cfg(dtype=dtype)
+    dt = getattr(torch, dtype)
+    params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    batch = _window_states(3).to(dt)
+    stack = batch.contiguous()
+    dqn.reset_torso_inputs()
+    assert set(dqn.torso_inputs().values()) == {0}
+    feats = []
+    for x in (stack, batch):
+        with torch.no_grad():
+            feats.append(dqn.torso(params, cfg, x))
+        feats.append(dqn.torso(leaves, cfg, x).detach())
+    counts = dqn.torso_inputs()
+    assert counts == {k: 2 if k in ("impala-x4.nhwc", "impala-x4.nchw")
+                      else 0 for k in counts}
+    want = plain.torso(params, batch.permute(0, 3, 1, 2))
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else \
+        dict(atol=3e-2, rtol=3e-2)
+    for f in feats:
+        assert f.shape == (3, FLAT) and f.dtype == dt and f.is_contiguous()
+        torch.testing.assert_close(f, feats[0], atol=0, rtol=0)
+        torch.testing.assert_close(f.float(), want.float(), **tol)
+    dqn.reset_torso_inputs()
+
+
+def _layout_log():
+    """A dispatch mode that records, for each convolution, max pool, ReLU
+    and add of the forward and backward, whether each of its 4-D tensors
+    is channels-last ("nhwc"), contiguous ("nchw") or neither."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = {"convolution", "convolution_backward", "max_pool2d_with_indices",
+           "max_pool2d_with_indices_backward", "relu", "threshold_backward",
+           "add"}
+
+    def form(t):
+        if t.is_contiguous(memory_format=torch.channels_last):
+            return "nhwc"
+        return "nchw" if t.is_contiguous() else "strided"
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in ops:
+                flat = list(args) + list(out if isinstance(out, tuple)
+                                         else (out,))
+                self.rows += [(name, form(t)) for t in flat
+                              if isinstance(t, torch.Tensor) and t.dim() == 4]
+            return out
+    return Log()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_torso_runs_channels_last_forward_and_backward(dtype):
+    """On the learner's frame-major batch, every 4-D tensor that reaches a
+    convolution, a max pool, a ReLU or a residual add, forward or
+    backward, and every one they return, is channels-last in every dtype:
+    the input, the weights, the activations and the gradients from the
+    flatten down."""
+    cfg = _cfg(dtype=dtype)
+    params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()
+              if k.startswith("torso.")}
+    x = _window_states(2).to(getattr(torch, dtype))
+    with _layout_log() as log:
+        f = dqn.torso(leaves, cfg, x)
+        torch.autograd.grad(f.float().square().sum(), list(leaves.values()))
+    seen = {name for name, _ in log.rows}
+    assert seen == {"convolution", "convolution_backward",
+                    "max_pool2d_with_indices",
+                    "max_pool2d_with_indices_backward", "relu",
+                    "threshold_backward", "add"}
+    assert [r for r in log.rows if r[1] != "nhwc"] == []
+
+
+def test_bf16_nhwc_gradients_match_nchw_and_plain():
+    """The bfloat16 NHWC forward and its gradient of every convolution's
+    weight and bias, on the learner's frame-major batch, against the plain
+    network, which computes it NCHW in bfloat16 (its convolutions, pools,
+    ReLUs and adds see no channels-last tensor), at
+    test_forward_loss_and_gradients_match_plain's bfloat16 tolerances; the
+    gradients float32, contiguous and OIHW."""
+    cfg = _cfg(dtype="bfloat16")
+    params = _plain_params(2)
+    _x, eps, actions, m, w = _inputs(cfg, 3)
+    x = _window_states(3, seed=5)
+    got = _port_loss(params, cfg, x, eps, actions, m, w)
+    with _layout_log() as log:
+        want = _plain_loss(params, torch.bfloat16, x, eps, actions, m, w)
+    assert log.rows and {r[1] for r in log.rows} == {"nchw"}
+    tol = dict(atol=3e-2, rtol=3e-2)
+    for g, wv in zip(got[0], want[0]):
+        torch.testing.assert_close(g.float(), wv.float(), **tol)
+    torch.testing.assert_close(got[2], want[2], **tol)
+    for k, gk in got[3].items():
+        if not k.startswith("torso."):
+            continue
+        wk = want[3][k].float()
+        assert gk.dtype == torch.float32 and gk.is_contiguous(), k
+        assert gk.shape == params[k].shape, k
+        assert float((gk - wk).norm()) <= 2e-2 * float(wk.norm()), k
+
+
+def test_gradients_handed_to_apply_grads_are_contiguous(monkeypatch):
+    """A bfloat16 learner round of the IMPALA net on a CPU ring: every
+    gradient that reaches agent.apply_grads is a float32 tensor,
+    contiguous, with param_shapes' shape, and every torso forward of the
+    round (its target forward, then per update the double-Q selection and
+    the loss) takes the frame-major batch, NCHW."""
+    from rainbow_tpu_torch import agent as ag
+    from rainbow_tpu_torch import train
+    from rainbow_tpu_torch.replay import prioritized as rp
+    cfg = _cfg(dtype="bfloat16", adam_mu_dtype="bfloat16", batch_size=3)
+    e, c = 2, 12
+    g = torch.Generator().manual_seed(4)
+    rep = rp.init_replay(e, c, device="cpu")
+    rep.frames.copy_(torch.randint(0, 256, rep.frames.shape, generator=g,
+                                   dtype=torch.uint8))
+    rep.actions.copy_(torch.randint(0, A, (e, c), generator=g))
+    rep.rewards.copy_(torch.randn((e, c), generator=g))
+    rep.timesteps.copy_(torch.arange(c).expand(e, c))
+    rep.nonterminal.fill_(True)
+    rep.priorities.copy_(torch.rand((e, c), generator=g) + 0.1)
+    rep.full.fill_(True)
+    agent = ag.init_agent(cfg, A, 0, "cpu")
+    shapes = dqn.param_shapes(cfg, A)
+    seen, real = [], ag.apply_grads
+
+    def watching(agent_, cfg_, grads):
+        seen.append(grads)
+        return real(agent_, cfg_, grads)
+    monkeypatch.setattr(ag, "apply_grads", watching)
+    dqn.reset_torso_inputs()
+    loss = train.learner_round(agent, rep, cfg, A, 2, 0.4)
+    assert math.isfinite(float(loss)) and len(seen) == 2
+    for grads in seen:
+        assert list(grads) == list(shapes)
+        for k, gk in grads.items():
+            assert gk.dtype == torch.float32 and gk.is_contiguous(), k
+            assert tuple(gk.shape) == shapes[k], k
+    counts = dqn.torso_inputs()
+    assert counts["impala-x4.nchw"] == 5
+    assert sum(counts.values()) == 5
+    dqn.reset_torso_inputs()
 
 
 # -------------------------------------------- the conv stacks, unchanged --
@@ -456,3 +631,34 @@ def test_chip_smoke_holds_ka_and_k9_to_the_impala_cell():
            smoke.noisy_layer_batches([c], A, fwd=False)}
     assert "shared" in bwd[(1024, FLAT)]
     assert len(smoke.param_shapes(c, A)) == 46
+
+
+def test_chip_smoke_holds_the_nhwc_cell_update_and_counts_forwards():
+    """Of BENCHMARK.json's cells, the IMPALA cell alone has the torso that
+    runs NHWC, so chip_smoke.py's NHWC update check (KA on the torso's
+    features, K9 on its gradients) runs there; its count of torso forwards
+    gives those of the configuration's torso by the layout their input
+    came in, and fails on another torso's or on none."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    spec = importlib.util.spec_from_file_location("chip_smoke_nhwc",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    nhwc = [name for name, c in smoke.bench_cells()
+            if isinstance(dqn.torso_of(c.architecture), dqn.ImpalaResNet)]
+    assert nhwc == ["impala-x4-bf16-b1024"]
+    assert callable(smoke.check_nhwc_cell_update)
+    cfg = _cfg(dtype="bfloat16")
+    params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    dqn.reset_torso_inputs()
+    with pytest.raises(smoke.Failed):
+        smoke.torso_input_counts(torch, cfg, "t")
+    with torch.no_grad():
+        dqn.torso(params, cfg, torch.rand(2, 84, 84, 4).to(torch.bfloat16))
+        dqn.torso(params, cfg, _window_states(2).to(torch.bfloat16))
+    assert smoke.torso_input_counts(torch, cfg, "t") == {
+        "impala-x4.nhwc": 1, "impala-x4.nchw": 1}
+    with pytest.raises(smoke.Failed):
+        smoke.torso_input_counts(torch, _cfg("canonical"), "t")
+    dqn.reset_torso_inputs()
