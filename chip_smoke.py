@@ -5,63 +5,31 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a traceback and a nonzero
-exit code:
+The checks of every kernel, and of every path that runs them, against
+its plain version on the card live in one place,
+tests/test_torch_port_cuda.py, with its cases from tests/card_cases.py:
+the configurations this script's Trainers run and BENCHMARK.json's cells.
+This script runs those tests, then the port's Trainers, its learning, its
+data-parallel ranks and its kernels' timing rows. Phases, in order; any
+failure ends the run with a traceback and a nonzero exit code:
 
 1. build    nvcc builds the CUDA kernels (one process per source, started
             together) into rainbow_tpu_torch/_build/, while make builds the
             native Atari engine.
-2. compare  every kernel against its plain PyTorch version on the card, at
-            the shapes the actor and the learner give it, with stated
-            tolerances (KA also at its split and tile edges, in float32 on
-            the CUDA cores and bf16 on the tensor cores, KB and the C51
-            loss at B = 1, 31, 33, A = 3, 6, 18 and 21, 51, 128 atoms, each
-            twice, for equal bits); the append + frame-stack kernel (KC)
-            at N = 1, 10, 40 and 1024, H = 4 and 3, no, bucketed and dense
-            reset rows, with and without a replay, three appends in a row,
-            and one kernel launched per append; the replay's sampler,
-            gather and write-back on a random ring of the canonical width
-            (7.05 GB), where they are also timed; the write-back (K7) alone
-            there at B = 1 to 8192 in ragged layouts, with runs of one leaf
-            across its blocks' edges, a hot leaf, NaN and -0.0 losses and
-            an empty ring, bit for bit, one kernel a call; the sampler (K5)
-            alone at B = 1 and 32, on trees of depth 0 to 22 and on ties, a
-            second launch with the same bits, at most two kernels a call; the
-            noise draws (K2) at the act's, the round's and the sequential
-            update's shapes, with the moments of the round's 71 M target
-            draws, and K2's float32
-            Box-Muller alone on edge words and 10^6 random word pairs,
-            against the float64 plain version; the delta kernel
-            (K10) on real 1024-env pong deltas, against the dense engine's
-            observations too, and on random deltas at N = 1 and 1024 with
-            an env whose whole plane changed, one kernel a call. Every
-            kernel also at the shapes of the JAX package's other
-            configurations (PRESET_RUNS): KA and KB at the data-efficient
-            net's 576 -> 256 -> 6·51 layers and its batches (16 envs, 32,
-            512 target rows, 10 and 250), KA and the C51 kernels at the
-            throughput preset's batch 256, K9 over the data-efficient
-            params (at either net each tensor of its own and every kind
-            as views of one flat buffer), K2 at their rounds' draws, KC at N = 16, and K5-K7 on the
-            data-efficient preset's whole 16 x 6,250 ring at its round
-            (16 x 32, n = 20), bit-exact, a second launch equal. KA and K9
-            also at each cell of BENCHMARK.json, as the cell's files build
-            it (bench_cells), in its compute dtype: KA's forward and
-            backward at its act, validation, learner and round rows (the
-            IMPALA torso's 15,488 features among them), K9 over its net
-            (the IMPALA net's 46 tensors).
-3. update   one learner update (compute_update_pretarget + apply_grads) and
-            one sequential learn_step of the canonical net on the card
-            against the same through the plain versions on the CPU; one
-            update and one actor step of each other configuration the same
-            way ([update <label>], [actor <label>]; bf16 updates at six
-            seeds, each gradient tensor's reading printed), within
-            PLAIN_TOL of its compute dtype; each update also with a KA
-            backward that drops 256 input features, which the gradient
-            check must refuse. Each benchmark cell of the IMPALA net, whose
-            torso runs NHWC: one update at its batch on the card from
-            frame-major batches, its gradients float32, contiguous and
-            OIHW, KA on its features and K9 on its gradients against their
-            plain versions.
+2. card     tests/test_torch_port_cuda.py in this process (pytest.main):
+            each kernel and each path on the card against its plain version
+            at the main path's shapes, among them one learner update and
+            one act of each BENCHMARK.json cell with their launch counts;
+            the counts of passed, failed and skipped tests on one line, the
+            tests' output in card_tests.txt and their JUnit XML in
+            card_tests.xml. A failed or skipped test fails the run.
+3. replay   the replay's sampler, gather and write-back (K5-K7) timed on a
+            random ring of the canonical width (7.05 GB) at the canonical
+            round (K6 also at the throughput preset's) and on the
+            data-efficient preset's whole 16 x 6,250 ring at its round,
+            early in the run, where the profiler's split of K5's two
+            launches agrees with the graphs; the last of six real 1024-env
+            pong deltas kept for K10's row.
 4. actor    the canonical preset on the native engine (pong, 1024 envs, the
             full 976-column replay ring on the device, per-env noise):
             actor_step_packed iterations, env-steps/s, launch counts.
@@ -144,14 +112,14 @@ K9's at its three nets, K6's at its three rounds) with the package of
 TREE, for an A/B of the kernel against another commit in one call; K9's
 and K6's rows carry the SHA-256 of their outputs on inputs from a seed.
 
-The last line is {"ok": true, "device": {...}}. Without CUDA, or without the rest of the repository
-beside it, the script exits nonzero and prints no result. Every log line
-is also kept in chiprun_out/chip_smoke/log.txt, with the longer logs.
+The last line is {"ok": true, "device": {...}}. Without CUDA, or without
+the rest of the repository beside it, the script exits nonzero and prints
+no result. Every log line is also kept in chiprun_out/chip_smoke/log.txt,
+with the longer logs.
 """
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import math
 import os
@@ -163,22 +131,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
-GAME, ENVS, SEED = "pong", 1024, 0
-PONG_ACTIONS = 6  # the native engine's pong; --time-rows builds no engine
+# The configurations and their calls, shared with the card tests.
+sys.path.append(os.path.join(ROOT, "tests"))
+from card_cases import (ADAM_HYPER, ENVS, GAME, PONG_ACTIONS,  # noqa: E402
+                        PRESET_RUNS, SEED, adam_digests, adam_inputs,
+                        noise_shapes, param_shapes, preset_configs, sha256)
 ACTOR_ITERS = 200
 EVAL_FRAMES = 4000  # max_episode_length of the evaluation episodes
 WARMUP_ITERS = 32   # train phase: actor iterations that fill the ring
 TRAIN_ITERS = 4     # then fused iterations with a learner round each
 SYNC_AT = 2         # the train iteration that syncs the target net
 PROFILE_UPDATES = 64  # --profile: the traced training iteration's round
-
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3
-# bandwidth, and the operations' rate by the type of their operands:
-# float32 on the CUDA cores, bf16 on the tensor cores. A row's bound takes
-# the peak of its ``flop_dtype`` (float32 unless the row says bf16), though
-# the kernels here use no tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {"fp32": 67e12, "bf16": 989e12}
 
 
 class Failed(Exception):
@@ -196,6 +159,21 @@ def log(*a):
     print(*a, flush=True)
     with open(os.path.join(OUT_DIR, "log.txt"), "a") as f:
         print(*a, file=f)
+
+
+# A row's flop_dtype (float32 unless the row says bf16) as
+# port_bench/bounds/peaks.py names the type of the operands.
+PEAK_DTYPES = {"fp32": "float32", "bf16": "bfloat16"}
+
+
+def bound_ms(flops, nbytes, flop_dtype="fp32"):
+    """The least time one H100 could take, in ms, by the published peaks in
+    port_bench/bounds/peaks.py: the larger of ``nbytes`` over the HBM3
+    bandwidth and ``flops`` over the peak of ``flop_dtype`` (float32 on the
+    CUDA cores, bf16 on the tensor cores)."""
+    from port_bench.bounds.peaks import bound_s
+
+    return 1e3 * bound_s(flops, nbytes, PEAK_DTYPES[flop_dtype])
 
 
 def parse_args():
@@ -329,603 +307,6 @@ def l2_clean_flush(torch):
     return lambda: spill.amax()
 
 
-# ------------------------------------------------------------- compare -----
-
-def check_close(name, got, want, atol, rtol):
-    """|got - want| <= atol + rtol·|want| everywhere; returns max |diff|."""
-    diff = (got.float() - want.float()).abs()
-    bound = atol + rtol * want.float().abs()
-    worst = float((diff - bound).max())
-    check(worst <= 0, f"{name}: max |diff| {float(diff.max()):.3g} exceeds "
-          f"atol {atol} + rtol {rtol}·|ref|")
-    return float(diff.max())
-
-
-def noisy_layer_batches(cfgs, A, fwd):
-    """KA's main-path launches of each configuration in ``cfgs``, as
-    (B, noise modes, in, out, relu) per layer (fc_h with its ReLU, fc_z_v,
-    fc_z_a), each shape once with the union of its modes, in order.
-    Forward (``fwd``): the act over the envs, the evaluation's 10 episodes
-    and 250-state validation chunks in every mode; the learner's batch with
-    shared noise; the round's target forward over all of its rows with
-    per-row noise. Backward: the learner's batch in every mode."""
-    from rainbow_tpu_torch.models.dqn import _noisy_dims
-
-    all_modes = ("mu", "shared", "row")
-    out = {}
-    for c in cfgs:
-        rows = c.num_envs // c.replay_frequency * c.batch_size
-        batches = ([(c.num_envs, all_modes), (10, all_modes),
-                    (250, all_modes), (c.batch_size, ("shared",)),
-                    (rows, ("row",))] if fwd
-                   else [(c.batch_size, all_modes)])
-        dims = _noisy_dims(c, A)
-        layers = ((*dims["fc_h_v"], True), (*dims["fc_z_v"], False),
-                  (*dims["fc_z_a"], False))
-        for b, modes in batches:
-            for n_in, n_out, relu in layers:
-                key = (b, n_in, n_out, relu)
-                have = out.get(key, ())
-                out[key] = have + tuple(m for m in modes if m not in have)
-    return [(b, modes, i, o, r) for (b, i, o, r), modes in out.items()]
-
-
-def compare_noisy_linear(torch, A, cfgs, report, cells=()):
-    """KA against noisy_linear_plain: fp32 and bf16, at the layer shapes and
-    batches of each configuration in ``cfgs`` (noisy_layer_batches: the
-    acting path in the three noise modes, the learner's shared noise and
-    its round's per-row target forward), and at shapes that cross both
-    paths' split and tile edges (B = 1 and 33, IN = 3137, OUT = 513: the
-    scalar-load path); and at each benchmark cell's shapes and modes
-    (``cells``, bench_cells) in its own dtype where ``cfgs`` leave one
-    out. A second launch must give the same bits. Returns the largest fp32
-    error."""
-    from rainbow_tpu_torch.models.noisy import (NoiseStream,
-                                                init_noisy_params,
-                                                noisy_linear_plain,
-                                                scale_noise)
-    from rainbow_tpu_torch.kernels.noisy_linear import (fwd_plan,
-                                                        noisy_linear_fwd)
-
-    g = torch.Generator(device="cuda").manual_seed(1)
-    ns = NoiseStream(1)
-    all_modes = ("mu", "shared", "row")
-    both = (torch.float32, torch.bfloat16)
-    shapes = noisy_layer_batches(cfgs, A, fwd=True)
-    shapes += [(1, all_modes, 3136, 512, True),
-               (33, all_modes, 3137, 513, True),
-               (1024, ("row",), 3137, 513, True)]
-    have = {(b, i, o, r): modes for b, modes, i, o, r in shapes}
-    shapes = [(b, modes, i, o, r, both) for b, modes, i, o, r in shapes]
-    for _, c in cells:
-        dt = getattr(torch, c.compute_dtype)
-        for b, modes, i, o, r in noisy_layer_batches([c], A, fwd=True):
-            new = tuple(m for m in modes if m not in have.get((b, i, o, r),
-                                                              ()))
-            if new:
-                shapes.append((b, new, i, o, r, (dt,)))
-    # fp32: both sides sum in fp32 in other orders over up to 3137 terms of
-    # O(1) outputs. bf16: the plain version rounds to bf16 after every op
-    # (as the JAX package does), the kernel only once at the end, so they
-    # differ by a few bf16 ulps (2^-8 relative) of O(1) values.
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
-    worst32 = 0.0
-    for b, modes, n_in, n_out, relu, dtypes in shapes:
-        params = init_noisy_params(g, n_in, n_out, 0.5)
-        x = torch.rand((b, n_in), generator=g, device="cuda") * 2
-        for mode in modes:
-            lead = (b,) if mode == "row" else ()
-            eps = None if mode == "mu" else (
-                scale_noise(ns, lead + (n_in,), "cuda"),
-                scale_noise(ns, lead + (n_out,), "cuda"))
-            for dt in dtypes:
-                plan = fwd_plan(b, n_in, n_out, all_modes.index(mode), dt)
-                xd = x.to(dt)
-                got = noisy_linear_fwd(params, xd, eps, relu)
-                want = noisy_linear_plain(params, xd, eps, relu)
-                tag = (f"noisy_linear_fwd B={b} {n_in}->{n_out} {mode} {dt} "
-                       f"{ka_kernels('fwd', dt, plan)} x{plan.splits}")
-                check(got.dtype == dt and got.shape == (b, n_out),
-                      f"{tag}: output {got.dtype} {tuple(got.shape)}")
-                err = check_close(tag, got, want, *tol[dt])
-                check(torch.equal(noisy_linear_fwd(params, xd, eps, relu),
-                                  got), f"{tag}: a second launch differs")
-                report.append(("noisy_linear_fwd", b, n_in, n_out, mode,
-                               str(dt), plan.path, plan.splits, err))
-                if dt == torch.float32:
-                    worst32 = max(worst32, err)
-    return worst32
-
-
-# (B, A, atoms) beyond the main path's, for both kernels of csrc/head.cu:
-# one row, one row short of a learner batch and one past it; Atari's
-# smallest, the canonical and its full action set; 21 atoms (one lane
-# column), 51 and the most a lane holds (MAX_ATOMS = 128).
-HEAD_EDGES = [(b, n_act, atoms) for b in (1, 31, 33) for n_act in (3, 6, 18)
-              for atoms in (21, 51, 128)]
-
-
-def _tie_top(torch, a, n_act, atoms):
-    """Row 0 of ``a``: actions 1 and 2 lean to the high atoms alike, the
-    others to the low ones, so q's top is tied between 1 and 2."""
-    j = torch.arange(atoms, device=a.device, dtype=torch.float32) / atoms
-    lean = torch.stack([j if k in (1, 2) else -j for k in range(n_act)])
-    a[0] = (lean * 4).reshape(-1).to(a.dtype)
-
-
-def compare_dueling_head(torch, A, cfgs, report):
-    """KB against dueling_head_plain, fp32 and bf16 streams: no
-    distribution, probs and log-probs at each configuration's acting
-    batches (its envs, the evaluation's 10 and 250); at its learner's batch
-    the selection's action only and at its round's rows the target
-    probabilities; then HEAD_EDGES in every mode. Argmax must agree
-    wherever the top-2 gap of q exceeds q's tolerance, a second launch must
-    give the same bits, and in a row whose top q is tied (edge shapes) the
-    first of the tied actions must win. Returns the largest error, and the
-    largest of the probabilities alone at the round targets' batches (KB
-    takes exp from __expf there)."""
-    from rainbow_tpu_torch.ops.c51 import support_vector
-    from rainbow_tpu_torch.ops.head import dueling_head_plain
-    from rainbow_tpu_torch.kernels.dueling_head import dueling_head_fwd
-
-    g = torch.Generator(device="cuda").manual_seed(2)
-    # Both sides combine in the streams' dtype, rounding after each op as
-    # PyTorch does, then take an fp32 softmax of the same logits: exp and
-    # the sums differ in the last bits only. Probabilities are below 1,
-    # log-probs and q of order 10.
-    tol = {"probs": 1e-6, "log": 1e-5, "q": 1e-5}
-    worst = target_probs = 0.0
-    all_dists = (None, "probs", "log")
-    batches, targets = {}, set()
-    for c in cfgs:
-        rows = c.num_envs // c.replay_frequency * c.batch_size
-        targets.add(rows)
-        for b, dists in ((c.num_envs, all_dists), (10, all_dists),
-                         (250, all_dists), (c.batch_size, (None,)),
-                         (rows, ("probs",))):
-            have = batches.get(b, ())
-            batches[b] = have + tuple(d for d in dists if d not in have)
-    cases = [(b, n_act, 51, dists, False) for b, dists in batches.items()
-             for n_act in sorted({A, 18})]
-    cases += [(b, n_act, atoms, all_dists, True)
-              for b, n_act, atoms in HEAD_EDGES]
-    for b, n_act, atoms, dists, tie in cases:
-        z = support_vector(-10.0, 10.0, atoms, "cuda")
-        for dt in (torch.float32, torch.bfloat16):
-            v = (torch.randn((b, atoms), generator=g, device="cuda")
-                 * 2).to(dt)
-            a = (torch.randn((b, n_act * atoms), generator=g,
-                             device="cuda") * 2).to(dt)
-            if tie:
-                _tie_top(torch, a, n_act, atoms)
-            for dist in dists:
-                got = dueling_head_fwd(v, a, z, n_act, dist)
-                want = dueling_head_plain(v, a, z, n_act, dist)
-                tag = f"dueling_head B={b} A={n_act} atoms={atoms} {dt} {dist}"
-                errs = [check_close(tag + " q", got[1], want.q, tol["q"], 0),
-                        check_close(tag + " max_q", got[3], want.max_q,
-                                    tol["q"], 0)]
-                if dist:
-                    errs.append(check_close(tag + " dist", got[0],
-                                            want.dist, tol[dist], 0))
-                    if dist == "probs" and b in targets:
-                        target_probs = max(target_probs, errs[-1])
-                else:
-                    check(got[0] is None, tag + ": wrote a distribution")
-                top2 = want.q.topk(2, dim=1).values
-                clear = top2[:, 0] - top2[:, 1] > tol["q"]
-                check(torch.equal(got[2][clear], want.action[clear]),
-                      tag + ": argmax differs where the top-2 gap is clear")
-                check(got[2].dtype == torch.int64, tag + ": argmax dtype")
-                if tie:
-                    check(bool(got[1][0, 1] == got[1][0, 2])
-                          and int(got[2][0]) == 1,
-                          tag + ": a tied top did not take the first action")
-                again = dueling_head_fwd(v, a, z, n_act, dist)
-                check(all((x is None and y is None) or torch.equal(x, y)
-                          for x, y in zip(again, got)),
-                      tag + ": a second launch differs")
-                report.append(("dueling_head", b, n_act, atoms, str(dt), dist,
-                               max(errs)))
-                worst = max(worst, *errs)
-    return worst, target_probs
-
-
-def _random_step(torch, np, rng, n, f, h, c, k_mode="bucket"):
-    """Seeded inputs of one append + frame-stack step, on the CPU. Reset
-    rows: none (K = 0), packed into a padded bucket by pack_resets (about
-    a third of the envs reset), or dense (K = N, reset_idx = arange(N), as
-    actor_step passes them)."""
-    from rainbow_tpu_torch.replay.prioritized import init_replay
-    from rainbow_tpu_torch.train import pack_resets
-
-    kinds = np.where(rng.random(n) < (0.0 if k_mode == "none" else 0.35),
-                     rng.integers(1, 3, n), 0).astype(np.uint8)
-    resets = rng.integers(0, 256, (n, f, f), np.uint8)
-    if k_mode == "dense":
-        packed, ridx = resets, np.arange(n, dtype=np.int32)
-    else:
-        packed, ridx = pack_resets(resets, kinds)
-    rep = init_replay(n, c, f, device="cpu")
-    rep.frames.copy_(torch.from_numpy(rng.integers(0, 256, rep.frames.shape,
-                                                   np.uint8)))
-    rep.timesteps.copy_(torch.from_numpy(rng.integers(0, 9, (n, c), np.int32)))
-    rep.t.copy_(torch.from_numpy(rng.integers(0, 9, n, np.int32)))
-    rep.index.fill_(c - 1)  # the append wraps the ring
-    rep.max_priority.fill_(1.75)
-    return dict(
-        stack=torch.from_numpy(rng.integers(0, 256, (n, f, f, h), np.uint8)),
-        obs=torch.from_numpy(rng.integers(0, 256, (n, f, f), np.uint8)),
-        reset_packed=torch.from_numpy(packed),
-        reset_idx=torch.from_numpy(ridx),
-        kinds=torch.from_numpy(kinds), rep=rep,
-        actions=torch.from_numpy(rng.integers(0, 18, n)),
-        rewards=torch.from_numpy((rng.normal(size=n) * 3).astype(np.float32)),
-        dones=torch.from_numpy(kinds > 0))
-
-
-def _to(torch, step, dev):
-    import dataclasses
-    out = {}
-    for k, v in step.items():
-        if k == "rep":
-            out[k] = type(v)(**{f.name: getattr(v, f.name).to(dev).clone()
-                                for f in dataclasses.fields(v)})
-        else:
-            out[k] = v.to(dev).clone()
-    return out
-
-
-def _same_replay(torch, a, b):
-    import dataclasses
-    return all(torch.equal(getattr(a, f.name).cpu(), getattr(b, f.name).cpu())
-               for f in dataclasses.fields(a))
-
-
-def graph_kernels(torch, fn):
-    """How many kernels one call of ``fn`` launches, as (kernel nodes, all
-    nodes) of a CUDA graph that captures the call (after one call outside
-    the capture on the capturing stream, which allocates that stream's kept
-    buffers), counted with libcuda's graph calls. The profiler can miss the first kernel of a short
-    window."""
-    import ctypes
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, stream=side):
-        fn()
-    drv = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    check(drv.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * count.value)()
-    check(drv.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                     ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        kinds.append(kind.value)
-    del graph
-    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL is 0
-
-
-KC_CASES = [(n, h, k_mode) for n in (1, 10, 16, 40, 1024) for h in (4, 3)
-            for k_mode in ("none", "bucket", "dense")]
-
-
-def compare_append_framestack(torch, np, report):
-    """KC against append_framestack_plain, bit-exact: N = 1, 10, 16, 40 and
-    1024, no reset rows, a padded bucket and dense rows (all three reset
-    kinds), reward clipping and a wrap of a two-column ring, with and
-    without a replay, for H = 4 (vector path) and H = 3 (byte path), three
-    appends in a row (the write head and full checked after each). One
-    append with a replay launches one kernel (graph_kernels)."""
-    from rainbow_tpu_torch.ops import preprocess as pp
-    from rainbow_tpu_torch.kernels.append_framestack import append_framestack
-
-    rng = np.random.default_rng(3)
-    for n, h, k_mode in KC_CASES:
-        for with_rep in (True, False):
-            base = _random_step(torch, np, rng, n, 84, h, 2, k_mode)
-            k = _to(torch, base, "cuda")
-            p = _to(torch, base, "cuda")
-            for step in range(3):  # consecutive steps: the head advances
-                obs = torch.from_numpy(rng.integers(0, 256, (n, 84, 84),
-                                                    np.uint8)).cuda()
-                args = lambda s: (s["stack"], obs, s["reset_packed"],
-                                  s["reset_idx"], s["kinds"])
-                extra = lambda s: ((s["rep"], s["actions"], s["rewards"],
-                                    s["dones"], 1.0) if with_rep else ())
-                append_framestack(*args(k), *extra(k))
-                pp.append_framestack_plain(*args(p), *extra(p))
-                tag = (f"append_framestack N={n} H={h} K={k_mode} "
-                       f"replay={with_rep} step {step}")
-                check(torch.equal(k["stack"], p["stack"]), tag + ": stack differs")
-                if with_rep:
-                    check(_same_replay(torch, k["rep"], p["rep"]),
-                          tag + ": replay differs")
-                    check(int(k["rep"].index) == step % 2
-                          and bool(k["rep"].full), tag + ": write head")
-                report.append(("append_framestack", n, h, k_mode, with_rep,
-                               step, 0.0))
-    base = _to(torch, _random_step(torch, np, rng, ENVS, 84, 4, 2), "cuda")
-    kernels = graph_kernels(torch, lambda: append_framestack(
-        base["stack"], base["obs"], base["reset_packed"], base["reset_idx"],
-        base["kinds"], base["rep"], base["actions"], base["rewards"],
-        base["dones"], 1.0))
-    check(kernels == (1, 1), f"append_framestack: one append with a replay "
-          f"launched (kernels, graph nodes) {kernels}")
-    return 0.0
-
-
-def bench_cells():
-    """Each cell of BENCHMARK.json as (name, configuration), the
-    configuration as cli.main builds it from the cell's files, through the
-    benchmark's own reading of them (port_bench/harness): its architecture,
-    envs, batch and round, its compute dtype and its Adam first moment."""
-    from port_bench.harness.manifest import load_manifest, resolve
-    from port_bench.harness.settings import cli_args
-    from rainbow_tpu_torch.cli import parse_config
-
-    manifest = load_manifest()
-    out = []
-    for w in manifest["workloads"]:
-        r = resolve(manifest, w["name"])
-        argv = cli_args(r["config"], r["traffic"], SEED, "chip_smoke")
-        out.append((w["name"], parse_config(argv)[0]))
-    return out
-
-
-def compare_noisy_linear_bwd(torch, A, cfgs, report, cells=()):
-    """KA's backward against noisy_linear_bwd_plain at each configuration's
-    learner shapes (its batch, fc_h_* with its ReLU and both fc_z_*) and at
-    shapes that cross the split and tile edges (B = 1 and 33, IN = 3137,
-    OUT = 513), fp32 and bf16, and at each benchmark cell's learner batch
-    on its own net in its own dtype (``cells``, bench_cells: in float32
-    the large path's split and unsplit plans, in bf16 the IMPALA torso's
-    15,488 features), in the three noise modes. A second launch must give
-    the same bits. Returns the largest fp32 error."""
-    from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan,
-                                                        noisy_linear_bwd,
-                                                        noisy_linear_fwd)
-    from rainbow_tpu_torch.models.noisy import (NoiseStream,
-                                                init_noisy_params,
-                                                noisy_linear_bwd_plain,
-                                                scale_noise)
-
-    g = torch.Generator(device="cuda").manual_seed(11)
-    ns = NoiseStream(11)
-    # fp32: sums of up to 1,024 products of O(1) terms in other orders. bf16:
-    # both sides round each product's output to bf16 once, and the plain
-    # version rounds after every op, so a few bf16 ulps of O(1) values.
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 3e-2)}
-    names = ("dx", "dw_mu", "dw_sigma", "db_mu", "db_sigma")
-    modes = ("mu", "shared", "row")
-    worst32 = 0.0
-    both = (torch.float32, torch.bfloat16)
-    cases = [(b, i, o, r, both) for b, _, i, o, r in
-             noisy_layer_batches(cfgs, A, fwd=False)]
-    cases += [(1, 3136, 512, True, both), (33, 3137, 513, True, both)]
-    for _, c in cells:
-        cases += [(b, i, o, r, (getattr(torch, c.compute_dtype),))
-                  for b, _, i, o, r in noisy_layer_batches([c], A, fwd=False)]
-    for b, n_in, n_out, relu, dtypes in cases:
-        prm = init_noisy_params(g, n_in, n_out, 0.5)
-        w = (prm["weight_mu"], prm["weight_sigma"])
-        x = torch.rand((b, n_in), generator=g, device="cuda") * 2
-        gy = torch.randn((b, n_out), generator=g, device="cuda")
-        for mode in modes:
-            lead = (b,) if mode == "row" else ()
-            eps = None if mode == "mu" else (
-                scale_noise(ns, lead + (n_in,), "cuda"),
-                scale_noise(ns, lead + (n_out,), "cuda"))
-            for dt in dtypes:
-                plan = bwd_plan(b, n_in, n_out, modes.index(mode), dt)
-                xd, gd = x.to(dt), gy.to(dt)
-                y = noisy_linear_fwd(prm, xd, eps, True) if relu else None
-                got = noisy_linear_bwd(*w, xd, gd, eps, y)
-                want = noisy_linear_bwd_plain(*w, xd, gd, eps, y)
-                tag = (f"noisy_linear_bwd B={b} {n_in}->{n_out} {mode} {dt} "
-                       f"{ka_kernels('bwd', dt, plan)} x{plan.splits}")
-                check(got[0].dtype == dt, tag + ": dx dtype")
-                err = max(check_close(f"{tag} {n}", a, c, *tol[dt])
-                          for n, a, c in zip(names, got, want))
-                again = noisy_linear_bwd(*w, xd, gd, eps, y)
-                check(all(torch.equal(a, c) for a, c in zip(again, got)),
-                      f"{tag}: a second launch differs")
-                report.append(("noisy_linear_bwd", b, n_in, n_out, mode,
-                               str(dt), plan.splits, err))
-                if dt == torch.float32:
-                    worst32 = max(worst32, err)
-    return worst32
-
-
-def compare_c51(torch, A, cfgs, report):
-    """K4's two kernels against their plain versions at each configuration's
-    learner shape (its batch, A actions, 51 atoms, its γⁿ): the target with
-    rows whose b lands exactly on an atom and rows with nonterminal 0, and
-    the loss on the projected target with fp32 and bf16 streams, there and
-    at HEAD_EDGES and B = 1024 (a second launch of either must give the
-    same bits). Returns the largest errors (target, loss)."""
-    from rainbow_tpu_torch.kernels import c51 as k4
-    from rainbow_tpu_torch.ops import c51 as oc51
-
-    g = torch.Generator(device="cuda").manual_seed(12)
-    z = oc51.support_vector(-10.0, 10.0, 51, "cuda")
-    learners = []
-    for c in cfgs:
-        key = (c.batch_size, c.discount ** c.multi_step)
-        if key not in learners:
-            learners.append(key)
-    err_t, projected = 0.0, {}
-    for b, gamma_n in learners:
-        pns = torch.softmax(torch.randn((b, A, 51), generator=g,
-                                        device="cuda") * 2, dim=2)
-        a_star = torch.randint(0, A, (b,), generator=g, device="cuda")
-        ret = torch.rand((b,), generator=g, device="cuda") * 24 - 12
-        nt = (torch.rand((b,), generator=g, device="cuda") > 0.3).float()
-        ret[:3] = torch.tensor([-10.0, 0.0, 10.0], device="cuda")
-        nt[:4] = 0.0
-        # b = (Tz − V_min)/Δz reaches 50, where a float32 ulp is 3.8e-6: the
-        # kernel divides by Δz, PyTorch's CUDA division by a scalar
-        # multiplies by its reciprocal, so b and each weight 1 − |b − j|
-        # may differ by that much; the probabilities below 1 are summed in
-        # another order.
-        tag = f"c51_target B={b} gamma^n={gamma_n:.6f}"
-        got = k4.c51_target(pns, a_star, ret, nt, gamma_n, z, -10.0, 10.0)
-        want = oc51.c51_target_plain(pns, a_star, ret, nt, gamma_n, z,
-                                     -10.0, 10.0)
-        err = check_close(tag, got, want, 1e-5, 0)
-        check(torch.equal(k4.c51_target(pns, a_star.int(), ret, nt, gamma_n,
-                                        z, -10.0, 10.0), got),
-              tag + ": a second launch (int32 a*) differs")
-        # Integer b: the whole mass (Σp = 1 to float32 rounding) on one atom.
-        for m in (got, want):
-            for row, atom in ((0, 0), (1, 25), (2, 50)):
-                rest = torch.cat((m[row, :atom], m[row, atom + 1:]))
-                check(abs(float(m[row, atom]) - 1.0) < 1e-5
-                      and not bool(rest.any()), tag + ": integer-b rows")
-        report.append(("c51_target", b, A, gamma_n, err))
-        err_t = max(err_t, err)
-        projected.setdefault(b, (pns, ret, nt, gamma_n))
-    err_l = 0.0
-    # Each learner's shape with the projected target, then HEAD_EDGES and
-    # the act's width with a random target distribution.
-    cases = [(b, A, 51, True) for b in projected] + [
-        (n, k, atoms, False) for n, k, atoms in HEAD_EDGES
-        + [(1024, 6, 51), (1024, 18, 128)]]
-    for n, n_act, atoms, is_projected in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            v = (torch.randn((n, atoms), generator=g, device="cuda")
-                 * 2).to(dt)
-            a = (torch.randn((n, n_act * atoms), generator=g, device="cuda")
-                 * 2).to(dt)
-            acts = torch.randint(0, n_act, (n,), generator=g, device="cuda")
-            if is_projected:
-                pns, ret, nt, gamma_n = projected[n]
-                m = oc51.c51_target_plain(pns, acts, ret, nt, gamma_n, z,
-                                          -10.0, 10.0)
-            else:
-                m = torch.softmax(torch.randn((n, atoms), generator=g,
-                                              device="cuda"), dim=1)
-            w = torch.rand((n,), generator=g, device="cuda")
-            got = k4.head_loss(v, a, acts, m, w)
-            want = oc51.head_loss_plain(v, a, acts, m, w)
-            # Losses of order 4 from the same logits: float32 exp/log in
-            # another order. Gradients of order w/B: 1e-6, plus one bf16 ulp
-            # where the streams are bf16 and a rounding falls the other way.
-            rtol = 0.0 if dt == torch.float32 else 2 ** -7
-            tag = f"head_loss B={n} A={n_act} atoms={atoms} {dt}"
-            errs = [check_close(f"{tag} {name}", x.float(), y.float(), atol,
-                                r)
-                    for name, x, y, atol, r in zip(
-                        ("losses", "loss", "dv", "da"), got, want,
-                        (1e-5, 1e-5, 1e-6, 1e-6), (0, 0, rtol, rtol))]
-            check(got[2].dtype == dt and got[3].dtype == dt,
-                  tag + ": dtypes")
-            again = k4.head_loss(v, a, acts, m, w)
-            check(all(torch.equal(x, y) for x, y in zip(again, got)),
-                  tag + ": a second launch differs")
-            report.append(("head_loss", n, n_act, atoms, str(dt), max(errs)))
-            err_l = max(err_l, *errs)
-    return err_t, err_l
-
-
-def _views(torch, shapes, dtype, layout):
-    """Zero tensors of ``shapes``: one each, or (``layout`` "flat") views
-    of one flat buffer at the running offsets, as the data-parallel round
-    hands K9 its gradients."""
-    if layout != "flat":
-        return [torch.zeros(s, dtype=dtype, device="cuda") for s in shapes]
-    flat = torch.zeros(sum(math.prod(s) for s in shapes), dtype=dtype,
-                       device="cuda")
-    out, at = [], 0
-    for s in shapes:
-        out.append(flat[at:at + math.prod(s)].view(s))
-        at += math.prod(s)
-    return out
-
-
-def compare_adam(torch, shapes, report):
-    """K9 against apply_grads_plain over a net's tensors (``shapes``), 3
-    steps from zero moments, with the global norm below and above the clip,
-    with float32 and bfloat16 mu, each tensor of its own and every kind as
-    views of one flat buffer (offsets that are not multiples of four, where
-    the kernel takes scalar accesses); a second kernel run must give the
-    same bits. Returns the largest param error."""
-    from rainbow_tpu_torch.agent import apply_grads_plain
-    from rainbow_tpu_torch.kernels.adam import clip_adam
-
-    g = torch.Generator(device="cuda").manual_seed(13)
-    worst = 0.0
-    n = sum(math.prod(x) for x in shapes)
-    # Gradients of a global norm about 0.26 and 26 (the clip is 10),
-    # whatever the count of params.
-    for mdt, layout, (clip, scale) in itertools.product(
-            (torch.float32, torch.bfloat16), ("separate", "flat"),
-            (("below", 0.26 / math.sqrt(n)), ("above", 26 / math.sqrt(n)))):
-        runs = {}
-        for run in ("kernel", "plain", "again"):
-            gp = torch.Generator(device="cuda").manual_seed(14)
-            params = _views(torch, shapes, torch.float32, layout)
-            for t in params:
-                t.copy_(torch.randn(t.shape, generator=gp,
-                                    device="cuda") * 0.05)
-            runs[run] = (
-                params, _views(torch, shapes, mdt, layout),
-                _views(torch, shapes, torch.float32, layout),
-                torch.zeros((), dtype=torch.int32, device="cuda"))
-        for _ in range(3):
-            grads = _views(torch, shapes, torch.float32, layout)
-            for t in grads:
-                t.copy_(torch.randn(t.shape, generator=g, device="cuda")
-                        * scale)
-            norm = float(torch.sqrt(sum((x * x).sum() for x in grads)))
-            check((norm < 10) == (clip == "below"),
-                  f"clip_adam: norm {norm} not {clip} the clip")
-            for run, fn in (("kernel", clip_adam),
-                            ("plain", apply_grads_plain),
-                            ("again", clip_adam)):
-                params, mu, nu, count = runs[run]
-                fn(params, grads, mu, nu, count, 6.25e-5, 0.9, 0.999,
-                   1.5e-4, 10.0)
-        tag = f"clip_adam {n} params {clip} mu {mdt} {layout}"
-        kp, kmu, knu, kc = runs["kernel"]
-        pp_, pmu, pnu, pc = runs["plain"]
-        check(int(kc) == int(pc) == 3, tag + ": count")
-        # The same float32 ops but for the global norm's sum order: a
-        # few ulps in the clip scale. Params of order 0.05 move by lr
-        # per step: 1e-7. nu to 1e-5 relative. mu crosses zero: 1e-6
-        # of its tensor's largest value, or one bf16 ulp of it. A bf16
-        # mu that rounds one ulp apart moves that step's update by up
-        # to 2^-7 of lr, and carries into the later steps: 3·lr·2^-7.
-        p_tol = 1e-7 if mdt == torch.float32 else 3 * 6.25e-5 * 2 ** -7
-        err = max(check_close(tag + " param", x, y, p_tol, 0)
-                  for x, y in zip(kp, pp_))
-        for x, y in zip(knu, pnu):
-            check_close(tag + " nu", x, y, 0, 1e-5)
-        share = 1e-6 if mdt == torch.float32 else 2 ** -8
-        for x, y in zip(kmu, pmu):
-            check(x.dtype == mdt, tag + ": mu dtype")
-            check_close(tag + " mu", x.float(), y.float(),
-                        float(y.float().abs().max()) * share, 0)
-        for a, b in zip(runs["kernel"][:3], runs["again"][:3]):
-            check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                  tag + ": two runs differ")
-        report.append(("clip_adam", n, clip, str(mdt), layout, err))
-        worst = max(worst, err)
-    return worst
-
-
 def _replay_on_card(torch, e, c, seed, history=4):
     """A random canonical-width ring made on the card: frames, actions,
     rewards, nonterminals, episode starts (timestep 0) about one step in six,
@@ -947,355 +328,79 @@ def _replay_on_card(torch, e, c, seed, history=4):
     return rep, g
 
 
-def _same_bits(torch, a, b):
-    """Elementwise: equal bits, or NaN in both."""
-    return ((a.view(torch.int32) == b.view(torch.int32))
-            | (torch.isnan(a) & torch.isnan(b)))
-
-
-def _check_write_back(torch, rep0, kern, plain, draw_idx, idxs, p):
-    """K7 against its plain version, bit for bit (NaN by isnan): untouched
-    and once-written leaves exact, each repeated leaf holds the value of
-    the last draw of its run (in draw order), the max exact. Returns the
-    number of repeated leaves."""
-    same = lambda a, b: bool(_same_bits(torch, a, b).all())
-    n = rep0.priorities.numel()
-    flat = idxs.reshape(-1)
-    counts = torch.bincount(flat, minlength=n)
-    got, want = kern.priorities.view(-1), plain.priorities.view(-1)
-    check(same(got[counts == 0], rep0.priorities.view(-1)[counts == 0]),
-          "write_priorities: an untouched leaf changed")
-    check(same(got[counts == 1], want[counts == 1]),
-          "write_priorities: a once-drawn leaf differs from the plain version")
-    nb, bs = idxs.shape
-    j = torch.arange(nb * bs, device=flat.device)
-    p_draw = p[j % nb, j // nb]
-    last = torch.ones_like(draw_idx, dtype=torch.bool)
-    last[:-1] = draw_idx[1:] != draw_idx[:-1]
-    check(same(got[draw_idx[last]], p_draw[last]),
-          "write_priorities: a repeated leaf is not its run's last value")
-    hits = torch.zeros(n, device=flat.device).index_add_(
-        0, flat, _same_bits(torch, got[flat], p.reshape(-1)).float())
-    check(bool((hits[counts > 1] > 0).all()),
-          "write_priorities: a repeated leaf holds none of its candidates")
-    check(same(kern.max_priority, plain.max_priority),
-          "write_priorities: max_priority differs")
-    return int((counts > 1).sum())
-
-
-# K7 alone on the canonical ring: (name, nb, bs, runs of one leaf in draw
-# order as [start, stop), special). B = 1 to 8192 in ragged layouts; runs
-# inside one block of 256 threads and across a block edge (batch order
-# puts draws j and j + 1 bs elements apart: draws 5..12 of the round
-# straddle batches 7 and 8, draws 250..260 wrap to the next row); the whole
-# round on one leaf; a NaN loss inside a run; a -0.0 loss; an empty ring
-# (no mass: K5 puts every draw on one leaf); an old max_priority that is a
-# NaN with its sign bit set, which stays NaN.
-K7_CASES = (
-    ("b1", 1, 1, (), None),
-    ("b31_run", 1, 31, ((3, 9),), None),
-    ("b32", 1, 32, (), None),
-    ("b33", 3, 11, ((0, 4),), None),
-    ("b255", 15, 17, ((100, 120),), None),
-    ("b256", 8, 32, ((0, 256),), None),
-    ("b257_across_edge", 1, 257, ((250, 257),), None),
-    ("round", 256, 32, ((1, 4), (5, 13), (250, 261)), None),
-    ("round_hot_leaf", 256, 32, ((0, 8192),), None),
-    ("round_nan_loss", 256, 32, ((5, 13),), "nan"),
-    ("b32_nan_loss_in_a_run", 1, 32, ((3, 9),), "nan"),
-    ("b32_negative_zero", 1, 32, (), "-0"),
-    ("round_empty_ring", 256, 32, (), "empty"),
-    ("round_old_negative_nan", 256, 32, (), "old_negative_nan"),
-)
-
-
-def compare_write_back(torch, rep, g, report):
-    """K7 alone on the canonical ring ``rep`` (K7_CASES) against
-    update_priorities_plain, by _check_write_back; a NaN loss must make
-    max_priority NaN, as torch.maximum does, and a -0.0 loss write -0.0,
-    as torch.pow does. One kernel node a call at the round and at B = 32
-    (graph_kernels)."""
-    import dataclasses
-
-    from rainbow_tpu_torch.kernels import replay as k_replay
-    from rainbow_tpu_torch.replay import prioritized as rp
-
-    n = rep.priorities.numel()
-    base = rep.priorities.clone()
-    for name, nb, bs, runs, special in K7_CASES:
-        b = nb * bs
-        if special == "empty":
-            rep.priorities.zero_()
-            draw, _, _ = k_replay.stratified_sample(
-                rep, torch.rand(b, generator=g, device="cuda"), 4, 3)
-            check(draw.unique().numel() == 1,
-                  f"write_priorities {name}: draws on more than one leaf")
-        else:
-            draw = torch.sort(torch.randint(0, n, (b,), generator=g,
-                                            device="cuda")).values
-        for a, z in runs:  # still nondecreasing: draw[a] <= draw[z]
-            draw[a:z] = draw[a].clone()
-        loss_draw = torch.rand(b, generator=g, device="cuda") * 5
-        if special == "nan":
-            loss_draw[6] = float("nan")  # inside the run, not its last draw
-        if special == "-0":
-            loss_draw[7] = -0.0
-        idxs = draw.view(bs, nb).T.contiguous()
-        losses = loss_draw.view(bs, nb).T.contiguous()
-        old = rep.max_priority.clone()
-        if special == "old_negative_nan":  # what x86 makes of 0·inf
-            old.view(torch.int32).fill_(-0x400000)
-        kern, plain = (dataclasses.replace(
-            rep, priorities=rep.priorities.clone(),
-            max_priority=old.clone()) for _ in range(2))
-        k_replay.write_priorities(kern, idxs, losses, 0.5)
-        rp.update_priorities_plain(plain, idxs, losses, 0.5)
-        repeated = _check_write_back(torch, rep, kern, plain, draw, idxs,
-                                     losses ** 0.5)
-        check(bool(torch.isnan(kern.max_priority))
-              == (special in ("nan", "old_negative_nan")),
-              f"write_priorities {name}: max_priority "
-              f"{float(kern.max_priority)}")
-        if special == "-0" and bool(draw[7] != draw[8]):
-            check(int(kern.priorities.view(-1)[draw[7]].view(torch.int32))
-                  == -2 ** 31, f"write_priorities {name}: not -0.0")
-        check(repeated > 0 or not runs,
-              f"write_priorities {name}: no repeated leaf to check")
-        report.append(("write_priorities", name, nb, bs, repeated,
-                       float(kern.max_priority)))
-        del kern, plain
-        rep.priorities.copy_(base)
-    copy = dataclasses.replace(rep, priorities=rep.priorities.clone(),
-                               max_priority=rep.max_priority.clone())
-    for nb, bs in ((256, 32), (1, 32)):
-        idxs = torch.randint(0, n, (nb, bs), generator=g, device="cuda")
-        losses = torch.rand((nb, bs), generator=g, device="cuda")
-        kernels = graph_kernels(torch, lambda: k_replay.write_priorities(
-            copy, idxs, losses, 0.5))
-        check(kernels == (1, 1), f"write_priorities B={nb * bs}: (kernel "
-              f"nodes, graph nodes) {kernels}, not one kernel")
-    del copy
-
-
-def replay_cases(torch, rep, g, base_prio, cases, tag, report):
-    """K5, K6 and K7 against their plain versions on the ring ``rep`` for
-    each of ``cases`` (name, write head, full, n_step, batches, batch size,
-    three hot leaves that hold half of the mass so that draws repeat, an
-    empty ring), from the priorities ``base_prio``: K5 bit-exact
-    (_k5_bits), K6's window, actions and nonterminals bit-exact and its
-    returns and weights within 1e-6 relative (1e-6 absolute near 0), K7 by
-    _check_write_back; a second launch of each gives the same bits.
-    Returns K6's largest error."""
-    import dataclasses
-
-    from rainbow_tpu_torch.kernels import replay as k_replay
-    from rainbow_tpu_torch.replay import prioritized as rp
-
-    e, c = rep.priorities.shape
-    hot = torch.randperm(e * c, generator=g, device="cuda")[:3]
-    err6 = 0.0
-    for name, index, full, n, nb, bs, with_hot, empty in cases:
-        rep.priorities.copy_(base_prio)
-        if with_hot:
-            rep.priorities.view(-1)[hot] = float(base_prio.sum()) / 3
-        if empty:
-            rep.priorities.zero_()
-        rep.index.fill_(index)
-        rep.full.fill_(full)
-        name = tag + name
-        u = torch.rand(nb * bs, generator=g, device="cuda")
-        _k5_bits(torch, rep, u, 4, n, name)
-        idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
-        got, again = (k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs,
-                                             4, n, 0.99) for _ in range(2))
-        want = rp.gather_window_plain(rep, idx, p, total, 0.6, nb, bs, 4, n,
-                                      0.99)
-        for k in want:
-            check(got[k].dtype == want[k].dtype
-                  and torch.equal(got[k], again[k]),
-                  f"gather_window {name}: {k}: a second launch differs")
-        for k in ("idxs", "states", "next_states", "actions",
-                  "nonterminals"):
-            check(torch.equal(got[k], want[k]),
-                  f"gather_window {name}: {k} differs")
-        errs = [check_close(f"gather_window {name} {k}", got[k], want[k],
-                            1e-6, 1e-6)
-                for k in ("returns", "weights", "weights_max")]
-        check(not empty or not bool(got["weights"].any()),
-              f"gather_window {name}: an empty ring must give zero weights")
-        err6 = max(err6, *errs)
-        losses = torch.rand((nb, bs), generator=g, device="cuda") * 5
-        kern, plain, second = (dataclasses.replace(
-            rep, priorities=rep.priorities.clone(),
-            max_priority=rep.max_priority.clone()) for _ in range(3))
-        k_replay.write_priorities(kern, got["idxs"], losses, 0.5)
-        k_replay.write_priorities(second, got["idxs"], losses, 0.5)
-        rp.update_priorities_plain(plain, got["idxs"], losses, 0.5)
-        repeated = _check_write_back(torch, rep, kern, plain, idx,
-                                     got["idxs"], losses ** 0.5)
-        check(bool(_same_bits(torch, kern.priorities,
-                              second.priorities).all())
-              and bool(_same_bits(torch, kern.max_priority,
-                                  second.max_priority)),
-              f"write_priorities {name}: a second launch differs")
-        check(repeated > 0 or not (with_hot or empty),
-              f"write_priorities {name}: no repeated leaf to check")
-        del kern, plain, second, got, want, again
-        report.append(("replay", name, nb, bs, 4 + n, repeated, max(errs)))
-    return err6
-
-
-def compare_replay(torch, np, cfg, report, tp_cfg):
-    """K5, K6 and K7 against their plain versions on a random ring of the
-    canonical width (1024 envs x 976 columns, 7.05 GB of frames on the
-    card): the canonical round (256 batches of 32), the throughput preset's
-    (32 of 256), the data-efficient window of 24 frames (n-step 20), an
-    empty ring and a ring just after a wrap, with three leaves that hold
-    half of the mass in the round's case so that draws repeat, each as
-    replay_cases checks it. K7 also alone (compare_write_back): B = 1 to 8192,
-    runs across its blocks' edges, a hot leaf, NaN and -0.0 losses, an
-    empty ring. K5 also alone (compare_k5): B = 1 and 32 on this ring, and
-    rings of other depths, ties and an empty deep ring. K5-K7 are timed at
-    the canonical round, and K6 also at the throughput preset's (``tp_cfg``:
-    32 batches of 256). Returns (errors by kernel, timing rows)."""
-    e, c = ENVS, cfg.capacity_per_env
-    rep, g = _replay_on_card(torch, e, c, 20)
-    base_prio = rep.priorities.clone()
-    nb0 = ENVS // cfg.replay_frequency
-    cases = (  # name, index, full, n_step, num_batches, batch_size, hot, empty
-        ("round", 500, True, 3, nb0, cfg.batch_size, True, False),
-        ("throughput", 500, True, 3, 32, 256, False, False),
-        ("window_24", 321, True, 20, nb0, cfg.batch_size, False, False),
-        ("empty", 321, False, 3, nb0, cfg.batch_size, False, True),
-        ("after_wrap", 0, True, 3, nb0, cfg.batch_size, False, False),
-    )
-    err6 = replay_cases(torch, rep, g, base_prio, cases, "", report)
-    # Timing at the canonical round on the random ring as it was made (no
-    # hot leaves), twice.
-    rep.priorities.copy_(base_prio)
+def ring_rows(torch, cfg, tp_cfg):
+    """K5-K7's rows on a random ring of the canonical width (1024 envs x 976
+    columns, 7.05 GB of frames on the card) at the canonical round, and
+    K6's at the throughput preset's (``tp_cfg``: 32 batches of 256), each
+    timed twice by replay_times. The ring is freed before it returns."""
+    rep, g = _replay_on_card(torch, ENVS, cfg.capacity_per_env, 20)
     rep.index.fill_(500)
     rep.full.fill_(True)
-    compare_write_back(torch, rep, g, report)
-    compare_k5(torch, rep, g, report)
     timed = [replay_times(torch, cfg, rep, g) for _ in range(2)]
     log("[replay times] " + json.dumps(timed))
-    rows = replay_kernel_rows(torch, rep, g, nb0, cfg.batch_size, 3, timed)
-    # K6 at the throughput Trainer's round (K5 and K7 draw 8192 there too).
-    nb_tp = ENVS // tp_cfg.replay_frequency
+    rows = replay_kernel_rows(torch, rep, g, ENVS // cfg.replay_frequency,
+                              cfg.batch_size, cfg.multi_step, timed)
     timed = [replay_times(torch, tp_cfg, rep, g, ("gather_window",))
              for _ in range(2)]
     log("[replay times throughput] " + json.dumps(timed))
     rows += [dict(r, phase="throughput") for r in replay_kernel_rows(
-        torch, rep, g, nb_tp, tp_cfg.batch_size, tp_cfg.multi_step, timed,
-        ("gather_window",))]
+        torch, rep, g, ENVS // tp_cfg.replay_frequency, tp_cfg.batch_size,
+        tp_cfg.multi_step, timed, ("gather_window",))]
     del rep
     torch.cuda.empty_cache()
-    return {"stratified_sample": 0.0, "gather_window": err6,
-            "write_priorities": 0.0}, rows
+    return rows
 
 
-def compare_preset_replay(torch, cfg, report):
-    """K5, K6 and K7 on the data-efficient preset's whole ring (``cfg``: 16
-    envs x 6,250 columns, 100,000 leaves, 706 MB of frames on the card) at
-    its round (16 batches of 32, n = 20: a window of 24 frames): three hot
-    leaves (draws repeat), the head just after a wrap, a partly filled ring
-    and an empty one. K5 bit-exact, K6's frames, actions and nonterminals
-    exact and its returns and weights within 1e-6 relative (1e-6 absolute
-    near 0), K7 by _check_write_back; a second launch of each gives the
-    same bits. Then K5-K7 timed at the round. The ring is freed before it
-    returns. Returns (errors by kernel, timing rows)."""
+def preset_ring_rows(torch, cfg):
+    """K5-K7's rows on the data-efficient preset's whole ring (``cfg``: 16
+    envs x 6,250 columns, 706 MB of frames on the card) at its round (16
+    batches of 32, n = 20: a window of 24 frames), timed twice by
+    replay_times. The ring is freed before it returns."""
     e, c, n = cfg.num_envs, cfg.capacity_per_env, cfg.multi_step
-    nb, bs = e // cfg.replay_frequency, cfg.batch_size
     rep, g = _replay_on_card(torch, e, c, 24)
-    base_prio = rep.priorities.clone()
-    err6 = replay_cases(torch, rep, g, base_prio, (
-        # name, index, full, n_step, num_batches, batch_size, hot, empty
-        ("round", 500, True, n, nb, bs, True, False),
-        ("after_wrap", 0, True, n, nb, bs, False, False),
-        ("partial", 4000, False, n, nb, bs, False, False),
-        ("empty", 321, False, n, nb, bs, False, True)),
-        f"data-efficient ring {e}x{c} ", report)
-    rep.priorities.copy_(base_prio)
     rep.index.fill_(500)
     rep.full.fill_(True)
     timed = [replay_times(torch, cfg, rep, g, seq=False) for _ in range(2)]
     log("[replay times data-efficient] " + json.dumps(timed))
     rows = [dict(r, phase="data-efficient") for r in replay_kernel_rows(
-        torch, rep, g, nb, bs, n, timed, seq=False)]
-    del rep, base_prio
+        torch, rep, g, e // cfg.replay_frequency, cfg.batch_size, n, timed,
+        seq=False)]
+    del rep
     torch.cuda.empty_cache()
-    return {"stratified_sample": 0.0, "gather_window": err6,
-            "write_priorities": 0.0}, rows
+    return rows
 
 
-# K5 alone: (name, E, C, index, history, n_step, B, priorities). The
-# depths (log2 of the padded leaf count) are 0, 1, 4, 5, 7, 21 and 22:
-# no stored level, a first step of 1 to 5 levels, four stored levels.
-# "ties": ones and u = 0, so that every value (j + 0)·total/B with B the
-# count of unmasked leaves is a left sum exactly.
-K5_CASES = (
-    ("depth_0", 1, 1, 0, 4, 3, 4, "gamma"),
-    ("depth_1", 1, 2, 0, 1, 0, 5, "gamma"),
-    ("depth_4", 2, 8, 3, 4, 1, 32, "gamma"),
-    ("depth_5_b1", 3, 9, 4, 2, 1, 1, "gamma"),
-    ("depth_7", 5, 20, 7, 4, 3, 32, "gamma"),
-    ("depth_21", 2048, 1000, 500, 4, 3, 8192, "gamma"),
-    ("depth_22", 4096, 1000, 999, 4, 3, 8192, "gamma"),
-    ("ties", 64, 16, 8, 4, 3, 576, "ones"),
-    ("ties_seg_2", 64, 16, 8, 4, 3, 288, "ones"),
-    ("empty_depth_20", 1024, 976, 500, 4, 3, 8192, "zeros"),
-)
+def pong_delta(torch, np, cfg, steps=6):
+    """The last of ``steps`` real 1024-env pong deltas for K10's row: the
+    native engine's step_delta on random actions, with the card's frame
+    stack advanced by K10 and KC as delta uploads advance it. Returns
+    (stack, offsets, pos, val)."""
+    from rainbow_tpu_torch.envs.engine import BatchedEnv
+    from rainbow_tpu_torch.kernels.append_framestack import append_framestack
+    from rainbow_tpu_torch.kernels.delta import apply_delta
+    from rainbow_tpu_torch.ops.preprocess import init_framestack
+    from rainbow_tpu_torch.train import delta_offsets, pack_resets
 
-
-def _k5_bits(torch, rep, u, history, n_step, tag):
-    """K5 against stratified_sample_plain, bit-exact, and a second launch
-    with the same bits; one call launches tree_plan(n).launches kernels."""
-    from rainbow_tpu_torch.kernels import replay as k_replay
-    from rainbow_tpu_torch.replay import prioritized as rp
-
-    got = k_replay.stratified_sample(rep, u, history, n_step)
-    want = rp.stratified_sample_plain(rep, u, history, n_step)
-    check(all(a.dtype == b.dtype and torch.equal(a, b)
-              for a, b in zip(got, want)),
-          f"stratified_sample {tag}: differs from the plain version")
-    again = k_replay.stratified_sample(rep, u, history, n_step)
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"stratified_sample {tag}: a second launch differs")
-    plan = k_replay.tree_plan(rep.priorities.numel())
-    kernels = graph_kernels(torch, lambda: k_replay.stratified_sample(
-        rep, u, history, n_step))
-    check(kernels == (plan.launches, plan.launches) and plan.launches <= 2,
-          f"stratified_sample {tag}: launched (kernels, graph nodes) "
-          f"{kernels}, planned {plan.launches}")
-    return float(want[2])
-
-
-def compare_k5(torch, rep, g, report):
-    """K5 alone: B = 1 and 32 on the canonical ring ``rep``, then K5_CASES
-    on rings that hold only priorities (frames of one byte)."""
-    from rainbow_tpu_torch.replay.prioritized import init_replay
-
-    for b in (1, 32):
-        u = torch.rand(b, generator=g, device="cuda")
-        total = _k5_bits(torch, rep, u, 4, 3, f"canonical B={b}")
-        report.append(("stratified_sample", "canonical", b, total))
-    for name, e, c, index, hist, n_step, b, prio in K5_CASES:
-        r = init_replay(e, c, 1, "cuda")
-        if prio == "gamma":
-            pr = -torch.log(torch.rand((e, c), generator=g, device="cuda"))
-            pr[torch.rand((e, c), generator=g, device="cuda") < 0.1] = 0.0
-            r.priorities.copy_(pr)
-        elif prio == "ones":
-            r.priorities.fill_(1.0)
-        r.index.fill_(index)
-        r.full.fill_(True)
-        u = (torch.zeros(b, device="cuda") if prio == "ones"
-             else torch.rand(b, generator=g, device="cuda"))
-        total = _k5_bits(torch, r, u, hist, n_step, name)
-        check(prio != "ones" or total == e * (c - hist - n_step),
-              f"stratified_sample {name}: total {total}")
-        report.append(("stratified_sample", name, b, total))
-        del r
+    env = BatchedEnv(GAME, ENVS, SEED + 5)
+    stack = init_framestack(ENVS, cfg.history_length, env.reset_all(),
+                            "cuda")
+    rng = np.random.default_rng(6)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    last = None
+    for _ in range(steps):
+        counts, dpos, dval, resets, _, _, kinds = env.step_delta(
+            rng.integers(0, env.action_space, ENVS))
+        if counts is None:  # the engine's dense fallback
+            obs = cuda(dpos)
+        else:
+            last = (stack.clone(), cuda(delta_offsets(counts)), cuda(dpos),
+                    cuda(dval))
+            obs = apply_delta(stack, *last[1:])
+        packed, ridx = pack_resets(resets, kinds)
+        append_framestack(stack, obs, cuda(packed), cuda(ridx), cuda(kinds))
+    env.close()
+    check(last is not None, "pong_delta: no step took the delta form")
+    return last
 
 
 REPLAY_KERNELS = ("stratified_sample", "gather_window", "write_priorities")
@@ -1448,461 +553,53 @@ def replay_kernel_rows(torch, rep, g, nb, bs, n, timed,
     return rows
 
 
-def param_shapes(cfg, A):
-    """The shapes of ``cfg``'s net's param tensors, in the params' order
-    (K9's tensors)."""
-    from rainbow_tpu_torch.models import dqn
+# ---------------------------------------------------------- card tests -----
 
-    return [tuple(s) for s in dqn.param_shapes(cfg, A).values()]
+def run_card_tests(torch):
+    """[card tests]: tests/test_torch_port_cuda.py in this process, which
+    holds every kernel, and every path that runs them (among them one
+    learner update and one act of each BENCHMARK.json cell, with their
+    launch counts), to its plain version at the main path's shapes. Its
+    output goes to OUT_DIR/card_tests.txt, its JUnit XML beside it. Fails
+    the run unless every test passed: none failed, errored or skipped.
+    Returns {"passed", "failed", "skipped", "seconds"}."""
+    import contextlib
+    import gc
+    import xml.etree.ElementTree as ET
 
+    import pytest
 
-def noise_shapes(cfg, A, leads):
-    """The tensors of one K2 launch that draws models.dqn.draw_noise's
-    eight for each leading shape in ``leads``."""
-    from rainbow_tpu_torch.models.dqn import _noisy_dims
-
-    return [tuple(lead) + (d,) for lead in leads
-            for dims in _noisy_dims(cfg, A).values() for d in dims]
-
-
-# Word pairs (a, b) at the edges of the float32 Box-Muller's reductions:
-# u1 = 1 and its neighbours, the switch from logf to log1pf at 2^31, and
-# the quadrant boundaries of b, where the float64 plain version's cos or
-# sin of fl(q pi / 2) is a tiny value of definite sign.
-NOISE_EDGE_A = (0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1)
-NOISE_EDGE_B = (0, 1, 2 ** 30 - 1, 2 ** 30, 2 ** 30 + 1, 2 ** 31, 3 * 2 ** 30,
-                2 ** 32 - 1)
-
-
-def noise_edge_words(torch, device):
-    """Every pair of NOISE_EDGE_A × NOISE_EDGE_B, as (pairs · 2,) int64."""
-    a = torch.tensor(NOISE_EDGE_A, dtype=torch.int64, device=device)
-    b = torch.tensor(NOISE_EDGE_B, dtype=torch.int64, device=device)
-    return torch.stack(torch.meshgrid(a, b, indexing="ij"), -1).reshape(-1)
-
-
-def check_noise(name, got, want, torch):
-    """K2's tolerance: within 1e-5 of the float64 plain version, with the
-    same signs; returns max |diff|."""
-    err = check_close(f"scaled_noise {name}", got, want, 1e-5, 0)
-    check(torch.equal(torch.sign(got), torch.sign(want)),
-          f"scaled_noise {name}: a sign differs from the plain version")
-    return err
-
-
-def compare_noise(torch, cfg, A, report, others=()):
-    """K2 against philox_noise_plain on the card at the main path's draws:
-    the act's (1024 rows), the batched round's (8192 target rows and 256
-    online draws in one launch) and the sequential update's (online and
-    target, shared), and the act's and the batched round's of the other
-    configurations (``others``), each at its own offset of a seed beyond
-    32 bits; and
-    the kernel's Box-Muller alone (kernels.noise.box_muller) against
-    scaled_box_muller_plain on the edge words and on 10^6 random pairs.
-    The kernel computes Box-Muller and the transform in float32 (its
-    reductions keep every value within a few ulps), the plain version in
-    float64 with one rounding: they agree to 1e-5 with the same signs.
-    The round's 71 M target elements must have |mean| < 1e-3 and |E[eps^2]
-    - sqrt(2/pi)| < 1e-3 (their sampling errors are about 1.1e-4 and
-    7e-5). Returns (the largest error, the moments)."""
-    import math
-
-    from rainbow_tpu_torch.kernels.noise import box_muller, scaled_noise
-    from rainbow_tpu_torch.models.noisy import (noise_words,
-                                                philox_noise_plain,
-                                                scaled_box_muller_plain)
-
-    g = torch.Generator(device="cuda").manual_seed(17)
-    words = {"edge words": noise_edge_words(torch, "cuda"),
-             "random words": torch.randint(0, 2 ** 32, (2 * 10 ** 6,),
-                                           generator=g, device="cuda")}
-    worst = 0.0
-    for name, w in words.items():
-        err = check_noise(name, box_muller(w), scaled_box_muller_plain(w),
-                          torch)
-        report.append(("scaled_noise", name, w.numel(), err))
-        worst = max(worst, err)
-    nb = ENVS // cfg.replay_frequency
-    cases = [("act", cfg, [(ENVS,)]),
-             ("round", cfg, [(nb * cfg.batch_size,), (nb,)]),
-             ("sequential", cfg, [(), ()])]
-    seen = {str(noise_shapes(c, A, leads)) for _, c, leads in cases}
-    for c in others:
-        nb_c = c.num_envs // c.replay_frequency
-        for name, leads in (("act", [(c.num_envs,)]),
-                            ("round", [(nb_c * c.batch_size,), (nb_c,)])):
-            key = str(noise_shapes(c, A, leads))
-            if key not in seen:
-                seen.add(key)
-                cases.append((f"{name} {c.architecture} B={c.batch_size} "
-                              f"N={c.num_envs}", c, leads))
-    seed, offset, moments = 2 ** 40 + SEED, 0, None
-    for name, c, leads in cases:
-        shapes = noise_shapes(c, A, leads)
-        got = scaled_noise(seed, offset, shapes, "cuda")
-        want = philox_noise_plain(seed, offset, shapes, "cuda")
-        err = 0.0
-        for a, b in zip(got, want):
-            check(a.dtype == torch.float32 and a.shape == b.shape
-                  and a.is_contiguous(),
-                  f"scaled_noise {name}: {a.dtype} {tuple(a.shape)}")
-            err = max(err, check_noise(name, a, b, torch))
-        if name == "round":
-            flat = torch.cat([x.reshape(-1) for x in got[:8]]).double()
-            moments = (float(flat.mean()), float((flat * flat).mean()),
-                       flat.numel())
-            check(abs(moments[0]) < 1e-3
-                  and abs(moments[1] - math.sqrt(2 / math.pi)) < 1e-3,
-                  f"scaled_noise: moments {moments}")
-            del flat
-        report.append(("scaled_noise", name, sum(x.numel() for x in got),
-                       err))
-        worst = max(worst, err)
-        offset += noise_words(shapes)
-        del got, want
+    xml = os.path.join(OUT_DIR, "card_tests.xml")
+    tests = os.path.join(ROOT, "tests", "test_torch_port_cuda.py")
+    t0 = time.perf_counter()
+    with open(os.path.join(OUT_DIR, "card_tests.txt"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = pytest.main([tests, "--noconftest", "-q", "-p",
+                          "no:cacheprovider", f"--junitxml={xml}"])
+    seconds = time.perf_counter() - t0
+    gc.collect()
     torch.cuda.empty_cache()
-    return worst, moments
-
-
-def compare_delta(torch, np, cfg, report, steps=6):
-    """K10 on real 1024-env pong deltas: two engines with one seed step the
-    same random actions, one densely and one with step_delta; each delta
-    (its counts as delta_offsets) goes through K10 against the card's frame
-    stack (advanced by KC with every step's observations and resets, as the
-    engine's mirror of it is) and must equal its plain version and the
-    dense engine's observations, bit for bit, unpadded and padded to its
-    bucket. Then compare_delta_edges. Returns the last delta (stack,
-    offsets, pos, val) for the kernels line and the forms the steps took."""
-    from rainbow_tpu_torch.envs.engine import BatchedEnv
-    from rainbow_tpu_torch.kernels.append_framestack import append_framestack
-    from rainbow_tpu_torch.kernels.delta import apply_delta
-    from rainbow_tpu_torch.ops.preprocess import init_framestack
-    from rainbow_tpu_torch.train import (_apply_delta_plain, delta_offsets,
-                                         pack_delta, pack_resets)
-
-    dense, delta = (BatchedEnv(GAME, ENVS, SEED + 5) for _ in range(2))
-    first = dense.reset_all()
-    check(np.array_equal(first, delta.reset_all()), "delta: engines differ")
-    stack = init_framestack(ENVS, cfg.history_length, first, "cuda")
-    rng = np.random.default_rng(6)
-    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-    forms, last = {"delta": 0, "dense": 0}, None
-    for step in range(steps):
-        acts = rng.integers(0, dense.action_space, ENVS)
-        obs, resets, _, _, kinds = dense.step(acts)
-        counts, dpos, dval, _, _, _, kinds_d = delta.step_delta(acts)
-        check(np.array_equal(kinds, kinds_d), "delta: reset kinds differ")
-        want = cuda(obs)
-        if counts is None:  # the engine's dense fallback
-            forms["dense"] += 1
-            check(np.array_equal(dpos, obs), "delta: dense fallback differs")
-        else:
-            forms["delta"] += 1
-            offsets = cuda(delta_offsets(counts))
-            for pos, val in ((dpos, dval), pack_delta(dpos, dval)):
-                args = (offsets, cuda(pos), cuda(val))
-                got = apply_delta(stack, *args)
-                check(torch.equal(got, _apply_delta_plain(stack, *args)),
-                      f"apply_delta step {step}: differs from the plain "
-                      "version")
-                check(torch.equal(got, want), f"apply_delta step {step}: "
-                      "differs from the dense observations")
-            last = (stack.clone(), offsets, cuda(dpos), cuda(dval))
-            report.append(("apply_delta", step, int(dpos.shape[0]), 0.0))
-        packed, ridx = pack_resets(resets, kinds)
-        append_framestack(stack, want, cuda(packed), cuda(ridx), cuda(kinds))
-    dense.close()
-    delta.close()
-    check(forms["delta"] > 0, f"delta: no step took the delta form {forms}")
-    compare_delta_edges(torch, np, report)
-    return last, forms
-
-
-def compare_delta_edges(torch, np, report):
-    """K10 against its plain version, bit for bit, on random deltas: one
-    env whose whole plane changed, and 1024 envs with unchanged ones, one
-    whole plane and positions past the plane (dropped), padded to a bucket;
-    one kernel node a call."""
-    from rainbow_tpu_torch.kernels.delta import apply_delta
-    from rainbow_tpu_torch.train import (_apply_delta_plain, delta_offsets,
-                                         pack_delta)
-
-    plane = 84 * 84
-    for n in (1, ENVS):
-        rng = np.random.default_rng(n)
-        counts = rng.integers(0, 80, n).astype(np.int32)
-        counts[n // 2] = plane
-        pos = np.concatenate([
-            np.arange(plane) if e == n // 2
-            else np.sort(rng.choice(plane + 50, c, replace=False))
-            for e, c in enumerate(counts)]).astype(np.uint16)
-        val = rng.integers(0, 256, pos.shape[0]).astype(np.uint8)
-        pos, val = pack_delta(pos, val)
-        stack = torch.from_numpy(rng.integers(0, 256, (n, 84, 84, 4),
-                                              np.uint8)).cuda()
-        args = [torch.from_numpy(a).cuda()
-                for a in (delta_offsets(counts), pos, val)]
-        got = apply_delta(stack, *args)
-        check(torch.equal(got, _apply_delta_plain(stack, *args)),
-              f"apply_delta N={n}: differs from the plain version")
-        kernels = graph_kernels(torch, lambda: apply_delta(stack, *args))
-        check(kernels == (1, 1), f"apply_delta N={n}: (kernel nodes, graph "
-              f"nodes) {kernels}, not one kernel")
-        report.append(("apply_delta", f"N={n}", int(counts.sum()), 0.0))
-
-
-# The plain-path checks' tolerances by compute dtype: losses (atol, rtol),
-# gradients, params after one Adam step, q at the act (atol, rtol), and the
-# top-2 gap of q beyond which an action must agree (atol, rtol of the top
-# q; in bfloat16 twice q's tolerance: two values each within it of the
-# plain ones can swap order only inside it).
-# float32: sums of up to 3136 terms in other orders; each gradient tensor
-# to 1e-4 of its largest value plus 1e-3 relative, each param to lr/100.
-# bfloat16: losses and q to the kernels' bound (6e-2, 3e-2): the plain
-# versions round after every op, cuDNN and the kernels once. A gradient
-# does not hold elementwise to a share of its tensor's largest value (bf16
-# moves single elements of a sum of products that cancel by far more than
-# the sum's rounding), so each tensor of the card's bf16 gradient is held
-# to the plain path's bf16 gradient on the CPU in norm, as a share of the
-# plain gradient's norm (``("norm", {prefix: bound})``), with a bound for
-# each kind of tensor from its own readings on the card at
-# BF16_UPDATE_SEEDS, where [update bf16] checks it (PERF.md §6).
-# cuDNN's bf16 convolutions round at other points than the CPU's, so the
-# features
-# differ in their last bits, ReLU masks flip near zero and the head's p - m
-# cancels: the convolutions' gradients read up to 0.130, fc_h_*'s
-# (KA bwd over those features) up to 0.139, the head's fc_z_* (K4's
-# gradient, then KA bwd) up to 0.062. A KA backward that drops one input
-# chunk (the control) moves fc_h_*'s weight gradients by 0.233 or more and
-# fc_z_*'s by 0.636 or more.
-# Adam's first step g/(|g| + eps) turns a gradient near zero into a step
-# of up to lr either way (a bias of 51 elements has moved by 0.33 of its
-# step's norm), so no bound on the params against the plain path's holds
-# below 2·lr; instead the card's params are held to the plain clip + Adam
-# applied on the CPU to the card's own gradients, to lr/100 as in float32
-# (``("refit", 1e-2)``).
-PLAIN_TOL = {
-    "float32": dict(loss=(1e-4, 1e-4), grad=("max", 1e-4, 1e-3),
-                    params=("lr", 1e-2), q=(1e-4, 1e-4), gap=(1e-4, 0.0)),
-    "bfloat16": dict(loss=(6e-2, 3e-2),
-                     grad=("norm", {"convs.": 0.2, "fc_h_": 0.2,
-                                    "fc_z_": 0.1}),
-                     params=("refit", 1e-2), q=(6e-2, 3e-2),
-                     gap=(1.2e-1, 6e-2)),
-}
-# The input features a control's KA backward drops: one of the small
-# path's input chunks (kernels/noisy_linear.py).
-DROPPED_CHUNK = 256
-
-
-def grad_errors(tol, got, want):
-    """Each tensor of the card's gradient ``got`` against the plain path's
-    ``want`` under ``tol["grad"]`` (PLAIN_TOL): {key: (err, within)}.
-    "max": err is the largest |got - want| as a share of the tensor's
-    largest |want|, within where every element is within atol (that share)
-    + rtol·|want|; "norm": err is ‖got - want‖ as a share of ‖want‖,
-    within the bound of the key's prefix."""
-    how, *g_tol = tol["grad"]
-    out = {}
-    for k, w in want.items():
-        w = w.float()
-        d = (got[k].float() - w).abs()
-        if how == "max":
-            scale = max(float(w.abs().max()), 1e-30)
-            within = bool((d <= g_tol[0] * scale + g_tol[1] * w.abs()).all())
-            out[k] = (float(d.max()) / scale, within)
-        else:
-            bound, = (v for p, v in g_tol[0].items() if k.startswith(p))
-            err = float(d.norm()) / max(float(w.norm()), 1e-30)
-            out[k] = (err, err <= bound)
-    return out
-
-
-def log_grad_readings(label, grads, control):
-    """One line of each gradient tensor's reading against the plain path
-    (grad_errors) and the control's, which the check refused."""
-    log(f"[{label}] grad readings " + json.dumps(
-        {k: [float(f"{e:.4g}"), float(f"{control[k]:.4g}")]
-         for k, e in grads.items()}) + " (each: [the card's, the control's "
-        f"with {DROPPED_CHUNK} input features dropped in KA's backward])")
-
-
-def check_learner_update_against_plain(torch, np, cfg, A, seed=16):
-    """One learner update of ``cfg``'s net (compute_update_pretarget +
-    apply_grads) through the kernels on the card and through the plain
-    versions on the CPU, from the same params (from ``seed``), batch,
-    pns_target and shared noise, within PLAIN_TOL of its compute dtype.
-    Then a control the gradient check must refuse: the card's update again
-    with KA's backward given x without its first DROPPED_CHUNK input
-    features, as a kernel that dropped one input chunk would compute it;
-    every noisy layer's weight gradients must fail grad_errors. Returns
-    the largest differences (losses, grads as grad_errors reads them, new
-    params), each gradient tensor's reading and the control's."""
-    from rainbow_tpu_torch import agent as ag
-    from rainbow_tpu_torch.kernels import noisy_linear as ka
-    from rainbow_tpu_torch.models.dqn import (NOISY_LAYERS, draw_noise,
-                                              init_dqn_params)
-    from rainbow_tpu_torch.models.noisy import NoiseStream
-
-    tol = PLAIN_TOL[cfg.compute_dtype]
-    b = cfg.batch_size
-    rng = np.random.default_rng(seed - 1)
-    params = init_dqn_params(cfg, A, seed, "cpu")
-    u8 = lambda: rng.integers(0, 256, (b, 84, 84, cfg.history_length))
-    batch = {"states": torch.from_numpy(u8().astype(np.float32) / 255),
-             "next_states": torch.from_numpy(u8().astype(np.float32) / 255),
-             "actions": torch.from_numpy(rng.integers(0, A, b)
-                                         .astype(np.int32)),
-             "returns": torch.from_numpy(rng.uniform(-2, 2, b)
-                                         .astype(np.float32)),
-             "nonterminals": torch.from_numpy((rng.random(b) > 0.2)
-                                              .astype(np.float32)),
-             "weights": torch.from_numpy(rng.uniform(0.2, 1, b)
-                                         .astype(np.float32))}
-    pns = torch.from_numpy(rng.dirichlet(np.ones(cfg.atoms), (b, A))
-                           .astype(np.float32))
-    noise = draw_noise(cfg, A, NoiseStream(seed + 1), device="cpu")
-
-    def update(dev, apply=True):
-        p = {k: v.to(dev).clone() for k, v in params.items()}
-        agent = ag.AgentState(
-            params=p, target_params={k: v.clone() for k, v in p.items()},
-            opt_state=ag.init_adam(p, cfg),
-            generator=torch.Generator(device=dev))
-        grads, losses = ag.compute_update_pretarget(
-            agent, cfg, A, {k: v.to(dev) for k, v in batch.items()},
-            pns.to(dev), {k: (x.to(dev), y.to(dev))
-                          for k, (x, y) in noise.items()})
-        if apply:
-            ag.apply_grads(agent, cfg, grads)
-        return (losses.cpu(), {k: v.cpu() for k, v in grads.items()},
-                {k: v.cpu() for k, v in agent.params.items()})
-
-    out = {dev: update(dev) for dev in ("cuda", "cpu")}
-    # Losses of order 4 from 3136-term float32 sums in other orders.
-    err_l = check_close("update losses", out["cuda"][0], out["cpu"][0],
-                        *tol["loss"])
-    # Gradients: cuDNN and the CPU sum conv products over B·H·W positions
-    # in other orders (PLAIN_TOL).
-    grads = grad_errors(tol, out["cuda"][1], out["cpu"][1])
-    for k, (err, within) in grads.items():
-        check(within, f"update grad {k}: {err:.3g} from the plain path's, "
-              f"beyond {tol['grad']}")
-    err_g = max(err for err, _ in grads.values())
-    # Adam's first step moves a param by lr·g/(|g| + eps): a grad that
-    # differs by Δg moves it by at most lr·Δg/eps, and by far less where
-    # |g| ≫ eps; sound float32 runs read about 4e-9 (PERF.md), so lr/100
-    # has room. Every tensor must have moved by more than that.
-    # ("refit": the plain clip + Adam on the CPU applied to the card's own
-    # gradients is the reference.)
-    how, share = tol["params"]
-    if how == "refit":
-        p = {k: v.clone() for k, v in params.items()}
-        agent = ag.AgentState(params=p, target_params=p,
-                              opt_state=ag.init_adam(p, cfg),
-                              generator=torch.Generator())
-        ag.apply_grads(agent, cfg, out["cuda"][1])
-        out["cpu"] = out["cpu"][:2] + (agent.params,)
-    p_tol = cfg.learning_rate * share
-    err_p = max(check_close(f"update param {k}", out["cuda"][2][k], want,
-                            p_tol, 0)
-                for k, want in out["cpu"][2].items())
-    for k, want in out["cpu"][2].items():
-        check(float((want - params[k]).abs().max()) > p_tol,
-              f"update param {k}: the update did not move it")
-    # The control: a KA backward that drops one input chunk.
-    real = ka.noisy_linear_bwd
-
-    def dropped(w_mu, w_sig, x, g, eps=None, y=None):
-        x = x.clone()
-        x[:, :DROPPED_CHUNK] = 0
-        return real(w_mu, w_sig, x, g, eps, y)
-
-    ka.noisy_linear_bwd = dropped
-    try:
-        bad = update("cuda", apply=False)[1]
-    finally:
-        ka.noisy_linear_bwd = real
-    control = grad_errors(tol, bad, out["cpu"][1])
-    for k in (f"{n}.{w}" for n in NOISY_LAYERS
-              for w in ("weight_mu", "weight_sigma")):
-        check(not control[k][1], f"update grad {k}: the check passed a KA "
-              f"backward that dropped {DROPPED_CHUNK} input features "
-              f"({control[k][0]:.3g})")
-    return (err_l, err_g, err_p, {k: e for k, (e, _) in grads.items()},
-            {k: e for k, (e, _) in control.items()})
-
-
-def check_sequential_update_against_plain(torch, np, cfg, A):
-    """One sequential learn_step of the canonical net (K5 and K6 sample a
-    batch of 32, compute_update draws its online and target noise in one
-    K2 launch, K9 applies it, K7 writes the priorities back) on the card
-    against the same step through the plain versions on the CPU: the same
-    params, ring, uniforms and noise stream, drawn by K2 on the card and by
-    philox_noise_plain on the CPU. Returns the largest differences (loss,
-    params, priorities)."""
-    import dataclasses
-
-    from rainbow_tpu_torch import agent as ag
-    from rainbow_tpu_torch.models.noisy import NoiseStream
-    from rainbow_tpu_torch.replay import prioritized as rp
-
-    scfg = cfg.replace(sequential_per=True)
-    e, c = 8, 64
-    rng = np.random.default_rng(21)
-    ring = rp.init_replay(e, c, 84, "cpu")
-    ring.frames.copy_(torch.from_numpy(rng.integers(0, 256, ring.frames.shape,
-                                                    np.uint8)))
-    ring.actions.copy_(torch.from_numpy(rng.integers(0, A, (e, c),
-                                                     np.int32)))
-    ring.rewards.copy_(torch.from_numpy(rng.normal(size=(e, c))
-                                        .astype(np.float32)))
-    ring.timesteps.copy_(torch.from_numpy(rng.integers(0, 6, (e, c),
-                                                       np.int32)))
-    ring.nonterminal.copy_(torch.from_numpy(rng.random((e, c)) > 0.1))
-    ring.priorities.copy_(torch.from_numpy(rng.gamma(2.0, 1.0, (e, c))
-                                           .astype(np.float32)))
-    ring.index.fill_(30)
-    ring.full.fill_(True)
-    u = torch.from_numpy(rng.random(scfg.batch_size).astype(np.float32))
-    base = ag.init_agent(scfg, A, 22, "cpu")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        to = lambda d: {k: v.to(dev).clone() for k, v in d.items()}
-        agent = ag.AgentState(
-            params=to(base.params), target_params=to(base.target_params),
-            opt_state=ag.init_adam(to(base.params), scfg),
-            generator=torch.Generator(device=dev), noise=NoiseStream(23))
-        rep = rp.ReplayState(**{f.name: getattr(ring, f.name).to(dev).clone()
-                                for f in dataclasses.fields(ring)})
-        loss = ag.learn_step(agent, rep, scfg, A, 0.4, {"u": u.to(dev)})
-        out[dev] = (float(loss), {k: v.cpu() for k, v in agent.params.items()},
-                    rep.priorities.cpu(), agent.noise)
-    # As check_learner_update_against_plain: losses of order 4 from float32
-    # sums in other orders; params to lr/100 after one Adam step, and every
-    # tensor must have moved by more; priorities are loss^omega.
-    err_l = abs(out["cuda"][0] - out["cpu"][0])
-    check(err_l <= 1e-4 * max(1.0, abs(out["cpu"][0])),
-          f"sequential update: loss {out['cuda'][0]} vs {out['cpu'][0]}")
-    p_tol = scfg.learning_rate / 100
-    err_p = max(check_close(f"sequential update param {k}", out["cuda"][1][k],
-                            want, p_tol, 0)
-                for k, want in out["cpu"][1].items())
-    for k, want in out["cpu"][1].items():
-        check(float((want - base.params[k]).abs().max()) > p_tol,
-              f"sequential update param {k}: the update did not move it")
-    err_pr = check_close("sequential update priorities", out["cuda"][2],
-                         out["cpu"][2], 1e-4, 1e-4)
-    check(out["cuda"][3] == out["cpu"][3],
-          "sequential update: the noise streams moved differently")
-    return err_l, err_p, err_pr
+    suite = ET.parse(xml).getroot()
+    suite = suite.find("testsuite") if suite.tag == "testsuites" else suite
+    n = {k: int(suite.get(k, 0))
+         for k in ("tests", "failures", "errors", "skipped")}
+    failed = [f"{c.get('classname')}::{c.get('name')}"
+              for c in suite.iter("testcase")
+              if c.find("failure") is not None or c.find("error") is not None]
+    stats = {"passed": n["tests"] - n["failures"] - n["errors"]
+             - n["skipped"], "failed": n["failures"] + n["errors"],
+             "skipped": n["skipped"], "seconds": seconds}
+    log("[card tests] " + json.dumps(stats))
+    check(rc == 0 and stats["failed"] == stats["skipped"] == 0,
+          f"[card tests] pytest exit {int(rc)}, {stats}, failed "
+          f"{failed[:20]}: see {OUT_DIR}/card_tests.txt")
+    return stats
 
 
 # --------------------------------------------------------------- actor -----
 
 def run_actor(torch, cfg, params, A, noise):
-    """The acting path on the native engine: returns (stats, stack, rep,
-    env, staged inputs of the last step, actions)."""
+    """The acting path on the native engine: returns its stats."""
     from rainbow_tpu_torch import agent as ag
     from rainbow_tpu_torch.kernels import launches, reset_launches
     from rainbow_tpu_torch.ops.preprocess import (init_framestack,
@@ -1966,210 +663,8 @@ def run_actor(torch, cfg, params, A, noise):
              "act_and_fetch_s": sum(iter_s) - engine_s - stage_s,
              "median_iter_ms":
              1e3 * statistics.median(iter_s), "launches": counts}
-    return stats, stack, rep, env, staged, actions
-
-
-def check_actor_step_against_plain(torch, np, cfg, params, A, stack, staged,
-                                   actions, n=32):
-    """One actor iteration of ``cfg``'s net through the kernels on the card
-    and through the plain versions on the CPU, on the first ``n`` envs of
-    the live state, with the same injected per-env noise: stack and replay
-    bit-exact, q within PLAIN_TOL of the compute dtype, actions equal
-    wherever the top-2 gap of q is clear of that tolerance."""
-    from rainbow_tpu_torch.models.dqn import draw_noise, forward_head
-    from rainbow_tpu_torch.models.noisy import NoiseStream
-    from rainbow_tpu_torch.ops.preprocess import to_network_input
-    from rainbow_tpu_torch.replay import prioritized as rp
-    from rainbow_tpu_torch.train import actor_step_packed, pack_resets
-
-    obs, packed, ridx, rewards, dones, kinds = (t.cpu() for t in staged)
-    resets = np.zeros((obs.shape[0], 84, 84), np.uint8)
-    keep = ridx < obs.shape[0]
-    resets[ridx[keep].numpy()] = packed[keep].numpy()
-    sub_packed, sub_idx = pack_resets(resets[:n], kinds[:n].numpy())
-    inputs = (actions[:n].cpu(), obs[:n], torch.from_numpy(sub_packed),
-              torch.from_numpy(sub_idx), rewards[:n], dones[:n], kinds[:n])
-    noise = draw_noise(cfg, A, NoiseStream(5), (n,), "cpu")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        st = stack[:n].to(dev).clone()
-        rep = rp.init_replay(n, 4, 84, dev)
-        p = {k: v.to(dev) for k, v in params.items()}
-        ne = {k: (a.to(dev), b.to(dev)) for k, (a, b) in noise.items()}
-        act = actor_step_packed(p, None, cfg, A, st, rep,
-                                *(t.to(dev) for t in inputs), noise_eps=ne)
-        q = forward_head(p, cfg, A, to_network_input(st), noise_eps=ne).q
-        out[dev] = (act.cpu(), st.cpu(), rep, q.cpu())
-    check(torch.equal(out["cuda"][1], out["cpu"][1]),
-          "actor step: stack differs from the plain path")
-    check(_same_replay(torch, out["cuda"][2], out["cpu"][2]),
-          "actor step: replay differs from the plain path")
-    q = out["cpu"][3]
-    tol = PLAIN_TOL[cfg.compute_dtype]
-    err = check_close("actor step q", out["cuda"][3], q, *tol["q"])
-    top2 = q.topk(2, dim=1).values
-    atol, rtol = tol["gap"]
-    clear = top2[:, 0] - top2[:, 1] > atol + rtol * top2[:, 0].abs()
-    check(torch.equal(out["cuda"][0][clear], out["cpu"][0][clear]),
-          "actor step: actions differ from the plain path")
-    return err
-
-
-def live_actor_state(torch, cfg, A, params, envs, iters=6):
-    """A live acting state of ``cfg``'s net on the card: ``envs`` pong envs
-    of the native engine stepped ``iters`` times by actor_step_packed with a
-    small ring (resets happen from the first step: the engine's no-op
-    starts). Returns (stack, the last step's staged inputs, the actions
-    after it), as run_actor does."""
-    from rainbow_tpu_torch import agent as ag
-    from rainbow_tpu_torch.models.noisy import NoiseStream
-    from rainbow_tpu_torch.ops.preprocess import (init_framestack,
-                                                  to_network_input)
-    from rainbow_tpu_torch.replay import prioritized as rp
-    from rainbow_tpu_torch.train import (actor_step_packed, make_env_factory,
-                                         stage_step)
-
-    env = make_env_factory(cfg)(num_envs=envs, training=True)
-    stack = init_framestack(envs, cfg.history_length, env.reset_all(),
-                            "cuda")
-    rep = rp.init_replay(envs, 16, cfg.frame_size, "cuda")
-    noise = NoiseStream(SEED + 11)
-    actions = ag.act(params, cfg, A, to_network_input(stack), noise)
-    for _ in range(iters):
-        staged = stage_step(env.step(actions.cpu().numpy()), "cuda")
-        actions = actor_step_packed(params, noise, cfg, A, stack, rep,
-                                    actions, *staged)
     env.close()
-    return stack, staged, actions
-
-
-# The seeds of the bf16 update's check, whose readings PLAIN_TOL's bf16
-# gradient bounds rest on: one seed's update is one draw of bf16 rounding.
-BF16_UPDATE_SEEDS = (16, 116, 216, 316, 416, 516)
-
-
-def check_preset_against_plain(torch, np, label, cfg, A):
-    """[update <label>] and [actor <label>]: one learner update (in bf16,
-    one at each of BF16_UPDATE_SEEDS) and one actor step of the
-    configuration on the card against the plain path on the CPU
-    (check_learner_update_against_plain, and check_actor_step_against_plain
-    on a live state of min(32, envs) envs), each within PLAIN_TOL of its
-    compute dtype. In bf16 also the largest reading by PLAIN_TOL's prefix
-    and the control's least on a weight."""
-    from rainbow_tpu_torch.models.dqn import init_dqn_params
-
-    bf16 = cfg.compute_dtype == "bfloat16"
-    prefixes = PLAIN_TOL["bfloat16"]["grad"][1] if bf16 else {}
-    worst = {p: 0.0 for p in prefixes}
-    least = {p: float("inf") for p in prefixes if p != "convs."}
-    for seed in BF16_UPDATE_SEEDS if bf16 else (16,):
-        t0 = time.perf_counter()
-        err_l, err_g, err_p, grads, control = (
-            check_learner_update_against_plain(torch, np, cfg, A, seed))
-        log(f"[update {label}] one update (seed {seed}, B = "
-            f"{cfg.batch_size}, {cfg.architecture} torso, hidden "
-            f"{cfg.hidden_size}, {cfg.compute_dtype}, mu "
-            f"{cfg.adam_mu_dtype}) matches the plain path on the CPU in "
-            f"{time.perf_counter() - t0:.1f} s: max |loss diff| "
-            f"{err_l:.3g}, max grad diff {err_g:.3g} of the tensor's "
-            f"{'norm' if bf16 else 'largest'}, max param diff {err_p:.3g}"
-            + (" against the plain Adam on the card's gradients" if bf16
-               else ""))
-        log_grad_readings(f"update {label}", grads, control)
-        for k, e in grads.items():
-            for p in prefixes:
-                if k.startswith(p):
-                    worst[p] = max(worst[p], e)
-                    if p in least and ".weight" in k:
-                        least[p] = min(least[p], control[k])
-    if bf16:
-        log(f"[update {label}] over seeds {BF16_UPDATE_SEEDS}: the largest "
-            f"reading by prefix {json.dumps(worst)} within "
-            f"{json.dumps(prefixes)}; the control's least on a weight "
-            f"{json.dumps(least)}")
-    envs = min(32, cfg.num_envs)
-    params = init_dqn_params(cfg, A, SEED + 12, "cuda")
-    stack, staged, actions = live_actor_state(torch, cfg, A, params, envs)
-    q_err = check_actor_step_against_plain(torch, np, cfg, params, A, stack,
-                                           staged, actions, envs)
-    log(f"[actor {label}] one step on {envs} envs matches the plain path "
-        f"on the CPU (max |q diff| {q_err:.3g})")
-
-
-def check_nhwc_cell_update(torch, label, cfg, A):
-    """[update <label>] for a benchmark cell of the IMPALA net, whose torso
-    runs NHWC: one learner update on the card at the cell's batch as the
-    round runs it (the target forward, the double-Q selection, the loss
-    forward and backward), on frame-major batches as K6 gathers them, so
-    that each of the three torso forwards takes an NCHW input and makes
-    it channels-last. The gradients that reach K9 are float32, contiguous
-    and OIHW; KA's fc_h forward on the torso's features within the bf16
-    tolerances of noisy_linear_plain; K9 on the gradients within
-    compare_adam's one-step tolerance of apply_grads_plain on them."""
-    from rainbow_tpu_torch import agent as ag
-    from rainbow_tpu_torch.kernels.noisy_linear import noisy_linear_fwd
-    from rainbow_tpu_torch.kernels.replay import window_fields
-    from rainbow_tpu_torch.models import dqn
-    from rainbow_tpu_torch.models.noisy import (NoiseStream,
-                                                noisy_linear_plain)
-    from rainbow_tpu_torch.replay import prioritized as rp
-
-    b, h, n = cfg.batch_size, cfg.history_length, cfg.multi_step
-    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
-    win = torch.randint(0, 256, (1, b, h + n, 84 * 84), generator=g,
-                        device="cuda", dtype=torch.uint8)
-    fields = window_fields(win, h, n, {})
-    batch = {"states": rp.states_to_float(fields["states"][0]),
-             "next_states": rp.states_to_float(fields["next_states"][0]),
-             "actions": torch.randint(0, A, (b,), generator=g, device="cuda",
-                                      dtype=torch.int32),
-             "returns": torch.randn((b,), generator=g, device="cuda"),
-             "nonterminals": torch.ones((b,), device="cuda"),
-             "weights": torch.rand((b,), generator=g, device="cuda") + 0.5}
-    eps = dqn.draw_noise(cfg, A, NoiseStream(SEED + 23), device="cuda")
-    params = dqn.init_dqn_params(cfg, A, SEED + 23, "cuda")
-    agent = ag.AgentState(params={k: v.clone() for k, v in params.items()},
-                          target_params=params,
-                          opt_state=ag.init_adam(params, cfg),
-                          generator=torch.Generator(device="cuda"))
-    dqn.reset_torso_inputs()
-    with torch.no_grad():
-        pns = dqn.forward_head(params, cfg, A, batch["next_states"],
-                               dist="probs", noise_eps=eps).dist
-    grads, _ = ag.compute_update_pretarget(agent, cfg, A, batch, pns, eps)
-    counts = torso_input_counts(torch, cfg, f"[update {label}]")
-    check(counts == {f"{cfg.architecture}.nchw": 3},
-          f"[update {label}] torso inputs {counts}, not 3 NCHW batches")
-    shapes = dqn.param_shapes(cfg, A)
-    check(list(grads) == list(shapes) and all(
-        grads[k].dtype == torch.float32 and grads[k].is_contiguous()
-        and tuple(grads[k].shape) == s for k, s in shapes.items()),
-        f"[update {label}] gradients not float32, contiguous, OIHW")
-    with torch.no_grad():
-        feat = dqn.torso(params, cfg, batch["states"].to(torch.bfloat16))
-    fc_h = dqn.layer(params, "fc_h_v")
-    ka_err = check_close(f"[update {label}] KA fc_h on NHWC features",
-                         noisy_linear_fwd(fc_h, feat, eps["fc_h_v"], True),
-                         noisy_linear_plain(fc_h, feat, eps["fc_h_v"], True),
-                         6e-2, 3e-2)
-    opt = ag.init_adam(params, cfg)
-    plain_params = {k: v.clone() for k, v in params.items()}
-    keys = list(shapes)
-    ag.apply_grads_plain([plain_params[k] for k in keys],
-                         [grads[k] for k in keys], [opt.mu[k] for k in keys],
-                         [opt.nu[k] for k in keys], opt.count,
-                         cfg.learning_rate, ag.ADAM_B1, ag.ADAM_B2,
-                         cfg.adam_eps, cfg.norm_clip)
-    ag.apply_grads(agent, cfg, grads)
-    p_tol = (1e-7 if cfg.adam_mu_dtype == "float32"
-             else cfg.learning_rate * 2 ** -7)
-    k9_err = max(check_close(f"[update {label}] K9 param {k}",
-                             agent.params[k], plain_params[k], p_tol, 0)
-                 for k in keys)
-    log(f"[update {label}] one update (B = {b}, {cfg.architecture} torso, "
-        f"{cfg.compute_dtype}, mu {cfg.adam_mu_dtype}) with the torso NHWC: "
-        f"torso inputs {counts}; KA fc_h max |err| {ka_err:.3g}; K9 max "
-        f"|param diff| {k9_err:.3g} (within {p_tol:.3g})")
+    return stats
 
 
 def profiled(torch, name, fn, units, unit):
@@ -2824,42 +1319,7 @@ def run_side_trainer(torch, np, args, sync):
 
 # ----------------------------------------------------- other presets -----
 
-# The JAX package's other configurations (rainbow_tpu/config.py:174-224,
-# BASELINE.json's first two), each through cli.main at the widths its
-# preset publishes; each CUTS line lists what was set beside them.
-# Data-efficient (Atari-100k): 16 envs (docs/results_r1/README.md:10-14),
-# the preset's whole ring (memory_capacity 100,000 = 16 x 6,250 columns,
-# 706 MB of frames), hidden 256, n = 20, replay frequency 1 (16 updates of
-# batch 32 an iteration), target update 2,000, lr 1e-4, from its own learn
-# start: 100 warm-up iterations, then 101 rounds; one evaluation and a
-# checkpoint at T = 3,200 with the replay-bearing save (--memory), which a
-# new Trainer restores bit for bit.
-DATA_EFFICIENT_ARGS = ["--preset", "data-efficient", "--game", "pong",
-                       "--num-envs", "16", "--learn-start", "1600",
-                       "--T-max", "3200", "--evaluation-interval", "3200",
-                       "--checkpoint-interval", "3200", "--memory", "memory",
-                       "--max-episode-length", "4000", "--id",
-                       "chip_trainer_data_efficient", "--seed", "5"]
-# Throughput: 1024 envs, the full 976-column ring (7.05 GB), rounds of 32
-# updates of batch 256, lr 6.25e-5·√8; the schedule of TRAINER_ARGS (31
-# warm-up iterations, 9 rounds), an evaluation and a checkpoint at the end,
-# which a new Trainer restores bit for bit.
-THROUGHPUT_ARGS = ["--preset", "throughput", "--num-envs", "1024",
-                   "--learn-start", "32768", "--T-max", "40960",
-                   "--evaluation-interval", "40960", "--checkpoint-interval",
-                   "40960", "--max-episode-length", "4000", "--id",
-                   "chip_trainer_throughput", "--seed", "6"]
-# The canonical preset in bfloat16 with a bfloat16 Adam first moment
-# (docs/results_r4/README.md:80-95): 4 rounds of 256 updates, an
-# evaluation and a checkpoint at the end, which a new Trainer restores
-# bit for bit (the bf16 mu as its uint16 bits).
-BF16_ARGS = ["--num-envs", "1024", "--compute-dtype", "bfloat16",
-             "--adam-mu-dtype", "bfloat16", "--learn-start", "32768",
-             "--T-max", "35840", "--evaluation-interval", "35840",
-             "--checkpoint-interval", "35840", "--max-episode-length",
-             "4000", "--id", "chip_trainer_bf16", "--seed", "7"]
-PRESET_RUNS = (("data-efficient", DATA_EFFICIENT_ARGS),
-               ("throughput", THROUGHPUT_ARGS), ("bf16", BF16_ARGS))
+
 CUTS = {
     "data-efficient": "T-max 100,000 -> 3,200 (101 rounds); evaluation "
                       "interval 10,000 -> 3,200; max episode length "
@@ -3605,7 +2065,7 @@ def preset_rows(torch, np, A, presets, de_k_last):
     the learner's a*, the C51 target and loss at 256, K2 at its round's
     draw; bf16: KA's KA_ROWS in bf16, KB at its three shapes and the loss
     in bf16, K9 with a bf16 mu. K5-K7 of the data-efficient ring and K6 of
-    the throughput round come from the compare phase. Timed as the main
+    the throughput round come from the replay phase. Timed as the main
     path's rows."""
     de, tp, bf = (presets[k] for k in ("data-efficient", "throughput",
                                         "bf16"))
@@ -3663,7 +2123,7 @@ def preset_rows(torch, np, A, presets, de_k_last):
     return rows
 
 
-def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
+def kernel_rows(torch, np, cfg, A, counts, shapes, replay_rows,
                 delta_last, delta_timed, adam_timed, head_timed, noise_timed,
                 kc_timed, k_last, extra_rows, phase_shapes):
     """Time each kernel, its plain version and a library call at the main
@@ -3671,14 +2131,14 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
     learner's, the canonical net's ``shapes`` for Adam, the round's noise
     draw for K2, a real delta for K10), and work out each bound from the
     same shapes; K5-K7's rows (``replay_rows``) come timed from
-    compare_replay. ``counts`` maps a phase to its launch counts;
+    ring_rows. ``counts`` maps a phase to its launch counts;
     ``launches`` is the trainer phase's (the main path, through cli.main),
     for K10 the side-path trainer's (delta uploads), and the other phases'
     counts are kept beside it. KB's, c51_target's and head_loss's rows come
     from head_rows, timed in ``head_timed``, K2's from ``noise_timed``,
     K10's from ``delta_timed`` (two delta_times), K9's from ``adam_timed``
     (two adam_times), KC's at kc_cases(k_last) from ``kc_timed`` (two
-    kc_times). ``extra_rows`` (preset_rows, and the compare phase's rows of
+    kc_times). ``extra_rows`` (preset_rows, and the replay phase's rows of
     the presets' rings) each name their ``phase``, whose counts their
     ``launches`` are. Each row's ``launches_at_shape`` is its phase's (the
     main Trainer's without one) launches at the row's ``tally_key`` in
@@ -3696,10 +2156,9 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
     rows += extra_rows
     for r in rows:
         r.setdefault("flop_dtype", "fp32")
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S
-        t_ops = r["flops"] / FLOP_PER_S[r["flop_dtype"]]
-        r["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["bound_ms"] = bound_ms(r["flops"], r["bytes"], r["flop_dtype"])
+        r["bound_by"] = ("bytes" if bound_ms(0, r["bytes"]) >= r["bound_ms"]
+                         else "operations")
         _four_product_bound(r)
         r["kernel_ms"] = r["ms"]
         phase = r.get("phase")
@@ -3715,7 +2174,6 @@ def kernel_rows(torch, np, cfg, A, errs, counts, shapes, replay_rows,
         r["learning_launches"] = counts["learning"].get(r["name"], 0)
         r["preset_launches"] = {label: counts[label][r["name"]]
                                 for label, _ in PRESET_RUNS}
-        r["max_abs_err"] = errs[r["name"]]
         if "tally_key" in r:
             r["launches_at_shape"] = phase_shapes[phase or "trainer"].get(
                 r["tally_key"], 0)
@@ -3761,7 +2219,7 @@ def noise_row(torch, cfg, A, noise_timed):
 
 def noise_delta_rows(torch, cfg, A, delta_last, delta_timed, noise_timed):
     """Rows of K2 at the batched round's launch (noise_row) and of K10 at
-    the last real 1024-env pong delta of compare_delta. K10's times come
+    the last real 1024-env pong delta of pong_delta. K10's times come
     from ``delta_timed`` (two delta_times, the same way); no PyTorch call
     computes K10's strided plane copy with its segmented scatter, so its
     library_ms is null."""
@@ -3790,8 +2248,8 @@ def noise_delta_rows(torch, cfg, A, delta_last, delta_timed, noise_timed):
              # Every 32-byte sector of the interleaved (N, P, H) stack that
              # holds newest-plane bytes holds the other frames too: the
              # whole stack comes in from device memory.
-             sector_floor_ms=1e3 * (h * e * plane + e * plane + 4 * (e + 1)
-                                    + 3 * entries) / HBM_BYTES_PER_S),
+             sector_floor_ms=bound_ms(0, h * e * plane + e * plane
+                                      + 4 * (e + 1) + 3 * entries)),
     ]
 
 
@@ -3907,25 +2365,6 @@ def delta_times(torch, stack, offsets, pos, val):
                     torch, lambda: stack[..., -1].contiguous(), flush))
 
 
-ADAM_HYPER = (6.25e-5, 0.9, 0.999, 1.5e-4, 10.0)  # lr, b1, b2, eps, clip
-
-
-def _adam_inputs(torch, shapes, mu_dtype=None, layout="separate"):
-    """Params, grads, zero moments with a float32 mu (or ``mu_dtype``) and
-    Adam's count for a net's ``shapes``, from a seed; with ``layout``
-    "flat" the grads are views of one flat buffer, as the data-parallel
-    round hands them to K9."""
-    gp = torch.Generator(device="cuda").manual_seed(19)
-    p = [torch.randn(s, generator=gp, device="cuda") * 0.05 for s in shapes]
-    grads = _views(torch, shapes, torch.float32, layout)
-    for t in grads:
-        t.copy_(torch.randn(t.shape, generator=gp, device="cuda") * 1e-3)
-    mu = [torch.zeros(s, dtype=mu_dtype, device="cuda") for s in shapes]
-    nu = [torch.zeros(s, device="cuda") for s in shapes]
-    return p, grads, mu, nu, torch.zeros((), dtype=torch.int32,
-                                         device="cuda")
-
-
 def adam_times(torch, shapes, mu_dtype=None, layout="separate"):
     """K9's times over a net's ``shapes`` with a float32 mu (or
     ``mu_dtype``) through the wrapper of the rainbow_tpu_torch that is
@@ -3935,7 +2374,7 @@ def adam_times(torch, shapes, mu_dtype=None, layout="separate"):
     "library": {...}}."""
     from rainbow_tpu_torch.kernels.adam import clip_adam
 
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype, layout)
+    p, grads, mu, nu, count = adam_inputs(torch, shapes, mu_dtype, layout)
     leaves = [torch.nn.Parameter(t.clone()) for t in p]
     for t, gr in zip(leaves, grads):
         t.grad = gr.clone()
@@ -4094,17 +2533,6 @@ def ka_kernels(direction, dt, plan):
     return main + (f" + {reduce}" if plan.splits > 1 else "")
 
 
-def _plan(fn, *args):
-    """fn(*args) with the dtype last, or without it for a plan function
-    that takes none (a tree from before bf16 had a plan of its own: for an
-    A/B with --time-rows ka)."""
-    import inspect
-
-    if "dtype" in inspect.signature(fn).parameters:
-        return fn(*args)
-    return fn(*args[:-1])
-
-
 # KA's rows at the main path's shapes: (direction, B, in, out, noise mode,
 # dtype, caller), fc_h_* with its ReLU, where KA moves the most.
 KA_ROWS = (("fwd", 32, 3136, 512, "shared", "fp32", "learner"),
@@ -4189,7 +2617,7 @@ def ka_rows(torch, cases=KA_ROWS):
             shape=f"B={b} {n_in}->{n_out} {mode} eps {dtn} relu ({who})",
             tally_key=f"{key} {dtn}", flop_dtype=dtn)
         if direction == "fwd":
-            plan = _plan(fwd_plan, b, n_in, n_out, 2 if row_eps else 1, dt)
+            plan = fwd_plan(b, n_in, n_out, 2 if row_eps else 1, dt)
             row.update(
                 plan=dataclasses.asdict(plan),
                 kernels=ka_kernels(direction, dt, plan),
@@ -4206,7 +2634,7 @@ def ka_rows(torch, cases=KA_ROWS):
             gy = torch.randn((b, n_out), generator=g, device="cuda").to(dt)
             y = noisy_linear_fwd(prm, x, eps, True)
             ge = gy * eps[1].to(dt)
-            plan = _plan(bwd_plan, b, n_in, n_out, 2 if row_eps else 1, dt)
+            plan = bwd_plan(b, n_in, n_out, 2 if row_eps else 1, dt)
             row.update(
                 plan=dataclasses.asdict(plan),
                 kernels=ka_kernels(direction, dt, plan),
@@ -4239,7 +2667,7 @@ def adam_row(torch, shapes, timed, mu_dtype=None, layout="separate"):
     from rainbow_tpu_torch.kernels.adam import clip_adam
 
     n = sum(torch.Size(s).numel() for s in shapes)
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype, layout)
+    p, grads, mu, nu, count = adam_inputs(torch, shapes, mu_dtype, layout)
     mdt = _dt(mu[0])
     lib = timed[0]["library"]
     # The profiler's device time of each of the call's two launches (the
@@ -4276,36 +2704,6 @@ def adam_row(torch, shapes, timed, mu_dtype=None, layout="separate"):
 
 # ---------------------------------------------------------------- main -----
 
-def _sha256(torch, tensors):
-    """The SHA-256 of the bits of ``tensors``, one after another."""
-    import hashlib
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().reshape(-1).cpu().view(torch.uint8)
-                 .numpy().tobytes())
-    return h.hexdigest()
-
-
-def adam_digests(torch, shapes, mu_dtype=None, layout="separate"):
-    """SHA-256 of what K9 leaves (params, mu and nu, each list's tensors in
-    order, and count) after three steps through the imported wrapper from
-    _adam_inputs, with gradients from a seed of global norm about 0.26, 26
-    and 0.26: below, above and below the clip."""
-    from rainbow_tpu_torch.kernels.adam import clip_adam
-
-    p, grads, mu, nu, count = _adam_inputs(torch, shapes, mu_dtype, layout)
-    n = sum(math.prod(s) for s in shapes)
-    g = torch.Generator(device="cuda").manual_seed(20)
-    for norm in (0.26, 26.0, 0.26):
-        for t in grads:
-            t.copy_(torch.randn(t.shape, generator=g, device="cuda")
-                    * (norm / math.sqrt(n)))
-        clip_adam(p, grads, mu, nu, count, *ADAM_HYPER)
-    torch.cuda.synchronize()
-    return {name: _sha256(torch, ts)
-            for name, ts in (("params", p), ("mu", mu), ("nu", nu),
-                             ("count", [count]))}
-
 
 def gather_digests(torch, rep, nb, bs, n, seed):
     """SHA-256 of every output of K6 (each field and the whole window) for
@@ -4319,9 +2717,9 @@ def gather_digests(torch, rep, nb, bs, n, seed):
     idx, p, total = k_replay.stratified_sample(rep, u, 4, n)
     out = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n, 0.99)
     torch.cuda.synchronize()
-    digests = {k: _sha256(torch, [v]) for k, v in sorted(out.items())
+    digests = {k: sha256(torch, [v]) for k, v in sorted(out.items())
                if k not in ("states", "next_states")}
-    digests["window"] = _sha256(torch, [out["states"]._base])
+    digests["window"] = sha256(torch, [out["states"]._base])
     return digests
 
 
@@ -4348,8 +2746,8 @@ def gather_ab_rows(torch, cfg, presets):
     """K6's rows (replay_kernel_rows, timed twice by replay_times) at the
     canonical round (256 x 32, window 7) and the throughput preset's (32 x
     256) on the canonical ring, and at the data-efficient preset's (16 x
-    32, window 24) on its whole ring, random rings as compare_replay and
-    compare_preset_replay make them, each with gather_digests."""
+    32, window 24) on its whole ring, random rings as ring_rows and
+    preset_ring_rows make them, each with gather_digests."""
     rows = []
     de, tp = presets["data-efficient"], presets["throughput"]
     for ring_cfg, e, seed, runs in (
@@ -4376,10 +2774,9 @@ def _four_product_bound(row):
     (8·B·IN·OUT operations), beside ``bound_ms`` by the two products the
     function needs."""
     if "flops_four_products" in row:
-        row["bound_ms_four_products"] = 1e3 * max(
-            row["bytes"] / HBM_BYTES_PER_S,
-            row["flops_four_products"] / FLOP_PER_S[
-                row.get("flop_dtype", "fp32")])
+        row["bound_ms_four_products"] = bound_ms(
+            row["flops_four_products"], row["bytes"],
+            row.get("flop_dtype", "fp32"))
 
 
 TIME_ROWS = ("ka", "adam", "gather")
@@ -4403,13 +2800,12 @@ def time_rows(kind, tree, label) -> int:
     check(rainbow_tpu_torch.__file__.startswith(tree),
           f"--time-rows: imported {rainbow_tpu_torch.__file__}, not {tree}'s")
     from rainbow_tpu_torch import canonical
-    from rainbow_tpu_torch.cli import parse_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
     cfg = canonical(game=GAME, num_envs=ENVS, seed=SEED)
-    presets = {lbl: parse_config(flags)[0] for lbl, flags in PRESET_RUNS}
+    presets = preset_configs()
     if kind == "ka":
         bf16 = tuple(c[:5] + ("bf16",) + c[6:] for c in KA_ROWS)
         rows = ka_rows(torch, KA_ROWS + bf16)
@@ -4420,9 +2816,8 @@ def time_rows(kind, tree, label) -> int:
     else:
         rows = gather_ab_rows(torch, cfg, presets)
     for r in rows:
-        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
-                                  r["flops"] / FLOP_PER_S[
-                                      r.get("flop_dtype", "fp32")])
+        r["bound_ms"] = bound_ms(r["flops"], r["bytes"],
+                                 r.get("flop_dtype", "fp32"))
         _four_product_bound(r)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4460,10 +2855,8 @@ def main() -> int:
     os.chdir(ROOT)  # the Trainer writes results/<id>/ relative to here
     from rainbow_tpu_torch import canonical
     from rainbow_tpu_torch import evaluate as ev
-    from rainbow_tpu_torch.cli import parse_config
     from rainbow_tpu_torch.envs import engine
     from rainbow_tpu_torch.kernels import build, launches, reset_launches
-    from rainbow_tpu_torch.models import dqn
     from rainbow_tpu_torch.models.dqn import init_dqn_params
     from rainbow_tpu_torch.models.noisy import NoiseStream
     from rainbow_tpu_torch.train import make_env_factory
@@ -4504,100 +2897,38 @@ def main() -> int:
     smi_line = smi[0] if smi else ""
     log(smi_line)
 
-    # 2. kernel vs plain -----------------------------------------------------
     # Full fp32 matrix products and convolutions for the whole run: the
-    # comparisons then measure the kernels and not TF32 rounding (about
-    # three decimal digits), and the timed phases compute at the precision
-    # the configuration states (compute_dtype float32). The plain versions'
-    # bf16 products sum in fp32 and round once, as KA's do: cuBLAS's split-K
-    # otherwise rounds each partial sum to bf16, which at 1024 and 2048 rows
-    # over 306 x 512 outputs took the plain backward's dw_mu 0.82 from the
-    # float64 sum, where KA's is within 0.50, and the two 1.0 apart.
+    # card tests compare at full precision, and the timed phases compute at
+    # the precision the configuration states (compute_dtype float32), not
+    # in TF32. The bf16 library calls timed beside KA's rows sum in fp32 and
+    # round once, as KA does: cuBLAS's split-K otherwise rounds each partial
+    # sum to bf16.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    # 2. card tests ---------------------------------------------------------
+    run_card_tests(torch)
+
+    # 3. replay rings ------------------------------------------------------
     cfg = canonical(game=GAME, num_envs=ENVS, seed=SEED)
     probe = engine.BatchedEnv(GAME, 1, 0)
     A = probe.action_space
     probe.close()
-    t0 = time.perf_counter()
-    report = []
-    # The other configurations, as cli.main builds them from their flags.
-    presets = {label: parse_config(flags)[0] for label, flags in PRESET_RUNS}
-    cfgs = [cfg] + list(presets.values())
-    cells = bench_cells()
-    errs = {"noisy_linear_fwd": compare_noisy_linear(torch, A, cfgs,
-                                                     report, cells)}
-    errs["dueling_head"], kb_probs = compare_dueling_head(torch, A, cfgs,
-                                                           report)
-    errs["append_framestack"] = compare_append_framestack(torch, np, report)
-    errs["noisy_linear_bwd"] = compare_noisy_linear_bwd(torch, A, cfgs,
-                                                        report, cells)
-    errs["c51_target"], errs["head_loss"] = compare_c51(torch, A, cfgs,
-                                                        report)
+    presets = preset_configs()
     shapes = param_shapes(cfg, A)
-    nets = [shapes, param_shapes(presets["data-efficient"], A)]
-    for _, c in cells:  # the benchmark's other nets: the IMPALA's 46 tensors
-        if param_shapes(c, A) not in nets:
-            nets.append(param_shapes(c, A))
-    errs["clip_adam"] = max(compare_adam(torch, s, report) for s in nets)
-    replay_errs, replay_rows = compare_replay(torch, np, cfg, report,
-                                              presets["throughput"])
-    de_errs, de_replay_rows = compare_preset_replay(
-        torch, presets["data-efficient"], report)
-    errs.update({k: max(v, de_errs[k]) for k, v in replay_errs.items()})
-    errs["scaled_noise"], moments = compare_noise(torch, cfg, A, report,
-                                                  presets.values())
-    delta_last, delta_forms = compare_delta(torch, np, cfg, report)
-    errs["apply_delta"] = 0.0
-    torch.cuda.synchronize()
-    with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
-        json.dump(report, f, indent=0)
-    log(f"[compare] {len(report)} cases agree in "
-        f"{time.perf_counter() - t0:.1f} s; max |err| {errs}; "
-        f"KB's probabilities at the round targets' B: max |err| "
-        f"{kb_probs:.3g}; "
-        f"K2 moments over "
-        f"{moments[2]} draws: mean {moments[0]:.3g}, E[eps^2] "
-        f"{moments[1]:.6f}; K10 on real pong steps: {delta_forms}")
-
-    # 3. one learner update against the plain path ---------------------------
-    t0 = time.perf_counter()
-    err_l, err_g, err_p, grads, control = check_learner_update_against_plain(
-        torch, np, cfg, A)
-    log(f"[update] one update of the canonical net (B = {cfg.batch_size}) "
-        f"matches the plain path on the CPU in {time.perf_counter() - t0:.1f}"
-        f" s: max |loss diff| {err_l:.3g}, max grad diff {err_g:.3g} of the "
-        f"tensor's largest, max |param diff| {err_p:.3g}")
-    log_grad_readings("update", grads, control)
-    t0 = time.perf_counter()
-    err_l, err_p, err_pr = check_sequential_update_against_plain(torch, np,
-                                                                 cfg, A)
-    log(f"[update] one sequential learn_step of the canonical net (K5, K6, "
-        f"K2, K7 on the card) matches the plain path on the CPU in "
-        f"{time.perf_counter() - t0:.1f} s: |loss diff| {err_l:.3g}, max "
-        f"|param diff| {err_p:.3g}, max |priority diff| {err_pr:.3g}")
+    # Early in the run, where the profiler's split of K5's two launches
+    # agrees with the graphs.
+    replay_rows = ring_rows(torch, cfg, presets["throughput"])
+    de_replay_rows = preset_ring_rows(torch, presets["data-efficient"])
+    delta_last = pong_delta(torch, np, cfg)
 
     # 4. actor ---------------------------------------------------------------
     noise = NoiseStream(SEED)
     params = init_dqn_params(cfg, A, SEED, "cuda")
-    stats, stack, rep, env, staged, actions = run_actor(torch, cfg, params,
-                                                        A, noise)
-    env.close()
+    stats = run_actor(torch, cfg, params, A, noise)
     log("[actor] " + json.dumps(stats))
-    q_err = check_actor_step_against_plain(torch, np, cfg, params, A, stack,
-                                           staged, actions)
-    log(f"[actor] one step on 32 envs matches the plain path on the CPU "
-        f"(max |q diff| {q_err:.3g})")
-    del rep
     torch.cuda.empty_cache()
-    # The other configurations' update and act against the plain path.
-    for label, c in presets.items():
-        check_preset_against_plain(torch, np, label, c, A)
-    for label, c in cells:
-        if isinstance(dqn.torso_of(c.architecture), dqn.ImpalaResNet):
-            check_nhwc_cell_update(torch, label, c, A)
-            torch.cuda.empty_cache()
 
     # 5. evaluate ------------------------------------------------------------
     ecfg = cfg.replace(max_episode_length=EVAL_FRAMES,
@@ -4697,7 +3028,7 @@ def main() -> int:
         torch, np, A, presets,
         preset_stats["data-efficient"]["kc_last_k_by_n"][
             presets["data-efficient"].num_envs])
-    rows = kernel_rows(torch, np, cfg, A, errs, {
+    rows = kernel_rows(torch, np, cfg, A, {
         "actor": stats["launches"], "evaluate": eval_counts,
         "train": train_counts, "trainer": trainer_counts,
         "sequential": seq_counts, "side": side_counts,

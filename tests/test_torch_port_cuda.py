@@ -1,48 +1,65 @@
-"""The port's kernels on the card against their plain versions, at small
-and ragged shapes (the noisy-linear kernels also at the main path's).
-These need an NVIDIA GPU and nvcc (every kernel is CUDA C++); without a
-card every test here skips. On the card, from the repository root
-(--noconftest: tests/conftest.py sets up JAX, which the port does not need):
+"""Correctness on the card: every kernel of the port, and every path that
+runs them, against its plain PyTorch version. These need an NVIDIA GPU and
+nvcc (every kernel is CUDA C++); without a card every test here skips. On
+the card, from the repository root (--noconftest: tests/conftest.py sets up
+JAX, which the port does not need):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
-Tolerances as in chip_smoke.py: float32 sums in other orders agree to 1e-4;
-bf16 differs by a few bf16 ulps of O(1) values, and the noisy-linear
-kernels, which add their split partial sums in a fixed order, give the same
-bits on a second launch, float32 and bf16 alike; a bf16 call launches only
-their tensor-core kernels (read from a captured graph's kernel nodes); the
-float32 backward's large path is held to the plain version in float64 at
-the cells' and presets' batches, ragged and through unaligned views, and
-only its calls count as noisy_linear_bwd_large launches; the head combines in the
-streams' dtype on both sides and its float32 softmax agrees to 1e-5;
-integer work is bit-exact: the append + frame-stack kernel (KC) at
-N = 1 to 1024, no, bucketed and dense reset rows, H = 4 (vector path) and
-3, in one launch an append. The noise kernel (K2) computes Box-Muller in
-float32, its plain version in float64 with one rounding: they agree to
-1e-5 with the same signs, on the draws and on chosen words;
-the delta kernel (K10) is bit-exact, in one kernel node. The replay's sampler (K5) is
-bit-exact, on ties and on trees of depth 5 to 22, in at most two launches
-and with no allocation but its outputs; its
-gather (K6), one kernel node a call, copies frames, actions and
-nonterminals exactly and its returns and IS weights agree to 1e-6
-relative, at windows of 7 and 24; its write-back (K7) writes the last
-of consecutive draws of a leaf, exactly, at B = 1 to 8192, with runs
-across its blocks' edges, and makes max_priority NaN on a NaN loss as
-torch.maximum does, in one kernel node. Adam's kernel does the plain version's float32
-ops in the same order except the global norm's sum, so params agree to
-1e-7 after three steps (3·lr·2^-7 with a bf16 mu, where a rounding that
-falls the other way moves an update by 2^-7 of lr), and two runs give the
-same bits, on small ragged tensors and on the canonical and data-efficient
-nets, each tensor of its own or every kind as views of one flat buffer;
-it is two kernel nodes, and its C entry refuses a plan that disagrees;
-over the IMPALA ResNet x4 net's 46 tensors it is one call, and on the
+chip_smoke.py runs this module as its second phase. The main path's calls
+are cases here, derived in tests/card_cases.py from the configurations
+chip_smoke.py's Trainers run (the canonical preset at 1,024 envs and
+PRESET_RUNS) and from each cell of BENCHMARK.json as cli.main builds it
+(bench_cells): KA's forward and backward at every batch and noise mode
+their nets call it with (noisy_layer_batches), K9 over each net, KB, the
+C51 kernels and K2 at each configuration's batches and draws, one learner
+update and one act of each; a new cell's shapes are cases without an edit.
+Small, ragged and edge shapes sit beside them.
+
+Tolerances: float32 sums in other orders agree to 1e-4; bf16 differs by a
+few bf16 ulps of O(1) values (the plain versions round after every op, the
+kernels once, and cuBLAS's bf16 products here sum in float32 and round
+once); the noisy-linear kernels, which add their split partial sums in a
+fixed order, give the same bits on a second launch, float32 and bf16
+alike; a bf16 call launches only their tensor-core kernels (read from a
+captured graph's kernel nodes); the float32 backward's large path is held
+to the plain version in float64 at the cells' and presets' batches, ragged
+and through unaligned views, and only its calls count as
+noisy_linear_bwd_large launches; the head combines in the streams' dtype
+on both sides, its float32 softmax's probabilities agree to 1e-6 and its
+log-probabilities and q to 1e-5; integer work is bit-exact: the append +
+frame-stack kernel (KC) at N = 1 to 1024, no, bucketed and dense reset
+rows, H = 4 (vector path) and 3, in one launch an append. The noise kernel
+(K2) computes Box-Muller in float32, its plain version in float64 with one
+rounding: they agree to 1e-5 with the same signs, on the draws and on
+chosen words, and a round's 71 M target draws have the noise's moments;
+the delta kernel (K10) is bit-exact, on real pong deltas too, in one kernel
+node. The replay's sampler (K5) is bit-exact, on ties and on trees of depth
+0 to 22, in the launches its plan counts (at most two) and with no
+allocation but its outputs; its gather (K6), one kernel node a call,
+copies frames, actions and nonterminals exactly and its returns and IS
+weights agree to 1e-6 relative, at windows of 7 and 24, on the canonical
+7 GB ring too; its write-back (K7) writes the last of consecutive draws of
+a leaf, exactly, at B = 1 to 8192, with runs across its blocks' edges, and
+makes max_priority NaN on a NaN loss as torch.maximum does, in one kernel
+node; a second launch of each gives the same bits. Adam's kernel does the
+plain version's float32 ops in the same order except the global norm's
+sum, so params agree to 1e-7 after three steps (3·lr·2^-7 with a bf16 mu,
+where a rounding that falls the other way moves an update by 2^-7 of lr),
+and two runs give the same bits, on small ragged tensors and on each net,
+each tensor of its own or every kind as views of one flat buffer; it is
+two kernel nodes, and its C entry refuses a plan that disagrees; on the
 canonical net it gives the digests read before its table grew from 32
-entries to 64. KA runs the IMPALA cell's bf16 calls at n_in 15,488 within
-the bf16 tolerances, and one learner update of its net in bf16, like one of
+entries to 64. One learner update of each full-size configuration and of
+each benchmark cell at its batch on the card against the plain path on the
+CPU within PLAIN_TOL of its compute dtype, in the launches one update
+needs, and a KA backward that drops input chunks fails that check; one
+actor step of each on live pong states, in one launch of KA a layer and
+one of KB and KC; a learner update of the IMPALA cell's net, like one of
 the float32 Nature net, launches no NCHW <-> NHWC conversion and no NCHW
 max pool. After a learner round, params agree to lr/100. The distributed
-round at world size 1 over NCCL gives learner_round's bits, with cuDNN held
-to its deterministic algorithms.
+round at world size 1 over NCCL gives learner_round's bits, with cuDNN
+held to its deterministic algorithms.
 """
 import ctypes
 import dataclasses
@@ -52,6 +69,7 @@ import numpy as np
 import pytest
 import torch
 
+import card_cases
 import rainbow_tpu_torch
 from rainbow_tpu_torch import agent as ag
 from rainbow_tpu_torch.envs.fake import FakeAtariEnv
@@ -64,6 +82,7 @@ from rainbow_tpu_torch.kernels import replay as k_replay
 from rainbow_tpu_torch.kernels.noisy_linear import (bwd_plan, fwd_plan,
                                                     noisy_linear_bwd,
                                                     noisy_linear_fwd)
+from rainbow_tpu_torch.models import dqn
 from rainbow_tpu_torch.models.dqn import draw_noise, init_dqn_params
 from rainbow_tpu_torch.kernels.delta import apply_delta
 from rainbow_tpu_torch.kernels.noise import box_muller, scaled_noise
@@ -83,6 +102,15 @@ from rainbow_tpu_torch.train import actor_step_packed, pack_resets, stage_step
 
 pytestmark = pytest.mark.cuda
 
+# The configurations whose calls the tests below take as cases
+# (card_cases): the canonical preset at 1,024 envs and chip_smoke.py's
+# PRESET_RUNS (each checked in float32 and bf16 where a test takes both),
+# and BENCHMARK.json's cells as cli.main builds them (in their own dtype),
+# with pong's 6 actions.
+N_ACT = card_cases.PONG_ACTIONS
+CONFIGS = card_cases.configs()
+CELLS = card_cases.bench_cells()
+
 
 @pytest.fixture
 def cuda():
@@ -90,6 +118,11 @@ def cuda():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The plain versions' bf16 products sum in float32 and round once, as
+    # KA's do: cuBLAS's split-K otherwise rounds each partial sum to bf16,
+    # which at 1,024 and 2,048 rows over fc_z_a's 306 x 512 took the plain
+    # backward's dw_mu 0.82 from the float64 sum, where KA's is within 0.50.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -118,19 +151,54 @@ def _noisy_case(cuda, seed, shape, mode, dt):
     return prm, x, gy, eps
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["mu", "shared", "row"])
-@pytest.mark.parametrize("shape", NOISY_SHAPES, ids=str)
+MODES, DTYPES = ("mu", "shared", "row"), ("float32", "bfloat16")
+
+
+def _ka_cases(fwd, edges):
+    """KA's cases as (shape, mode, dtype), each once: NOISY_SHAPES in every
+    mode and both dtypes; ``edges`` (shape, modes) in both dtypes; each
+    configuration's layers at every batch and noise mode it calls KA with
+    (card_cases.ka_calls: forward, the act over its envs, the evaluation's
+    10 and 250 rows, the learner's batch and the round's target rows;
+    backward, the learner's batch), in both dtypes for CONFIGS and in its
+    own for each benchmark cell."""
+    out = []
+    for case in ([(s, m, d) for s in NOISY_SHAPES for m in MODES
+                  for d in DTYPES]
+                 + [(s, m, d) for s, modes in edges for m in modes
+                    for d in DTYPES]
+                 + card_cases.ka_calls(CONFIGS, CELLS, fwd)):
+        if case not in out:
+            out.append(case)
+    return out
+
+
+def _ka_ids(ka):
+    return [f"{s}-{m}-{d}" for s, m, d in ka]
+
+
+# Beyond the configurations' calls: one row and an actor's batch of per-row
+# noise over a layer ragged against every tile edge (scalar loads).
+KA_FWD_CASES = _ka_cases(True, [((1, 3136, 512), MODES),
+                                ((1024, 3137, 513), ("row",))])
+KA_BWD_CASES = _ka_cases(False, [((1, 3136, 512), MODES)])
+
+
+@pytest.mark.parametrize("shape,mode,dtype", KA_FWD_CASES,
+                         ids=_ka_ids(KA_FWD_CASES))
 def test_noisy_linear_kernel_matches_plain(cuda, shape, mode, dtype):
+    """KA's forward against noisy_linear_plain, with and without the ReLU;
+    a second launch gives the same bits."""
     dt = getattr(torch, dtype)
     prm, x, _, eps = _noisy_case(cuda, 0, shape, mode, dt)
     tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
     for relu in (False, True):
         got = noisy_linear_fwd(prm, x, eps, relu)
         want = noisy_linear_plain(prm, x, eps, relu)
-        assert got.dtype == dt
+        assert got.dtype == dt and got.shape == (shape[0], shape[2])
         torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
                                    rtol=tol[1])
+        assert torch.equal(noisy_linear_fwd(prm, x, eps, relu), got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -167,16 +235,40 @@ def _head_streams(g, b, n_act, atoms, dt):
     return v, a
 
 
+def _head_batches():
+    """KB's batches in each configuration and cell, {B: its modes}: the act
+    over its envs and the evaluation's 10 and 250 rows in every mode, the
+    learner's double-Q selection without a distribution, the round's
+    target rows with probabilities."""
+    out = {}
+    for _, c in CONFIGS + CELLS:
+        rows = c.num_envs // c.replay_frequency * c.batch_size
+        every = (None, "probs", "log")
+        for b, dists in ((c.num_envs, every), (10, every), (250, every),
+                         (c.batch_size, (None,)), (rows, ("probs",))):
+            have = out.get(b, ())
+            out[b] = have + tuple(d for d in dists if d not in have)
+    return out
+
+
+HEAD_BATCHES = _head_batches()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dist", [None, "probs", "log"])
 def test_dueling_head_kernel_matches_plain(cuda, dist, dtype):
-    """KB against its plain version at HEAD_SHAPES and at the round's
-    8192-row target with probabilities; a second launch gives the same bits,
-    and in a row whose best q is tied the first of the tied actions wins."""
+    """KB against its plain version at HEAD_SHAPES, at the round's 8192-row
+    target with probabilities and at each of HEAD_BATCHES in its modes with
+    pong's and the full action set, 51 atoms; a second launch gives the
+    same bits, and in a row whose best q is tied the first of the tied
+    actions wins. Probabilities below 1 agree to 1e-6, log-probabilities
+    and q of order 10 to 1e-5."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(1)
     shapes = HEAD_SHAPES + ([(8192, 6, 51)] if dist == "probs" else [])
-    for b, n_act, atoms in shapes:
+    shapes += [(b, n_act, 51) for b, dists in HEAD_BATCHES.items()
+               if dist in dists for n_act in (N_ACT, 18)]
+    for b, n_act, atoms in dict.fromkeys(shapes):
         z = support_vector(-10.0, 10.0, atoms, cuda)
         v, a = _head_streams(g, b, n_act, atoms, dt)
         # Row 0: actions 1 and 2 lean to the high atoms alike, the others
@@ -192,8 +284,8 @@ def test_dueling_head_kernel_matches_plain(cuda, dist, dtype):
         torch.testing.assert_close(got[3], want.max_q, atol=1e-5, rtol=0,
                                    msg=tag)
         if dist:
-            torch.testing.assert_close(got[0], want.dist, atol=1e-5, rtol=0,
-                                       msg=tag)
+            torch.testing.assert_close(got[0], want.dist, rtol=0, msg=tag,
+                                       atol=1e-6 if dist == "probs" else 1e-5)
         else:
             assert got[0] is None
         top2 = want.q.topk(2, dim=1).values
@@ -224,7 +316,7 @@ def _kc_step(rng, n, k_mode):
 
 @pytest.mark.parametrize("with_rep", [True, False], ids=["replay", "stack"])
 @pytest.mark.parametrize("k_mode", ["none", "bucket", "dense"])
-@pytest.mark.parametrize("n", [1, 10, 40, 1024])
+@pytest.mark.parametrize("n", [1, 10, 16, 40, 1024])
 @pytest.mark.parametrize("history", [4, 3])
 def test_append_framestack_kernel_matches_plain(cuda, history, n, k_mode,
                                                 with_rep):
@@ -367,9 +459,83 @@ def test_append_framestack_refuses_misaligned_vector_inputs(cuda, arg,
     assert launches()["append_framestack"] == 0
 
 
-def test_actor_steps_on_card_match_cpu(cuda):
+def _live_pong_state(cfg, params, envs, iters=6):
+    """A live acting state of ``cfg``'s net on the card: ``envs`` pong envs
+    of the native engine stepped ``iters`` times by actor_step_packed with
+    a 16-column ring (resets come from the first step: the engine's no-op
+    starts). Returns (stack, the last step's staged inputs, the actions
+    after it)."""
+    env = ttrain.make_env_factory(cfg)(num_envs=envs, training=True)
+    try:
+        assert env.action_space == N_ACT
+        stack = pp.init_framestack(envs, cfg.history_length, env.reset_all(),
+                                   "cuda")
+        rep = rp.init_replay(envs, 16, cfg.frame_size, "cuda")
+        noise = NoiseStream(11)
+        actions = ag.act(params, cfg, N_ACT, pp.to_network_input(stack),
+                         noise)
+        for _ in range(iters):
+            staged = stage_step(env.step(actions.cpu().numpy()), "cuda")
+            actions = actor_step_packed(params, noise, cfg, N_ACT, stack, rep,
+                                        actions, *staged)
+    finally:
+        env.close()
+    return stack, staged, actions
+
+
+def _check_pong_actor_step(cfg):
+    """One actor iteration of ``cfg``'s net on a live pong state of
+    min(32, envs) envs, through the kernels on the card and through the
+    plain versions on the CPU, with the same injected per-env noise: stack
+    and replay bit-exact, q within PLAIN_TOL of the compute dtype, actions
+    equal wherever the top-2 gap of q is clear of that tolerance; the
+    card's iteration launches KA once a layer, KB and KC once, the CPU's
+    nothing."""
+    from rainbow_tpu_torch.models.dqn import forward_head
+
+    n = min(32, cfg.num_envs)
+    params = init_dqn_params(cfg, N_ACT, 12, "cuda")
+    stack, staged, actions = _live_pong_state(cfg, params, n)
+    noise = draw_noise(cfg, N_ACT, NoiseStream(5), (n,), "cpu")
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        st = stack.to(dev, copy=True)
+        rep = rp.init_replay(n, 4, 84, dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        ne = {k: (a.to(dev), b.to(dev)) for k, (a, b) in noise.items()}
+        reset_launches()
+        act = actor_step_packed(p, None, cfg, N_ACT, st, rep, actions.to(dev),
+                                *(t.to(dev) for t in staged), noise_eps=ne)
+        counts[dev] = launches()
+        q = forward_head(p, cfg, N_ACT, pp.to_network_input(st),
+                         noise_eps=ne).q
+        out[dev] = (act.cpu(), st.cpu(), rep, q.cpu().float())
+    assert counts["cuda"] == dict(dict.fromkeys(LAUNCHES, 0),
+                                  noisy_linear_fwd=4, dueling_head=1,
+                                  append_framestack=1)
+    assert counts["cpu"] == dict.fromkeys(LAUNCHES, 0)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert _same(out["cuda"][2], out["cpu"][2])
+    tol = PLAIN_TOL[cfg.compute_dtype]
+    q = out["cpu"][3]
+    torch.testing.assert_close(out["cuda"][3], q, atol=tol["q"][0],
+                               rtol=tol["q"][1])
+    top2 = q.topk(2, dim=1).values
+    atol, rtol = tol["gap"]
+    clear = top2[:, 0] - top2[:, 1] > atol + rtol * top2[:, 0].abs()
+    assert torch.equal(out["cuda"][0][clear], out["cpu"][0][clear])
+
+
+@pytest.mark.parametrize("case", ["fake"] + [f"pong-{label}"
+                                            for label, _ in CONFIGS + CELLS])
+def test_actor_steps_on_card_match_cpu(cuda, case):
     """Five actor iterations on the fake env through the kernels and through
-    the plain versions, with the same injected noise."""
+    the plain versions, with the same injected noise; and (pong-*) one
+    actor step of each full-size configuration and each benchmark cell on
+    live pong states (_check_pong_actor_step)."""
+    if case != "fake":
+        _check_pong_actor_step(dict(CONFIGS + CELLS)[case[len("pong-"):]])
+        return
     cfg = rainbow_tpu_torch.data_efficient(hidden_size=32)
     n, a_space = 8, 4
     params = init_dqn_params(cfg, a_space, 0, "cpu")
@@ -401,10 +567,12 @@ def test_actor_steps_on_card_match_cpu(cuda):
     assert agree >= 4  # a near-tie may flip one step's argmax
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["mu", "shared", "row"])
-@pytest.mark.parametrize("shape", NOISY_SHAPES, ids=str)
+@pytest.mark.parametrize("shape,mode,dtype", KA_BWD_CASES,
+                         ids=_ka_ids(KA_BWD_CASES))
 def test_noisy_linear_bwd_kernel_matches_plain(cuda, shape, mode, dtype):
+    """KA's backward against noisy_linear_bwd_plain (dx and the four
+    param gradients), with and without the ReLU's mask; a second launch
+    gives the same bits."""
     dt = getattr(torch, dtype)
     prm, x, gy, eps = _noisy_case(cuda, 3, shape, mode, dt)
     tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
@@ -417,37 +585,8 @@ def test_noisy_linear_bwd_kernel_matches_plain(cuda, shape, mode, dtype):
         for a, c in zip(got, want):
             torch.testing.assert_close(a.float(), c.float(), atol=tol[0],
                                        rtol=tol[1])
-
-
-# The impala-x4-bf16-b1024 cell's calls of KA at fc_h (15,488 -> 512), in
-# bf16, as (rows, noise): the learner's online and double-Q forwards and
-# its backward, the actor, the round's target forward, the validation
-# chunks.
-IMPALA_CALLS = [(1024, "shared"), (1024, "row"), (8192, "row"), (250, "mu")]
-
-
-@pytest.mark.parametrize("rows,mode", IMPALA_CALLS, ids=str)
-def test_noisy_linear_at_the_impala_cells_shapes(cuda, rows, mode):
-    """KA's bf16 forward (and, at the learner's 1,024 rows with shared
-    noise, its backward) at n_in 15,488 through the existing plans, against
-    the plain versions at the other bf16 tests' tolerances."""
-    dt = torch.bfloat16
-    prm, x, gy, eps = _noisy_case(cuda, 5, (rows, 15488, 512), mode, dt)
-    for relu in (False, True):
-        got = noisy_linear_fwd(prm, x, eps, relu)
-        want = noisy_linear_plain(prm, x, eps, relu)
-        assert got.dtype == dt
-        torch.testing.assert_close(got.float(), want.float(), atol=6e-2,
-                                   rtol=3e-2)
-    if (rows, mode) != (1024, "shared"):
-        return
-    w = (prm["weight_mu"], prm["weight_sigma"])
-    y = noisy_linear_fwd(prm, x, eps, True)
-    got = noisy_linear_bwd(*w, x, gy, eps, y)
-    want = noisy_linear_bwd_plain(*w, x, gy, eps, y)
-    for a, c in zip(got, want):
-        torch.testing.assert_close(a.float(), c.float(), atol=6e-2,
-                                   rtol=3e-2)
+        again = noisy_linear_bwd(*w, x, gy, eps, y)
+        assert all(torch.equal(a, c) for a, c in zip(again, got))
 
 
 @pytest.mark.parametrize("shape", [(10, 3136, 512), (32, 3136, 512),
@@ -599,9 +738,28 @@ def test_noisy_linear_bwd_paths_kernels_and_launch_counts(cuda, shape):
                 mode, dt, name)
 
 
-def test_c51_target_kernel_matches_plain(cuda):
+def _c51_learners():
+    """The C51 kernels' learner shapes, {id: (B, γⁿ)}: a ragged batch, then
+    each configuration's and cell's batch with its discount over n steps."""
+    out = {"b37-n3": (37, 0.99 ** 3)}
+    for _, c in CONFIGS + CELLS:
+        key = (c.batch_size, c.discount ** c.multi_step)
+        if key not in out.values():
+            out[f"b{c.batch_size}-n{c.multi_step}"] = key
+    return out
+
+
+C51_LEARNERS = _c51_learners()
+
+
+@pytest.mark.parametrize("learner", list(C51_LEARNERS))
+def test_c51_target_kernel_matches_plain(cuda, learner):
+    """The projection at each of C51_LEARNERS with pong's 6 actions: within
+    1e-5 of the plain version, rows summing to 1, a second launch (int32
+    a*) with the same bits, and terminal rows whose return sits exactly on
+    an atom putting their whole mass there."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    b, n_act = 37, 6
+    (b, gamma_n), n_act = C51_LEARNERS[learner], 6
     z = support_vector(-10.0, 10.0, 51, cuda)
     pns = torch.softmax(torch.randn((b, n_act, 51), generator=g,
                                     device=cuda) * 2, dim=2)
@@ -611,8 +769,8 @@ def test_c51_target_kernel_matches_plain(cuda):
     # Integer b: terminal rows whose return sits exactly on an atom.
     ret[:3] = torch.tensor([-10.0, 0.0, 10.0], device=cuda)
     nt[:3] = 0.0
-    got = k4.c51_target(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0, 10.0)
-    want = oc51.c51_target_plain(pns, a_star, ret, nt, 0.99 ** 3, z, -10.0,
+    got = k4.c51_target(pns, a_star, ret, nt, gamma_n, z, -10.0, 10.0)
+    want = oc51.c51_target_plain(pns, a_star, ret, nt, gamma_n, z, -10.0,
                                  10.0)
     # b reaches 50, where a float32 ulp is 3.8e-6, and the kernel divides
     # by Δz where PyTorch multiplies by its reciprocal.
@@ -621,35 +779,54 @@ def test_c51_target_kernel_matches_plain(cuda):
                                atol=1e-5, rtol=0)
     # Each row sums its source atoms in order: a second launch, with an
     # int32 a*, gives the same bits.
-    again = k4.c51_target(pns, a_star.int(), ret, nt, 0.99 ** 3, z, -10.0,
+    again = k4.c51_target(pns, a_star.int(), ret, nt, gamma_n, z, -10.0,
                           10.0)
     assert torch.equal(again, got)
+    # Integer b: the whole mass (Σp = 1 to float32 rounding) on one atom.
+    for m in (got, want):
+        for row, atom in ((0, 0), (1, 25), (2, 50)):
+            rest = torch.cat((m[row, :atom], m[row, atom + 1:]))
+            assert abs(float(m[row, atom]) - 1.0) < 1e-5, (row, atom)
+            assert not bool(rest.any()), (row, atom)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_c51_loss_kernel_matches_plain(cuda, dtype):
     """The loss kernel against its plain version: B = 37, A = 6, 51 atoms
-    (two passes of the block's 32 warps), then HEAD_SHAPES; a second launch
-    gives the same bits. Losses of order 4 agree to 1e-5 and gradients of
-    order w/B to 1e-6. With bf16 streams, at HEAD_SHAPES' million-odd
-    gradient values a rounding to bf16 can fall the other way where the
-    float32 g differs in its last bit (Σm is summed in another order), so
-    there dv and da may also differ by one bf16 ulp (2^-7 relative), as in
-    chip_smoke.py."""
+    (two passes of the block's 32 warps), then HEAD_SHAPES with random
+    target distributions, then each of C51_LEARNERS with pong's 6 actions
+    on the plain projection of a target; a second launch gives the same
+    bits. Losses of order 4 agree to 1e-5 and gradients of order w/B to
+    1e-6. With bf16 streams, at HEAD_SHAPES' million-odd gradient values a
+    rounding to bf16 can fall the other way where the float32 g differs in
+    its last bit (Σm is summed in another order), so there dv and da may
+    also differ by one bf16 ulp (2^-7 relative)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(5)
-    for i, (b, n_act, atoms) in enumerate([(37, 6, 51)] + HEAD_SHAPES):
+    cases = [(37, 6, 51, None)] + [(*s, None) for s in HEAD_SHAPES] + [
+        (b, 6, 51, gamma_n) for b, gamma_n in C51_LEARNERS.values()]
+    for i, (b, n_act, atoms, gamma_n) in enumerate(cases):
         v, a = _head_streams(g, b, n_act, atoms, dt)
         actions = torch.randint(0, n_act, (b,), generator=g, device=cuda)
         if i % 2:
             actions = actions.int()
-        m = torch.softmax(torch.randn((b, atoms), generator=g, device=cuda),
-                          dim=1)
+        if gamma_n is None:
+            m = torch.softmax(torch.randn((b, atoms), generator=g,
+                                          device=cuda), dim=1)
+        else:
+            pns = torch.softmax(torch.randn((b, n_act, atoms), generator=g,
+                                            device=cuda) * 2, dim=2)
+            ret = torch.rand((b,), generator=g, device=cuda) * 24 - 12
+            nt = (torch.rand((b,), generator=g, device=cuda) > 0.3).float()
+            m = oc51.c51_target_plain(
+                pns, actions, ret, nt, gamma_n,
+                support_vector(-10.0, 10.0, atoms, cuda), -10.0, 10.0)
         w = torch.rand((b,), generator=g, device=cuda)
         got = k4.head_loss(v, a, actions, m, w)
         want = oc51.head_loss_plain(v, a, actions, m, w)
         rtol = 2 ** -7 if dt == torch.bfloat16 and i else 0.0
-        tag = f"B={b} A={n_act} atoms={atoms}"
+        tag = f"B={b} A={n_act} atoms={atoms} gamma^n={gamma_n}"
+        assert got[2].dtype == got[3].dtype == dt, tag
         for x, y, atol, r in zip(got, want, (1e-5, 1e-5, 1e-6, 1e-6),
                                  (0, 0, rtol, rtol)):
             assert x.dtype == y.dtype and x.shape == y.shape, tag
@@ -664,9 +841,9 @@ def test_c51_kernels_at_the_throughput_batch(cuda, dtype):
     """The throughput preset's learner batch, B = 256 with A = 6 and 51
     atoms: the loss's cluster of 8 blocks loops over 8 passes of 32 rows
     with a cluster barrier between them, and the target runs 256 warps.
-    Against the plain versions with chip_smoke.py's tolerances (the target
-    in float32, as the learner calls it; the loss with fp32 and bf16
-    streams), and a second launch of either gives the same bits."""
+    Against the plain versions with the tolerances above (the target in
+    float32, as the learner calls it; the loss with fp32 and bf16 streams),
+    and a second launch of either gives the same bits."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(8)
     b, n_act = 256, 6
@@ -695,26 +872,9 @@ def test_c51_kernels_at_the_throughput_batch(cuda, dtype):
         assert torch.equal(x, y)
 
 
-# K9's tensor lists: ragged small shapes, and the canonical, the
-# data-efficient and the IMPALA ResNet x4 nets' params (pong's 6 actions;
-# the last is 46 tensors in one call).
-ADAM_SHAPES = {
-    "small": [(70, 301), (70,), (5000,), (3, 4, 5), (1,), (9000,)],
-    "canonical": None, "data_efficient": None, "impala": None}
-
-
-def _adam_shapes(name):
-    if ADAM_SHAPES[name] is not None:
-        return ADAM_SHAPES[name]
-    from rainbow_tpu_torch import canonical
-    from rainbow_tpu_torch.cli import parse_config
-    from rainbow_tpu_torch.models import dqn
-    cfg = (canonical(game="pong", num_envs=1024, seed=0)
-           if name == "canonical"
-           else canonical(game="pong", architecture="impala-x4")
-           if name == "impala"
-           else parse_config(["--preset", "data-efficient"])[0])
-    return [tuple(s) for s in dqn.param_shapes(cfg, 6).values()]
+# K9's tensor lists: ragged small shapes, then each configuration's and
+# cell's net (card_cases.adam_nets).
+ADAM_SHAPES = card_cases.adam_nets(CONFIGS, CELLS)
 
 
 def _adam_tensors(shapes, layout, dtype, dev, fill=None):
@@ -742,11 +902,10 @@ def _adam_tensors(shapes, layout, dtype, dev, fill=None):
 @pytest.mark.parametrize("clip", ["below", "above"])
 def test_clip_adam_kernel_matches_plain(cuda, clip, mu_dtype, shapes,
                                         layout):
-    # The nets' params at their scale, as chip_smoke.py's compare_adam draws
-    # them: a rounding of the update that the norm's sum order flips moves
-    # a param by one ulp, below 1e-7 there.
+    # The nets' params at their scale: a rounding of the update that the
+    # norm's sum order flips moves a param by one ulp, below 1e-7 there.
     p_scale = 1.0 if shapes == "small" else 0.05
-    shapes = _adam_shapes(shapes)
+    shapes = ADAM_SHAPES[shapes]
     g = torch.Generator(device=cuda).manual_seed(6)
     scale = 1e-3 if clip == "below" else 1.0
     mdt = getattr(torch, mu_dtype)
@@ -810,14 +969,8 @@ K9_CANONICAL_DIGESTS = {
 
 @pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
 def test_clip_adam_canonical_call_keeps_its_bits(cuda, mu_dtype):
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke_k9", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     mu = None if mu_dtype == "float32" else torch.bfloat16
-    assert smoke.adam_digests(torch, _adam_shapes("canonical"), mu) == \
+    assert card_cases.adam_digests(torch, ADAM_SHAPES["canonical"], mu) == \
         K9_CANONICAL_DIGESTS[mu_dtype]
 
 
@@ -890,10 +1043,197 @@ def test_clip_adam_launches_two_kernels_and_checks_its_plan(cuda):
     assert int(count) == 5 and int(ticket) == 0
 
 
-def test_learner_round_on_card_matches_cpu(cuda):
+# The plain-path checks' tolerances by compute dtype: losses (atol, rtol),
+# gradients, params after one Adam step, q at the act (atol, rtol), and the
+# top-2 gap of q beyond which an action must agree (atol, rtol of the top
+# q; in bfloat16 twice q's tolerance: two values each within it of the
+# plain ones can swap order only inside it).
+# float32: sums of up to 3136 terms in other orders; each gradient tensor
+# to 1e-4 of its largest value plus 1e-3 relative, each param to lr/100.
+# bfloat16: losses and q to the kernels' bound (6e-2, 3e-2): the plain
+# versions round after every op, cuDNN and the kernels once. A gradient
+# does not hold elementwise to a share of its tensor's largest value (bf16
+# moves single elements of a sum of products that cancel by far more than
+# the sum's rounding), so each tensor of the card's bf16 gradient is held
+# to the plain path's bf16 gradient on the CPU in norm, as a share of the
+# plain gradient's norm (``("norm", {prefix: bound})``), with a bound for
+# each kind of tensor from its own readings on the card at
+# BF16_UPDATE_SEEDS (PERF.md §6). cuDNN's bf16 convolutions round at other
+# points than the CPU's, so the features differ in their last bits, ReLU
+# masks flip near zero and the head's p - m cancels: the convolutions'
+# gradients read up to 0.130, fc_h_*'s (KA bwd over those features) up to
+# 0.139, the head's fc_z_* (K4's gradient, then KA bwd) up to 0.062. A KA
+# backward that drops one input chunk (the control) moves fc_h_*'s weight
+# gradients by 0.233 or more and fc_z_*'s by 0.636 or more.
+# Adam's first step g/(|g| + eps) turns a gradient near zero into a step
+# of up to lr either way (a bias of 51 elements has moved by 0.33 of its
+# step's norm), so no bound on the params against the plain path's holds
+# below 2·lr; instead the card's params are held to the plain clip + Adam
+# applied on the CPU to the card's own gradients, to lr/100 as in float32
+# (``("refit", 1e-2)``).
+PLAIN_TOL = {
+    "float32": dict(loss=(1e-4, 1e-4), grad=("max", 1e-4, 1e-3),
+                    params=("lr", 1e-2), q=(1e-4, 1e-4), gap=(1e-4, 0.0)),
+    "bfloat16": dict(loss=(6e-2, 3e-2),
+                     grad=("norm", {"convs.": 0.2, "fc_h_": 0.2,
+                                    "fc_z_": 0.1}),
+                     params=("refit", 1e-2), q=(6e-2, 3e-2),
+                     gap=(1.2e-1, 6e-2)),
+}
+# The input features a control's KA backward drops: one of the small
+# path's input chunks (kernels/noisy_linear.py).
+DROPPED_CHUNK = 256
+# The seeds of the bf16 update's check, whose readings PLAIN_TOL's bf16
+# gradient bounds rest on: one seed's update is one draw of bf16 rounding.
+BF16_UPDATE_SEEDS = (16, 116, 216, 316, 416, 516)
+
+
+def grad_errors(tol, got, want):
+    """Each tensor of the card's gradient ``got`` against the plain path's
+    ``want`` under ``tol["grad"]`` (PLAIN_TOL): {key: (err, within)}.
+    "max": err is the largest |got - want| as a share of the tensor's
+    largest |want|, within where every element is within atol (that share)
+    + rtol·|want|; "norm": err is ‖got - want‖ as a share of ‖want‖,
+    within the bound of the key's prefix."""
+    how, *g_tol = tol["grad"]
+    out = {}
+    for k, w in want.items():
+        w = w.float()
+        d = (got[k].float() - w).abs()
+        if how == "max":
+            scale = max(float(w.abs().max()), 1e-30)
+            within = bool((d <= g_tol[0] * scale + g_tol[1] * w.abs()).all())
+            out[k] = (float(d.max()) / scale, within)
+        else:
+            bound, = (v for p, v in g_tol[0].items() if k.startswith(p))
+            err = float(d.norm()) / max(float(w.norm()), 1e-30)
+            out[k] = (err, err <= bound)
+    return out
+
+
+def _check_update_against_plain(cfg, seed, monkeypatch):
+    """One learner update of ``cfg``'s net (compute_update_pretarget +
+    apply_grads) through the kernels on the card and through the plain
+    versions on the CPU, from the same params (from ``seed``), batch,
+    target distribution and shared noise, within PLAIN_TOL of its compute
+    dtype, every param moved by more than the params' tolerance; the card's
+    update launches each kernel as often as one update needs (KA's
+    backward on its large path where bwd_plan says so), the CPU's none.
+    Then a control the gradient check must refuse: the card's update again
+    with KA's backward given x without its first DROPPED_CHUNK input
+    features, as a kernel that dropped one input chunk would compute it;
+    every noisy layer's weight gradients must fail grad_errors."""
+    from rainbow_tpu_torch.kernels import noisy_linear as ka
+    from rainbow_tpu_torch.models.dqn import NOISY_LAYERS, _noisy_dims
+
+    tol = PLAIN_TOL[cfg.compute_dtype]
+    b = cfg.batch_size
+    rng = np.random.default_rng(seed - 1)
+    params = init_dqn_params(cfg, N_ACT, seed, "cpu")
+    u8 = lambda: rng.integers(0, 256, (b, 84, 84, cfg.history_length))
+    batch = {"states": torch.from_numpy(u8().astype(np.float32) / 255),
+             "next_states": torch.from_numpy(u8().astype(np.float32) / 255),
+             "actions": torch.from_numpy(rng.integers(0, N_ACT, b)
+                                         .astype(np.int32)),
+             "returns": torch.from_numpy(rng.uniform(-2, 2, b)
+                                         .astype(np.float32)),
+             "nonterminals": torch.from_numpy((rng.random(b) > 0.2)
+                                              .astype(np.float32)),
+             "weights": torch.from_numpy(rng.uniform(0.2, 1, b)
+                                         .astype(np.float32))}
+    pns = torch.from_numpy(rng.dirichlet(np.ones(cfg.atoms), (b, N_ACT))
+                           .astype(np.float32))
+    noise = draw_noise(cfg, N_ACT, NoiseStream(seed + 1), device="cpu")
+
+    def update(dev, apply=True):
+        p = {k: v.to(dev).clone() for k, v in params.items()}
+        agent = ag.AgentState(
+            params=p, target_params={k: v.clone() for k, v in p.items()},
+            opt_state=ag.init_adam(p, cfg),
+            generator=torch.Generator(device=dev))
+        reset_launches()
+        grads, losses = ag.compute_update_pretarget(
+            agent, cfg, N_ACT, {k: v.to(dev) for k, v in batch.items()},
+            pns.to(dev), {k: (x.to(dev), y.to(dev))
+                          for k, (x, y) in noise.items()})
+        if apply:
+            ag.apply_grads(agent, cfg, grads)
+        return (losses.cpu().float(), {k: v.cpu() for k, v in grads.items()},
+                {k: v.cpu() for k, v in agent.params.items()}, launches())
+
+    out = {dev: update(dev) for dev in ("cuda", "cpu")}
+    dims = _noisy_dims(cfg, N_ACT)
+    dt = getattr(torch, cfg.compute_dtype)
+    large = sum(bwd_plan(b, *dims[n], 1, dt).path == "large"
+                for n in NOISY_LAYERS)
+    assert out["cuda"][3] == dict(
+        dict.fromkeys(LAUNCHES, 0), noisy_linear_fwd=8, dueling_head=1,
+        c51_target=1, head_loss=1, noisy_linear_bwd=4,
+        noisy_linear_bwd_large=large, clip_adam=1)
+    assert out["cpu"][3] == dict.fromkeys(LAUNCHES, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0],
+                               atol=tol["loss"][0], rtol=tol["loss"][1])
+    grads = grad_errors(tol, out["cuda"][1], out["cpu"][1])
+    readings = {k: err for k, (err, _) in grads.items()}
+    assert all(within for _, within in grads.values()), readings
+    how, share = tol["params"]
+    if how == "refit":
+        p = {k: v.clone() for k, v in params.items()}
+        agent = ag.AgentState(params=p, target_params=p,
+                              opt_state=ag.init_adam(p, cfg),
+                              generator=torch.Generator())
+        ag.apply_grads(agent, cfg, out["cuda"][1])
+        out["cpu"] = out["cpu"][:2] + (agent.params, out["cpu"][3])
+    p_tol = cfg.learning_rate * share
+    for k, want in out["cpu"][2].items():
+        torch.testing.assert_close(out["cuda"][2][k], want, atol=p_tol,
+                                   rtol=0, msg=k)
+        assert float((want - params[k]).abs().max()) > p_tol, k
+    real = ka.noisy_linear_bwd
+
+    def dropped(w_mu, w_sig, x, g, eps=None, y=None):
+        x = x.clone()
+        x[:, :DROPPED_CHUNK] = 0
+        return real(w_mu, w_sig, x, g, eps, y)
+
+    with monkeypatch.context() as m:
+        m.setattr(ka, "noisy_linear_bwd", dropped)
+        bad = update("cuda", apply=False)[1]
+    control = grad_errors(tol, bad, out["cpu"][1])
+    for k in (f"{n}.{w}" for n in NOISY_LAYERS
+              for w in ("weight_mu", "weight_sigma")):
+        assert not control[k][1], (k, control[k][0], readings)
+
+
+# One learner update of each full-size configuration, the bf16 one at each
+# of BF16_UPDATE_SEEDS.
+UPDATE_CASES = {
+    f"update-{label}-seed{seed}": (cfg, seed) for label, cfg in CONFIGS
+    for seed in (BF16_UPDATE_SEEDS if cfg.compute_dtype == "bfloat16"
+                 else (16,))}
+# One learner update of each benchmark cell at its batch, on the card alone
+# (_update_on_card): at 1,024 float32 rows the CPU's and cuDNN's sums of
+# the first convolution's gradients over 409,600 terms each differ by more
+# than PLAIN_TOL's 1e-4 of the largest, which holds at the presets' 32 and
+# 256 rows.
+CELL_UPDATES = {f"update-{name}": cfg for name, cfg in CELLS}
+
+
+@pytest.mark.parametrize("case", ["round", *UPDATE_CASES, *CELL_UPDATES])
+def test_learner_round_on_card_matches_cpu(cuda, case, monkeypatch):
     """One learner round through the kernels and through the plain versions
     on the CPU, with the same replay, params and draws; the kernels launch
-    the counts the round needs."""
+    the counts the round needs. And (update-*) one learner update of each
+    full-size configuration against the plain path
+    (_check_update_against_plain), and one of each benchmark cell at its
+    batch on the card, its kernels against their plain versions there
+    (_update_on_card)."""
+    if case in UPDATE_CASES:
+        _check_update_against_plain(*UPDATE_CASES[case], monkeypatch)
+        return
+    if case in CELL_UPDATES:
+        _update_on_card(CELL_UPDATES[case], cuda)
+        return
     cfg = rainbow_tpu_torch.canonical(num_envs=4, memory_capacity=128,
                                       hidden_size=32, batch_size=4)
     n_act, nl = 3, 2
@@ -1029,13 +1369,67 @@ REPLAY_CASES = {
     # throughput round's window of 7 (32 x 256).
     "window_24_nb16": (16, 300, 120, True, 20, 16, 32, 0, False, False),
     "window_7_nb32_bs256": (64, 976, 500, True, 3, 32, 256, 0, False, False),
+    # The data-efficient preset's ring just after a wrap, partly filled and
+    # empty, at its round.
+    "data_efficient_after_wrap": (16, 6250, 0, True, 20, 16, 32, 0, False,
+                                  False),
+    "data_efficient_partial": (16, 6250, 4000, False, 20, 16, 32, 0, False,
+                               False),
+    "data_efficient_empty": (16, 6250, 321, False, 20, 16, 32, 0, True,
+                             False),
+    # The canonical ring (1,024 envs x 976 columns, 7.05 GB of frames, so
+    # frame offsets past 2^32 bytes; depth 20) at the canonical round, the
+    # throughput preset's, a window of 24, empty and just after a wrap.
+    "canonical_round": (1024, 976, 500, True, 3, 256, 32, 3, False, False),
+    "canonical_throughput": (1024, 976, 500, True, 3, 32, 256, 0, False,
+                             False),
+    "canonical_window_24": (1024, 976, 321, True, 20, 256, 32, 0, False,
+                            False),
+    "canonical_empty": (1024, 976, 321, False, 3, 256, 32, 0, True, False),
+    "canonical_after_wrap": (1024, 976, 0, True, 3, 256, 32, 0, False,
+                             False),
 }
+
+
+def _canonical_ring(dev, index, full, n_hot=0, empty=False, seed=20):
+    """The canonical ring (1,024 x 976) drawn on the card by a torch
+    generator, as _card_ring draws its small rings: episode starts
+    (timestep 0) about one step in six, some zero priorities, and ``n_hot``
+    leaves that hold a third of the mass each."""
+    e, c = 1024, 976
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda: torch.rand((e, c), generator=g, device=dev)
+    rep = rp.init_replay(e, c, 84, dev)
+    rep.frames.random_(0, 256, generator=g)
+    rep.actions.random_(0, 6, generator=g)
+    rep.rewards.normal_(generator=g)
+    rep.timesteps.random_(0, 6, generator=g)
+    rep.nonterminal.copy_(rand() > 0.1)
+    pr = -torch.log(rand() * rand())
+    pr[rand() < 0.1] = 0.0
+    hot = torch.randperm(e * c, generator=g, device=dev)[:n_hot]
+    pr.view(-1)[hot] = float(pr.sum()) / 3
+    if empty:
+        pr.zero_()
+    rep.priorities.copy_(pr)
+    rep.index.fill_(index)
+    rep.full.fill_(full)
+    rep.max_priority.fill_(max(float(pr.max()), 1.0))
+    return rep
 
 
 @pytest.mark.parametrize("case", list(REPLAY_CASES))
 def test_replay_kernels_match_plain(cuda, case):
+    """K5, K6 and K7 against their plain versions on the rings of
+    REPLAY_CASES: K5 bit-exact in the launches its plan counts, K6's
+    frames, actions and nonterminals exact and its returns and weights
+    within 1e-6, K7 by check_write_back; a second launch of each gives the
+    same bits."""
     e, c, index, full, n, nb, bs, hot, empty, ties = REPLAY_CASES[case]
-    rep = _card_ring(cuda, e, c, index, full, hot, empty)
+    if e == 1024:
+        rep = _canonical_ring(cuda, index, full, hot, empty)
+    else:
+        rep = _card_ring(cuda, e, c, index, full, hot, empty)
     g = torch.Generator(device=cuda).manual_seed(10)
     u = torch.rand(nb * bs, generator=g, device=cuda)
     if ties:
@@ -1075,6 +1469,18 @@ def test_replay_kernels_match_plain(cuda, case):
     assert launches() == dict(dict.fromkeys(LAUNCHES, 0),
                               stratified_sample=2, gather_window=1,
                               write_priorities=1)
+    again = k_replay.gather_window(rep, idx, p, total, 0.6, nb, bs, 4, n,
+                                   0.99)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    second = dataclasses.replace(rep, priorities=rep.priorities.clone(),
+                                 max_priority=rep.max_priority.clone())
+    k_replay.write_priorities(second, got["idxs"], losses, 0.5)
+    assert same_bits(second.priorities, kern.priorities)
+    assert same_bits(second.max_priority, kern.max_priority)
+    plan = k_replay.tree_plan(e * c)
+    assert plan.launches <= 2
+    assert _graph_kernels(lambda: k_replay.stratified_sample(
+        rep, u, 4, n)) == (plan.launches, plan.launches)
 
 
 def same_bits(a, b):
@@ -1214,34 +1620,67 @@ def test_write_priorities_launches_one_kernel_and_checks_its_plan(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("b", [1, 32, 8192])
-@pytest.mark.parametrize("depth", [20, 21, 22])
-def test_stratified_sample_kernel_on_deep_trees(cuda, depth, b):
-    """K5 on rings of priorities alone (frames of one byte) whose padded
-    leaf count is 2^20 (the canonical ring's), 2^21 and 2^22 (four stored
-    levels): the plain version's bits, twice; two kernels a call, and no
+def _k5_cases():
+    """K5 alone on rings of priorities alone (frames of one byte), as
+    (depth, E, C, write head, history, n-step, B, priorities): trees whose
+    padded leaf count is 2^20 (the canonical ring's), 2^21 and 2^22 (four
+    stored levels), half padded, at B = 1, 32 and 8192, and nearly full at
+    8192; trees of depth 0, 1, 4 and 5 (no stored level) and 7 (one) at
+    other histories and n-steps; ties (ones and u = 0, so that every value
+    (j + 0)·total/B with B the count of unmasked leaves is a left sum
+    exactly) at two draws a segment; an empty canonical ring."""
+    cases = {f"depth_{d}_b{b}": (d, (1 << (d - 1)) // 1000 + 1, 1000, 321, 4,
+                                 3, b, "gamma")
+             for d in (20, 21, 22) for b in (1, 32, 8192)}
+    cases.update({
+        "depth_21_full": (21, 2048, 1000, 500, 4, 3, 8192, "gamma"),
+        "depth_22_full": (22, 4096, 1000, 999, 4, 3, 8192, "gamma"),
+        "depth_0": (0, 1, 1, 0, 4, 3, 4, "gamma"),
+        "depth_1": (1, 1, 2, 0, 1, 0, 5, "gamma"),
+        "depth_4": (4, 2, 8, 3, 4, 1, 32, "gamma"),
+        "depth_5_b1": (5, 3, 9, 4, 2, 1, 1, "gamma"),
+        "depth_7": (7, 5, 20, 7, 4, 3, 32, "gamma"),
+        "ties_seg_2": (10, 64, 16, 8, 4, 3, 288, "ones"),
+        "empty_depth_20": (20, 1024, 976, 500, 4, 3, 8192, "zeros")})
+    return cases
+
+
+K5_CASES = _k5_cases()
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_stratified_sample_kernel_on_deep_trees(cuda, case):
+    """K5 on the rings of K5_CASES: the plain version's bits, twice; the
+    kernels its plan counts (two with a stored level, else one), and no
     allocation but the three outputs."""
-    e = (1 << (depth - 1)) // 1000 + 1
-    rep = rp.init_replay(e, 1000, 1, cuda)
+    depth, e, c, index, history, n, b, prio = K5_CASES[case]
+    rep = rp.init_replay(e, c, 1, cuda)
     g = torch.Generator(device=cuda).manual_seed(depth)
-    pr = -torch.log(torch.rand((e, 1000), generator=g, device=cuda))
-    pr[torch.rand((e, 1000), generator=g, device=cuda) < 0.1] = 0.0
-    rep.priorities.copy_(pr)
-    rep.index.fill_(321)
+    if prio == "gamma":
+        pr = -torch.log(torch.rand((e, c), generator=g, device=cuda))
+        pr[torch.rand((e, c), generator=g, device=cuda) < 0.1] = 0.0
+        rep.priorities.copy_(pr)
+    elif prio == "ones":
+        rep.priorities.fill_(1.0)
+    rep.index.fill_(index)
     rep.full.fill_(True)
-    assert k_replay.tree_plan(e * 1000).depth == depth
-    u = torch.rand(b, generator=g, device=cuda)
-    want = rp.stratified_sample_plain(rep, u, 4, 3)
+    plan = k_replay.tree_plan(e * c)
+    assert plan.depth == depth and plan.launches <= 2
+    u = (torch.zeros(b, device=cuda) if prio == "ones"
+         else torch.rand(b, generator=g, device=cuda))
+    want = rp.stratified_sample_plain(rep, u, history, n)
     for _ in range(2):
-        got = k_replay.stratified_sample(rep, u, 4, 3)
+        got = k_replay.stratified_sample(rep, u, history, n)
         for a, w in zip(got, want):
             assert a.dtype == w.dtype and torch.equal(a, w)
+    if prio == "ones":
+        assert float(want[2]) == e * (c - history - n)
     del got
     assert _graph_kernels(lambda: k_replay.stratified_sample(
-        rep, u, 4, 3)) == (2, 2)
+        rep, u, history, n)) == (plan.launches, plan.launches)
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    out = k_replay.stratified_sample(rep, u, 4, 3)
+    out = k_replay.stratified_sample(rep, u, history, n)
     assert torch.cuda.memory_stats()["allocation.all.allocated"] - before \
         == 3
     del out
@@ -1280,11 +1719,21 @@ def test_kept_buffers_are_per_stream(cuda):
     for out in got:
         for a, w in zip(out, want):
             assert torch.equal(a, w)
-    fresh = torch.cuda.Stream()
-    graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="under CUDA graph capture"):
-        with torch.cuda.graph(graph, stream=fresh):
-            k_replay.stratified_sample(rep, u, 4, 3)
+    # A stream no kernel has run on, made here: PyTorch's pools hand their
+    # streams out in turn, and earlier tests may have run K5 on any of them.
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p()
+    assert drv.cuStreamCreate(ctypes.byref(handle), 1) == 0  # non-blocking
+    try:
+        fresh = torch.cuda.ExternalStream(handle.value)
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="under CUDA graph capture"):
+            with torch.cuda.graph(graph, stream=fresh):
+                k_replay.stratified_sample(rep, u, 4, 3)
+        del graph
+    finally:
+        torch.cuda.synchronize()
+        assert drv.cuStreamDestroy_v2(handle) == 0
 
 
 def test_replay_and_append_kernels_refuse_a_plan_that_disagrees(cuda):
@@ -1341,13 +1790,39 @@ def test_replay_and_append_kernels_refuse_a_plan_that_disagrees(cuda):
     assert launches()["stratified_sample"] == 0
 
 
-@pytest.mark.parametrize("lead", [(), (5,), (33,)])
-def test_noise_kernel_matches_plain(cuda, lead):
-    """K2 against philox_noise_plain on the card and on the CPU: eight
-    ragged tensors (none a multiple of 4 long) in one launch, at an offset
-    and a seed beyond 32 bits; the tensors are 16-byte aligned views of
-    one buffer."""
-    shapes = [lead + (d,) for d in (301, 70, 301, 70, 70, 51, 70, 153)]
+def _noise_cases():
+    """K2's launches, {id: shapes}: eight ragged tensors (none a multiple of
+    4 long) with no, 5 and 33 leading rows; then the draws of each
+    configuration and cell (noise_shapes: models.dqn.draw_noise's eight
+    tensors per leading shape), each once: the act's over its envs, the
+    batched round's (its target rows and one online draw per update, in
+    one launch) and the sequential update's (online and target, shared)."""
+    cases = {f"lead{i}": [lead + (d,) for d in (301, 70, 301, 70, 70, 51,
+                                                 70, 153)]
+             for i, lead in enumerate([(), (5,), (33,)])}
+    for label, c in CONFIGS + CELLS:
+        nb = c.num_envs // c.replay_frequency
+        for name, leads in (("act", [(c.num_envs,)]),
+                            ("round", [(nb * c.batch_size,), (nb,)]),
+                            ("sequential", [(), ()])):
+            shapes = card_cases.noise_shapes(c, N_ACT, leads)
+            if shapes not in cases.values():
+                cases[f"{label}-{name}"] = shapes
+    return cases
+
+
+NOISE_CASES = _noise_cases()
+
+
+@pytest.mark.parametrize("case", list(NOISE_CASES))
+def test_noise_kernel_matches_plain(cuda, case):
+    """K2 against philox_noise_plain on the card (and, for the ragged
+    tensors, on the CPU), at NOISE_CASES' shapes in one launch, at an
+    offset and a seed beyond 32 bits; the tensors are 16-byte aligned
+    views of one buffer. The 71 M target draws of a round of 8,192 rows
+    have |mean| < 1e-3 and |E[eps^2] - sqrt(2/pi)| < 1e-3 (their sampling
+    errors are about 1.1e-4 and 7e-5)."""
+    shapes = NOISE_CASES[case]
     for seed, offset in ((0, 0), (2 ** 40 + 5, 4 * 12345)):
         reset_launches()
         got = scaled_noise(seed, offset, shapes, cuda)
@@ -1356,13 +1831,21 @@ def test_noise_kernel_matches_plain(cuda, lead):
         assert all(t.untyped_storage().data_ptr() == storage
                    and t.data_ptr() % 16 == 0 and t.is_contiguous()
                    for t in got)
-        for want in (philox_noise_plain(seed, offset, shapes, cuda),
-                     philox_noise_plain(seed, offset, shapes)):
+        wants = [philox_noise_plain(seed, offset, shapes, cuda)]
+        if case.startswith("lead"):
+            wants.append(philox_noise_plain(seed, offset, shapes))
+        for want in wants:
             for a, b in zip(got, want):
+                b = b.to(cuda)
                 assert a.dtype == torch.float32 and a.shape == b.shape
-                torch.testing.assert_close(a.cpu(), b.cpu(), atol=1e-5,
-                                           rtol=0)
-                assert torch.equal(torch.sign(a).cpu(), torch.sign(b).cpu())
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+                assert torch.equal(torch.sign(a), torch.sign(b))
+        if shapes[0][0] == 8192:
+            flat = torch.cat([x.reshape(-1) for x in got[:8]]).double()
+            mean, square = float(flat.mean()), float((flat * flat).mean())
+            assert abs(mean) < 1e-3 and abs(square - math.sqrt(2 / math.pi)) \
+                < 1e-3, (mean, square, flat.numel())
+        del got, wants
 
 
 EDGE_A = (0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1)
@@ -1392,8 +1875,61 @@ def test_noise_box_muller_matches_plain_on_chosen_words(cuda):
     assert launches() == before  # not a launch of the main path
 
 
-@pytest.mark.parametrize("h,padded", [(4, False), (4, True), (3, True)])
+def _check_pong_deltas(cuda, steps=6):
+    """K10 on real 1,024-env pong deltas: two engines with one seed step the
+    same random actions, one densely and one with step_delta; each delta
+    (its counts as delta_offsets) goes through K10 against the card's frame
+    stack (advanced by KC with every step's observations and resets, as
+    the engine's mirror of it is) and equals its plain version and the
+    dense engine's observations, bit for bit, unpadded and padded to its
+    bucket. At least one step takes the delta form."""
+    from rainbow_tpu_torch.envs.engine import BatchedEnv
+
+    n = 1024
+    dense, delta = (BatchedEnv("pong", n, 5) for _ in range(2))
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    try:
+        first = dense.reset_all()
+        assert np.array_equal(first, delta.reset_all())
+        stack = pp.init_framestack(n, 4, first, cuda)
+        rng = np.random.default_rng(6)
+        deltas = 0
+        for step in range(steps):
+            acts = rng.integers(0, dense.action_space, n)
+            obs, resets, _, _, kinds = dense.step(acts)
+            counts, dpos, dval, _, _, _, kinds_d = delta.step_delta(acts)
+            assert np.array_equal(kinds, kinds_d), step
+            want = dev(obs)
+            if counts is None:  # the engine's dense fallback
+                assert np.array_equal(dpos, obs), step
+            else:
+                deltas += 1
+                offsets = dev(ttrain.delta_offsets(counts))
+                for pos, val in ((dpos, dval), ttrain.pack_delta(dpos, dval)):
+                    args = (offsets, dev(pos), dev(val))
+                    got = apply_delta(stack, *args)
+                    assert torch.equal(
+                        got, ttrain._apply_delta_plain(stack, *args)), step
+                    assert torch.equal(got, want), step
+            packed, ridx = pack_resets(resets, kinds)
+            append_framestack(stack, want, dev(packed), dev(ridx),
+                              dev(kinds))
+    finally:
+        dense.close()
+        delta.close()
+    assert deltas > 0
+
+
+@pytest.mark.parametrize("h,padded", [(4, False), (4, True), (3, True),
+                                      ("pong", None)])
 def test_delta_kernel_matches_plain(cuda, h, padded):
+    """K10 against its plain version on random deltas over nine envs (one
+    unchanged, one whose whole plane changed), unpadded and padded, at
+    H = 4 and 3, one launch a call; and on real pong deltas
+    (_check_pong_deltas)."""
+    if h == "pong":
+        _check_pong_deltas(cuda)
+        return
     rng = np.random.default_rng(h)
     n = 9
     stack = torch.from_numpy(rng.integers(0, 256, (n, 84, 84, h), np.uint8))
@@ -1442,16 +1978,24 @@ def test_delta_kernel_at_one_and_1024_envs(cuda, n):
         == (1, 1)
 
 
-def test_sequential_learn_step_on_card_matches_cpu(cuda):
+# (the configuration's changes to the canonical preset, the ring's envs,
+# columns and write head): a small net, and the canonical net at its batch.
+SEQUENTIAL_NETS = {
+    "small": (dict(num_envs=4, memory_capacity=128, hidden_size=32,
+                   batch_size=4), (4, 32, 9)),
+    "canonical": ({}, (8, 64, 30))}
+
+
+@pytest.mark.parametrize("net", list(SEQUENTIAL_NETS))
+def test_sequential_learn_step_on_card_matches_cpu(cuda, net):
     """Two sequential learner updates (learn_step: K5, K6, K2, KA, KB, K4,
     K9, K7) on the card and on the CPU from the same state; the noise comes
     from the agents' noise streams, drawn by K2 on the card and by its
-    plain version on the CPU."""
-    cfg = rainbow_tpu_torch.canonical(num_envs=4, memory_capacity=128,
-                                      hidden_size=32, batch_size=4,
-                                      sequential_per=True)
+    plain version on the CPU. Every param moved by more than lr/100."""
+    kw, ring = SEQUENTIAL_NETS[net]
+    cfg = rainbow_tpu_torch.canonical(sequential_per=True, **kw)
     n_act = 6  # _card_ring's actions are below 6
-    base = _card_ring("cpu", 4, 32, 9, True)
+    base = _card_ring("cpu", *ring, True)
     out = {}
     for dev in ("cuda", "cpu"):
         agent = ag.init_agent(cfg, n_act, 0, "cpu")
@@ -1467,15 +2011,18 @@ def test_sequential_learn_step_on_card_matches_cpu(cuda):
         u = torch.Generator().manual_seed(6)
         reset_launches()
         losses = [float(ag.learn_step(agent, rep, cfg, n_act, 0.5,
-                                      {"u": torch.rand(4, generator=u)
+                                      {"u": torch.rand(cfg.batch_size,
+                                                       generator=u)
                                        .to(dev)}))
                   for _ in range(2)]
         out[dev] = (losses, agent, rep, launches())
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     tol = 6.25e-5 / 100
+    params0 = ag.init_agent(cfg, n_act, 0, "cpu").params
     for k, v in out["cpu"][1].params.items():
         torch.testing.assert_close(out["cuda"][1].params[k].cpu(), v,
                                    atol=tol, rtol=0)
+        assert float((v - params0[k]).abs().max()) > tol, k
     torch.testing.assert_close(out["cuda"][2].priorities.cpu(),
                                out["cpu"][2].priorities, atol=1e-4, rtol=1e-4)
     assert out["cuda"][1].noise == out["cpu"][1].noise
@@ -1627,27 +2174,34 @@ LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "max_pool_forward_nchw",
                   "max_pool_backward_nchw")
 
 
-@pytest.mark.parametrize("arch,dtype", [("impala-x4", "bfloat16"),
-                                        ("canonical", "float32")])
-def test_learner_update_launches_no_layout_conversion(cuda, arch, dtype):
-    """One learner update at 1,024 rows as the round runs it (the target
-    forward, the double-Q selection, the loss forward and backward, clip +
-    Adam), on frame-major batches as K6 gathers them, under torch.profiler
-    after a warm-up: no kernel converts between NCHW and NHWC or pools
-    NCHW. Each of the three torso forwards takes an NCHW input: the IMPALA
-    net makes it channels-last and runs NHWC throughout, the float32
-    Nature net runs as it did, NCHW."""
+# The float32 Nature net, and each benchmark cell whose torso is the IMPALA
+# ResNet (it runs channels-last), at the learner's batch of 1,024 rows.
+LAYOUT_CASES = card_cases.layout_cases(CELLS)
+
+
+def _update_on_card(cfg, cuda, traced=False):
+    """One learner update of ``cfg``'s net at its batch as the round runs
+    it (the target forward, the double-Q selection, the loss forward and
+    backward, clip + Adam), on frame-major batches as K6 gathers them,
+    after a warm-up update: it launches each kernel as often as one update
+    needs (KA's backward on its large path where bwd_plan says so); each of
+    the three torso forwards takes an NCHW input; the gradients that reach
+    K9 are float32, contiguous and OIHW; KA's fc_h forward on the torso's
+    features and K9 on the gradients agree with their plain versions (KA
+    within the dtype's tolerances, K9 after one step from zero moments to
+    1e-7 with a float32 mu and lr·2^-7 with a bf16 one). With ``traced``,
+    the update runs under torch.profiler; returns the names of the device
+    kernels it launched, or None."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rainbow_tpu_torch.models import dqn
     from rainbow_tpu_torch.kernels.replay import window_fields
-    cfg = rainbow_tpu_torch.canonical(architecture=arch, compute_dtype=dtype,
-                                      adam_mu_dtype=dtype, batch_size=1024)
-    n_act, b = 6, 1024
+    from rainbow_tpu_torch.models.dqn import NOISY_LAYERS, _noisy_dims
+    n_act, b = 6, cfg.batch_size
+    h, n = cfg.history_length, cfg.multi_step
     g = torch.Generator(device=cuda).manual_seed(3)
-    win = torch.randint(0, 256, (1, b, 7, 84 * 84), generator=g,
+    win = torch.randint(0, 256, (1, b, h + n, 84 * 84), generator=g,
                         device=cuda, dtype=torch.uint8)
-    fields = window_fields(win, 4, 3, {})
+    fields = window_fields(win, h, n, {})
     batch = {"states": rp.states_to_float(fields["states"][0]),
              "next_states": rp.states_to_float(fields["next_states"][0]),
              "actions": torch.randint(0, n_act, (b,), generator=g,
@@ -1666,17 +2220,73 @@ def test_learner_update_launches_no_layout_conversion(cuda, arch, dtype):
         grads, _ = ag.compute_update_pretarget(agent, cfg, n_act, batch,
                                                pns, eps)
         ag.apply_grads(agent, cfg, grads)
+        return grads
 
     update()
     torch.cuda.synchronize()
     dqn.reset_torso_inputs()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        update()
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    reset_launches()
+    names = None
+    if traced:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grads = update()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    else:
+        grads = update()
+    dt = getattr(torch, cfg.compute_dtype)
+    dims = _noisy_dims(cfg, n_act)
+    large = sum(bwd_plan(b, *dims[k], 1, dt).path == "large"
+                for k in NOISY_LAYERS)
+    assert launches() == dict(
+        dict.fromkeys(LAUNCHES, 0), noisy_linear_fwd=12, dueling_head=2,
+        c51_target=1, head_loss=1, noisy_linear_bwd=4,
+        noisy_linear_bwd_large=large, clip_adam=1)
+    assert {k: v for k, v in dqn.torso_inputs().items() if v} == {
+        f"{cfg.architecture}.nchw": 3}
+    dqn.reset_torso_inputs()
+    shapes = dqn.param_shapes(cfg, n_act)
+    assert list(grads) == list(shapes)
+    for k, shape in shapes.items():
+        assert grads[k].dtype == torch.float32, k
+        assert grads[k].is_contiguous() and tuple(grads[k].shape) == shape, k
+    with torch.no_grad():
+        feat = dqn.torso(agent.params, cfg, batch["states"].to(dt))
+    dqn.reset_torso_inputs()
+    fc_h = dqn.layer(agent.params, "fc_h_v")
+    tol = (1e-4, 1e-4) if dt == torch.float32 else (6e-2, 3e-2)
+    torch.testing.assert_close(
+        noisy_linear_fwd(fc_h, feat, eps["fc_h_v"], True).float(),
+        noisy_linear_plain(fc_h, feat, eps["fc_h_v"], True).float(),
+        atol=tol[0], rtol=tol[1])
+    keys = list(shapes)
+    params = {k: v.clone() for k, v in agent.params.items()}
+    kernel = ag.AgentState(params=params, target_params=params,
+                           opt_state=ag.init_adam(params, cfg),
+                           generator=torch.Generator(device=cuda))
+    plain = {k: v.clone() for k, v in params.items()}
+    opt = ag.init_adam(plain, cfg)
+    ag.apply_grads_plain([plain[k] for k in keys], [grads[k] for k in keys],
+                         [opt.mu[k] for k in keys], [opt.nu[k] for k in keys],
+                         opt.count, cfg.learning_rate, ag.ADAM_B1,
+                         ag.ADAM_B2, cfg.adam_eps, cfg.norm_clip)
+    ag.apply_grads(kernel, cfg, grads)
+    p_tol = (1e-7 if cfg.adam_mu_dtype == "float32"
+             else cfg.learning_rate * 2 ** -7)
+    for k in keys:
+        torch.testing.assert_close(kernel.params[k], plain[k], atol=p_tol,
+                                   rtol=0, msg=k)
+    return names
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_learner_update_launches_no_layout_conversion(cuda, case):
+    """One learner update at the configuration's batch under
+    torch.profiler (_update_on_card, with its checks): no kernel converts
+    between NCHW and NHWC or pools NCHW. Each of the three torso forwards
+    takes an NCHW input: the IMPALA net makes it channels-last and runs
+    NHWC throughout, the float32 Nature net runs as it did, NCHW."""
+    names = _update_on_card(LAYOUT_CASES[case], cuda, traced=True)
     assert any("noisy_linear" in n for n in names), names
     assert [n for n in names if any(k in n for k in LAYOUT_KERNELS)] == []
-    assert {k: v for k, v in dqn.torso_inputs().items() if v} == {
-        f"{arch}.nchw": 3}
-    dqn.reset_torso_inputs()

@@ -601,56 +601,91 @@ def test_the_benchmarks_torso_roofline_reads_the_tallied_forwards():
     assert metric.read(run) is None
 
 
-def test_chip_smoke_holds_ka_and_k9_to_the_impala_cell():
-    """chip_smoke.py builds each of BENCHMARK.json's cells from its files
-    as cli.main does (bench_cells), and its KA and K9 comparisons take the
-    IMPALA cell's calls in bfloat16: KA's forward at the act's 1,024 rows
-    (per-row noise), validation's 250 (mu), the learner's 1,024 (shared)
-    and the round's 8,192 (per-row), its backward at the learner's 1,024,
-    all at 15,488 features; K9 over the net's 46 tensors."""
+def _chip_smoke():
     import sys
     sys.path.insert(0, str(ROOT))
-    spec = importlib.util.spec_from_file_location("chip_smoke_cells",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    import chip_smoke
+    return chip_smoke
+
+
+def test_chip_smoke_holds_ka_and_k9_to_the_impala_cell():
+    """chip_smoke.py runs the card tests (tests/test_torch_port_cuda.py) as
+    a phase of its own, and they take their cases from card_cases: each of
+    BENCHMARK.json's cells built from its files as cli.main does
+    (bench_cells), in order, and KA's calls in each (noisy_layer_batches,
+    ka_calls): the IMPALA cell's in bfloat16 only, KA's forward at the
+    act's 1,024 rows (per-row noise), validation's 250 (mu), the learner's
+    1,024 (shared) and the round's 8,192 (per-row), its backward at the
+    learner's 1,024, all at 15,488 features; K9 over its net's 46
+    tensors."""
+    import inspect
     import json
+
+    import card_cases
+
+    smoke = _chip_smoke()
+    assert "test_torch_port_cuda.py" in inspect.getsource(
+        smoke.run_card_tests)
+    assert "run_card_tests(torch)" in inspect.getsource(smoke.main)
     with open(ROOT / "BENCHMARK.json") as f:
         names = [w["name"] for w in json.load(f)["workloads"]]
-    cells = dict(smoke.bench_cells())
-    assert list(cells) == names
-    c = cells["impala-x4-bf16-b1024"]
+    cells = card_cases.bench_cells()
+    assert [name for name, _ in cells] == names
+    c = dict(cells)["impala-x4-bf16-b1024"]
     assert (c.architecture, c.compute_dtype, c.adam_mu_dtype) == (
         "impala-x4", "bfloat16", "bfloat16")
     fwd = {(b, i): m for b, m, i, _o, _r in
-           smoke.noisy_layer_batches([c], A, fwd=True)}
-    for rows, mode in ((1024, "row"), (250, "mu"), (1024, "shared"),
-                       (8192, "row")):
+           card_cases.noisy_layer_batches([c], A, fwd=True)}
+    calls = ((1024, "row"), (250, "mu"), (1024, "shared"), (8192, "row"))
+    for rows, mode in calls:
         assert mode in fwd[(rows, FLAT)], (rows, mode)
     bwd = {(b, i): m for b, m, i, _o, _r in
-           smoke.noisy_layer_batches([c], A, fwd=False)}
+           card_cases.noisy_layer_batches([c], A, fwd=False)}
     assert "shared" in bwd[(1024, FLAT)]
-    assert len(smoke.param_shapes(c, A)) == 46
+    cfgs = card_cases.configs()
+    ka_fwd = card_cases.ka_calls(cfgs, cells, True)
+    ka_bwd = card_cases.ka_calls(cfgs, cells, False)
+    for rows, mode in calls:
+        assert ((rows, FLAT, 512), mode, "bfloat16") in ka_fwd
+    assert ((1024, FLAT, 512), "shared", "bfloat16") in ka_bwd
+    assert not any(shape[1] == FLAT and dtype == "float32"
+                   for shape, _, dtype in ka_fwd + ka_bwd)
+    assert len(card_cases.param_shapes(c, A)) == 46
+    nets = card_cases.adam_nets(cfgs, cells)
+    assert len(nets["impala-x4-bf16-b1024"]) == 46
 
 
 def test_chip_smoke_holds_the_nhwc_cell_update_and_counts_forwards():
     """Of BENCHMARK.json's cells, the IMPALA cell alone has the torso that
-    runs NHWC, so chip_smoke.py's NHWC update check (KA on the torso's
-    features, K9 on its gradients) runs there; its count of torso forwards
-    gives those of the configuration's torso by the layout their input
-    came in, and fails on another torso's or on none."""
-    import sys
-    sys.path.insert(0, str(ROOT))
-    spec = importlib.util.spec_from_file_location("chip_smoke_nhwc",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    nhwc = [name for name, c in smoke.bench_cells()
+    runs NHWC, so the card tests' NHWC update case (no layout conversion,
+    KA on the torso's features, K9 on its gradients), which chip_smoke.py
+    runs, is selected for it alone, beside the float32 Nature net's;
+    chip_smoke.py's count of torso forwards gives those of the
+    configuration's torso by the layout their input came in, and fails on
+    another torso's or on none."""
+    import card_cases
+
+    smoke = _chip_smoke()
+    cells = card_cases.bench_cells()
+    nhwc = [name for name, c in cells
             if isinstance(dqn.torso_of(c.architecture), dqn.ImpalaResNet)]
     assert nhwc == ["impala-x4-bf16-b1024"]
-    assert callable(smoke.check_nhwc_cell_update)
+    layouts = card_cases.layout_cases(cells)
+    assert list(layouts) == ["canonical-float32", "impala-x4-bf16-b1024"]
+    assert layouts["canonical-float32"].architecture == "canonical"
+    assert layouts["impala-x4-bf16-b1024"].compute_dtype == "bfloat16"
     cfg = _cfg(dtype="bfloat16")
     params = dqn.init_dqn_params(cfg, A, 0, "cpu")
+    dqn.reset_torso_inputs()
+    with pytest.raises(smoke.Failed):
+        smoke.torso_input_counts(torch, cfg, "t")
+    with torch.no_grad():
+        dqn.torso(params, cfg, torch.rand(2, 84, 84, 4).to(torch.bfloat16))
+        dqn.torso(params, cfg, _window_states(2).to(torch.bfloat16))
+    assert smoke.torso_input_counts(torch, cfg, "t") == {
+        "impala-x4.nhwc": 1, "impala-x4.nchw": 1}
+    with pytest.raises(smoke.Failed):
+        smoke.torso_input_counts(torch, _cfg("canonical"), "t")
     dqn.reset_torso_inputs()
     with pytest.raises(smoke.Failed):
         smoke.torso_input_counts(torch, cfg, "t")

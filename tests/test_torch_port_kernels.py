@@ -1,6 +1,6 @@
 """The kernel wrappers' contract, checked on the CPU (the kernels themselves
-run only on the card, where chip_smoke.py holds each against its plain
-version): a wrapper takes CUDA tensors only and never falls back, the
+run only on the card, where tests/test_torch_port_cuda.py holds each
+against its plain version): a wrapper takes CUDA tensors only and never falls back, the
 dispatchers take the plain versions for CPU tensors without launching, the
 launch counters, the build's naming, chip_smoke.py's refusal to run
 without a card or without the package beside it, and the bf16 launch plan
